@@ -1,0 +1,350 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one card and check it.
+
+Run from the root of a checkout, on a machine with one CUDA card and the
+CUDA toolkit:
+
+    python3 chip_smoke.py
+
+Phases, each of which raises (and so exits non-zero) when a check fails:
+
+1. Build the kernels from ``src/repro_torch/csrc`` (one ``nvcc`` each, all
+   started together).  Check each kernel against its plain PyTorch version
+   on the card at the paper's sizes and time both: K1 (HOTSPOT 2048², 8
+   steps in one launch) and K2 (2048², 8 launches) at rtol 1e-5, atol 1e-4;
+   K3 on the full SPMM problem (29957 × 29957 · 29957 × 100, seed 1234) at
+   1e-4, with ``torch.sparse.mm`` on the same matrix in CSR timed beside it.
+2. SPMM hybrid: ``make_hybrid_executor`` splits the density-sorted rows
+   between K3 on the card and the gather path on host cores;
+   ``converge(rounds=5)`` then ``run()``, compared with K3's plain result.
+3. HOTSPOT through ``HeteroRuntime``: Table-1 configurations 5
+   (4CC+4HPACC+INT, K2) and 7 (4CC+4HPCACC+INT, K1 with steps=1), one
+   ``parallel_for`` per time step for 8 steps, compared with the whole-grid
+   plain ``hotspot_ref`` on the card; every step must cover each row once.
+
+Launch counts are set to 0 before phase 2 and read after phase 3, so they
+count the main path's launches only.  The last lines are a JSON line of
+the kernels' numbers and the JSON result line.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+# Published peaks of one H100 SXM (dense, at its 700 W limit): device
+# memory rate and f32 rate outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# flops of one stencil update of one cell (_step_math: 10 adds/subs, 5 muls)
+STENCIL_FLOPS = 15
+
+HOTSPOT_TOL = dict(rtol=1e-5, atol=1e-4)
+SPMM_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def require(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def time_ms(fn, *, reps: int = 10, warmup: int = 2) -> float:
+    """Median milliseconds of ``fn`` on the card, from CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound_ms(n_bytes: float, flops: float):
+    """(least milliseconds, "bytes" or "operations") on the published peaks."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def compare(name: str, got, want, tol: dict) -> float:
+    import torch
+
+    err = float((got - want).abs().max())
+    require(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    require(torch.allclose(got, want, **tol), f"{name}: max |err| {err} beyond {tol}")
+    print(f"{name}: max_abs_err={err:.3e} within rtol={tol['rtol']} atol={tol['atol']}")
+    return err
+
+
+def phase1_kernels(cfg, spmm_cfg):
+    import numpy as np
+    import torch
+
+    from repro_torch import _build, convert
+    from repro_torch.kernels.hotspot.hotspot import (
+        hotspot_hp_step, hotspot_hp_step_plain, hotspot_hpc, hotspot_hpc_plain, shift_rows,
+    )
+    from repro_torch.kernels.spmm.ops import pad_rhs
+    from repro_torch.kernels.spmm.ref import make_problem, to_block_ell
+    from repro_torch.kernels.spmm.spmm import BlockEllArrays, spmm_block_ell, spmm_block_ell_plain
+
+    t0 = time.perf_counter()
+    per_source = _build.build(verbose=True)
+    print(f"build_s={time.perf_counter() - t0:.3f} per_source="
+          + json.dumps({k: round(v, 3) for k, v in per_source.items()}))
+
+    kernels = {}
+    # -- HOTSPOT: K1 and K2 at the paper's 2048² grid ------------------------
+    rng = np.random.default_rng(0)
+    rows = cols = cfg.grid
+    temp, power = convert.hotspot_grids(
+        80.0 + 10.0 * rng.random((rows, cols), np.float32),
+        rng.random((rows, cols), np.float32), "cuda")
+    steps = cfg.sim_steps
+    cells = rows * cols
+
+    err = compare("K1 hotspot_hpc", hotspot_hpc(temp, power, cfg, steps),
+                  hotspot_hpc_plain(temp, power, cfg, steps), HOTSPOT_TOL)
+    ms = time_ms(lambda: hotspot_hpc(temp, power, cfg, steps))
+    plain = time_ms(lambda: hotspot_hpc_plain(temp, power, cfg, steps))
+    b, by = bound_ms(3 * cells * 4, STENCIL_FLOPS * cells * steps)
+    kernels["hotspot_hpc"] = dict(
+        name="hotspot_hpc", route="cuda", source="src/repro_torch/csrc/hotspot.cu",
+        replaces="src/repro/kernels/hotspot/hotspot.py:77",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)
+
+    t_hp, t_plain = temp, temp
+    for _ in range(steps):
+        t_hp = hotspot_hp_step(t_hp, power, cfg)
+        t_plain = hotspot_hp_step_plain(t_plain, shift_rows(t_plain, "up"),
+                                        shift_rows(t_plain, "down"), power, cfg)
+    err = compare("K2 hotspot_hp_step (8 launches)", t_hp, t_plain, HOTSPOT_TOL)
+    ms = time_ms(lambda: hotspot_hp_step(temp, power, cfg))
+    copies = time_ms(lambda: (shift_rows(temp, "up"), shift_rows(temp, "down")))
+    plain = time_ms(lambda: hotspot_hp_step_plain(
+        temp, shift_rows(temp, "up"), shift_rows(temp, "down"), power, cfg))
+    # one step: T, up, down, P read and T written, plus the two shifted
+    # copies (each reads and writes a grid) the HP port materialises
+    b, by = bound_ms(9 * cells * 4, STENCIL_FLOPS * cells)
+    print(f"K2 one step: {ms:.4f} ms, of which the shifted copies alone take {copies:.4f} ms")
+    kernels["hotspot_hp_step"] = dict(
+        name="hotspot_hp_step", route="cuda", source="src/repro_torch/csrc/hotspot.cu",
+        replaces="src/repro/kernels/hotspot/hotspot.py:110",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)
+
+    # the unit work of phase 3 alone: a CC band (17 rows, one host thread)
+    # and an ACC chunk (128 rows plus halos) through K2 and K1
+    from repro_torch.kernels.hotspot.ops import hotspot_step_banded
+
+    host_t, host_p = temp[:19].cpu(), power[:19].cpu()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    cc_ms = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        hotspot_step_banded(host_t, host_p, cfg, (rows, cols))
+        cc_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.set_num_threads(threads)
+    band_t, band_p = temp[127:257].contiguous(), power[127:257].contiguous()
+    print("band_alone " + json.dumps({
+        "cc_17_rows_host_ms": statistics.median(cc_ms),
+        "k2_130_rows_ms": time_ms(lambda: hotspot_hp_step(band_t, band_p, cfg, grid=(rows, cols))),
+        "k1_130_rows_ms": time_ms(lambda: hotspot_hpc(band_t, band_p, cfg, 1, grid=(rows, cols))),
+    }))
+
+    # -- SPMM: K3 on the full paper problem -----------------------------------
+    t0 = time.perf_counter()
+    problem = make_problem(spmm_cfg.rows, spmm_cfg.cols, spmm_cfg.dense_cols,
+                           nnz_mean=spmm_cfg.nnz_per_row_mean,
+                           nnz_sigma=spmm_cfg.nnz_per_row_sigma, seed=spmm_cfg.seed)
+    t1 = time.perf_counter()
+    be = to_block_ell(problem)
+    t2 = time.perf_counter()
+    ell = BlockEllArrays(be, "cuda")
+    rhs_pad = convert.to_tensor(pad_rhs(problem), "cuda")
+    torch.cuda.synchronize()
+    print(f"spmm set-up: make_problem {t1 - t0:.3f} s, to_block_ell {t2 - t1:.3f} s, "
+          f"to card {time.perf_counter() - t2:.3f} s; nnz={int(problem.nnz.sum())} "
+          f"maxnnz={problem.vals.shape[1]} row_blocks={be.n_row_blocks} K={be.k_max} "
+          f"occupied_blocks={int(be.counts.sum())} vals_GB={be.vals.nbytes / 1e9:.3f}")
+    del be
+
+    out = spmm_block_ell(ell, rhs_pad)
+    want = spmm_block_ell_plain(ell, rhs_pad)
+    err = compare("K3 spmm_block_ell", out, want, SPMM_TOL)
+    ms = time_ms(lambda: spmm_block_ell(ell, rhs_pad), reps=5)
+    plain = time_ms(lambda: spmm_block_ell_plain(ell, rhs_pad), reps=3, warmup=1)
+
+    # yardstick only: the same product as one cuSPARSE call through torch
+    nnz_mask = np.arange(problem.vals.shape[1]) < problem.nnz[:, None]
+    crow = np.concatenate([[0], np.cumsum(problem.nnz, dtype=np.int64)])
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(crow), torch.from_numpy(problem.cols[nnz_mask].astype(np.int64)),
+        torch.from_numpy(problem.vals[nnz_mask]), size=(problem.rows, rhs_pad.shape[0]),
+        check_invariants=True, device="cuda")
+    lib_err = float((torch.sparse.mm(csr, rhs_pad) - want[:problem.rows]).abs().max())
+    library = time_ms(lambda: torch.sparse.mm(csr, rhs_pad), reps=5)
+    print(f"K3 yardstick torch.sparse.mm (CSR): {library:.4f} ms, max |diff| {lib_err:.3e}")
+    del csr
+
+    occupied = int(ell.counts.sum())
+    n_dense = rhs_pad.shape[1]
+    n_bytes = (occupied * 8 * 128 * 4 + ell.colblocks.numel() * 4 + ell.counts.numel() * 4
+               + rhs_pad.numel() * 4 + out.numel() * 4)
+    b, by = bound_ms(n_bytes, 2.0 * 8 * 128 * n_dense * occupied)
+    kernels["spmm_block_ell"] = dict(
+        name="spmm_block_ell", route="cuda", source="src/repro_torch/csrc/spmm.cu",
+        replaces="src/repro/kernels/spmm/spmm.py:48",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=library)
+    for k in kernels.values():
+        print(f"{k['name']}: kernel_ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} "
+              f"bound_ms={k['bound_ms']:.4f} ({k['bound_by']}) library_ms={k['library_ms']}")
+    k3_ref = want[:problem.rows, :problem.rhs.shape[1]].clone()
+    del ell, out, want
+    return kernels, (temp, power), problem, k3_ref
+
+
+def phase2_spmm_hybrid(problem, k3_ref):
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.spmm.ops import make_hybrid_executor
+    from repro_torch.kernels.spmm.spmm import spmm_block_ell
+
+    t0 = time.perf_counter()
+    ex, order = make_hybrid_executor(problem, device="cuda")
+    print(f"hybrid set-up: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    converged = ex.converge(rounds=5)
+    t1 = time.perf_counter()
+    res, d = ex.run()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    inv = np.empty_like(order)
+    inv[order] = np.arange(len(order))
+    compare("SPMM hybrid vs K3 plain", res[torch.from_numpy(inv).to(res.device)], k3_ref,
+            SPMM_TOL)
+    print("spmm_hybrid " + json.dumps({
+        "converged_split": [converged.n_dense, converged.n_sparse],
+        "run_split": [d.n_dense, d.n_sparse],
+        "dense_fraction": d.dense_fraction,
+        "dense_rows_per_s": ex.tracker.get("dense"),
+        "sparse_rows_per_s": ex.tracker.get("sparse"),
+        "converge_5_rounds_s": t1 - t0,
+        "run_s": t2 - t1,
+        "rows_per_ms": problem.rows / ((t2 - t1) * 1e3),
+        "k3_launches": spmm_block_ell.launches,
+    }))
+    require(spmm_block_ell.launches > 0, "the SPMM hybrid never launched K3")
+
+
+def phase3_hotspot_runtime(cfg, temp, power):
+    import torch
+
+    from repro_torch.kernels.hotspot.ops import hotspot_hetero
+    from repro_torch.kernels.hotspot.ref import hotspot_ref
+
+    rows = temp.shape[0]
+    want = hotspot_ref(temp, power, cfg, cfg.sim_steps)
+    threads = torch.get_num_threads()
+    # one intra-op thread each: 4 CC unit threads must not fight over one pool
+    torch.set_num_threads(1)
+    try:
+        for cid, label, port in (("5", "4CC+4HPACC+INT", "hp"), ("7", "4CC+4HPCACC+INT", "hpc")):
+            t0 = time.perf_counter()
+            run = hotspot_hetero(temp, power, cfg, cfg.sim_steps, port=port, acc_chunk=128)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            for rep in run.reports:
+                require(rep.items == rows, f"config {cid}: {rep.items} rows of {rows}")
+                spans = rep.coverage
+                require(spans[0][0] == 0 and spans[-1][1] == rows
+                        and all(b == c for (_, b), (c, _) in zip(spans, spans[1:])),
+                        f"config {cid}: coverage is not exact-once")
+            compare(f"HOTSPOT config {cid} {label} vs hotspot_ref", run.out, want, HOTSPOT_TOL)
+            n = len(run.reports)
+            units = sorted(run.reports[0].per_worker_busy)
+            print(f"hotspot_table1_{cid} " + json.dumps({
+                "label": label,
+                "items_per_ms": rows * n / (wall * 1e3),
+                "step_items_per_ms_mean": statistics.mean(r.throughput for r in run.reports),
+                "wall_s": wall,
+                "load_balance_mean": statistics.mean(r.load_balance for r in run.reports),
+                "rows": {u: sum(r.per_worker_items.get(u, 0) for r in run.reports) for u in units},
+                "busy_s": {u: sum(r.per_worker_busy.get(u, 0.0) for r in run.reports)
+                           for u in units},
+                "utilization_mean": {u: statistics.mean(r.utilization.get(u, 0.0)
+                                                        for r in run.reports) for u in units},
+                "dispatch_latency_us": {u: 1e6 * statistics.mean(
+                    (r.dispatch_latency or {}).get(u, 0.0) for r in run.reports) for u in units},
+                "d2h_s": run.d2h_seconds,
+                "cc_writeback_s": run.cc_writeback_seconds,
+            }))
+    finally:
+        torch.set_num_threads(threads)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
+              file=sys.stderr)
+        return 2
+    from repro_torch.configs.paper_eneac import HOTSPOT, SPMM
+    from repro_torch.kernels.hotspot.hotspot import hotspot_hp_step, hotspot_hpc
+    from repro_torch.kernels.spmm.spmm import spmm_block_ell
+
+    t_start = time.perf_counter()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    torch.backends.cudnn.allow_tf32 = False
+    require(torch.backends.cuda.matmul.allow_tf32 is False,
+            "torch.backends.cuda.matmul.allow_tf32 must be False (IEEE f32 parity)")
+
+    kernels, (temp, power), problem, k3_ref = phase1_kernels(HOTSPOT, SPMM)
+    print(f"phase 1 done at {time.perf_counter() - t_start:.1f} s")
+
+    wrappers = {"hotspot_hpc": hotspot_hpc, "hotspot_hp_step": hotspot_hp_step,
+                "spmm_block_ell": spmm_block_ell}
+    for w in wrappers.values():
+        w.launches = 0
+    phase2_spmm_hybrid(problem, k3_ref)
+    print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
+    phase3_hotspot_runtime(HOTSPOT, temp, power)
+    print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
+    for name, w in wrappers.items():
+        kernels[name]["launches"] = w.launches
+        require(w.launches > 0, f"{name} was not launched on the main path")
+    print("launches on the main path: "
+          + ", ".join(f"{k}={v['launches']}" for k, v in kernels.items()))
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: v[k] for k in keys} for v in kernels.values()]}))
+    print(f"card: {card}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
