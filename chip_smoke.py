@@ -22,7 +22,26 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    ``parallel_for`` per time step for 8 steps, compared with the whole-grid
    plain ``hotspot_ref`` on the card; every step must cover each row once.
 
-Launch counts are set to 0 before phase 2 and read after phase 3, so they
+4. K4 (flash attention) and K5 (SSD scan) at the full-width shapes of the
+   serving path, each against its plain version: K4 at tinyllama-1.1b's
+   prefill attention (B 1, S 2048, 1000 and the longest served prompt's
+   891, whose 7128 rows leave a ragged last tile, H 32, KVH 4, D 64,
+   causal) in bf16 (2e-2) and f32 (rtol 2e-4, atol 2e-5), with
+   ``scaled_dot_product_attention`` timed beside it; K5 at mamba2-130m's
+   prefill (B 1, S 2048 and 1000, H 24, P 64, N 128, chunk 256) with zero
+   and nonzero h0 at 2e-4.
+5. Serving at full width: tinyllama-1.1b (K4) and mamba2-130m (K5), random
+   bf16 weights from a seeded generator on the card, 8 requests through
+   ``ServingEngine`` (4 slots, continuous, inline, greedy, max_len 2048).
+   Every request completes, the RunReport covers each exactly once, the
+   kernel launches equal layers × prefills, and a float32 copy of each
+   model gives the same greedy tokens through the kernels as through their
+   plain versions, with last-position logits within rtol/atol 1e-3.
+   Prints TTFT, prefill and decode times, tokens/s and a profiler top-10
+   of one prefill and one decode step.
+
+Launch counts are set to 0 just before each main path (phases 2–3 for
+K1–K3, each model's serving run in phase 5) and read just after, so they
 count the main path's launches only.  The last lines are a JSON line of
 the kernels' numbers and the JSON result line.
 """
@@ -39,14 +58,19 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 # Published peaks of one H100 SXM (dense, at its 700 W limit): device
-# memory rate and f32 rate outside the tensor cores.
+# memory rate, f32 rate outside the tensor cores, bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 # flops of one stencil update of one cell (_step_math: 10 adds/subs, 5 muls)
 STENCIL_FLOPS = 15
 
 HOTSPOT_TOL = dict(rtol=1e-5, atol=1e-4)
 SPMM_TOL = dict(rtol=1e-4, atol=1e-4)
+ATTN_TOL = {"float32": dict(rtol=2e-4, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+SSD_TOL = dict(rtol=2e-4, atol=2e-4)
+LOGITS_TOL = dict(rtol=1e-3, atol=1e-3)
+SERVE_ARCHS = ("tinyllama-1.1b", "mamba2-130m")
 
 
 def require(ok: bool, what: str) -> None:
@@ -73,9 +97,9 @@ def time_ms(fn, *, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, flops: float):
+def bound_ms(n_bytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
     """(least milliseconds, "bytes" or "operations") on the published peaks."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / flops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -297,6 +321,247 @@ def phase3_hotspot_runtime(cfg, temp, power):
         torch.set_num_threads(threads)
 
 
+def phase4_model_kernels():
+    """K4 and K5 against their plain versions at the serving path's full widths."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, flash_attention_plain,
+    )
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan, ssd_scan_plain
+
+    kernels = {}
+    rng = np.random.default_rng(0)
+
+    def normal(*shape, scale=1.0):
+        return torch.from_numpy(scale * rng.standard_normal(shape, dtype=np.float32)).cuda()
+
+    # -- K4 at tinyllama-1.1b's prefill attention ----------------------------
+    h, kvh, d = 32, 4, 64
+    rows = []
+    # 891: the longest served prompt, whose 7128 rows leave a ragged last tile
+    for s in (2048, 1000, 891):
+        q32, k32, v32 = normal(1, s, h, d), normal(1, s, kvh, d), normal(1, s, kvh, d)
+        for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
+            label = f"K4 flash_attention S={s} {name}"
+            want = flash_attention_plain(q, k, v)
+            err = compare(label, flash_attention(q, k, v).float(), want.float(), ATTN_TOL[name])
+            ms = time_ms(lambda: flash_attention(q, k, v))
+            plain = time_ms(lambda: flash_attention_plain(q, k, v), reps=5)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,  # noqa: E731
+                                                          enable_gqa=True)
+            lib_err = float((sdpa().transpose(1, 2).float() - want.float()).abs().max())
+            library = time_ms(sdpa)
+            el = 2 if dtype == torch.bfloat16 else 4
+            peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+            b, by = bound_ms(fops.kernel_hbm_bytes(1, s, s, h, kvh, d, bytes_per_el=el),
+                             fops.kernel_flops(1, s, s, h, d, causal=True), peak)
+            rows.append(dict(shape=f"S={s} {name}", max_abs_err=err, ms=ms, plain_ms=plain,
+                             bound_ms=b, bound_by=by, library_ms=library,
+                             library_max_abs_diff=lib_err))
+    print("K4 at full width " + json.dumps(rows))
+    main_row = rows[0]  # S 2048 bf16: tinyllama's own dtype
+    kernels["flash_attention"] = dict(
+        name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:85",
+        **{k: main_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")})
+
+    # -- K5 at mamba2-130m's prefill ------------------------------------------
+    h, p, n, chunk = 24, 64, 128, 256
+    rows = []
+    for s in (2048, 1000):
+        x = normal(1, s, h, p)
+        log_a = torch.from_numpy(-0.2 * rng.random((1, s, h), np.float32)).cuda()
+        bm, cm = normal(1, s, n, scale=0.3), normal(1, s, n, scale=0.3)
+        for h0 in (None, normal(1, h, p, n, scale=0.5)):
+            label = f"K5 ssd_scan S={s} h0={'nonzero' if h0 is not None else 'none'}"
+            y, hf = ssd_scan(x, log_a, bm, cm, chunk=chunk, h0=h0)
+            y_want, h_want = ssd_scan_plain(x, log_a, bm, cm, chunk=chunk, h0=h0)
+            err = max(compare(label + " y", y, y_want, SSD_TOL),
+                      compare(label + " state", hf, h_want, SSD_TOL))
+            ms = time_ms(lambda: ssd_scan(x, log_a, bm, cm, chunk=chunk, h0=h0))
+            plain = time_ms(lambda: ssd_scan_plain(x, log_a, bm, cm, chunk=chunk, h0=h0), reps=5)
+            b, by = bound_ms(sops.kernel_hbm_bytes(1, s, h, p, n, with_h0=h0 is not None),
+                             sops.kernel_flops(1, s, h, p, n))
+            rows.append(dict(shape=label[len("K5 ssd_scan "):], max_abs_err=err, ms=ms,
+                             plain_ms=plain, bound_ms=b, bound_by=by))
+    print("K5 at full width " + json.dumps(rows))
+    main_row = rows[0]  # S 2048, no h0: a prompt's first prefill
+    kernels["ssd_scan"] = dict(
+        name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/ssd_scan.py:67", library_ms=None,
+        **{k: main_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
+    return kernels
+
+
+def request_specs(cfg):
+    """8 prompts from default_rng(0): 128–1024 tokens, 16–48 new tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(128, 1025, 8)
+    return [(rid, rng.integers(0, cfg.vocab_size, int(n)).astype(np.int64),
+             int(rng.integers(16, 49))) for rid, n in enumerate(lengths)]
+
+
+def serve(model, params, specs):
+    """Serve ``specs`` through a 4-slot continuous inline greedy engine."""
+    import torch
+
+    from repro_torch.serving import Request, ServingEngine
+
+    engine = ServingEngine(model, params, slots=4, max_len=2048, mode="continuous",
+                           backend="inline", temperature=0.0)
+    for rid, prompt, max_new in specs:
+        require(bool(engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=max_new))),
+                f"request {rid} was shed")
+    t0 = time.perf_counter()
+    results = engine.run()
+    torch.cuda.synchronize()
+    return engine, results, time.perf_counter() - t0
+
+
+def profile_top10(fn):
+    """The 10 operations with the most device time in one call of ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+        rows.append((dev_us, evt.key, evt.count))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    return {"device_ms_total": total / 1e3,
+            "top10": [{"name": k[:80], "calls": c, "device_ms": us / 1e3}
+                      for us, k, c in rows[:10]]}
+
+
+def phase5_serving(arch: str, wrappers: dict):
+    """Serve one model at full width; returns (kernel name, launches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import make_model
+
+    cfg = get_config(arch)
+    kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+    t0 = time.perf_counter()
+    model = make_model(cfg, device="cuda")
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    specs = request_specs(cfg)
+    prompt_lens = [len(p) for _, p, _ in specs]
+
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    engine, results, wall = serve(model, params, specs)
+    launches = {name: w.launches for name, w in wrappers.items()}
+
+    require(sorted(results) == list(range(len(specs))), f"{arch}: not every request finished")
+    for rid, _, max_new in specs:
+        r = results[rid]
+        require(r.ok and len(r.tokens) == max_new, f"{arch}: request {rid} gave {r.error or len(r.tokens)}")
+    rep = engine.last_run_report
+    spans = rep.coverage
+    require(rep.items == len(specs) and spans[0][0] == 0 and spans[-1][1] == len(specs)
+            and all(b == c for (_, b), (c, _) in zip(spans, spans[1:])),
+            f"{arch}: the RunReport does not cover each request exactly once")
+    want = cfg.num_layers * len(specs)
+    require(launches[kernel] == want,
+            f"{arch}: {kernel} launched {launches[kernel]} times, not layers x prefills = {want}")
+    others = {k: v for k, v in launches.items() if k != kernel and v}
+    require(not others, f"{arch}: unexpected launches {others}")
+
+    tokens = sum(len(r.tokens) for r in results.values())
+    ttft = sorted(r.ttft for r in results.values())
+    prefill = [results[rid].prefill_seconds * 1e3 for rid, _, _ in specs]
+    metrics = {
+        "arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "params_B": sum(t.numel() for t in _leaves(params)) / 1e9,
+        "init_s": init_s, "prompt_lens": prompt_lens,
+        "max_new": [m for _, _, m in specs],
+        f"{kernel}_launches": launches[kernel],
+        "ttft_p50_ms": statistics.median(ttft) * 1e3,
+        "ttft_max_ms": ttft[-1] * 1e3,
+        "prefill_ms_per_request": prefill,
+        "prefill_ms_mean": statistics.mean(prefill),
+        "prefill_tokens_per_s": sum(prompt_lens) / (sum(prefill) / 1e3),
+        "decode_steps": engine.steps,
+        "decode_ms_per_step": engine.decode_seconds / max(engine.steps, 1) * 1e3,
+        "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+        "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    print(f"serve {arch} " + json.dumps(metrics))
+
+    longest = specs[int(np.argmax(prompt_lens))][1]
+    prompt = torch.as_tensor(longest, device="cuda")[None, :]
+    print(f"profile {arch} prefill ({len(longest)} tokens) "
+          + json.dumps(profile_top10(lambda: model.prefill(params, prompt, 2048))))
+    dec_tokens = torch.zeros((4, 1), dtype=torch.int64, device="cuda")
+    dec_pos = engine.caches[0].length.long()[:, None] if kernel == "flash_attention" else \
+        torch.full((4, 1), max(prompt_lens), device="cuda")
+    print(f"profile {arch} decode step (4 slots) " + json.dumps(profile_top10(
+        lambda: model.decode_step(params, dec_tokens, dec_pos, engine.caches))))
+    bf16_tokens = {rid: r.tokens for rid, r in results.items()}
+    del engine, results
+
+    # a float32 copy: the kernels against their plain versions, end to end
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    params32 = _to_float32(params)
+    del params
+    fast, plain = make_model(cfg32, device="cuda"), make_model(cfg32, device="cuda", plain=True)
+    _, res_k, _ = serve(fast, params32, specs)
+    _, res_p, _ = serve(plain, params32, specs)
+    worst = 0.0
+    for rid, prompt_np, _ in specs:
+        require(res_k[rid].tokens == res_p[rid].tokens,
+                f"{arch} f32: request {rid} greedy tokens differ between kernels and plain")
+        prompt = torch.as_tensor(prompt_np, device="cuda")[None, :]
+        lk, _ = fast.prefill(params32, prompt, 2048)
+        lp, _ = plain.prefill(params32, prompt, 2048)
+        worst = max(worst, compare(f"{arch} f32 request {rid} last-position logits", lk, lp,
+                                   LOGITS_TOL))
+    same_as_bf16 = sum(res_k[rid].tokens == bf16_tokens[rid] for rid in bf16_tokens)
+    print(f"serve {arch} f32 kernels vs plain: all {len(specs)} token streams equal, logits "
+          f"max |diff| {worst:.3e}; {same_as_bf16} of {len(specs)} streams also equal bf16's")
+    return kernel, launches[kernel]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _to_float32(tree):
+    if isinstance(tree, dict):
+        return {k: _to_float32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_float32(v) for v in tree]
+    return tree.float()
+
+
 def main() -> int:
     import torch
 
@@ -305,8 +570,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from repro_torch.configs.paper_eneac import HOTSPOT, SPMM
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
     from repro_torch.kernels.hotspot.hotspot import hotspot_hp_step, hotspot_hpc
     from repro_torch.kernels.spmm.spmm import spmm_block_ell
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
 
     t_start = time.perf_counter()
     card = subprocess.run(
@@ -333,6 +600,14 @@ def main() -> int:
     for name, w in wrappers.items():
         kernels[name]["launches"] = w.launches
         require(w.launches > 0, f"{name} was not launched on the main path")
+
+    kernels.update(phase4_model_kernels())
+    print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
+    wrappers.update(flash_attention=flash_attention, ssd_scan=ssd_scan)
+    for arch in SERVE_ARCHS:
+        name, launches = phase5_serving(arch, wrappers)
+        kernels[name]["launches"] = launches
+        print(f"phase 5 {arch} done at {time.perf_counter() - t_start:.1f} s")
     print("launches on the main path: "
           + ", ".join(f"{k}={v['launches']}" for k, v in kernels.items()))
 

@@ -28,7 +28,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "function", "check", "count_launch"]
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
-SOURCES = ("hotspot", "spmm")
+SOURCES = ("hotspot", "spmm", "flash_attention", "ssd_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo",

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels and CUDA stream units, on the card.
+"""The port's CUDA kernels, CUDA stream units and model path, on the card.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports neither jax nor the reference package, so it also runs where only
@@ -9,7 +9,9 @@ PyTorch is installed:
 K1 and K2 evaluate the plain oracle's operations in its order and K3 sums
 in its plain version's order, so each kernel is held to its plain version
 bitwise; the kernels' outputs are also held against the oracles at the
-reference's tolerances.
+reference's tolerances.  K4 and K5 sum in other orders than their plain
+versions and are held to them at the reference tests' tolerances (f32
+2e-4, bf16 2e-2).
 """
 
 import numpy as np
@@ -17,16 +19,22 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.paper_eneac import HotspotConfig  # noqa: E402
 from repro_torch.core import CompletionBus, CudaStreamUnit, HeteroRuntime, WorkerKind  # noqa: E402
 from repro_torch.core.parallel_for import SplitDecision  # noqa: E402
 from repro_torch.core.scheduler import Chunk  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention as fk  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import mha_ref  # noqa: E402
 from repro_torch.kernels.hotspot import hotspot as hk  # noqa: E402
 from repro_torch.kernels.hotspot import ops as hops  # noqa: E402
 from repro_torch.kernels.hotspot import ref as href  # noqa: E402
 from repro_torch.kernels.spmm import ops as sops  # noqa: E402
 from repro_torch.kernels.spmm import ref as sref  # noqa: E402
 from repro_torch.kernels.spmm import spmm as sk  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan as ssk  # noqa: E402
+from repro_torch.models import make_model  # noqa: E402
+from repro_torch.serving import Request, ServingEngine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -143,3 +151,102 @@ def test_cuda_units_cover_exactly_once(cuda):
     rep = rt.parallel_for(num_items=4096, engine="interrupt", acc_chunk=128)
     assert rep.items == 4096
     assert torch.equal(out, torch.ones_like(out))
+
+
+def attention_inputs(b, sq, sk, h, kvh, d, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
+            for shape in ((b, sq, h, d), (b, sk, kvh, d), (b, sk, kvh, d))]
+
+
+@pytest.mark.parametrize("b,sq,h,kvh,d,causal,window", [
+    (2, 128, 4, 2, 32, True, 0),
+    (1, 256, 8, 1, 16, True, 0),
+    (2, 128, 4, 4, 64, False, 0),
+    (1, 256, 4, 2, 32, True, 64),
+    (1, 128, 2, 2, 128, True, 0),
+    (1, 1000, 32, 4, 64, True, 0),     # tinyllama's heads, ragged length
+    (1, 77, 6, 3, 16, True, 9),        # ragged everything, odd group count
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_matches_plain(cuda, b, sq, h, kvh, d, causal, window, dtype):
+    q, k, v = attention_inputs(b, sq, sq, h, kvh, d, dtype, cuda, seed=sq)
+    n = fk.flash_attention.launches
+    got = fk.flash_attention(q, k, v, causal=causal, window=window)
+    assert fk.flash_attention.launches == n + 1
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    tol = dict(rtol=2e-4, atol=2e-5) if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    want = fk.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    torch.testing.assert_close(got.float(), mha_ref(q, k, v, causal=causal, window=window).float(),
+                               **tol)
+
+
+def test_k4_cross_lengths(cuda):
+    # Sq != Sk, non-causal and causal (top-left aligned), ragged both ways
+    for sq, sk in ((37, 200), (130, 65)):
+        q, k, v = attention_inputs(2, sq, sk, 4, 2, 64, torch.float32, cuda, seed=sk)
+        for causal in (False, True):
+            torch.testing.assert_close(
+                fk.flash_attention(q, k, v, causal=causal),
+                fk.flash_attention_plain(q, k, v, causal=causal), rtol=2e-4, atol=2e-5)
+
+
+def ssd_inputs(b, s, h, p, n, device, seed=0, with_h0=False):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)  # noqa: E731
+    x = f(b, s, h, p)
+    log_a = torch.from_numpy(-0.2 * rng.random((b, s, h), np.float32)).to(device)
+    h0 = 0.5 * f(b, h, p, n) if with_h0 else None
+    return x, log_a, 0.3 * f(b, s, n), 0.3 * f(b, s, n), h0
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (1, 64, 2, 16, 8, 16),
+    (2, 128, 3, 8, 16, 32),
+    (1, 96, 1, 32, 32, 32),
+    (1, 100, 2, 20, 16, 32),           # ragged S and a partial P block
+    (1, 1000, 24, 64, 128, 256),       # mamba2's prefill, ragged
+])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_k5_matches_plain(cuda, b, s, h, p, n, chunk, with_h0):
+    x, log_a, bm, cm, h0 = ssd_inputs(b, s, h, p, n, cuda, seed=s, with_h0=with_h0)
+    before = ssk.ssd_scan.launches
+    y, hf = ssk.ssd_scan(x, log_a, bm, cm, chunk=chunk, h0=h0)
+    assert ssk.ssd_scan.launches == before + 1
+    y_want, h_want = ssk.ssd_scan_plain(x, log_a, bm, cm, chunk=chunk, h0=h0)
+    torch.testing.assert_close(y, y_want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(hf, h_want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-130m"])
+def test_smoke_model_kernels_match_plain(cuda, arch):
+    cfg = get_config(arch).smoke()
+    if cfg.family == "dense":
+        cfg = cfg.replace(head_dim=16)  # K4 takes head_dim 16-128
+    model, plain = make_model(cfg, device=cuda), make_model(cfg, device=cuda, plain=True)
+    params = model.init(0)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (1, 29))).to(cuda)
+    got, c_got = model.prefill(params, tokens, 64)
+    want, c_want = plain.prefill(params, tokens, 64)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    step = torch.tensor([[5]], device=cuda)
+    pos = torch.tensor([[29]], device=cuda)
+    torch.testing.assert_close(model.decode_step(params, step, pos, c_got)[0],
+                               plain.decode_step(params, step, pos, c_want)[0],
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-130m"])
+def test_full_width_serve(cuda, arch):
+    cfg = get_config(arch)
+    model = make_model(cfg, device=cuda)
+    params = model.init(0)
+    engine = ServingEngine(model, params, slots=2, max_len=512)
+    rng = np.random.default_rng(0)
+    for rid in range(3):
+        engine.submit(Request(rid=rid, max_new_tokens=4,
+                              prompt=rng.integers(0, cfg.vocab_size, 100 + 37 * rid)))
+    results = engine.run()
+    assert sorted(results) == [0, 1, 2]
+    assert all(r.ok and len(r.tokens) == 4 for r in results.values())

@@ -60,6 +60,9 @@ p = make_problem(24, 256, 8, seed=1)
 ex, order = make_hybrid_executor(p, device="cpu")
 res, _ = ex.run()
 assert np.allclose(res.numpy()[np.argsort(order)], spmm_dense_ref(p), rtol=1e-4, atol=1e-4)
+from repro_torch.launch import serve
+for arch in ("tinyllama-1.1b", "mamba2-130m"):
+    serve.main(["--arch", arch, "--device", "cpu", "--requests", "3", "--max-new", "5"])
 assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m] is not None]
 print("PORT_OK")
 """
