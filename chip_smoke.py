@@ -12,8 +12,10 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    started together).  Check each kernel against its plain PyTorch version
    on the card at the paper's sizes and time both: K1 (HOTSPOT 2048², 8
    steps in one launch) and K2 (2048², 8 launches) at rtol 1e-5, atol 1e-4;
-   K3 on the full SPMM problem (29957 × 29957 · 29957 × 100, seed 1234) at
-   1e-4, with ``torch.sparse.mm`` on the same matrix in CSR timed beside it.
+   K3 on the full SPMM problem (29957 × 29957 · 29957 × 100, seed 1234)
+   bitwise and at 1e-4, with ``torch.sparse.mm`` on the same matrix in CSR
+   timed beside it; K3's bound counts the bytes it must move and the flops
+   of the nonzero entries (2 · nnz · N).
 2. SPMM hybrid: ``make_hybrid_executor`` splits the density-sorted rows
    between K3 on the card and the gather path on host cores;
    ``converge(rounds=5)`` then ``run()``, compared with K3's plain result.
@@ -26,8 +28,10 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    serving path, each against its plain version: K4 at tinyllama-1.1b's
    prefill attention (B 1, S 2048, 1000 and the longest served prompt's
    891, whose 7128 rows leave a ragged last tile, H 32, KVH 4, D 64,
-   causal) in bf16 (2e-2) and f32 (rtol 2e-4, atol 2e-5), with
-   ``scaled_dot_product_attention`` timed beside it; K5 at mamba2-130m's
+   causal) in bf16 (2e-2) and f32 (rtol 2e-4, atol 2e-5) against both its
+   plain version and the ``mha_ref`` oracle, with
+   ``scaled_dot_product_attention`` timed beside it (each row prints
+   kernel ms over SDPA ms); K5 at mamba2-130m's
    prefill (B 1, S 2048 and 1000, H 24, P 64, N 128, chunk 256) with zero
    and nonzero h0 at 2e-4.
 5. Serving at full width: tinyllama-1.1b (K4) and mamba2-130m (K5), random
@@ -209,6 +213,7 @@ def phase1_kernels(cfg, spmm_cfg):
     out = spmm_block_ell(ell, rhs_pad)
     want = spmm_block_ell_plain(ell, rhs_pad)
     err = compare("K3 spmm_block_ell", out, want, SPMM_TOL)
+    require(torch.equal(out, want), "K3: not bitwise equal to its plain version")
     ms = time_ms(lambda: spmm_block_ell(ell, rhs_pad), reps=5)
     plain = time_ms(lambda: spmm_block_ell_plain(ell, rhs_pad), reps=3, warmup=1)
 
@@ -224,11 +229,16 @@ def phase1_kernels(cfg, spmm_cfg):
     print(f"K3 yardstick torch.sparse.mm (CSR): {library:.4f} ms, max |diff| {lib_err:.3e}")
     del csr
 
+    # what the function needs: every occupied block read once, and a
+    # multiply-add per nonzero entry and output column
     occupied = int(ell.counts.sum())
+    nnz = int((ell.vals != 0).sum())
     n_dense = rhs_pad.shape[1]
     n_bytes = (occupied * 8 * 128 * 4 + ell.colblocks.numel() * 4 + ell.counts.numel() * 4
                + rhs_pad.numel() * 4 + out.numel() * 4)
-    b, by = bound_ms(n_bytes, 2.0 * 8 * 128 * n_dense * occupied)
+    b, by = bound_ms(n_bytes, 2.0 * nnz * n_dense)
+    print(f"K3 bound: {n_bytes / 1e9:.4f} GB, {2.0 * nnz * n_dense / 1e9:.4f} GFLOP "
+          f"(nnz in blocks {nnz}) -> {b:.4f} ms ({by})")
     kernels["spmm_block_ell"] = dict(
         name="spmm_block_ell", route="cuda", source="src/repro_torch/csrc/spmm.cu",
         replaces="src/repro/kernels/spmm/spmm.py:48",
@@ -331,6 +341,7 @@ def phase4_model_kernels():
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention, flash_attention_plain,
     )
+    from repro_torch.kernels.flash_attention.ref import mha_ref
     from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan, ssd_scan_plain
 
@@ -350,7 +361,9 @@ def phase4_model_kernels():
             q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
             label = f"K4 flash_attention S={s} {name}"
             want = flash_attention_plain(q, k, v)
-            err = compare(label, flash_attention(q, k, v).float(), want.float(), ATTN_TOL[name])
+            got = flash_attention(q, k, v).float()
+            err = compare(label, got, want.float(), ATTN_TOL[name])
+            compare(label + " vs mha_ref", got, mha_ref(q, k, v).float(), ATTN_TOL[name])
             ms = time_ms(lambda: flash_attention(q, k, v))
             plain = time_ms(lambda: flash_attention_plain(q, k, v), reps=5)
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -364,7 +377,7 @@ def phase4_model_kernels():
                              fops.kernel_flops(1, s, s, h, d, causal=True), peak)
             rows.append(dict(shape=f"S={s} {name}", max_abs_err=err, ms=ms, plain_ms=plain,
                              bound_ms=b, bound_by=by, library_ms=library,
-                             library_max_abs_diff=lib_err))
+                             x_library=ms / library, library_max_abs_diff=lib_err))
     print("K4 at full width " + json.dumps(rows))
     main_row = rows[0]  # S 2048 bf16: tinyllama's own dtype
     kernels["flash_attention"] = dict(

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into
 ``build/repro_torch/<name>-<hash>.so`` at the root of the checkout, with a
-plain C interface.  The hash covers the source and the compiler flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is.
+plain C interface.  The hash covers the source, the ``csrc`` headers it
+includes (``#include "sm90.cuh"``) and the compiler flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is.
 Nothing is compiled when the package is imported: the first launch of a
 kernel builds its library, and :func:`build` compiles several sources at
 once, one ``nvcc`` process each.
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -55,9 +57,20 @@ def _nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
 def _library_path(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    todo, seen = [f"{name}.cu"], set()
+    while todo:  # the source, then the headers it includes from csrc, in order
+        file = todo.pop(0)
+        if file in seen:
+            continue
+        seen.add(file)
+        text = (SRC_DIR / file).read_bytes()
+        digest.update(text)
+        todo.extend(inc.decode() for inc in _INCLUDE.findall(text))
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

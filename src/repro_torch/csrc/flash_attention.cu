@@ -8,35 +8,63 @@
 //    acc / max(l, 1e-30) in q's dtype.  Masks as in the TPU kernel: causal
 //    is top-left aligned (query i sees keys j <= i), the window keeps
 //    j > i - window, and masked scores are -0.7 * FLT_MAX (not -inf), so a
-//    fully masked tile behaves as it does there.  Keys past Sk and query
-//    rows past Sq (the ragged last tiles) are masked here, so any length
-//    runs through the kernel.
+//    fully masked tile behaves as it does there.  Keys past Sk (which add
+//    nothing to l) and query rows past Sq (the ragged last tiles) are
+//    masked here, so any length runs through the kernel.
 //
-// Design: one CTA per (batch, kv head, block of 64 query rows), where a
-// row is one (position i, group g) pair, numbered i * G + g: the G heads
-// of a position are adjacent in memory and share the CTA's keys.  The
-// CTA stages its q rows (scaled, as f32, transposed) once, then walks the
-// keys in tiles of 64: K (transposed) and V tiles are staged in shared
-// memory as f32; each of the 128 threads computes an 8 x 4 block of the
-// 64 x 64 score tile on the CUDA cores (FMA, no tensor cores), the row max
-// and sum are reduced across the 16 threads that share a row with warp
-// shuffles, P goes through shared memory, and each thread accumulates an
-// 8 x D/16 block of the output in registers.  A causal CTA stops at the
-// tile that holds its last row's diagonal, as the TPU kernel does.
+// Both dtypes give one CTA to each (batch, kv head, block of 64 query
+// rows), where a row is one (position i, group g) pair, numbered i * G + g:
+// the G heads of a position are adjacent in memory and share the CTA's
+// keys.  A causal CTA stops at the tile that holds its last row's
+// diagonal, as the TPU kernel does.  The dtype alone selects the kernel.
 //
-// Bound on the card: operations.  kernel_flops = 4 * B * H * Sq * Sk * D
-// (halved when causal); for tinyllama's prefill at S = 2048 that is 17.2
-// GFLOP against 25 MB of q, k, v, o.  The bound uses the bf16 tensor-core
-// peak for bf16 inputs; this kernel runs on the CUDA cores in f32, so it
-// can reach at most the f32 rate (67 TFLOP/s): moving the two products to
-// wgmma is the first step to its bound.
+// bf16 (flash_fwd_bf16_kernel): the tensor cores.  Bound: operations,
+// kernel_flops = 4 * B * H * Sq * Sk * D (halved when causal): 17.2 GFLOP
+// for tinyllama's prefill at S = 2048, 0.017 ms at the 989 TFLOP/s bf16
+// peak, against 19 MB of q, k, v and o.  One warpgroup (128 threads) owns
+// the CTA's 64 rows, wgmma's M:
+//  - S = Q K^T by wgmma m64n64k16 (bf16 operands, f32 accumulators), Q and
+//    the K tile read from shared memory K-major, as they lie in memory;
+//    scale multiplies the f32 scores.
+//  - The online softmax runs on the accumulator fragments in registers: a
+//    row's max is reduced over the 4 lanes that share the row, its sum l
+//    stays a per-lane share until the end.  Masks are applied only on the
+//    tiles that need them (the diagonal, the window's edge, the ragged
+//    last key tile).
+//  - P is rounded to bf16 in registers, where the S fragment already has
+//    the layout of wgmma's A operand, and O += P V runs in the RS form
+//    (m64n64k16, or m64n128k16 for D = 128) with the V tile read from
+//    shared memory MN-major (the transpose bit), as it lies in memory.
+//    The scale, max, exp, l and O stay f32: only P is rounded.
+//  - K and V tiles arrive by 16-byte cp.async copies in a ring of two
+//    stages, each completing on an mbarrier (cp.async.mbarrier.arrive), so
+//    tile t + 1 loads while tile t is multiplied.  Key rows past Sk are
+//    zero-filled by the copy and read nothing.  Tiles are stored with the
+//    128-byte swizzle that wgmma's descriptors name; head dims below 64 are
+//    padded with zero columns to one 128-byte row.
 //
-// The entry point returns cudaGetLastError() so the wrapper can raise on a
+// f32 (flash_fwd_kernel): the CUDA cores.  This is the path of the f32
+// parity checks (the serving path's greedy token equality), the tensor
+// cores would need TF32 operands there (10-bit mantissas, against an f32
+// tolerance of 2e-4 / 2e-5), and it already runs faster than PyTorch's f32
+// scaled_dot_product_attention.  The CTA stages its q rows (scaled, as
+// f32, transposed) once, then walks the keys in tiles of 64: K
+// (transposed) and V tiles are staged in shared memory as f32; each of the
+// 128 threads computes an 8 x 4 block of the 64 x 64 score tile with FMA,
+// the row max and sum are reduced across the 16 threads that share a row
+// with warp shuffles, P goes through shared memory, and each thread
+// accumulates an 8 x D/16 block of the output in registers.  Bound:
+// operations, at the 67 TFLOP/s f32 rate.
+//
+// The entry points return cudaGetLastError() so the wrapper can raise on a
 // refused launch.
 
 #include <cfloat>
+#include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -51,12 +79,8 @@ constexpr int kKStride = kKeys + kPad;
 constexpr float kMaskValue = -0.7f * FLT_MAX;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // Sum over the 16 lanes that share a row, read back from the first of them
 // so that every lane holds the same rounding of the sum.
@@ -256,6 +280,326 @@ cudaError_t launch_dim(int head_dim, const void* q, const void* k, const void* v
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (wgmma), K/V tiles loaded asynchronously.
+
+constexpr int kWarpgroup = 128;
+constexpr int kTileRows = 64;                   // query rows per CTA = keys per tile = wgmma's M
+constexpr int kRegionBytes = kTileRows * 128;   // 64 rows of 64 bf16
+constexpr int kAtomBytes = 8 * 128;             // one 128-byte swizzle atom: 8 rows
+
+// Byte offset of the 16-byte chunk c (columns 8c .. 8c + 7) of row r in a
+// tile of 64 rows: columns in regions of 64 (one 128-byte row each), each
+// region 128-byte swizzled.
+__device__ __forceinline__ uint32_t tile_offset(int r, int c) {
+  return (c / 8) * kRegionBytes + r * 128 + (((c % 8) ^ (r % 8)) << 4);
+}
+
+// Copies a tile of 64 rows of D bf16 into shared memory with cp.async,
+// row r from row_ptr(r), or zeros where row_ptr(r) is null.
+template <int D, typename RowPtr>
+__device__ __forceinline__ void load_tile(uint32_t tile, const __nv_bfloat16* any,
+                                          RowPtr row_ptr) {
+  constexpr int kChunks = D / 8;
+  for (int e = threadIdx.x; e < kTileRows * kChunks; e += kWarpgroup) {
+    const int r = e / kChunks, c = e % kChunks;
+    const __nv_bfloat16* src = row_ptr(r);
+    sm90::cp_async16(tile + tile_offset(r, c), src ? src + 8 * c : any, src != nullptr);
+  }
+}
+
+// Zeroes the columns D .. 63 of `n_tiles` consecutive tiles (D < 64): the
+// products read them, and no copy writes them.
+template <int D>
+__device__ __forceinline__ void zero_padding(unsigned char* tiles, int n_tiles, int tile_bytes) {
+  constexpr int kPadChunks = 8 - D / 8;
+  for (int e = threadIdx.x; e < n_tiles * kTileRows * kPadChunks; e += kWarpgroup) {
+    const int t = e / (kTileRows * kPadChunks);
+    const int r = e / kPadChunks % kTileRows;
+    const int c = D / 8 + e % kPadChunks;
+    *reinterpret_cast<uint4*>(tiles + t * tile_bytes + tile_offset(r, c)) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// S (64 x 64 f32) = Q (64 x DP) K^T, both tiles K-major in shared memory.
+template <int DP>
+__device__ __forceinline__ void qk_product(float (&s)[32], uint32_t q_tile, uint32_t k_tile) {
+  sm90::fence_regs(s);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < DP / 16; ++ks) {
+    // 16 columns are 32 bytes of a row; every 4 steps the next region
+    const uint32_t off = ks / 4 * kRegionBytes + ks % 4 * 32;
+    sm90::wgmma_ss_m64n64k16(s, sm90::wgmma_desc_sw128(q_tile + off, 16, kAtomBytes),
+                             sm90::wgmma_desc_sw128(k_tile + off, 16, kAtomBytes), ks);
+  }
+  sm90::wgmma_commit();
+  sm90::wgmma_wait_all();
+  sm90::fence_regs(s);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// O (64 x DP f32) += bf16(P) V, P in the S fragment's registers (RS form),
+// the V tile (keys x DP, DP contiguous) MN-major in shared memory.
+template <int DP>
+__device__ __forceinline__ void pv_product(float (&o)[DP / 2], const float (&p)[32],
+                                           uint32_t v_tile) {
+  uint32_t a[4][4];
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {  // keys 16 ks .. 16 ks + 15: S's 8-column blocks 2ks, 2ks + 1
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[ks][i] = pack_bf16(p[8 * ks + 2 * i], p[8 * ks + 2 * i + 1]);
+    sm90::fence_regs(a[ks]);
+  }
+  sm90::fence_regs(o);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    // 16 keys are two 8-row groups; the 64-column regions are kRegionBytes apart
+    const uint64_t desc = sm90::wgmma_desc_sw128(v_tile + ks * 2 * kAtomBytes, kRegionBytes,
+                                                 kAtomBytes);
+    if constexpr (DP == 64) {
+      sm90::wgmma_rs_m64n64k16(o, a[ks], desc, 1);
+    } else {
+      sm90::wgmma_rs_m64n128k16(o, a[ks], desc, 1);
+    }
+  }
+  sm90::wgmma_commit();
+  sm90::wgmma_wait_all();
+  sm90::fence_regs(o);
+}
+
+constexpr int bf16_smem_bytes(int dp) {
+  return 5 * dp * 128 + 2 * 8 + 1024;  // Q, two K and two V tiles, two barriers, alignment
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWarpgroup)
+flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                      int seq_q, int seq_k, int heads, int kv_heads, int causal, int window,
+                      float scale) {
+  constexpr int DP = D < 64 ? 64 : D;  // columns held in shared memory
+  constexpr int kTileBytes = DP * 128;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms are 1024-aligned
+  unsigned char* const tiles = smem_raw + (base - raw);
+  const uint32_t q_tile = base;                   // then K0, V0, K1, V1
+  const uint32_t full = base + 5 * kTileBytes;    // stage s's barrier at full + 8 s
+
+  const int groups = heads / kv_heads;
+  const int b = blockIdx.z;
+  const int kvh = blockIdx.y;
+  const int row0 = blockIdx.x * kTileRows;
+  const int total_rows = seq_q * groups;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    sm90::mbar_init(full, kWarpgroup);
+    sm90::mbar_init(full + 8, kWarpgroup);
+    sm90::fence_mbar_init();
+  }
+  if constexpr (D < 64) zero_padding<D>(tiles, 5, kTileBytes);
+  __syncthreads();
+
+  load_tile<D>(q_tile, q, [&](int r) -> const __nv_bfloat16* {
+    const int rho = row0 + r;
+    if (rho >= total_rows) return nullptr;
+    const int i = rho / groups, g = rho % groups;
+    return q + ((static_cast<int64_t>(b) * seq_q + i) * heads + kvh * groups + g) * D;
+  });
+  auto load_kv = [&](int t) {  // tile t into stage t % 2; Q joins stage 0's first phase
+    const uint32_t kt = base + (1 + 2 * (t & 1)) * kTileBytes;
+    auto row = [&](const __nv_bfloat16* x) {
+      return [&, x](int r) -> const __nv_bfloat16* {
+        const int j = t * kTileRows + r;
+        if (j >= seq_k) return nullptr;
+        return x + ((static_cast<int64_t>(b) * seq_k + j) * kv_heads + kvh) * D;
+      };
+    };
+    load_tile<D>(kt, k, row(k));
+    load_tile<D>(kt + kTileBytes, v, row(v));
+    sm90::cp_async_arrive(full + 8 * (t & 1));
+  };
+  load_kv(0);
+
+  const int last_row = min(row0 + kTileRows, total_rows) - 1;
+  const int first_pos = row0 / groups;
+  const int last_pos = last_row / groups;
+  int n_tiles = (seq_k + kTileRows - 1) / kTileRows;
+  if (causal) n_tiles = min(n_tiles, (last_pos + kTileRows) / kTileRows);
+
+  // this thread's two rows (h = 0, 1) and its first column in each 8-column block
+  const int ra = tid / 32 * 16 + tid % 32 / 4;
+  const int pos[2] = {(row0 + ra) / groups, (row0 + ra + 8) / groups};
+  const int col = 2 * (tid % 4);
+
+  float m_run[2] = {kMaskValue, kMaskValue};
+  float l_run[2] = {0.0f, 0.0f};  // this lane's share of the row sums
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
+  float s[32];
+
+  for (int t = 0; t < n_tiles; ++t) {
+    // stage (t + 1) % 2 was released by the barrier that ended tile t - 1
+    if (t + 1 < n_tiles) load_kv(t + 1);
+    const uint32_t kt = base + (1 + 2 * (t & 1)) * kTileBytes;
+    sm90::mbar_wait(full + 8 * (t & 1), (t >> 1) & 1);
+    sm90::fence_proxy_async();  // the copies' writes, before wgmma reads them
+    qk_product<DP>(s, q_tile, kt);
+
+    const int k0 = t * kTileRows;
+    const bool masked = k0 + kTileRows > seq_k || (causal && k0 + kTileRows - 1 > first_pos) ||
+                        (window && k0 <= last_pos - window);
+    float mx[2] = {kMaskValue, kMaskValue};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = i % 4 / 2;
+      float x = s[i] * scale;
+      if (masked) {
+        const int key = k0 + i / 4 * 8 + col + i % 2;
+        bool keep = key < seq_k;
+        if (causal) keep = keep && key <= pos[h];
+        if (window) keep = keep && key > pos[h] - window;
+        if (!keep) x = kMaskValue;
+      }
+      s[i] = x;
+      mx[h] = fmaxf(mx[h], x);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m_run[h], mx[h]);
+      alpha[h] = expf(m_run[h] - m_new);
+      m_run[h] = m_new;
+      l_run[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = i % 4 / 2;
+      // keys past Sk are not there at all: they add nothing to l
+      const bool absent = masked && k0 + i / 4 * 8 + col + i % 2 >= seq_k;
+      const float p = absent ? 0.0f : expf(s[i] - m_run[h]);
+      s[i] = p;
+      l_run[h] += p;
+    }
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[i % 4 / 2];
+    pv_product<DP>(acc, s, kt + kTileBytes);
+    __syncthreads();  // every warp is done with this stage before it is loaded again
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_run[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int rho = row0 + ra + 8 * h;
+    if (rho >= total_rows) continue;
+    const float denom = fmaxf(l, 1e-30f);
+    const int i = rho / groups, g = rho % groups;
+    __nv_bfloat16* dst = o + ((static_cast<int64_t>(b) * seq_q + i) * heads + kvh * groups + g) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + col) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h] / denom, acc[4 * j + 2 * h + 1] / denom);
+    }
+  }
+}
+
+// One tile of each product on its own, for the card tests: S = q k^T and
+// O = bf16(S) v for (64, D) row-major q, k, v, in the kernel's layouts.
+template <int D>
+__global__ void __launch_bounds__(kWarpgroup)
+wgmma_probe_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v, float* __restrict__ s_out,
+                   float* __restrict__ o_out) {
+  constexpr int DP = D < 64 ? 64 : D;
+  constexpr int kTileBytes = DP * 128;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const tiles = smem_raw + (base - raw);
+  const uint32_t full = base + 3 * kTileBytes;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(full, kWarpgroup);
+    sm90::fence_mbar_init();
+  }
+  if constexpr (D < 64) zero_padding<D>(tiles, 3, kTileBytes);
+  __syncthreads();
+  const __nv_bfloat16* src[3] = {q, k, v};
+  for (int t = 0; t < 3; ++t) {
+    load_tile<D>(base + t * kTileBytes, q, [&](int r) { return src[t] + r * D; });
+  }
+  sm90::cp_async_arrive(full);
+  sm90::mbar_wait(full, 0);
+  sm90::fence_proxy_async();
+
+  float s[32], acc[DP / 2];
+  qk_product<DP>(s, base, base + kTileBytes);
+  const int ra = threadIdx.x / 32 * 16 + threadIdx.x % 32 / 4;
+  const int col = 2 * (threadIdx.x % 4);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s_out[(ra + 8 * (i % 4 / 2)) * 64 + i / 4 * 8 + col + i % 2] = s[i];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
+  pv_product<DP>(acc, s, base + 2 * kTileBytes);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o_out[(ra + 8 * (i % 4 / 2)) * D + i / 4 * 8 + col + i % 2] = acc[i];
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int batch,
+                        int seq_q, int seq_k, int heads, int kv_heads, int causal, int window,
+                        float scale, cudaStream_t stream) {
+  constexpr int smem = bf16_smem_bytes(D < 64 ? 64 : D);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long row_blocks =
+      (static_cast<long>(seq_q) * (heads / kv_heads) + kTileRows - 1) / kTileRows;
+  const dim3 grid(static_cast<unsigned>(row_blocks), kv_heads, batch);
+  flash_fwd_bf16_kernel<D><<<grid, kWarpgroup, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), seq_q, seq_k, heads,
+      kv_heads, causal, window, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bf16_dim(int head_dim, const void* q, const void* k, const void* v, void* o,
+                            int batch, int seq_q, int seq_k, int heads, int kv_heads, int causal,
+                            int window, float scale, cudaStream_t stream) {
+  switch (head_dim) {
+    case 16: return launch_bf16<16>(q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, causal, window, scale, stream);
+    case 32: return launch_bf16<32>(q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, causal, window, scale, stream);
+    case 64: return launch_bf16<64>(q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, causal, window, scale, stream);
+    case 128: return launch_bf16<128>(q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, causal, window, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int D>
+cudaError_t launch_probe(const void* q, const void* k, const void* v, float* s, float* o,
+                         cudaStream_t stream) {
+  constexpr int smem = 3 * (D < 64 ? 64 : D) * 128 + 8 + 1024;
+  cudaError_t err = cudaFuncSetAttribute(wgmma_probe_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  wgmma_probe_kernel<D><<<1, kWarpgroup, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), s, o);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -277,12 +621,26 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
     err = launch_dim<float>(head_dim, q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, causal,
                             window, scale, s);
   } else if (dtype == 1) {
-    err = launch_dim<__nv_bfloat16>(head_dim, q, k, v, o, batch, seq_q, seq_k, heads, kv_heads,
-                                    causal, window, scale, s);
+    err = launch_bf16_dim(head_dim, q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, causal,
+                          window, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// One tile of each bf16 product (S = q k^T, O = bf16(S) v) for (64, D)
+// row-major q, k, v on the card; s is (64, 64) and o (64, D), f32.
+int flash_attention_wgmma_probe(const void* q, const void* k, const void* v, float* s, float* o,
+                                int head_dim, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 16: return static_cast<int>(launch_probe<16>(q, k, v, s, o, st));
+    case 32: return static_cast<int>(launch_probe<32>(q, k, v, s, o, st));
+    case 64: return static_cast<int>(launch_probe<64>(q, k, v, s, o, st));
+    case 128: return static_cast<int>(launch_probe<128>(q, k, v, s, o, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

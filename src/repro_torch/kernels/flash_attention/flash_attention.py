@@ -5,13 +5,22 @@ CUDA source is ``repro_torch/csrc/flash_attention.cu``.
 :func:`flash_attention` (K4) replaces ``flash_attention_pallas``: GQA
 attention with an online softmax in float32, causal (top-left aligned:
 query ``i`` sees keys ``j <= i``) and/or windowed (``j > i - window``)
-masks, the output ``acc / max(l, 1e-30)`` in ``q``'s dtype.
+masks, the output ``acc / max(l, 1e-30)`` in ``q``'s dtype.  Any ``Sq``
+and ``Sk`` reach the kernel: it masks the ragged last tiles itself.
+
+The dtype selects the kernel.  bfloat16 runs on the tensor cores, bound
+by operations (``ops.kernel_flops`` over the 989 TFLOP/s bf16 peak):
+``wgmma`` forms S = Q·Kᵀ and O += P·V in f32 accumulators, the K/V tiles
+arrive by asynchronous copies into a two-stage ring on mbarriers, and the
+softmax stays in f32 registers; only P is rounded to bf16 before P·V,
+which stays within the bf16 tolerance (2e-2).  float32 runs on the CUDA
+cores in f32 FMA, held to 2e-4 / 2e-5: the tensor cores would need TF32
+operands there, and that path already beats PyTorch's f32 attention.
 
 :func:`flash_attention_plain` computes the same function densely with the
 kernel's arithmetic: ``q`` scaled before the product, masked scores set
 to ``-0.7 · FLT_MAX`` (not ``-inf``, so a fully masked row averages V as
-the kernel does instead of giving NaN).  Any ``Sq`` and ``Sk`` reach the
-kernel: it masks the ragged last tiles itself.
+the kernel does instead of giving NaN).
 
 The wrapper takes the plain version for tensors on the CPU, launches the
 kernel for CUDA tensors, and counts its launches in

@@ -1,0 +1,34 @@
+"""The port's kernel build: library names follow every byte that is compiled.
+
+``_build`` names each library by a hash of its ``csrc`` source, the
+``csrc`` headers that source includes and the compiler flags, so an edit
+to any of them builds a new library.  Nothing is compiled here.
+"""
+
+import pytest
+
+pytest.importorskip("torch")
+
+from repro_torch import _build  # noqa: E402
+
+
+def test_library_name_follows_the_source_and_its_headers(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "SRC_DIR", tmp_path)
+    (tmp_path / "k.cu").write_text('#include <cstdint>\n#include "a.cuh"\nint k;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text('#pragma once\n#include "a.cuh"\n')  # a cycle is read once
+    names = [_build._library_path("k").name]
+    (tmp_path / "b.cuh").write_text('#pragma once\n#include "a.cuh"\nint b;\n')
+    names.append(_build._library_path("k").name)
+    (tmp_path / "k.cu").write_text('#include <cstdint>\n#include "a.cuh"\nint k2;\n')
+    names.append(_build._library_path("k").name)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-DX",))
+    names.append(_build._library_path("k").name)
+    assert all(n.startswith("k-") and n.endswith(".so") for n in names)
+    assert len(set(names)) == 4
+    assert _build._library_path("k").name == names[-1]  # unchanged inputs, same library
+
+
+def test_every_source_includes_only_headers_that_exist():
+    for name in _build.SOURCES:  # a missing csrc header raises here
+        assert _build._library_path(name).parent == _build.BUILD_DIR

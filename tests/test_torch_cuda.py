@@ -9,16 +9,22 @@ PyTorch is installed:
 K1 and K2 evaluate the plain oracle's operations in its order and K3 sums
 in its plain version's order, so each kernel is held to its plain version
 bitwise; the kernels' outputs are also held against the oracles at the
-reference's tolerances.  K4 and K5 sum in other orders than their plain
-versions and are held to them at the reference tests' tolerances (f32
-2e-4, bf16 2e-2).
+reference's tolerances.  K3 adds only the nonzero entries of a block, in
+its plain version's order, so it is held to it bitwise as well.  K4 and
+K5 sum in other orders than their plain versions and are held to them at
+the reference tests' tolerances (f32 2e-4, bf16 2e-2); K4's bf16 path
+runs on the tensor cores, and one tile of each of its two products is
+also held against a plain matrix product.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import _build  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.paper_eneac import HotspotConfig  # noqa: E402
 from repro_torch.core import CompletionBus, CudaStreamUnit, HeteroRuntime, WorkerKind  # noqa: E402
@@ -107,6 +113,43 @@ def test_k3_matches_plain(cuda, rows, cols, n, nnz_mean):
     np.testing.assert_allclose(got[:rows, :n].cpu().numpy(), sref.spmm_dense_ref(p), **SPMM_TOL)
 
 
+def block_ell_edge_cases(k_max, n_cb, seed=0):
+    """Row blocks at the kernel's edges: rb 0 is full (count = K) with
+    nonzeros only at columns 0 and 127 and one occupied block of zeros;
+    rb 1 holds a dense block, a block of -0.0 and a sparse one; rb 2 is
+    empty; rb 3 is 1 % dense over K/2 blocks.  K > 24 wraps the kernel's
+    ring of three 8-block stages."""
+    rng = np.random.default_rng(seed)
+    counts = np.array([k_max, 3, 0, k_max // 2], np.int32)
+    vals = np.zeros((4, k_max, 8, 128), np.float32)
+    colblocks = np.zeros((4, k_max), np.int32)
+    for rb, count in enumerate(counts):
+        colblocks[rb, :count] = np.sort(rng.choice(n_cb, count, replace=False))
+    vals[0, :, :, 0] = rng.standard_normal((k_max, 8))
+    vals[0, :, :, 127] = rng.standard_normal((k_max, 8))
+    vals[0, 1] = 0.0
+    vals[1, 0] = rng.standard_normal((8, 128))
+    vals[1, 1] = -0.0
+    vals[1, 2, 3, ::17] = 1.0
+    live = rng.random((k_max // 2, 8, 128)) < 0.01
+    vals[3, :k_max // 2][live] = rng.standard_normal(int(live.sum()))
+    return sref.BlockEll(vals=vals, colblocks=colblocks, counts=counts, rows=32,
+                         n_cols=n_cb * 128)
+
+
+@pytest.mark.parametrize("n", [16, 128, 256])
+def test_k3_edge_blocks_equal_plain(cuda, n):
+    be = block_ell_edge_cases(k_max=30, n_cb=40)
+    arrays = sk.BlockEllArrays(be, cuda)
+    rhs = torch.from_numpy(np.random.default_rng(1).standard_normal((40 * 128, n))
+                           .astype(np.float32)).to(cuda)
+    before = sk.spmm_block_ell.launches
+    got = sk.spmm_block_ell(arrays, rhs)
+    assert sk.spmm_block_ell.launches == before + 1
+    assert torch.equal(got, sk.spmm_block_ell_plain(arrays, rhs))
+    assert not got[16:24].any()  # the empty row block
+
+
 def test_hybrid_executor_on_card(cuda):
     p = sref.make_problem(48, 256, 16, nnz_mean=6.0, seed=3)
     ex, order = sops.make_hybrid_executor(p, device=cuda)
@@ -167,6 +210,8 @@ def attention_inputs(b, sq, sk, h, kvh, d, dtype, device, seed=0):
     (1, 128, 2, 2, 128, True, 0),
     (1, 1000, 32, 4, 64, True, 0),     # tinyllama's heads, ragged length
     (1, 77, 6, 3, 16, True, 9),        # ragged everything, odd group count
+    (1, 891, 32, 4, 64, True, 0),      # tinyllama's longest served prompt
+    (1, 500, 40, 8, 128, True, 0),     # qwen3-14b's heads: G = 5, D = 128
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k4_matches_plain(cuda, b, sq, h, kvh, d, causal, window, dtype):
@@ -190,6 +235,35 @@ def test_k4_cross_lengths(cuda):
             torch.testing.assert_close(
                 fk.flash_attention(q, k, v, causal=causal),
                 fk.flash_attention_plain(q, k, v, causal=causal), rtol=2e-4, atol=2e-5)
+
+
+def test_k4_cross_lengths_bf16(cuda):
+    # Sq != Sk on the tensor-core path, ragged both ways, against both references
+    for sq, sk_len in ((37, 200), (130, 65), (200, 1000)):
+        q, k, v = attention_inputs(2, sq, sk_len, 8, 2, 64, torch.bfloat16, cuda, seed=sk_len)
+        for causal in (False, True):
+            got = fk.flash_attention(q, k, v, causal=causal).float()
+            for want in (fk.flash_attention_plain(q, k, v, causal=causal),
+                         mha_ref(q, k, v, causal=causal)):
+                torch.testing.assert_close(got, want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_k4_wgmma_tile_products(cuda, d):
+    # one 64-row tile of each bf16 product in K4's shared-memory layouts:
+    # S = q kᵀ (K-major operands) and O = bf16(S) v (P from registers, V
+    # MN-major), against plain f32 products of the same bf16 values
+    probe = _build.function("flash_attention", "flash_attention_wgmma_probe",
+                            [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p])
+    g = torch.Generator().manual_seed(d)
+    q, k, v = (torch.randn(64, d, generator=g).to(cuda, torch.bfloat16) for _ in range(3))
+    s = torch.empty((64, 64), device=cuda)
+    o = torch.empty((64, d), device=cuda)
+    err = probe(q.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(), o.data_ptr(), d,
+                torch.cuda.current_stream().cuda_stream)
+    _build.check("flash_attention", err, "wgmma probe")
+    torch.testing.assert_close(s, q.float() @ k.float().T, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(o, s.bfloat16().float() @ v.float(), rtol=1e-5, atol=1e-3)
 
 
 def ssd_inputs(b, s, h, p, n, device, seed=0, with_h0=False):

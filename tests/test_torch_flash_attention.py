@@ -108,3 +108,43 @@ def test_wrapper_rejects_bad_inputs():
         fk.flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError):
         fk.flash_attention(q, torch.zeros(1, 8, 2, 8), torch.zeros(1, 8, 2, 8))
+
+
+def p_rounded_to_bf16(q, k, v, *, causal, window):
+    """K4's bf16 tensor-core arithmetic on the CPU: f32 scores of the bf16
+    inputs, scaled after the product, max, exp and l in f32; only P is
+    rounded to bf16 before P·V."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, sq, kvh, h // kvh, d)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * d**-0.5
+    qp, kp = torch.arange(sq)[:, None], torch.arange(sk)[None, :]
+    keep = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        keep &= kp <= qp
+    if window:
+        keep &= kp > qp - window
+    s = s.masked_fill(~keep, fk.MASK_VALUE)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgqs,bskd->bkgqd", p.bfloat16().float(), v.float()) / torch.clamp(l, min=1e-30)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).bfloat16()
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d,causal,window", [
+    (1, 1000, 32, 4, 64, True, 0),    # tinyllama's heads, ragged length
+    (1, 891, 40, 8, 128, True, 0),    # qwen3-14b's heads (G = 5) at the longest served prompt
+    (1, 77, 6, 3, 16, True, 9),       # ragged everything, window
+])
+def test_bf16_p_rounding_stays_within_bf16_tolerance(b, s, h, kvh, d, causal, window):
+    # the tensor-core kernel rounds P to bf16 before P·V and keeps the rest
+    # in f32; that alone must stay within the bf16 tolerance of the plain
+    # version and of the JAX oracle
+    qn, kn, vn = inputs(b, s, s, h, kvh, d, seed=s + d)
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in (qn, kn, vn))
+    got = p_rounded_to_bf16(q, k, v, causal=causal, window=window)
+    plain = fk.flash_attention_plain(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(to_np(got), to_np(plain), **BF16_TOL)
+    want = jax_mha_ref(*(jnp.asarray(a).astype(jnp.bfloat16) for a in (qn, kn, vn)),
+                       causal=causal, window=window)
+    np.testing.assert_allclose(to_np(got), to_np(want), **BF16_TOL)

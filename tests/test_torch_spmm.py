@@ -171,3 +171,63 @@ def test_k3_rejects_out_of_range_column_blocks():
     bad.counts[0] = bad.k_max + 1
     with pytest.raises(ValueError, match="counts"):
         kern.BlockEllArrays(bad, "cpu")
+
+
+def k3_zero_skipping_order(be, rhs):
+    """K3's arithmetic in numpy: per row, k ascending, nonzero c ascending,
+    each term a rounded f32 multiply and then a rounded f32 add."""
+    n = rhs.shape[1]
+    out = np.zeros((be.n_row_blocks * ref.ROW_BLOCK, n), np.float32)
+    for rb in range(be.n_row_blocks):
+        for r in range(ref.ROW_BLOCK):
+            acc = np.zeros(n, np.float32)
+            for k in range(int(be.counts[rb])):
+                row = be.vals[rb, k, r]
+                base = int(be.colblocks[rb, k]) * ref.COL_BLOCK
+                for c in np.flatnonzero(row):  # -0.0 counts as zero, as the kernel's ballot does
+                    acc = acc + row[c] * rhs[base + c]
+            out[rb * ref.ROW_BLOCK + r] = acc
+    return out
+
+
+def cancelling_block_ell():
+    # duplicates that cancel to 0.0 in a column block of their own (an
+    # occupied block that holds only zeros), entries at columns 0 and 127 of
+    # a block, an empty row, and -0.0 written over a third of the zeros
+    # (to_block_ell sums into +0.0, so it never stores -0.0 itself)
+    vals = np.array([[1.5, -1.5, 0.0, 0.0],
+                     [0.5, 2.0, -3.0, 0.0],
+                     [0.0, 0.0, 0.0, 0.0],
+                     [3.0, -0.25, 0.5, 1.0],
+                     [-2.0, 4.0, 7.0, 0.0]], np.float32)
+    cols = np.array([[260, 260, 0, 0], [0, 127, 255, 0], [0, 0, 0, 0],
+                     [128, 255, 127, 5], [3, 4, 200, 0]], np.int32)
+    nnz = np.array([2, 3, 0, 4, 3], np.int32)
+    rhs = np.random.default_rng(11).standard_normal((384, 128)).astype(np.float32)
+    p = ref.SpmmProblem(vals=vals, cols=cols, nnz=nnz, n_cols=384, rhs=rhs)
+    be = ref.to_block_ell(p)
+    assert be.counts[0] == 3 and not np.any(be.vals[0, 2])
+    zeros = (be.vals == 0) & (np.arange(ref.COL_BLOCK) % 3 == 0)
+    be.vals[zeros] = -0.0
+    assert np.signbit(be.vals).sum() > 0
+    return p, be
+
+
+@pytest.mark.parametrize("case", ["paper_like", "narrow", "sparse", "cancelling"])
+def test_k3_skipping_zeros_is_bitwise_the_plain_sum(case):
+    # the CUDA kernel adds only the nonzero entries of each occupied block;
+    # for finite rhs that is bitwise the plain version, which adds them all
+    if case == "cancelling":
+        p, be = cancelling_block_ell()
+    else:
+        rows, cols, n, nnz_mean, seed = {"paper_like": (200, 1500, 24, 20.0, 3),
+                                         "narrow": (64, 384, 32, 8.0, 5),
+                                         "sparse": (17, 128, 8, 2.0, 7)}[case]
+        p = ref.make_problem(rows, cols, n, nnz_mean=nnz_mean, seed=seed)
+        be = ref.to_block_ell(p)
+    rhs_pad = ops.pad_rhs(p)
+    got = k3_zero_skipping_order(be, rhs_pad)
+    plain = kern.spmm_block_ell_plain(kern.BlockEllArrays(be, "cpu"), torch.from_numpy(rhs_pad))
+    assert np.array_equal(got.view(np.uint32), plain.numpy().view(np.uint32))
+    want = spmm_block_ell_pallas(JaxBlockEllArrays(be), jnp.asarray(rhs_pad))
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
