@@ -11,7 +11,8 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
 1. Build the kernels from ``src/repro_torch/csrc`` (one ``nvcc`` each, all
    started together).  Check each kernel against its plain PyTorch version
    on the card at the paper's sizes and time both: K1 (HOTSPOT 2048², 8
-   steps in one launch) and K2 (2048², 8 launches) at rtol 1e-5, atol 1e-4;
+   steps in one launch; and the runtime's band, 130 × 2048 with steps=1)
+   bitwise, and K2 (2048², 8 launches) at rtol 1e-5, atol 1e-4;
    K3 on the full SPMM problem (29957 × 29957 · 29957 × 100, seed 1234)
    bitwise and at 1e-4, with ``torch.sparse.mm`` on the same matrix in CSR
    timed beside it; K3's bound counts the bytes it must move and the flops
@@ -32,8 +33,8 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    plain version and the ``mha_ref`` oracle, with
    ``scaled_dot_product_attention`` timed beside it (each row prints
    kernel ms over SDPA ms); K5 at mamba2-130m's
-   prefill (B 1, S 2048 and 1000, H 24, P 64, N 128, chunk 256) with zero
-   and nonzero h0 at 2e-4.
+   prefill (B 1, S 2048, 1000 and the longest served prompt's 891, H 24,
+   P 64, N 128, chunk 256) with zero and nonzero h0 at 2e-4.
 5. Serving at full width: tinyllama-1.1b (K4) and mamba2-130m (K5), random
    bf16 weights from a seeded generator on the card, 8 requests through
    ``ServingEngine`` (4 slots, continuous, inline, greedy, max_len 2048).
@@ -48,10 +49,17 @@ Launch counts are set to 0 just before each main path (phases 2–3 for
 K1–K3, each model's serving run in phase 5) and read just after, so they
 count the main path's launches only.  The last lines are a JSON line of
 the kernels' numbers and the JSON result line.
+
+Kernel times: ``ms``, ``plain_ms`` and ``library_ms`` are CUDA events
+around one call on an idle card, so a call that the host enqueues more
+slowly than the card runs it is timed with its enqueue, as a caller sees
+it; ``device_ms`` holds the stream while the host enqueues and times the
+card's work alone.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -82,17 +90,49 @@ def require(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def time_ms(fn, *, reps: int = 10, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn`` on the card, from CUDA events."""
+@functools.lru_cache(maxsize=None)
+def spin_cycles_per_ms() -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per millisecond on this card."""
+    import torch
+
+    torch.cuda._sleep(1_000_000)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(20_000_000)
+    end.record()
+    end.synchronize()
+    return 20_000_000 / start.elapsed_time(end)
+
+
+def time_ms(fn, *, reps: int = 10, warmup: int = 2, hold: bool = False) -> float:
+    """Median milliseconds of ``fn`` on the card, from CUDA events.
+
+    The card is idle when each timed call starts, so the events bracket the
+    host's enqueue too wherever the card would wait for it.  With ``hold``
+    a spin kernel first holds the stream for twice the host's time to
+    enqueue ``fn`` (at most 50 ms), and the events bracket the card's work
+    alone: a kernel of a few microseconds is timed as it runs, not as fast
+    as Python can launch it.
+    """
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    spin = 0
+    if hold:
+        t0 = time.perf_counter()
+        fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        spin = int(min(2.0 * host_ms + 0.05, 50.0) * spin_cycles_per_ms())
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(spin)
         start.record()
         fn()
         end.record()
@@ -144,15 +184,33 @@ def phase1_kernels(cfg, spmm_cfg):
     steps = cfg.sim_steps
     cells = rows * cols
 
-    err = compare("K1 hotspot_hpc", hotspot_hpc(temp, power, cfg, steps),
-                  hotspot_hpc_plain(temp, power, cfg, steps), HOTSPOT_TOL)
+    got, want = hotspot_hpc(temp, power, cfg, steps), hotspot_hpc_plain(temp, power, cfg, steps)
+    err = compare("K1 hotspot_hpc", got, want, HOTSPOT_TOL)
+    require(torch.equal(got, want), "K1: not bitwise equal to its plain version")
     ms = time_ms(lambda: hotspot_hpc(temp, power, cfg, steps))
+    dev = time_ms(lambda: hotspot_hpc(temp, power, cfg, steps), hold=True)
     plain = time_ms(lambda: hotspot_hpc_plain(temp, power, cfg, steps))
     b, by = bound_ms(3 * cells * 4, STENCIL_FLOPS * cells * steps)
+    print(f"K1 2048² x {steps} steps: {ms:.4f} ms ({dev:.4f} ms on the card), "
+          f"bound {b:.4f} ms ({by})")
+
+    # the runtime's ACC chunk (phase 3): 128 rows and a halo row each side,
+    # steps=1, with the full grid's coefficients
+    band_t, band_p = temp[127:257].contiguous(), power[127:257].contiguous()
+    got = hotspot_hpc(band_t, band_p, cfg, 1, grid=(rows, cols))
+    want = hotspot_hpc_plain(band_t, band_p, cfg, 1, grid=(rows, cols))
+    require(torch.equal(got, want), "K1 band: not bitwise equal to its plain version")
+    band_ms = time_ms(lambda: hotspot_hpc(band_t, band_p, cfg, 1, grid=(rows, cols)))
+    band_dev = time_ms(lambda: hotspot_hpc(band_t, band_p, cfg, 1, grid=(rows, cols)),
+                       hold=True)
+    band_b, band_by = bound_ms(3 * band_t.numel() * 4, STENCIL_FLOPS * band_t.numel())
+    print(f"K1 band {tuple(band_t.shape)} steps=1: bitwise equal, {band_ms:.4f} ms with the "
+          f"host's enqueue, {band_dev:.4f} ms on the card, bound {band_b:.4f} ms ({band_by})")
     kernels["hotspot_hpc"] = dict(
         name="hotspot_hpc", route="cuda", source="src/repro_torch/csrc/hotspot.cu",
         replaces="src/repro/kernels/hotspot/hotspot.py:77",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)
+        max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain, bound_ms=b, bound_by=by,
+        library_ms=None)
 
     t_hp, t_plain = temp, temp
     for _ in range(steps):
@@ -161,6 +219,7 @@ def phase1_kernels(cfg, spmm_cfg):
                                         shift_rows(t_plain, "down"), power, cfg)
     err = compare("K2 hotspot_hp_step (8 launches)", t_hp, t_plain, HOTSPOT_TOL)
     ms = time_ms(lambda: hotspot_hp_step(temp, power, cfg))
+    dev = time_ms(lambda: hotspot_hp_step(temp, power, cfg), hold=True)
     copies = time_ms(lambda: (shift_rows(temp, "up"), shift_rows(temp, "down")))
     plain = time_ms(lambda: hotspot_hp_step_plain(
         temp, shift_rows(temp, "up"), shift_rows(temp, "down"), power, cfg))
@@ -171,7 +230,8 @@ def phase1_kernels(cfg, spmm_cfg):
     kernels["hotspot_hp_step"] = dict(
         name="hotspot_hp_step", route="cuda", source="src/repro_torch/csrc/hotspot.cu",
         replaces="src/repro/kernels/hotspot/hotspot.py:110",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)
+        max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain, bound_ms=b, bound_by=by,
+        library_ms=None)
 
     # the unit work of phase 3 alone: a CC band (17 rows, one host thread)
     # and an ACC chunk (128 rows plus halos) through K2 and K1
@@ -186,11 +246,10 @@ def phase1_kernels(cfg, spmm_cfg):
         hotspot_step_banded(host_t, host_p, cfg, (rows, cols))
         cc_ms.append((time.perf_counter() - t0) * 1e3)
     torch.set_num_threads(threads)
-    band_t, band_p = temp[127:257].contiguous(), power[127:257].contiguous()
     print("band_alone " + json.dumps({
         "cc_17_rows_host_ms": statistics.median(cc_ms),
         "k2_130_rows_ms": time_ms(lambda: hotspot_hp_step(band_t, band_p, cfg, grid=(rows, cols))),
-        "k1_130_rows_ms": time_ms(lambda: hotspot_hpc(band_t, band_p, cfg, 1, grid=(rows, cols))),
+        "k1_130_rows_ms": band_ms,
     }))
 
     # -- SPMM: K3 on the full paper problem -----------------------------------
@@ -215,6 +274,7 @@ def phase1_kernels(cfg, spmm_cfg):
     err = compare("K3 spmm_block_ell", out, want, SPMM_TOL)
     require(torch.equal(out, want), "K3: not bitwise equal to its plain version")
     ms = time_ms(lambda: spmm_block_ell(ell, rhs_pad), reps=5)
+    dev = time_ms(lambda: spmm_block_ell(ell, rhs_pad), reps=5, hold=True)
     plain = time_ms(lambda: spmm_block_ell_plain(ell, rhs_pad), reps=3, warmup=1)
 
     # yardstick only: the same product as one cuSPARSE call through torch
@@ -242,9 +302,11 @@ def phase1_kernels(cfg, spmm_cfg):
     kernels["spmm_block_ell"] = dict(
         name="spmm_block_ell", route="cuda", source="src/repro_torch/csrc/spmm.cu",
         replaces="src/repro/kernels/spmm/spmm.py:48",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=library)
+        max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain, bound_ms=b, bound_by=by,
+        library_ms=library)
     for k in kernels.values():
-        print(f"{k['name']}: kernel_ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} "
+        print(f"{k['name']}: kernel_ms={k['ms']:.4f} device_ms={k['device_ms']:.4f} "
+              f"plain_ms={k['plain_ms']:.4f} "
               f"bound_ms={k['bound_ms']:.4f} ({k['bound_by']}) library_ms={k['library_ms']}")
     k3_ref = want[:problem.rows, :problem.rhs.shape[1]].clone()
     del ell, out, want
@@ -365,6 +427,7 @@ def phase4_model_kernels():
             err = compare(label, got, want.float(), ATTN_TOL[name])
             compare(label + " vs mha_ref", got, mha_ref(q, k, v).float(), ATTN_TOL[name])
             ms = time_ms(lambda: flash_attention(q, k, v))
+            dev = time_ms(lambda: flash_attention(q, k, v), hold=True)
             plain = time_ms(lambda: flash_attention_plain(q, k, v), reps=5)
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,  # noqa: E731
@@ -375,7 +438,8 @@ def phase4_model_kernels():
             peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
             b, by = bound_ms(fops.kernel_hbm_bytes(1, s, s, h, kvh, d, bytes_per_el=el),
                              fops.kernel_flops(1, s, s, h, d, causal=True), peak)
-            rows.append(dict(shape=f"S={s} {name}", max_abs_err=err, ms=ms, plain_ms=plain,
+            rows.append(dict(shape=f"S={s} {name}", max_abs_err=err, ms=ms, device_ms=dev,
+                             plain_ms=plain,
                              bound_ms=b, bound_by=by, library_ms=library,
                              x_library=ms / library, library_max_abs_diff=lib_err))
     print("K4 at full width " + json.dumps(rows))
@@ -383,13 +447,13 @@ def phase4_model_kernels():
     kernels["flash_attention"] = dict(
         name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/flash_attention.py:85",
-        **{k: main_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms")})
+        **{k: main_row[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")})
 
     # -- K5 at mamba2-130m's prefill ------------------------------------------
     h, p, n, chunk = 24, 64, 128, 256
     rows = []
-    for s in (2048, 1000):
+    for s in (2048, 1000, 891):
         x = normal(1, s, h, p)
         log_a = torch.from_numpy(-0.2 * rng.random((1, s, h), np.float32)).cuda()
         bm, cm = normal(1, s, n, scale=0.3), normal(1, s, n, scale=0.3)
@@ -400,17 +464,19 @@ def phase4_model_kernels():
             err = max(compare(label + " y", y, y_want, SSD_TOL),
                       compare(label + " state", hf, h_want, SSD_TOL))
             ms = time_ms(lambda: ssd_scan(x, log_a, bm, cm, chunk=chunk, h0=h0))
+            dev = time_ms(lambda: ssd_scan(x, log_a, bm, cm, chunk=chunk, h0=h0), hold=True)
             plain = time_ms(lambda: ssd_scan_plain(x, log_a, bm, cm, chunk=chunk, h0=h0), reps=5)
             b, by = bound_ms(sops.kernel_hbm_bytes(1, s, h, p, n, with_h0=h0 is not None),
                              sops.kernel_flops(1, s, h, p, n))
             rows.append(dict(shape=label[len("K5 ssd_scan "):], max_abs_err=err, ms=ms,
-                             plain_ms=plain, bound_ms=b, bound_by=by))
+                             device_ms=dev, plain_ms=plain, bound_ms=b, bound_by=by))
     print("K5 at full width " + json.dumps(rows))
     main_row = rows[0]  # S 2048, no h0: a prompt's first prefill
     kernels["ssd_scan"] = dict(
         name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/ssd_scan.py:67", library_ms=None,
-        **{k: main_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
+        **{k: main_row[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                    "bound_by")})
     return kernels
 
 
@@ -625,7 +691,7 @@ def main() -> int:
           + ", ".join(f"{k}={v['launches']}" for k, v in kernels.items()))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: v[k] for k in keys} for v in kernels.values()]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

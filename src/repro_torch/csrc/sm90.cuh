@@ -80,6 +80,25 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool v
                : "memory");
 }
 
+// 4-byte asynchronous copy (any address of a float); with `valid` false it
+// reads nothing and writes 4 zero bytes.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Closes this thread's group of cp.async copies issued since the last one.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most `N` of this thread's groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // The barrier receives one arrival from this thread once all of the
 // thread's earlier cp.async copies have landed (init the barrier with the
 // number of threads that copy).

@@ -10,193 +10,399 @@
 //    A partial last chunk behaves as if padded with log_a = 0 and B = 0 (the
 //    reference model's padding), so the final state is that of the S steps.
 //
-// Design, two kernels on one stream:
-//  1. ssd_gram_kernel: G = C B^T for every chunk, once per (batch, chunk)
-//     and not once per head (B and C are shared by the heads; the TPU
-//     kernel recomputes it per head).  32 x 32 output tiles, only those on
-//     or below the diagonal; stored transposed (G^T[j][i]) so that the scan
-//     reads it coalesced.  At mamba2's chunk of 256 the (Q, Q) block is
-//     256 KB, more than a CTA's shared memory, so it lives in device memory
-//     (L2: 2 MB for S = 2048).
-//  2. ssd_scan_kernel: one CTA per (head, block of 16 of the P columns,
-//     batch) walks the chunks in order.  Columns of the state are
-//     independent, so splitting P gives 4 x more CTAs than the TPU grid
-//     (B, H).  The CTA keeps its (16 x N) state slice in shared memory, and
-//     for each chunk stages cs (an in-block scan) and the x slice; thread i
-//     computes row i of y over j <= i only (exp(cs_i - cs_j) is never formed
-//     above the diagonal, where it overflows), then the threads update the
-//     state slice.
+// The output does not depend on the chunk length, so the kernels work at
+// their own sub-chunk of kSub = 64 steps, whatever chunk the caller names
+// (mamba2's is 256): the quadratic term is 4x smaller than at 256 and there
+// are 4x as many independent units.  The TPU kernel walks the chunks of a
+// (batch, head) in order; here only the small state recurrence is walked in
+// order.  Three kernels on one stream:
+//  1. ssd_state_kernel, a CTA per (sub-chunk, head, batch x 64 columns of
+//     P): cs by a warp scan, the sub-chunk's decay exp(cs_Q) and its state
+//     contribution s_c = (x * exp(cs_Q - cs))^T B, a register-tiled product
+//     (4 x 8 outputs a thread) from shared memory.  An extra row of CTAs
+//     (head index H) forms G = C B^T of each sub-chunk once, shared by the
+//     heads (B and C are (B, S, N)).
+//  2. ssd_pass_kernel, a thread per (batch, head, state element): runs
+//     h_c = exp(cs_Q,c) h_{c-1} + s_c over the sub-chunks in order from h0
+//     (or zeros), overwrites s_c with the state entering sub-chunk c and
+//     writes the final state.  The states scratch, (B, S/64, H, P, N) f32
+//     like h0, is 25 MB at mamba2's S 2048 (half the 50 MB L2).
+//  3. ssd_output_kernel, a CTA per (sub-chunk, head, batch x 64 columns of
+//     P): y = diag(exp cs) (C h_in^T) + (G * L) x, one register-tiled
+//     product (4 x 4 outputs a thread) over N + 64 terms, 64 at a time.
+//     exp(cs_i - cs_j) is formed once per (i, j) a CTA and only on or below
+//     the diagonal, where it cannot overflow; the warps skip the columns of
+//     the intra-chunk term above their rows.
+// Kernels 1 and 3 stage their operands with cp.async into two buffers, so
+// the next slab's loads overlap the current slab's products (zero-filled
+// past the sequence, N and P; h_in lands transposed).
 //
 // Bound on the card: operations, at mamba2's prefill (S 2048, H 24, P 64,
-// N 128, Q 256): ~1.9 GFLOP of f32 multiply-adds against ~35 MB of inputs
-// and outputs.  All arithmetic is f32 on the CUDA cores (the tolerance is
-// 2e-4); the scan kernel has 96 CTAs for one batch-1 prefill, fewer than
-// the 132 SMs.
+// N 128): ~1.7 GFLOP of f32 multiply-adds against ~28 MB of inputs and
+// outputs.  All arithmetic is IEEE f32 on the CUDA cores (the tolerance is
+// 2e-4; TF32 operands would not hold it).
 //
 // The entry point returns cudaGetLastError() so the wrapper can raise on a
 // refused launch.
 
 #include <cuda_runtime.h>
 
+#include <mutex>
+
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int kTile = 32;
-constexpr int kPB = 16;            // state columns (of P) per scan CTA
-constexpr int kScanThreads = 256;
-constexpr int kScanPerThread = 4;  // chunk <= kScanThreads * kScanPerThread
+constexpr int kSub = 64;        // steps of a sub-chunk
+constexpr int kThreads = 256;
+constexpr int kPTile = 64;      // columns of P a CTA of kernels 1 and 3 takes
+constexpr int kNBlock = 128;    // rows of N kernel 1 computes at once
+constexpr int kGramStride = kSub + 4;  // padded row of a staged 64-column slab of B or C
+constexpr int kBStride = kPTile + 4;  // padded row of kernel 3's [k][p] operand
+constexpr int kMaxState = 256;
+constexpr int kMaxDevices = 64;
+// dynamic shared memory of kernel 1: two stages, each half the steps of x
+// and of a block of B's columns
+constexpr int kHalf = kSub / 2;
+constexpr int kStateStage = kHalf * kPTile + kHalf * kNBlock;
+constexpr int kStateSmem = 2 * kStateStage * sizeof(float);
+static_assert(2 * kSub * kGramStride * sizeof(float) <= kStateSmem, "gram slabs fit");
 
-__global__ void __launch_bounds__(kTile * 8)
-ssd_gram_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
-                float* __restrict__ gram_t, int seq, int n_state, int chunk, int n_chunks) {
-  __shared__ float c_t[kTile][kTile + 1];  // [n][i]
-  __shared__ float b_t[kTile][kTile + 1];  // [n][j]
-  const int it = blockIdx.x, jt = blockIdx.y;
-  if (jt > it) return;  // strictly above the diagonal: never read
-  const int bc = blockIdx.z;
-  const int b = bc / n_chunks, c = bc % n_chunks;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const long row_base = static_cast<long>(b) * seq + static_cast<long>(c) * chunk;
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int n0 = 0; n0 < n_state; n0 += kTile) {
-    const int n = n0 + tx;
+// cs[j] = log_a[t0] + ... + log_a[t0 + j] for j < kSub (0 past the sequence),
+// by the first warp, 2 steps a lane.  Callers __syncthreads() after it.
+__device__ __forceinline__ void chunk_cumsum(const float* __restrict__ log_a, long row0,
+                                             int heads, int h, int valid, float* cs) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x, j0 = 2 * lane;
+  const float v0 = j0 < valid ? log_a[(row0 + j0) * heads + h] : 0.0f;
+  const float v1 = j0 + 1 < valid ? log_a[(row0 + j0 + 1) * heads + h] : 0.0f;
+  float incl = v0 + v1;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int r = ty + 8 * k;
-      const int i = it * kTile + r, j = jt * kTile + r;
-      const bool n_ok = n < n_state;
-      c_t[tx][r] = (n_ok && i < chunk && c * chunk + i < seq)
-                       ? cm[(row_base + i) * n_state + n] : 0.0f;
-      b_t[tx][r] = (n_ok && j < chunk && c * chunk + j < seq)
-                       ? bm[(row_base + j) * n_state + n] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int nn = 0; nn < kTile; ++nn) {
-      const float cv = c_t[nn][tx];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[k] = fmaf(cv, b_t[nn][ty + 8 * k], acc[k]);
-    }
-    __syncthreads();
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += o;
   }
-  const int i = it * kTile + tx;
+  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.0f;
+  cs[j0] = excl + v0;
+  cs[j0 + 1] = cs[j0] + v1;
+}
+
+// G = C B^T of one sub-chunk (rows past the sequence are 0), row-major
+// kSub x kSub; thread (ty, tx) computes rows 4ty.. and columns tx + 16s.
+__device__ void gram_tile(const float* __restrict__ bm, const float* __restrict__ cm,
+                          float* __restrict__ g, long row0, int valid, int n_state,
+                          float* smem) {
+  float* ct = smem;                      // [kSub][kGramStride] C slab
+  float* bt = ct + kSub * kGramStride;   // [kSub][kGramStride] B slab
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  float acc[4][4] = {};
+  for (int n0 = 0; n0 < n_state; n0 += kSub) {
+    __syncthreads();
+#pragma unroll 4
+    for (int it = 0; it < kSub * kSub / kThreads; ++it) {
+      const int e = tid + it * kThreads, i = e / kSub, n = e % kSub;
+      const bool ok = i < valid && n0 + n < n_state;
+      ct[i * kGramStride + n] = ok ? cm[(row0 + i) * n_state + n0 + n] : 0.0f;
+      bt[i * kGramStride + n] = ok ? bm[(row0 + i) * n_state + n0 + n] : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int k = 0; k < kSub; k += 4) {
+      float4 a[4], w[4];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int j = jt * kTile + ty + 8 * k;
-    if (i < chunk && j < chunk) gram_t[(static_cast<long>(bc) * chunk + j) * chunk + i] = acc[k];
+      for (int r = 0; r < 4; ++r)
+        a[r] = *reinterpret_cast<const float4*>(&ct[(4 * ty + r) * kGramStride + k]);
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        w[s] = *reinterpret_cast<const float4*>(&bt[(tx + 16 * s) * kGramStride + k]);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          float v = acc[r][s];
+          v = fmaf(a[r].x, w[s].x, v);
+          v = fmaf(a[r].y, w[s].y, v);
+          v = fmaf(a[r].z, w[s].z, v);
+          acc[r][s] = fmaf(a[r].w, w[s].w, v);
+        }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int s = 0; s < 4; ++s) g[(4 * ty + r) * kSub + tx + 16 * s] = acc[r][s];
+}
+
+__global__ void __launch_bounds__(kThreads)
+ssd_state_kernel(const float* __restrict__ x, const float* __restrict__ log_a,
+                 const float* __restrict__ bm, const float* __restrict__ cm,
+                 float* __restrict__ states, float* __restrict__ decay,
+                 float* __restrict__ gram, int seq, int heads, int head_dim, int n_state,
+                 int p_tiles) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float cs[kSub], w[kSub];  // cumsum of log_a, exp(cs_Q - cs_j)
+  const int c = blockIdx.x, h = blockIdx.y;
+  const int b = blockIdx.z / p_tiles, pt = blockIdx.z - b * p_tiles;
+  const int n_sub = gridDim.x;
+  const int t0 = c * kSub, valid = min(kSub, seq - t0);
+  const long row0 = static_cast<long>(b) * seq + t0;  // (b, t0) in (B, S)
+  const long bc = static_cast<long>(b) * n_sub + c;   // (b, c) in (B, S/kSub)
+  if (h == heads) {
+    if (pt == 0) gram_tile(bm, cm, gram + bc * kSub * kSub, row0, valid, n_state, smem);
+    return;
+  }
+  const int tid = threadIdx.x, p0 = pt * kPTile;
+  // stage sl: rows 32 (sl % 2).. of x (then scaled by w) and of a block of
+  // B's columns (block sl / 2), by cp.async, zero past the sequence
+  auto issue = [&](int sl, int st) {
+    float* xs = smem + st * kStateStage;  // [kHalf][kPTile]
+    float* bs = xs + kHalf * kPTile;       // [kHalf][kNBlock]
+    const int j0 = (sl % 2) * kHalf, n0 = (sl / 2) * kNBlock;
+#pragma unroll 4
+    for (int it = 0; it < kHalf * kPTile / kThreads; ++it) {
+      const int e = tid + it * kThreads, j = j0 + e / kPTile, p = e % kPTile;
+      const bool ok = j < valid && p0 + p < head_dim;
+      sm90::cp_async4(sm90::smem_u32(&xs[e]),
+                      ok ? &x[((row0 + j) * heads + h) * head_dim + p0 + p] : x, ok);
+    }
+#pragma unroll 4
+    for (int it = 0; it < kHalf * kNBlock / kThreads; ++it) {
+      const int e = tid + it * kThreads, j = j0 + e / kNBlock, n = e % kNBlock;
+      const bool ok = j < valid && n0 + n < n_state;
+      sm90::cp_async4(sm90::smem_u32(&bs[e]), ok ? &bm[(row0 + j) * n_state + n0 + n] : bm, ok);
+    }
+    sm90::cp_async_commit();
+  };
+  const int total = 2 * ((n_state + kNBlock - 1) / kNBlock);
+  issue(0, 0);
+  issue(1, 1);
+  chunk_cumsum(log_a, row0, heads, h, valid, cs);
+  __syncthreads();
+  const float cs_last = cs[kSub - 1];
+  if (tid < kSub) w[tid] = expf(cs_last - cs[tid]);
+  if (tid == 0 && pt == 0) decay[bc * heads + h] = expf(cs_last);
+
+  // s_c[p][n] = sum_j x[j][p] w[j] B[j][n]; thread (ty, tx): p 4ty.., n 4tx.. and 64 + 4tx..
+  const int ty = tid / 16, tx = tid % 16;
+  const bool vec = n_state % 4 == 0;  // float4 stores stay aligned
+  float* dst = states + (bc * heads + h) * static_cast<long>(head_dim) * n_state;
+  float acc[4][8] = {};
+  for (int sl = 0; sl < total; ++sl) {
+    const int st = sl & 1;
+    if (sl + 1 < total) sm90::cp_async_wait<1>(); else sm90::cp_async_wait<0>();
+    __syncthreads();  // stage sl has landed for every thread (and w is set)
+    float* xs = smem + st * kStateStage;
+    const float* bs = xs + kHalf * kPTile;
+    const int j0 = (sl % 2) * kHalf;
+#pragma unroll 4
+    for (int it = 0; it < kHalf * kPTile / kThreads; ++it) {
+      const int e = tid + it * kThreads;
+      xs[e] *= w[j0 + e / kPTile];
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int j = 0; j < kHalf; ++j) {
+      const float4 a = *reinterpret_cast<const float4*>(&xs[j * kPTile + 4 * ty]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&bs[j * kNBlock + 4 * tx]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&bs[j * kNBlock + 64 + 4 * tx]);
+      const float ar[4] = {a.x, a.y, a.z, a.w};
+      const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[r][q] = fmaf(ar[r], br[q], acc[r][q]);
+    }
+    if (sl % 2 == 1) {  // the block of columns is complete
+      const int n0 = (sl / 2) * kNBlock;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int p = p0 + 4 * ty + r;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int n = n0 + 64 * u + 4 * tx;
+          if (p >= head_dim) continue;
+          float* out = dst + static_cast<long>(p) * n_state + n;
+          if (vec && n + 3 < n_state) {
+            *reinterpret_cast<float4*>(out) = make_float4(acc[r][4 * u], acc[r][4 * u + 1],
+                                                          acc[r][4 * u + 2], acc[r][4 * u + 3]);
+          } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              if (n + q < n_state) out[q] = acc[r][4 * u + q];
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[r][q] = 0.0f;
+      }
+    }
+    __syncthreads();  // every thread is done with stage st
+    if (sl + 2 < total) issue(sl + 2, st);
   }
 }
 
-__global__ void __launch_bounds__(kScanThreads)
-ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ log_a,
-                const float* __restrict__ bm, const float* __restrict__ cm,
-                const float* __restrict__ gram_t, const float* __restrict__ h0,
-                float* __restrict__ y, float* __restrict__ h_out, int seq, int heads,
-                int head_dim, int n_state, int chunk, int n_chunks) {
+// One thread per state element (p, n) of a (batch, head), in the layout of
+// h0 and of the states scratch; 8 sub-chunks' contributions are loaded
+// before they are chained, so the loads overlap.
+__global__ void __launch_bounds__(kThreads)
+ssd_pass_kernel(const float* __restrict__ h0, const float* __restrict__ decay,
+                float* __restrict__ states, float* __restrict__ h_out, int n_sub, int heads,
+                int head_dim, int n_state) {
+  const int per_head = n_state * head_dim;
+  const int e = blockIdx.x * kThreads + threadIdx.x;  // p * N + n
+  if (e >= per_head) return;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long hp = (static_cast<long>(b) * heads + h) * per_head + e;  // in (B, H, P, N)
+  float hv = h0 != nullptr ? h0[hp] : 0.0f;
+  const long stride = static_cast<long>(heads) * per_head;  // one sub-chunk further
+  float* st = states + (static_cast<long>(b) * n_sub * heads + h) * per_head + e;
+  const float* dc = decay + static_cast<long>(b) * n_sub * heads + h;
+  for (int c = 0; c < n_sub; c += 8) {
+    float s[8], d[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      s[u] = c + u < n_sub ? st[(c + u) * stride] : 0.0f;
+      d[u] = c + u < n_sub ? dc[(c + u) * heads] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (c + u < n_sub) {
+        st[(c + u) * stride] = hv;
+        hv = fmaf(d[u], hv, s[u]);
+      }
+    }
+  }
+  h_out[hp] = hv;
+}
+
+// dynamic shared memory of kernel 3: two stages of an A slab [64][64] and
+// a B slab [64][kBStride]
+constexpr int kOutStage = kSub * kSub + kSub * kBStride;
+constexpr int kOutSmem = 2 * kOutStage * sizeof(float);
+
+__global__ void __launch_bounds__(kThreads)
+ssd_output_kernel(const float* __restrict__ x, const float* __restrict__ log_a,
+                  const float* __restrict__ cm, const float* __restrict__ states,
+                  const float* __restrict__ gram, float* __restrict__ y, int seq, int heads,
+                  int head_dim, int n_state, int p_tiles) {
   extern __shared__ __align__(16) float smem[];
-  const int chunk_pad = (chunk + 3) & ~3;
-  float* cs = smem;                  // [chunk]        cumsum of log_a
-  float* xs = cs + chunk_pad;        // [chunk][kPB]   x slice (then x * decay)
-  float* hs = xs + chunk * kPB;      // [n_state][kPB] state slice, transposed
-  const int h = blockIdx.x;
-  const int p0 = blockIdx.y * kPB;
-  const int b = blockIdx.z;
-  const int pb = min(kPB, head_dim - p0);
-  const int tid = threadIdx.x;
-  const long hp_base = (static_cast<long>(b) * heads + h) * head_dim + p0;  // (b, h, p0)
+  __shared__ float cs[kSub], ecs[kSub];
+  const int c = blockIdx.x, h = blockIdx.y;
+  const int b = blockIdx.z / p_tiles, pt = blockIdx.z - b * p_tiles;
+  const int n_sub = gridDim.x;
+  const int t0 = c * kSub, valid = min(kSub, seq - t0);
+  const long row0 = static_cast<long>(b) * seq + t0;
+  const long bc = static_cast<long>(b) * n_sub + c;
+  const int p0 = pt * kPTile;
+  const int tid = threadIdx.x, warp = tid / 32, ty = tid / 16, tx = tid % 16;
+  // the state entering this sub-chunk, (P, N) in the states scratch
+  const float* hin = states + (bc * heads + h) * static_cast<long>(head_dim) * n_state;
+  const float* g = gram + bc * kSub * kSub;
+  const int n_slabs = (n_state + kSub - 1) / kSub;  // of C h^T; then one of G x
 
-  for (int e = tid; e < n_state * kPB; e += kScanThreads) {
-    const int n = e / kPB, pp = e % kPB;
-    hs[e] = (h0 != nullptr && pp < pb) ? h0[(hp_base + pp) * n_state + n] : 0.0f;
-  }
-
-  for (int c = 0; c < n_chunks; ++c) {
-    const int t0 = c * chunk;
-    const int valid = min(chunk, seq - t0);
-    const long row0 = static_cast<long>(b) * seq + t0;  // (b, t0) in (B, S)
-    __syncthreads();  // the previous chunk is done with cs, xs and hs
-    for (int i = tid; i < chunk; i += kScanThreads)
-      cs[i] = i < valid ? log_a[(row0 + i) * heads + h] : 0.0f;
-    for (int e = tid; e < chunk * kPB; e += kScanThreads) {
-      const int j = e / kPB, pp = e % kPB;
-      xs[e] = (j < valid && pp < pb) ? x[((row0 + j) * heads + h) * head_dim + p0 + pp] : 0.0f;
-    }
-    // inclusive scan of cs (Hillis-Steele)
-    for (int off = 1; off < chunk; off <<= 1) {
-      __syncthreads();
-      float add[kScanPerThread];
-#pragma unroll
-      for (int k = 0; k < kScanPerThread; ++k) {
-        const int i = tid + k * kScanThreads;
-        add[k] = (i < chunk && i >= off) ? cs[i - off] : 0.0f;
+  // slab `sl` into stage `st` by cp.async: C (rows past the sequence and
+  // columns past N zero) and h_in^T, or G and x
+  auto issue = [&](int sl, int st) {
+    float* a = smem + st * kOutStage;
+    float* bs = a + kSub * kSub;
+    if (sl < n_slabs) {
+      const int n0 = sl * kSub;
+#pragma unroll 4
+      for (int it = 0; it < kSub * kSub / kThreads; ++it) {
+        const int e = tid + it * kThreads, i = e / kSub, n = e % kSub;
+        const bool ok = i < valid && n0 + n < n_state;
+        sm90::cp_async4(sm90::smem_u32(&a[e]), ok ? &cm[(row0 + i) * n_state + n0 + n] : cm, ok);
       }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kScanPerThread; ++k) {
-        const int i = tid + k * kScanThreads;
-        if (i < chunk) cs[i] += add[k];
+#pragma unroll 4
+      for (int it = 0; it < kSub * kPTile / kThreads; ++it) {  // read along n, land transposed
+        const int e = tid + it * kThreads, p = e / kSub, n = e % kSub;
+        const bool ok = n0 + n < n_state && p0 + p < head_dim;
+        sm90::cp_async4(sm90::smem_u32(&bs[n * kBStride + p]),
+                        ok ? &hin[static_cast<long>(p0 + p) * n_state + n0 + n] : hin, ok);
+      }
+    } else {
+#pragma unroll 4
+      for (int it = 0; it < kSub * kSub / kThreads; ++it) {
+        const int e = tid + it * kThreads;
+        sm90::cp_async4(sm90::smem_u32(&a[e]), &g[e], true);
+      }
+#pragma unroll 4
+      for (int it = 0; it < kSub * kPTile / kThreads; ++it) {
+        const int e = tid + it * kThreads, j = e / kPTile, p = e % kPTile;
+        const bool ok = j < valid && p0 + p < head_dim;
+        sm90::cp_async4(sm90::smem_u32(&bs[j * kBStride + p]),
+                        ok ? &x[((row0 + j) * heads + h) * head_dim + p0 + p] : x, ok);
       }
     }
-    __syncthreads();
-
-    // y: thread i takes row i
-    const float* g_chunk = gram_t + static_cast<long>(b * n_chunks + c) * chunk * chunk;
-    for (int i = tid; i < valid; i += kScanThreads) {
-      const float cs_i = cs[i];
-      float acc[kPB];
-#pragma unroll
-      for (int pp = 0; pp < kPB; ++pp) acc[pp] = 0.0f;
-      for (int j = 0; j <= i; ++j) {
-        const float w = g_chunk[static_cast<long>(j) * chunk + i] * expf(cs_i - cs[j]);
-        const float4* xr = reinterpret_cast<const float4*>(&xs[j * kPB]);
-#pragma unroll
-        for (int q4 = 0; q4 < kPB / 4; ++q4) {
-          const float4 xv = xr[q4];
-          acc[4 * q4 + 0] = fmaf(w, xv.x, acc[4 * q4 + 0]);
-          acc[4 * q4 + 1] = fmaf(w, xv.y, acc[4 * q4 + 1]);
-          acc[4 * q4 + 2] = fmaf(w, xv.z, acc[4 * q4 + 2]);
-          acc[4 * q4 + 3] = fmaf(w, xv.w, acc[4 * q4 + 3]);
-        }
-      }
-      float inter[kPB];
-#pragma unroll
-      for (int pp = 0; pp < kPB; ++pp) inter[pp] = 0.0f;
-      const float* c_row = cm + (row0 + i) * n_state;
-      for (int n = 0; n < n_state; ++n) {
-        const float cv = c_row[n];
-        const float4* hr = reinterpret_cast<const float4*>(&hs[n * kPB]);
-#pragma unroll
-        for (int q4 = 0; q4 < kPB / 4; ++q4) {
-          const float4 hv = hr[q4];
-          inter[4 * q4 + 0] = fmaf(cv, hv.x, inter[4 * q4 + 0]);
-          inter[4 * q4 + 1] = fmaf(cv, hv.y, inter[4 * q4 + 1]);
-          inter[4 * q4 + 2] = fmaf(cv, hv.z, inter[4 * q4 + 2]);
-          inter[4 * q4 + 3] = fmaf(cv, hv.w, inter[4 * q4 + 3]);
-        }
-      }
-      const float e_i = expf(cs_i);
-      float* y_row = y + ((row0 + i) * heads + h) * head_dim + p0;
-#pragma unroll
-      for (int pp = 0; pp < kPB; ++pp)
-        if (pp < pb) y_row[pp] = acc[pp] + e_i * inter[pp];
-    }
-    __syncthreads();  // y is done with hs and xs
-
-    // state: h' = exp(cs_Q) h + sum_j (x_j exp(cs_Q - cs_j)) B_j
-    const float cs_last = cs[chunk - 1];
-    for (int e = tid; e < valid * kPB; e += kScanThreads) xs[e] *= expf(cs_last - cs[e / kPB]);
-    __syncthreads();
-    const float e_last = expf(cs_last);
-    for (int e = tid; e < n_state * kPB; e += kScanThreads) {
-      const int n = e / kPB, pp = e % kPB;
-      float acc = 0.0f;
-      for (int j = 0; j < valid; ++j) acc = fmaf(xs[j * kPB + pp], bm[(row0 + j) * n_state + n], acc);
-      hs[e] = e_last * hs[e] + acc;
-    }
-  }
+    sm90::cp_async_commit();
+  };
+  issue(0, 0);
+  issue(1, 1);  // there are at least two slabs: one of C h^T and G x
+  chunk_cumsum(log_a, row0, heads, h, valid, cs);
   __syncthreads();
-  for (int e = tid; e < n_state * kPB; e += kScanThreads) {
-    const int n = e / kPB, pp = e % kPB;
-    if (pp < pb) h_out[(hp_base + pp) * n_state + n] = hs[e];
+  if (tid < kSub) ecs[tid] = expf(cs[tid]);
+
+  // thread (ty, tx) computes rows 4ty.. and columns 4tx..; warp w holds rows
+  // 8w..8w+7, whose intra-chunk terms end at column 8w+7
+  float acc[4][4] = {};
+  auto accumulate = [&](const float* a, const float* bs, int k_end) {
+#pragma unroll 2
+    for (int k = 0; k < k_end; k += 4) {
+      float4 av[4], v[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) av[r] = *reinterpret_cast<const float4*>(&a[(4 * ty + r) * kSub + k]);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = *reinterpret_cast<const float4*>(&bs[(k + u) * kBStride + 4 * tx]);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float ar[4] = {av[r].x, av[r].y, av[r].z, av[r].w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          acc[r][0] = fmaf(ar[u], v[u].x, acc[r][0]);
+          acc[r][1] = fmaf(ar[u], v[u].y, acc[r][1]);
+          acc[r][2] = fmaf(ar[u], v[u].z, acc[r][2]);
+          acc[r][3] = fmaf(ar[u], v[u].w, acc[r][3]);
+        }
+      }
+    }
+  };
+  const int total = n_slabs + 1;
+  for (int sl = 0; sl < total; ++sl) {
+    const int st = sl & 1;
+    if (sl + 1 < total) sm90::cp_async_wait<1>(); else sm90::cp_async_wait<0>();
+    __syncthreads();  // slab sl has landed for every thread (and ecs is set)
+    float* a = smem + st * kOutStage;
+    const float* bs = a + kSub * kSub;
+    if (sl < n_slabs) {
+      accumulate(a, bs, kSub);
+    } else {
+      // y = diag(exp cs) (C h^T) + (G * L) x: scale the sums so far, then
+      // mask and decay G in place, on and below the diagonal only
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[r][q] *= ecs[4 * ty + r];
+#pragma unroll 4
+      for (int it = 0; it < kSub * kSub / kThreads; ++it) {
+        const int e = tid + it * kThreads, i = e / kSub, j = e % kSub;
+        a[e] = j <= i ? a[e] * expf(cs[i] - cs[j]) : 0.0f;
+      }
+      __syncthreads();
+      accumulate(a, bs, 8 * warp + 8);
+    }
+    __syncthreads();  // every thread is done with stage st
+    if (sl + 2 < total) issue(sl + 2, st);
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = 4 * ty + r;
+    if (i >= valid) continue;
+    float* y_row = y + ((row0 + i) * heads + h) * head_dim;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int p = p0 + 4 * tx + q;
+      if (p < head_dim) y_row[p] = acc[r][q];
+    }
   }
 }
 
@@ -209,28 +415,48 @@ const char* ssd_scan_error_string(int err) {
 }
 
 // x, y (B, S, H, P); log_a (B, S, H); bm, cm (B, S, N); h0 (nullable), h_out
-// (B, H, P, N); gram (B, n_chunks, chunk, chunk) scratch.  f32, contiguous.
+// (B, H, P, N); scratch: states (B, S/sub, H, P, N), decay (B, S/sub, H),
+// gram (B, S/sub, sub, sub), with S/sub rounded up.  f32, contiguous.  `sub`
+// must be the kernels' sub-chunk (64); `device` is the pointers' CUDA
+// device, current on the calling thread.
 int ssd_scan_launch(const float* x, const float* log_a, const float* bm, const float* cm,
-                    const float* h0, float* y, float* h_out, float* gram, int batch, int seq,
-                    int heads, int head_dim, int n_state, int chunk, void* stream) {
-  if (batch <= 0 || seq <= 0 || heads <= 0 || head_dim <= 0 || n_state <= 0 || chunk <= 0 ||
-      chunk > kScanThreads * kScanPerThread)
+                    const float* h0, float* y, float* h_out, float* states, float* decay,
+                    float* gram, int batch, int seq, int heads, int head_dim, int n_state,
+                    int sub, int device, void* stream) {
+  if (batch <= 0 || seq <= 0 || heads <= 0 || head_dim <= 0 || n_state <= 0 ||
+      n_state > kMaxState || sub != kSub || device < 0 || device >= kMaxDevices)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int n_sub = (seq + kSub - 1) / kSub;
+  const int p_tiles = (head_dim + kPTile - 1) / kPTile;
+  const long per_head = static_cast<long>(n_state) * head_dim;
+  if (static_cast<long>(batch) * p_tiles > 65535 || heads >= 65535 || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);  // grid y and z limits
+  {  // once per device: kernel 1's shared-memory opt-in
+    static std::mutex mu;
+    static bool ready[kMaxDevices];
+    std::lock_guard<std::mutex> lock(mu);
+    if (!ready[device]) {
+      cudaError_t err = cudaFuncSetAttribute(
+          ssd_state_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kStateSmem);
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(ssd_output_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   kOutSmem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      ready[device] = true;
+    }
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_chunks = (seq + chunk - 1) / chunk;
-  if (static_cast<long>(batch) * n_chunks > 65535 || batch > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);  // grid z limit
-  const int tiles = (chunk + kTile - 1) / kTile;
-  ssd_gram_kernel<<<dim3(tiles, tiles, batch * n_chunks), dim3(kTile, 8), 0, s>>>(
-      bm, cm, gram, seq, n_state, chunk, n_chunks);
+  ssd_state_kernel<<<dim3(n_sub, heads + 1, batch * p_tiles), kThreads, kStateSmem, s>>>(
+      x, log_a, bm, cm, states, decay, gram, seq, heads, head_dim, n_state, p_tiles);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int smem = (((chunk + 3) & ~3) + chunk * kPB + n_state * kPB) * static_cast<int>(sizeof(float));
-  err = cudaFuncSetAttribute(ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const unsigned pass_blocks = static_cast<unsigned>((per_head + kThreads - 1) / kThreads);
+  ssd_pass_kernel<<<dim3(pass_blocks, heads, batch), kThreads, 0, s>>>(
+      h0, decay, states, h_out, n_sub, heads, head_dim, n_state);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(heads, (head_dim + kPB - 1) / kPB, batch);
-  ssd_scan_kernel<<<grid, kScanThreads, smem, s>>>(x, log_a, bm, cm, gram, h0, y, h_out, seq,
-                                                   heads, head_dim, n_state, chunk, n_chunks);
+  ssd_output_kernel<<<dim3(n_sub, heads, batch * p_tiles), kThreads, kOutSmem, s>>>(
+      x, log_a, cm, states, gram, y, seq, heads, head_dim, n_state, p_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,10 +5,13 @@ The counterpart of ``repro.kernels.hotspot.hotspot``; the CUDA source is
 
 * :func:`hotspot_hpc` (K1) replaces ``hotspot.py::hotspot_hpc_pallas``, the
   **HPC (cache-coherent) analogue**: all ``steps`` time iterations in one
-  launch.  The grid ping-pongs between two device buffers with a grid-wide
-  barrier between steps; at 2048² both buffers and the power grid fit in
-  the 50 MB L2.  Bound on the card: bytes, one read of T and P and one
-  write of T.
+  launch.  Each CTA loads a 2-D tile with a halo up to 8 cells deep into
+  shared memory and advances it as many steps there (temporal blocking),
+  so there is one grid-wide barrier per 8 steps at most; the grid
+  ping-pongs between two device buffers from phase to phase.  A single
+  step (the runtime's bands) runs a kernel that reads the neighbours
+  through L1 instead.  Bound on the card: bytes, one read of T and P and
+  one write of T.
 * :func:`hotspot_hp_step` (K2) replaces ``hotspot.py::hotspot_hp_step_pallas``,
   the **HP (non-cacheable) analogue**: one launch per time step, with the
   up and down neighbours materialised as shifted copies first (the HP-port
@@ -45,7 +48,9 @@ __all__ = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_HPC_ARGS = (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _P)
+_HPC_ARGS = (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P)
+
+MAX_CELLS = 2 ** 31  # K1 indexes the grid with 32-bit ints
 _HP_ARGS = (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _P)
 
 
@@ -120,6 +125,8 @@ def hotspot_hpc(
     if temp.device.type == "cpu":
         return hotspot_hpc_plain(temp, power, cfg, steps, grid=grid)
     rows, cols = temp.shape
+    if rows * cols >= MAX_CELLS:
+        raise ValueError(f"the CUDA K1 kernel takes fewer than 2**31 cells, got {rows} x {cols}")
     coeff = _kernel_coeff(cfg, temp.shape, grid)
     out = torch.empty_like(temp)
     scratch = torch.empty_like(temp) if steps > 1 else out
@@ -127,7 +134,7 @@ def hotspot_hpc(
     with torch.cuda.device(temp.device):
         stream = torch.cuda.current_stream(temp.device).cuda_stream
         err = launch(temp.data_ptr(), power.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                     rows, cols, steps, *coeff, stream)
+                     rows, cols, steps, *coeff, temp.device.index, stream)
     _build.check("hotspot", err, "hotspot_hpc launch")
     _build.count_launch(hotspot_hpc)
     return out

@@ -12,9 +12,15 @@ model needs and the TPU kernel lacks: a carried-in state ``h0`` and any
 sequence length (the last chunk may be partial, as if padded with
 ``log_a = 0`` and ``B = 0``).
 
-The plain version is :func:`~repro_torch.kernels.ssd_scan.ref.ssd_chunked`.
-The wrapper takes it for tensors on the CPU, launches the kernel for CUDA
-tensors, and counts its launches in ``ssd_scan.launches``.
+The output does not depend on the chunk length, so the CUDA kernels work
+at their own sub-chunk of :data:`SUB` steps whatever ``chunk`` the caller
+names: per sub-chunk its state contribution (in parallel), then the state
+recurrence over the sub-chunks in order, then y from the states passed in
+(in parallel).  The plain version is
+:func:`~repro_torch.kernels.ssd_scan.ref.ssd_chunked`, at the caller's
+chunk.  The wrapper takes it for tensors on the CPU, launches the kernels
+for CUDA tensors, and counts each call in ``ssd_scan.launches`` (one call
+runs three kernels on the stream).
 """
 
 from __future__ import annotations
@@ -27,14 +33,14 @@ import torch
 from ... import _build
 from .ref import ssd_chunked
 
-__all__ = ["ssd_scan", "ssd_scan_plain", "MAX_CHUNK", "MAX_STATE"]
+__all__ = ["ssd_scan", "ssd_scan_plain", "SUB", "MAX_STATE"]
 
-MAX_CHUNK = 1024   # the kernel's in-block cumsum holds 4 steps a thread
+SUB = 64          # the CUDA kernels' sub-chunk (steps)
 MAX_STATE = 256
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+_ARGS = (_P,) * 10 + (_I,) * 7 + (_P,)
 
 
 def _check(x, log_a, Bm, Cm, chunk: int, h0: Optional[torch.Tensor]) -> None:
@@ -59,9 +65,8 @@ def _check(x, log_a, Bm, Cm, chunk: int, h0: Optional[torch.Tensor]) -> None:
             raise TypeError("the CUDA K5 kernel takes float32 inputs")
         if not all(t.is_contiguous() for t in tensors):
             raise ValueError("the CUDA K5 kernel takes contiguous tensors")
-        if chunk > MAX_CHUNK or n > MAX_STATE:
-            raise ValueError(f"the CUDA K5 kernel takes chunk <= {MAX_CHUNK} and "
-                             f"N <= {MAX_STATE}, got {chunk}, {n}")
+        if n > MAX_STATE:
+            raise ValueError(f"the CUDA K5 kernel takes N <= {MAX_STATE}, got {n}")
     elif x.device.type != "cpu":
         raise ValueError(f"K5 runs on cpu or cuda, got {x.device}")
 
@@ -80,17 +85,21 @@ def ssd_scan(x, log_a, Bm, Cm, *, chunk: int = 64,
         return ssd_scan_plain(x, log_a, Bm, Cm, chunk=chunk, h0=h0)
     b, s, h, p = x.shape
     n = Bm.shape[2]
-    n_chunks = (s + chunk - 1) // chunk
+    n_sub = (s + SUB - 1) // SUB
     y = torch.empty_like(x)
     h_out = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
-    # C·Bᵀ of every chunk, shared by all heads (scratch; lower triangle used)
-    gram = torch.empty((b, n_chunks, chunk, chunk), dtype=torch.float32, device=x.device)
+    # scratch: each sub-chunk's state contribution, overwritten by the state
+    # entering it; its decay exp(cs_Q); its C·Bᵀ, shared by the heads
+    states = torch.empty((b, n_sub, h, p, n), dtype=torch.float32, device=x.device)
+    decay = torch.empty((b, n_sub, h), dtype=torch.float32, device=x.device)
+    gram = torch.empty((b, n_sub, SUB, SUB), dtype=torch.float32, device=x.device)
     launch = _build.function("ssd_scan", "ssd_scan_launch", _ARGS)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = launch(x.data_ptr(), log_a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
                      h0.data_ptr() if h0 is not None else None, y.data_ptr(),
-                     h_out.data_ptr(), gram.data_ptr(), b, s, h, p, n, chunk, stream)
+                     h_out.data_ptr(), states.data_ptr(), decay.data_ptr(), gram.data_ptr(),
+                     b, s, h, p, n, SUB, x.device.index, stream)
     _build.check("ssd_scan", err, "ssd_scan launch")
     _build.count_launch(ssd_scan)
     return y, h_out

@@ -55,16 +55,28 @@ def cuda():
     return torch.device("cuda")
 
 
-def grids(n, device, seed=0):
+def grids(n, device, seed=0, cols=None):
     rng = np.random.default_rng(seed)
-    return (torch.from_numpy(80.0 + 10.0 * rng.random((n, n), np.float32)).to(device),
-            torch.from_numpy(rng.random((n, n), np.float32)).to(device))
+    shape = (n, n if cols is None else cols)
+    return (torch.from_numpy(80.0 + 10.0 * rng.random(shape, np.float32)).to(device),
+            torch.from_numpy(rng.random(shape, np.float32)).to(device))
 
 
-@pytest.mark.parametrize("grid,steps", [(64, 1), (256, 8), (2048, 8)])
-def test_k1_matches_plain(cuda, grid, steps):
-    t, p = grids(grid, cuda)
-    cfg = HotspotConfig(grid=grid)
+@pytest.mark.parametrize("rows,cols,steps", [
+    (64, 64, 1), (256, 256, 8),
+    # the paper's grid: the one-step kernel (1), one phase (2, 7, 8 steps),
+    # and two or three phases of equal depth (9: 5 + 4; 17: 6 + 6 + 5)
+    (2048, 2048, 1), (2048, 2048, 2), (2048, 2048, 7), (2048, 2048, 8), (2048, 2048, 9),
+    (2048, 2048, 17),
+    # ragged tiles, and grids where every halo touches an edge; 257 x 1000
+    # at every depth of the tiled phases, 2 to 8 (9: 5; 17: 6; 24: 8 + 8 + 8)
+    (257, 1000, 1), (257, 1000, 2), (257, 1000, 3), (257, 1000, 4), (257, 1000, 6),
+    (257, 1000, 7), (257, 1000, 9), (257, 1000, 17), (257, 1000, 24),
+    (1, 5, 1), (1, 5, 9), (3, 3, 1), (3, 3, 9),
+])
+def test_k1_matches_plain(cuda, rows, cols, steps):
+    t, p = grids(rows, cuda, cols=cols)
+    cfg = HotspotConfig(grid=max(rows, cols))
     n = hk.hotspot_hpc.launches
     got = hk.hotspot_hpc(t, p, cfg, steps)
     assert hk.hotspot_hpc.launches == n + 1
@@ -72,12 +84,37 @@ def test_k1_matches_plain(cuda, grid, steps):
     torch.testing.assert_close(got, href.hotspot_ref(t, p, cfg, steps), **HOTSPOT_TOL)
 
 
-def test_k1_band_with_full_grid_coefficients(cuda):
-    t, p = grids(256, cuda)
-    cfg = HotspotConfig(grid=256)
-    band, pband = t[63:130].contiguous(), p[63:130].contiguous()
-    got = hk.hotspot_hpc(band, pband, cfg, 1, grid=(256, 256))
-    assert torch.equal(got[1:-1], href.hotspot_step_ref(t, p, cfg)[64:129])
+@pytest.mark.parametrize("steps", [1, 6])
+@pytest.mark.parametrize("fill", ["ambient", "ambient_then_random"])
+def test_k1_zero_numerators_match_plain(cuda, fill, steps):
+    # a uniform grid at the ambient temperature zeroes all three numerators
+    # of the stencil, which K1's fast division leaves to step_math (in the
+    # one-step kernel and in the tiled one)
+    cfg = HotspotConfig(grid=300)
+    t, p = grids(300, cuda, seed=4)
+    t = torch.full_like(t, cfg.amb_temp)
+    if fill == "ambient_then_random":
+        t[100:200, 50:250] = 80.0 + 10.0 * torch.rand(100, 200, device=cuda,
+                                                      generator=torch.Generator(cuda).manual_seed(0))
+    got = hk.hotspot_hpc(t, p, cfg, steps)
+    assert torch.equal(got, hk.hotspot_hpc_plain(t, p, cfg, steps))
+
+
+@pytest.mark.parametrize("grid,lo,hi", [(256, 63, 130), (2048, 127, 257)])
+def test_k1_band_with_full_grid_coefficients(cuda, grid, lo, hi):
+    # the runtime's ACC chunk: 128 rows and a halo row each side, steps=1
+    t, p = grids(grid, cuda)
+    cfg = HotspotConfig(grid=grid)
+    band, pband = t[lo:hi].contiguous(), p[lo:hi].contiguous()
+    got = hk.hotspot_hpc(band, pband, cfg, 1, grid=(grid, grid))
+    assert torch.equal(got, hk.hotspot_hpc_plain(band, pband, cfg, 1, grid=(grid, grid)))
+    assert torch.equal(got[1:-1], href.hotspot_step_ref(t, p, cfg)[lo + 1:hi - 1])
+
+
+def test_k1_refuses_2_to_the_31_cells(cuda):
+    big = torch.empty((2 ** 16, 2 ** 15), device=cuda)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        hk.hotspot_hpc(big, big, HotspotConfig(), 1)
 
 
 @pytest.mark.parametrize("grid", [64, 2048])
@@ -281,6 +318,15 @@ def ssd_inputs(b, s, h, p, n, device, seed=0, with_h0=False):
     (1, 96, 1, 32, 32, 32),
     (1, 100, 2, 20, 16, 32),           # ragged S and a partial P block
     (1, 1000, 24, 64, 128, 256),       # mamba2's prefill, ragged
+    (1, 300, 2, 80, 200, 64),          # two P tiles, two N blocks, a partial slab
+] + [
+    # lengths around the kernels' sub-chunk of 64 and mamba2's chunk of 256,
+    # the longest served prompt (891) and the full context, in batch 2, at
+    # mamba2's widths and a narrower head
+    (2, s, h, p, n, chunk)
+    for s in (1, 63, 64, 65, 255, 256, 257, 891, 2048)
+    for chunk in (64, 256)
+    for h, p, n in ((24, 64, 128), (3, 20, 16))
 ])
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_k5_matches_plain(cuda, b, s, h, p, n, chunk, with_h0):

@@ -76,6 +76,62 @@ def test_plain_kernel_versions_equal_oracle_bitwise(mode):
     assert torch.equal(ops.hotspot(tt, pp, cfg, 3, mode=mode), ref.hotspot_ref(tt, pp, cfg, 3))
 
 
+def k1_schedule(temp, power, cfg, steps, depth, *, tile_rows=32, region_cols=128):
+    """K1's schedule (``csrc/hotspot.cu`` ``hpc_kernel``) in tensor ops.
+
+    The same phases (as few as ``depth`` allows, of equal depth d), the
+    same tiling (at most ``tile_rows`` rows and ``region_cols - 2d`` columns
+    a tile, shared out evenly) and the same halos ``kk`` cells deep clipped
+    at the grid's edges, ``kk`` the steps of the phase.
+    Step s keeps only the region less s cells on each side that is not a
+    grid edge; every other cell becomes NaN, so a cell computed from a cell
+    the schedule never computed cannot go unnoticed.
+    """
+    rows, cols = temp.shape
+    coeff = ref.hotspot_coefficients(cfg, rows, cols)
+    d = -(-steps // -(-steps // depth))
+    tiles_c = -(-cols // (region_cols - 2 * d))
+    tile_cols = -(-cols // tiles_c)
+    tile_rows = -(-rows // -(-rows // tile_rows))
+    src = temp
+    for ph in range(-(-steps // d)):
+        kk = min(d, steps - ph * d)
+        dst = torch.full_like(src, float("nan"))
+        for r0 in range(0, rows, tile_rows):
+            for c0 in range(0, cols, tile_cols):
+                r1, c1 = min(r0 + tile_rows, rows), min(c0 + tile_cols, cols)
+                R0, R1 = max(r0 - kk, 0), min(r1 + kk, rows)
+                C0, C1 = max(c0 - kk, 0), min(c1 + kk, cols)
+                assert C1 - C0 <= region_cols
+                cur, pw = src[R0:R1, C0:C1], power[R0:R1, C0:C1]
+                for step in range(1, kk + 1):
+                    new = ref.hotspot_step_coeffs(cur, pw, cfg.amb_temp, *coeff)
+                    ra, rb = (step if R0 > 0 else 0), R1 - R0 - (step if R1 < rows else 0)
+                    ca, cb = (step if C0 > 0 else 0), C1 - C0 - (step if C1 < cols else 0)
+                    cur = torch.full_like(new, float("nan"))
+                    cur[ra:rb, ca:cb] = new[ra:rb, ca:cb]
+                dst[r0:r1, c0:c1] = cur[r0 - R0:r1 - R0, c0 - C0:c1 - C0]
+        src = dst
+    return src
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3, 8])
+@pytest.mark.parametrize("rows,cols,tile_rows,region_cols,steps", [
+    (37, 45, 8, 24, 5),        # tiles that do not divide the grid, several phases
+    (70, 260, 32, 128, 9),     # the kernel's own tile sizes
+    (3, 3, 2, 20, 4),          # every halo touches an edge
+    (1, 5, 1, 20, 3),
+])
+def test_k1_temporal_blocking_equals_oracle_bitwise(depth, rows, cols, tile_rows, region_cols,
+                                                    steps):
+    rng = np.random.default_rng(rows * cols + depth)
+    t = torch.from_numpy(80.0 + 10.0 * rng.random((rows, cols), np.float32))
+    p = torch.from_numpy(rng.random((rows, cols), np.float32))
+    cfg = HotspotConfig(grid=max(rows, cols))
+    got = k1_schedule(t, p, cfg, steps, depth, tile_rows=tile_rows, region_cols=region_cols)
+    assert torch.equal(got, ref.hotspot_ref(t, p, cfg, steps))
+
+
 def test_rows_chunk_matches_jax_at_one_step():
     # the 1-row halo is exact for steps=1 only, so parity is held there
     t, p = grids(64, seed=3)
@@ -176,3 +232,29 @@ def test_mode_must_be_known():
     t = torch.zeros((8, 8))
     with pytest.raises(ValueError, match="mode"):
         ops.hotspot(t, t, HotspotConfig(grid=8), 1, mode="fpga")
+
+
+def test_sass_floor_counts_the_path_to_the_first_store():
+    from repro_torch.kernels.hotspot import sass_floor
+
+    sass = """
+        Function : _ZN12_GLOBAL__N_19hpc_kernelEPKfS1_PfS2_
+        /*0000*/                   FFMA R1, R2, R3, R4 ;                  /* 0x0000000000000000 */
+        /*0010*/                   STG.E [R2.64], R1 ;                    /* 0x0000000000000000 */
+        Function : _ZN12_GLOBAL__N_114hp_step_kernelEPKfS1_S1_S1_PfiiNS_5CoeffE
+        /*0000*/                   MOV R1, c[0x0][0x28] ;                 /* 0x0000000000000000 */
+        /*0010*/                   MUFU.RCP R3, R2 ;                      /* 0x0000000000000000 */
+        /*0020*/              @!P0 FFMA R4, R3, R2, R5 ;                  /* 0x0000000000000000 */
+        /*0030*/                   FCHK P0, R4, R2 ;                      /* 0x0000000000000000 */
+        /*0040*/                   IMAD.WIDE R6, R0, 0x4, R6 ;            /* 0x0000000000000000 */
+        /*0050*/                   STG.E [R6.64], R4 ;                    /* 0x0000000000000000 */
+        /*0060*/                   FADD R8, R8, R9 ;                      /* 0x0000000000000000 */
+        /*0070*/                   EXIT ;                                 /* 0x0000000000000000 */
+    """
+    path = sass_floor.per_cell_path(sass)
+    assert "MOV" in path[0] and len(path) == 6 and "STG.E" in path[-1] and "@!P0 FFMA" in path[2]
+    got = sass_floor.floor_ms(path, cell_steps=132 * 128 * 1000, sms=132, sm_mhz=1000.0)
+    # 3 issue slots (MUFU, FFMA, FCHK) a cell, 1 MUFU at an eighth of the issue rate
+    assert (got["fp_and_mufu_per_cell"], got["mufu_per_cell"]) == (3, 1)
+    assert got["issue_ms"] == pytest.approx(3e-3) and got["mufu_ms"] == pytest.approx(8e-3)
+    assert got["floor_ms"] == got["mufu_ms"]

@@ -77,6 +77,57 @@ def test_chunk_invariance():
     torch.testing.assert_close(y16, y32, **TOL)
 
 
+def k5_decomposition(x, log_a, Bm, Cm, h0=None, sub=64):
+    """K5's decomposition (``csrc/ssd_scan.cu``) in tensor ops.
+
+    Sub-chunks of ``sub`` steps whatever the caller's chunk: (1) per
+    sub-chunk, independently, its decay exp(cs_Q), its state contribution
+    (x ⊙ exp(cs_Q − cs))ᵀ·B in the kernels' (N, P) layout and C·Bᵀ; (2) the
+    state recurrence over the sub-chunks in order, keeping the state that
+    enters each; (3) per sub-chunk, independently, y = (C·Bᵀ ⊙ L)·x +
+    diag(exp cs)·C·h_inᵀ.  The last sub-chunk is padded with zeros.
+    """
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    pad = -s % sub
+    x, Bm, Cm = (torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                 for t in (x, Bm, Cm))
+    log_a = torch.nn.functional.pad(log_a, (0, 0, 0, pad))
+    nc = (s + pad) // sub
+    xr, ar = x.reshape(b, nc, sub, h, p), log_a.reshape(b, nc, sub, h)
+    Br, Cr = Bm.reshape(b, nc, sub, n), Cm.reshape(b, nc, sub, n)
+    cs = torch.cumsum(ar, dim=2)                                          # (b,nc,q,h)
+    decay = torch.exp(cs[:, :, -1])                                       # (b,nc,h)
+    contrib = torch.einsum("bcjn,bcjh,bcjhp->bchnp", Br, torch.exp(cs[:, :, -1:] - cs), xr)
+    gram = torch.einsum("bcin,bcjn->bcij", Cr, Br)
+    state = torch.zeros(b, h, n, p) if h0 is None else h0.transpose(-1, -2)
+    entering = []
+    for c in range(nc):
+        entering.append(state)
+        state = decay[:, c, :, None, None] * state + contrib[:, c]
+    h_in = torch.stack(entering, dim=1)                                   # (b,nc,h,n,p)
+    tri = torch.tril(torch.ones(sub, sub, dtype=torch.bool))[None, None, :, :, None]
+    L = torch.where(tri, torch.exp(cs[:, :, :, None, :] - cs[:, :, None, :, :]), 0.0)
+    y = (torch.einsum("bcij,bcijh,bcjhp->bcihp", gram, L, xr)
+         + torch.einsum("bcih,bcin,bchnp->bcihp", torch.exp(cs), Cr, h_in))
+    return y.reshape(b, nc * sub, h, p)[:, :s], state.transpose(-1, -2)
+
+
+@pytest.mark.parametrize("s,sub", [(1, 64), (63, 64), (65, 64), (200, 64), (300, 64),
+                                   (300, 16)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_k5_decomposition_matches_oracle(s, sub, with_h0):
+    """Sub-chunks inside the caller's chunk of 256 give the oracle's y and state."""
+    b, h, p, n = 2, 3, 8, 16
+    (x, la, bm, cm), jargs = both(inputs(b, s, h, p, n, seed=s + sub))
+    h0n = (0.5 * np.random.default_rng(s).standard_normal((b, h, p, n))).astype(np.float32) \
+        if with_h0 else None
+    y, hf = k5_decomposition(x, la, bm, cm, torch.from_numpy(h0n) if with_h0 else None, sub)
+    y_want, h_want = _ssd_chunked(*jargs, 256, jnp.asarray(h0n) if with_h0 else None)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_want), **TOL)
+    np.testing.assert_allclose(hf.numpy(), np.asarray(h_want), **TOL)
+
+
 def test_counts_and_wrapper_checks():
     # at least the state update and the C·h readout (4·S·H·P·N), at most
     # the per-token recurrence (5·S·H·P·N); the caller's chunk plays no part
