@@ -44,11 +44,33 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    plain versions, with last-position logits within rtol/atol 1e-3.
    Prints TTFT, prefill and decode times, tokens/s and a profiler top-10
    of one prefill and one decode step.
+6. Slice B on the card:
+   a. Remote prefill: 2 worker processes (``spawn_worker``), each warmed
+      once with a short prefill; phase 5's 8 requests served per model
+      with ``backend="remote:a,b"`` and a ``cuda`` model spec (seed 0), 4
+      slots, continuous, greedy.  Every token stream equals phase 5's
+      inline one, the workers launch K4 22 × 8 and K5 24 × 8 times (read
+      by a ``LaunchCounts`` probe through a ``RemoteUnit``), and the
+      parent launches neither.  Prints TTFT, prefill and decode times,
+      tokens/s, the cache bytes a request and the wire latency.
+   b. ``checkpointed_parallel_for`` over phase 1's 3745 row blocks on 4
+      ``CudaStreamUnit`` ACC units, each chunk ``[a, b)`` running K3 on
+      row blocks ``a:b`` into ``out[8a:8b]``; the work raises in round 3
+      (a crash), a fresh runtime resumes from the checkpoint directory and
+      runs exactly the rows the bitmap left, and ``out`` is bitwise equal
+      to phase 1's K3 output.  Prints the checkpoint write time and the
+      overhead against a plain ``parallel_for`` and phase 2's ``run()``.
+   c. A ``FleetManager`` with 2 workers hosting ``cuda`` units runs a
+      ``parallel_for`` of ``SleepWork``; one worker is frozen (SIGSTOP)
+      mid-run, convicted by missed heartbeats (``action="dead"``) and its
+      chunk requeued exactly once; then it is killed and reaped.
 
 Launch counts are set to 0 just before each main path (phases 2–3 for
-K1–K3, each model's serving run in phase 5) and read just after, so they
-count the main path's launches only.  The last lines are a JSON line of
-the kernels' numbers and the JSON result line.
+K1–K3, each model's serving run in phase 5 and in 6a, and 6b for K3) and
+read just after, so they count the main path's launches only; the JSON
+line's ``launches`` is phases 2–3's and phase 5's, ``launches_by_path``
+adds phase 6's.  The last lines are a JSON line of the kernels' numbers
+and the JSON result line.
 
 Kernel times: ``ms``, ``plain_ms`` and ``library_ms`` are CUDA events
 around one call on an idle card, so a call that the host enqueues more
@@ -61,13 +83,19 @@ from __future__ import annotations
 
 import functools
 import json
+import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
 # Published peaks of one H100 SXM (dense, at its 700 W limit): device
 # memory rate, f32 rate outside the tensor cores, bf16 tensor-core rate.
@@ -267,7 +295,6 @@ def phase1_kernels(cfg, spmm_cfg):
           f"to card {time.perf_counter() - t2:.3f} s; nnz={int(problem.nnz.sum())} "
           f"maxnnz={problem.vals.shape[1]} row_blocks={be.n_row_blocks} K={be.k_max} "
           f"occupied_blocks={int(be.counts.sum())} vals_GB={be.vals.nbytes / 1e9:.3f}")
-    del be
 
     out = spmm_block_ell(ell, rhs_pad)
     want = spmm_block_ell_plain(ell, rhs_pad)
@@ -309,8 +336,10 @@ def phase1_kernels(cfg, spmm_cfg):
               f"plain_ms={k['plain_ms']:.4f} "
               f"bound_ms={k['bound_ms']:.4f} ({k['bound_by']}) library_ms={k['library_ms']}")
     k3_ref = want[:problem.rows, :problem.rhs.shape[1]].clone()
-    del ell, out, want
-    return kernels, (temp, power), problem, k3_ref
+    # phase 6b's operands wait on the host, so phases 2-5 find the card as before
+    k3_host = (be, rhs_pad.cpu(), out.cpu())
+    del ell, out, want, rhs_pad
+    return kernels, (temp, power), problem, k3_ref, k3_host
 
 
 def phase2_spmm_hybrid(problem, k3_ref):
@@ -345,6 +374,7 @@ def phase2_spmm_hybrid(problem, k3_ref):
         "k3_launches": spmm_block_ell.launches,
     }))
     require(spmm_block_ell.launches > 0, "the SPMM hybrid never launched K3")
+    return t2 - t1
 
 
 def phase3_hotspot_runtime(cfg, temp, power):
@@ -619,7 +649,272 @@ def phase5_serving(arch: str, wrappers: dict):
     same_as_bf16 = sum(res_k[rid].tokens == bf16_tokens[rid] for rid in bf16_tokens)
     print(f"serve {arch} f32 kernels vs plain: all {len(specs)} token streams equal, logits "
           f"max |diff| {worst:.3e}; {same_as_bf16} of {len(specs)} streams also equal bf16's")
-    return kernel, launches[kernel]
+    return kernel, launches[kernel], bf16_tokens
+
+
+def on_worker(address: str, work, timeout: float = 600.0):
+    """Run ``work`` once on a ``cuda`` unit of the worker at ``address``;
+    returns its completion record (``result``, ``elapsed`` on the worker)
+    and the seconds from the submit to the record's arrival here."""
+    from repro_torch.core import CompletionBus, RemoteUnit
+    from repro_torch.core.scheduler import Chunk
+
+    # a generous retransmit budget: a worker's first call builds a model
+    unit = RemoteUnit("probe", address=address, remote_backend="cuda", max_retries=3000,
+                      connect_timeout=120.0)
+    bus = CompletionBus()
+    unit.start(bus)
+    try:
+        t0 = time.perf_counter()
+        unit.submit(Chunk(start=0, stop=1, worker="probe"), work)
+        require(bus.wait(timeout=timeout), f"no answer from the worker at {address}")
+        round_trip = time.perf_counter() - t0
+        rec = bus.drain()[0]
+    finally:
+        unit.close()
+    if rec.error is not None:
+        raise RuntimeError(f"work on the worker at {address} failed") from rec.error
+    return rec, round_trip
+
+
+def phase6a_remote_serving(arch: str, inline_tokens: dict, workers, wrappers: dict):
+    """Serve phase 5's requests with the prefills in the worker processes."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.launches import LaunchCounts
+    from repro_torch.models import make_model
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving.engine import _RemotePrefill
+
+    cfg = get_config(arch)
+    kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+    model = make_model(cfg, device="cuda")
+    params = model.init(seed=0)
+    spec = {"config": arch, "smoke": False, "seed": 0, "device": "cuda"}
+    specs = request_specs(cfg)
+    warm = {}
+    for w in workers:  # model build and first launches, outside the timed run
+        t0 = time.perf_counter()
+        on_worker(w.address, _RemotePrefill(spec, specs[0][1][:16], 2048, rid=0,
+                                            temperature=0.0, sample_seed=0))
+        warm[w.address] = time.perf_counter() - t0
+        on_worker(w.address, LaunchCounts())  # zeroes the worker's counts
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+
+    engine = ServingEngine(model, params, slots=4, max_len=2048, mode="continuous",
+                           temperature=0.0, backend="remote:" + ",".join(w.address for w in workers),
+                           model_spec=spec)
+    for rid, prompt, max_new in specs:
+        require(bool(engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=max_new))),
+                f"request {rid} was shed")
+    t0 = time.perf_counter()
+    results = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    parent = {name: w.launches for name, w in wrappers.items()}
+    per_worker = [on_worker(w.address, LaunchCounts())[0].result for w in workers]
+
+    for rid, _, _ in specs:
+        r = results[rid]
+        require(r.ok, f"{arch} remote: request {rid} failed: {r.error}")
+        require(r.tokens == inline_tokens[rid],
+                f"{arch} remote: request {rid} tokens differ from phase 5's inline tokens")
+    rep = engine.last_run_report
+    spans = rep.coverage
+    require(rep.items == len(specs) and spans[0][0] == 0 and spans[-1][1] == len(specs)
+            and all(b == c for (_, b), (c, _) in zip(spans, spans[1:])),
+            f"{arch} remote: the RunReport does not cover each request exactly once")
+    launches = sum(c[kernel] for c in per_worker)
+    want = cfg.num_layers * len(specs)
+    require(launches == want,
+            f"{arch} remote: the workers launched {kernel} {launches} times, not {want}")
+    require(not any(parent.values()), f"{arch} remote: the parent launched kernels {parent}")
+
+    # the longest prompt alone, on an otherwise idle card and host: the
+    # worker's prefill, the round trip around it, and the same prefill here
+    rid, longest, _ = max(specs, key=lambda r: len(r[1]))
+    alone = {"remote_round_trip_ms": [], "worker_prefill_ms": [], "inline_prefill_ms": []}
+    for _ in range(3):
+        rec, round_trip = on_worker(workers[0].address, _RemotePrefill(
+            spec, longest, 2048, rid=rid, temperature=0.0, sample_seed=0))
+        alone["remote_round_trip_ms"].append(round_trip * 1e3)
+        alone["worker_prefill_ms"].append(rec.result[2] * 1e3)
+        t0 = time.perf_counter()
+        logits, _ = model.prefill(params, torch.as_tensor(longest, device="cuda")[None, :], 2048)
+        int(logits.argmax())
+        alone["inline_prefill_ms"].append((time.perf_counter() - t0) * 1e3)
+    alone = {k: statistics.median(v) for k, v in alone.items()}
+    alone["return_ms"] = alone["remote_round_trip_ms"] - alone["worker_prefill_ms"]
+
+    cache_bytes = sum(t.numel() * t.element_size() for c in model.init_caches(1, 2048)
+                      for t in vars(c).values())
+    tokens = sum(len(r.tokens) for r in results.values())
+    ttft = sorted(r.ttft for r in results.values())
+    prefill = [results[rid].prefill_seconds * 1e3 for rid, _, _ in specs]
+    wire = statistics.mean(rep.wire_latency.values())
+    dispatch = statistics.mean(rep.dispatch_latency.values())
+    print(f"serve {arch} remote " + json.dumps({
+        "workers": len(workers), "warm_s": warm,
+        f"{kernel}_launches_per_worker": [c[kernel] for c in per_worker],
+        "tokens_equal_inline": True,
+        "ttft_p50_ms": statistics.median(ttft) * 1e3, "ttft_max_ms": ttft[-1] * 1e3,
+        "prefill_ms_per_request": prefill, "prefill_ms_mean": statistics.mean(prefill),
+        "decode_steps": engine.steps,
+        "decode_ms_per_step": engine.decode_seconds / max(engine.steps, 1) * 1e3,
+        "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+        "cache_bytes_per_request": cache_bytes,
+        "wire_latency_ms_mean": wire * 1e3, "dispatch_latency_ms_mean": dispatch * 1e3,
+        "wire_share_of_dispatch": wire / dispatch,
+        f"prompt_{len(longest)}_alone": alone,
+    }))
+    del engine, results, params
+    return kernel, launches
+
+
+def phase6b_checkpointed_spmm(k3_host, phase2_run_s: float):
+    """checkpointed_parallel_for over the row blocks through K3, crash and resume."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer, checkpointed_parallel_for
+    from repro_torch.core import HeteroRuntime
+    from repro_torch.kernels.spmm.ref import ROW_BLOCK
+    from repro_torch.kernels.spmm.spmm import BlockEllArrays, spmm_block_ell
+
+    be, rhs_pad, k3_out = k3_host
+    ell = BlockEllArrays(be, "cuda")
+    rhs_pad, k3_out = rhs_pad.cuda(), k3_out.cuda()
+    n_rb = ell.counts.shape[0]
+    out = torch.zeros_like(k3_out)
+    per_round = (n_rb + 3) // 4  # checkpointed_parallel_for's default round
+
+    def runtime():
+        rt = HeteroRuntime()
+        for i in range(4):
+            rt.register_unit(f"acc{i}", "acc", backend="cuda")
+        return rt
+
+    def k3_rows(chunk):
+        a, b = chunk.start, chunk.stop
+        out[ROW_BLOCK * a:ROW_BLOCK * b].copy_(spmm_block_ell(ell.row_block_range(a, b), rhs_pad))
+
+    class Crash(RuntimeError):
+        pass
+
+    def crashing(chunk):
+        if chunk.start >= 2 * per_round:  # the first chunk of round 3
+            raise Crash(f"a crash in round 3 at row block {chunk.start}")
+        k3_rows(chunk)
+
+    kw = dict(policy="multidynamic", acc_chunk=64)
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=root))
+    try:
+        spmm_block_ell.launches = 0
+        first = Checkpointer(ckpt_dir / "crash")
+        try:
+            checkpointed_parallel_for(runtime(), crashing, n_rb, checkpointer=first, **kw)
+        except Crash:
+            pass
+        else:
+            raise RuntimeError("the crashing run did not crash")
+        first.wait_all()
+        t0 = time.perf_counter()
+        run = checkpointed_parallel_for(runtime(), k3_rows, n_rb,
+                                        checkpointer=Checkpointer(ckpt_dir / "crash"), **kw)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        launches = spmm_block_ell.launches
+        require(run.resumed_from_step == 2 * per_round,
+                f"resumed from step {run.resumed_from_step}, not {2 * per_round}")
+        require(run.items_run == n_rb - run.resumed_items_done == n_rb - 2 * per_round,
+                f"the resumed call ran {run.items_run} row blocks of the "
+                f"{n_rb - run.resumed_items_done} the bitmap left")
+        require(torch.equal(out, k3_out), "checkpointed SPMM: not bitwise equal to phase 1's K3")
+        require(launches > 0, "checkpointed SPMM never launched K3")
+
+        # overhead: an uninterrupted checkpointed run against one plain parallel_for
+        times = {"checkpointed": [], "plain": []}
+        for i in range(3):
+            t0 = time.perf_counter()
+            checkpointed_parallel_for(runtime(), k3_rows, n_rb,
+                                      checkpointer=Checkpointer(ckpt_dir / f"fresh{i}"), **kw)
+            torch.cuda.synchronize()
+            times["checkpointed"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            runtime().parallel_for(k3_rows, num_items=n_rb, **kw)
+            torch.cuda.synchronize()
+            times["plain"].append(time.perf_counter() - t0)
+        require(torch.equal(out, k3_out), "plain parallel_for SPMM: not bitwise equal to K3")
+        bitmap = np.zeros(n_rb, dtype=bool)
+        write_ms = [Checkpointer(ckpt_dir / "timing").save(i, {"coverage_done": bitmap},
+                                                            blocking=True).wait().wall_time * 1e3
+                    for i in range(5)]
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ck, plain = statistics.median(times["checkpointed"]), statistics.median(times["plain"])
+    print("spmm_checkpointed " + json.dumps({
+        "row_blocks": n_rb, "rounds_per_fresh_run": 4, "crash_in_round": 3,
+        "resumed_from_step": run.resumed_from_step, "resumed_items_done": run.resumed_items_done,
+        "items_run_after_resume": run.items_run, "resume_rounds": run.rounds,
+        "resume_s": resume_s, "k3_launches": launches,
+        "checkpointed_run_s": times["checkpointed"], "plain_parallel_for_s": times["plain"],
+        "overhead_vs_plain_s": ck - plain, "overhead_vs_plain": ck / plain - 1.0,
+        "phase2_run_s": phase2_run_s, "checkpointed_over_phase2_run": ck / phase2_run_s,
+        "checkpoint_write_ms": write_ms,
+    }))
+    return launches
+
+
+def phase6c_fleet():
+    """A FleetManager's cuda-hosting workers; one freezes mid-run."""
+    from repro_torch.core import FleetManager, HeteroRuntime
+    from repro_torch.core.transport import SleepWork, spawn_worker
+
+    heartbeat, patience, items = 0.1, 3, 1000
+    rt = HeteroRuntime()
+    with FleetManager(rt, heartbeat=heartbeat, patience=patience,
+                      spawn=lambda: spawn_worker(startup_timeout=120.0)) as fm:
+        fm.scale_to(2)
+        work = SleepWork(1e-3)
+        # a first run opens each worker's CUDA context outside the timed one
+        rep = rt.parallel_for(work, num_items=40, policy="multidynamic", acc_chunk=8)
+        require(rep.items == 40, "fleet warm-up run did not cover its items")
+        victim = fm.members[-1]
+        pid = fm.handle(victim).proc.pid
+        stopped = {}
+
+        def freeze():
+            stopped["t"] = time.perf_counter()
+            os.kill(pid, signal.SIGSTOP)
+
+        timer = threading.Timer(0.25, freeze)
+        timer.start()
+        try:
+            rep = rt.parallel_for(work, num_items=items, policy="multidynamic", acc_chunk=8)
+        finally:
+            timer.cancel()
+        t_end = time.perf_counter()
+        require("t" in stopped, "the run ended before the worker was frozen")
+        fm.kill_unit(victim)
+        require(fm.reap() == [victim], "the killed worker was not reaped")
+    spans = rep.coverage
+    require(rep.items == items and spans[0][0] == 0 and spans[-1][1] == items
+            and all(b == c for (_, b), (c, _) in zip(spans, spans[1:])),
+            "fleet run: coverage is not exact-once")
+    losses = [e for e in (rep.events or []) if e["action"] in ("lost", "dead")]
+    require(len(losses) == 1 and losses[0]["unit"] == victim and losses[0]["action"] == "dead",
+            f"the frozen worker was not convicted by heartbeat: {losses}")
+    conviction_s = (t_end - rep.wall_time + losses[0]["t"]) - stopped["t"]
+    print("fleet " + json.dumps({
+        "workers": 2, "hosted": "cuda", "heartbeat_s": heartbeat, "patience": patience,
+        "items": items, "victim": victim, "event": losses[0],
+        "time_to_conviction_s": conviction_s, "wall_s": rep.wall_time,
+        "per_worker_items": rep.per_worker_items,
+    }))
 
 
 def _leaves(tree):
@@ -665,33 +960,55 @@ def main() -> int:
     require(torch.backends.cuda.matmul.allow_tf32 is False,
             "torch.backends.cuda.matmul.allow_tf32 must be False (IEEE f32 parity)")
 
-    kernels, (temp, power), problem, k3_ref = phase1_kernels(HOTSPOT, SPMM)
+    kernels, (temp, power), problem, k3_ref, k3_host = phase1_kernels(HOTSPOT, SPMM)
     print(f"phase 1 done at {time.perf_counter() - t_start:.1f} s")
 
     wrappers = {"hotspot_hpc": hotspot_hpc, "hotspot_hp_step": hotspot_hp_step,
                 "spmm_block_ell": spmm_block_ell}
     for w in wrappers.values():
         w.launches = 0
-    phase2_spmm_hybrid(problem, k3_ref)
+    phase2_run_s = phase2_spmm_hybrid(problem, k3_ref)
     print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
     phase3_hotspot_runtime(HOTSPOT, temp, power)
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
     for name, w in wrappers.items():
         kernels[name]["launches"] = w.launches
+        kernels[name]["launches_by_path"] = {"phases 2-3": w.launches}
         require(w.launches > 0, f"{name} was not launched on the main path")
 
     kernels.update(phase4_model_kernels())
     print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
     wrappers.update(flash_attention=flash_attention, ssd_scan=ssd_scan)
+    inline_tokens = {}
     for arch in SERVE_ARCHS:
-        name, launches = phase5_serving(arch, wrappers)
+        name, launches, inline_tokens[arch] = phase5_serving(arch, wrappers)
         kernels[name]["launches"] = launches
+        kernels[name]["launches_by_path"] = {"phase 5": launches}
         print(f"phase 5 {arch} done at {time.perf_counter() - t_start:.1f} s")
-    print("launches on the main path: "
-          + ", ".join(f"{k}={v['launches']}" for k, v in kernels.items()))
 
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    from repro_torch.core.transport import spawn_worker
+
+    workers = []
+    try:
+        workers = [spawn_worker(startup_timeout=120.0) for _ in range(2)]
+        for arch in SERVE_ARCHS:
+            name, launches = phase6a_remote_serving(arch, inline_tokens[arch], workers, wrappers)
+            kernels[name]["launches_by_path"]["phase 6a workers"] = launches
+            print(f"phase 6a {arch} done at {time.perf_counter() - t_start:.1f} s")
+    finally:
+        for w in workers:
+            w.kill()
+    kernels["spmm_block_ell"]["launches_by_path"]["phase 6b"] = phase6b_checkpointed_spmm(
+        k3_host, phase2_run_s)
+    del k3_host
+    print(f"phase 6b done at {time.perf_counter() - t_start:.1f} s")
+    phase6c_fleet()
+    print(f"phase 6c done at {time.perf_counter() - t_start:.1f} s")
+    print("launches on the main paths: " + ", ".join(
+        f"{k}={v['launches_by_path']}" for k, v in kernels.items()))
+
+    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: v[k] for k in keys} for v in kernels.values()]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

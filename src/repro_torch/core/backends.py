@@ -23,9 +23,11 @@ that boundary:
   ``torch.cuda.Stream``: kernel launches return immediately and a waiter
   thread turns ``event.synchronize()`` into the completion signal.  It
   raises without CUDA unless it was built with ``device="cpu"``.
-* Transport-backed units (the reference's ``RemoteUnit``) are not ported
-  yet; a unit that loses its medium would post a :class:`WorkerLost`
-  completion the engine answers by requeueing the in-flight chunk.
+* :class:`~repro_torch.core.transport.RemoteUnit` (in
+  :mod:`repro_torch.core.transport`) — the same protocol stretched across
+  a process/host boundary: submits become frames on a transport, and a
+  worker connection drop surfaces as a :class:`WorkerLost` completion the
+  engine answers by requeueing the in-flight chunk.
 * :class:`BackendEngine` — the event-driven dispatcher the runtime's
   ``_run_wall`` builds on: one loop thread hands each idle backend a
   chunk the moment it goes idle, completions arrive on a condition
@@ -78,13 +80,22 @@ __all__ = [
 
 WorkFn = Callable[[Chunk], Any]
 
-BACKENDS = ("inline", "thread", "process", "cuda")
+BACKENDS = ("inline", "thread", "process", "cuda", "remote")
 
 # The full spec grammar, quoted once so every "unknown backend" error can
 # list it (tests pin this — an unknown spec must teach the valid ones).
 VALID_BACKEND_SPECS = (
     "'inline'", "'thread'/'threads'", "'process'/'processes'", "'cuda'",
+    "'remote:<host:port>' (optional '?batch_frames=N&fn_cache=0|1"
+    "&heartbeat=SECS&patience=N&backend=KIND' suffix)",
 )
+
+# Dispatch fast-path and liveness knobs accepted in a remote spec's
+# query string.  ``heartbeat`` (float seconds) asks the worker for
+# periodic liveness frames; ``patience`` is how many missed intervals
+# convict the worker as dead; ``backend`` names the unit the worker hosts
+# ("thread" unless given; "cuda" for a CudaStreamUnit on the worker's card).
+REMOTE_SPEC_KNOBS = ("batch_frames", "fn_cache", "heartbeat", "patience", "backend")
 
 
 class WorkerLost(ConnectionError):
@@ -532,9 +543,58 @@ def make_backend(spec: Union[str, BackendUnit, None], name: str) -> BackendUnit:
         return ThreadUnit(name)
     text = str(spec)
     if text.startswith("remote:"):
-        raise NotImplementedError(
-            f"backend {spec!r}: remote units need core/transport.py, which "
-            "the port does not have yet (ROADMAP.md, queue 1, slice B)"
+        address = text[len("remote:"):]
+        opts: Dict[str, Any] = {}
+        if "?" in address:
+            address, _, query = address.partition("?")
+            for part in query.split("&"):
+                if not part:
+                    continue
+                key, _, value = part.partition("=")
+                if key not in REMOTE_SPEC_KNOBS:
+                    raise ValueError(
+                        f"unknown remote backend knob {key!r} in {spec!r}: "
+                        "valid knobs are " + ", ".join(REMOTE_SPEC_KNOBS)
+                    )
+                if key == "backend" or (key == "batch_frames" and value == "auto"):
+                    opts[key] = value  # RemoteUnit validates the hosted backend
+                    continue
+                if key == "heartbeat":
+                    # the one float-valued knob: an interval in seconds
+                    try:
+                        opts[key] = float(value)
+                    except ValueError:
+                        raise ValueError(
+                            f"remote backend knob heartbeat={value!r} in "
+                            f"{spec!r} must be a number of seconds"
+                        ) from None
+                    if not opts[key] > 0:
+                        raise ValueError(
+                            f"remote backend knob heartbeat={value!r} in "
+                            f"{spec!r} must be positive"
+                        )
+                    continue
+                try:
+                    opts[key] = int(value)
+                except ValueError:
+                    raise ValueError(
+                        f"remote backend knob {key}={value!r} in {spec!r} "
+                        "must be an integer"
+                        + (" or 'auto'" if key == "batch_frames" else "")
+                    ) from None
+        if not address:
+            raise ValueError(
+                "remote backend spec needs a worker address: "
+                "'remote:<host:port>'"
+            )
+        from .transport import RemoteUnit  # late: transport builds on this module
+        return RemoteUnit(
+            name, address=address,
+            remote_backend=opts.get("backend", "thread"),
+            batch_frames=opts.get("batch_frames", 1),
+            fn_cache=bool(opts.get("fn_cache", 1)),
+            heartbeat=opts.get("heartbeat"),
+            patience=int(opts.get("patience", 3)),
         )
     aliases = {
         "inline": InlineUnit,
@@ -862,7 +922,7 @@ class BackendEngine:
         return out
 
     def wire_latency(self) -> Optional[Dict[str, float]]:
-        """Mean send->remote-execution-start seconds per transport unit.
+        """Mean send->worker-accept seconds per transport unit.
 
         Only units that went over a transport carry ``wire_latencies``
         (see :class:`~repro.core.transport.RemoteUnit`); for everything

@@ -658,9 +658,13 @@ class HeteroRuntime:
 
         ``backend`` overrides every unit's registered wall-clock backend
         for this call: ``"inline"``, ``"thread"``/``"threads"``,
-        ``"process"``, ``"cuda"``, or a
-        :class:`~repro.core.backends.BackendUnit` instance (single-unit
-        runs only).  See :mod:`repro_torch.core.backends`.
+        ``"process"``, ``"cuda"``, ``"remote:<host:port>"`` (a
+        :class:`~repro_torch.core.transport.RemoteUnit` proxy to a worker
+        hosting the execution across a transport; non-sharded runs only
+        at call level — register per-unit addresses and pin them for
+        sharded runs), or a :class:`~repro.core.backends.BackendUnit`
+        instance (single-unit runs only).  See
+        :mod:`repro_torch.core.backends` and :mod:`repro_torch.core.transport`.
 
         ``kernel`` names the workload for the attached cost model (the
         per-(unit, kernel) learning key): with a ``cost_model=`` on the

@@ -69,13 +69,18 @@ class BlockEllArrays:
 
     def row_blocks(self, n_rows: int) -> "BlockEllArrays":
         """The leading row blocks that cover ``n_rows`` rows, as views."""
-        nrb = (n_rows + ROW_BLOCK - 1) // ROW_BLOCK
-        sub = object.__new__(BlockEllArrays)
-        sub.vals = self.vals[:nrb]
-        sub.colblocks = self.colblocks[:nrb]
-        sub.counts = self.counts[:nrb]
-        sub.max_colblock = self.max_colblock
+        sub = self.row_block_range(0, (n_rows + ROW_BLOCK - 1) // ROW_BLOCK)
         sub.rows = n_rows
+        return sub
+
+    def row_block_range(self, start: int, stop: int) -> "BlockEllArrays":
+        """Row blocks ``start:stop`` (rows ``8·start:8·stop``), as views."""
+        sub = object.__new__(BlockEllArrays)
+        sub.vals = self.vals[start:stop]
+        sub.colblocks = self.colblocks[start:stop]
+        sub.counts = self.counts[start:stop]
+        sub.max_colblock = self.max_colblock
+        sub.rows = sub.counts.shape[0] * ROW_BLOCK
         sub.n_cols = self.n_cols
         return sub
 

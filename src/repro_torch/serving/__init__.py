@@ -1,9 +1,6 @@
-"""Serving: the continuous-batching engine (ENEAC completion-driven refill),
-admission policies with backpressure, and sampling.
-
-The open-loop load harness (``repro.serving.loadgen``) is not ported yet
-(ROADMAP.md queue 1 item 11).
-"""
+"""Serving: the continuous-batching engine (ENEAC completion-driven refill,
+prefill inline, on threads or in remote worker processes), admission
+policies with backpressure, sampling, and the open-loop load harness."""
 
 from .admission import (
     AdmissionPolicy,
@@ -15,6 +12,7 @@ from .admission import (
     make_policy,
 )
 from .engine import Request, RequestResult, ServingEngine
+from .loadgen import LoadgenScenario, TimedRequest, make_trace, run_trace
 from .sampling import sample
 
 __all__ = [
@@ -24,9 +22,13 @@ __all__ = [
     "DeadlinePolicy",
     "FIFOPolicy",
     "PriorityPolicy",
+    "LoadgenScenario",
     "Request",
     "RequestResult",
     "ServingEngine",
+    "TimedRequest",
+    "make_trace",
+    "run_trace",
     "make_policy",
     "sample",
 ]

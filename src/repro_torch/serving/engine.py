@@ -23,8 +23,20 @@ Slot state lives in the batched caches; a new request is prefilled with
 batch 1 and copied into its slot.  ``backend="threads"`` prefills on
 per-slot :class:`~repro_torch.core.backends.ThreadUnit` threads while the
 decode loop keeps stepping; ``backend="inline"`` (default) admits
-synchronously.  ``backend="remote:..."`` needs ``core/transport.py``,
-which the port does not have yet (ROADMAP.md queue 1 item 7).
+synchronously.  ``backend="remote:<host:port>[,<host:port>...]"`` makes
+each slot's prefill unit a :class:`~repro_torch.core.transport.RemoteUnit`,
+round-robin over the addresses: admissions prefill in *worker processes*
+(:func:`~repro_torch.core.transport.spawn_worker`), never in this one.
+Remote mode needs ``model_spec={"config", "smoke", "seed", "device"}``
+(``config`` a name or a ``ModelConfig``; ``device`` defaults to the
+model's), from which each worker builds the model and its parameters once
+with the seeded ``Model.init``, so they equal this process's when these
+were built by ``Model.init(seed)`` on the same kind of device.  A ``cuda`` spec makes the workers host ``cuda``
+units, so the prefill kernels run on the card in the worker.  The batch-1
+cache comes back in the completion frame as CPU tensors (a pickled CUDA
+tensor would reopen on the card inside this process's unpickler) and is
+copied into its slot here.  A remote prefill that fails fails its request
+(an error in its :class:`RequestResult`).
 
 The reference jits prefill and decode; the port runs them eagerly.
 Sampling is reproducible by construction: each sampled token draws from a
@@ -44,19 +56,92 @@ from typing import Deque, Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from ..configs import get_config
 from ..core.backends import BackendUnit, CompletionBus, ThreadUnit
 from ..core.runtime import HeteroRuntime, WorkQueue
 from ..core.scheduler import WorkerKind
 from ..core.space import FlatSpace
-from ..models.model_factory import Model, splice_slot
+from ..core.transport import RemoteUnit
+from ..models.model_factory import Model, make_model, splice_slot
 from .admission import AdmissionPolicy, AdmissionVerdict, make_policy
 from .sampling import sample, token_generator
 
 __all__ = ["Request", "RequestResult", "ServingEngine"]
 
-# seconds a blocking wait for a threads-backend prefill may last before the
-# engine reports the slot as stuck
+
+# seconds a blocking wait for a threads- or remote-backend prefill may last
+# before the engine reports the slot as stuck
 PREFILL_TIMEOUT_S = 60.0
+
+
+def prefill_first_token(model: Model, params, prompt, max_len: int, *, rid: int,
+                        temperature: float, seed: int):
+    """Batch-1 prefill of ``prompt`` and its first token: ``(cache, token)``.
+
+    The first token honours ``temperature`` under the request's index-0
+    generator ``token_seed(seed, rid, 0)``; decode steps continue the same
+    stream.  Inline, threads and remote admission all draw it here.
+    """
+    device = torch.device(model.device)
+    prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int64, device=device)[None, :]
+    logits, single = model.prefill(params, prompt, max_len)
+    gens = [token_generator(seed, rid, 0, device)] if temperature > 0.0 else None
+    return single, int(sample(logits, gens, temperature=temperature)[0])
+
+
+# ---------------------------------------------------------------------------
+# remote prefill: picklable work + a per-process model cache on the worker
+# ---------------------------------------------------------------------------
+_WORKER_MODELS: Dict[tuple, tuple] = {}
+_WORKER_MODELS_LOCK = threading.Lock()
+
+
+def _worker_model(spec: dict):
+    """Build (model, params) once per worker process for a model spec.
+
+    ``spec["config"]`` is a config name or a :class:`ModelConfig` (frozen,
+    so it pickles and keys the cache).
+    """
+    key = (spec["config"], bool(spec.get("smoke", False)), int(spec.get("seed", 0)),
+           str(spec.get("device", "cuda")))
+    with _WORKER_MODELS_LOCK:
+        if key not in _WORKER_MODELS:
+            cfg = get_config(key[0]) if isinstance(key[0], str) else key[0]
+            if key[1]:
+                cfg = cfg.smoke()
+            model = make_model(cfg, device=key[3])
+            _WORKER_MODELS[key] = (model, model.init(key[2]))
+        return _WORKER_MODELS[key]
+
+
+class _RemotePrefill:
+    """One request's prefill as picklable work for a remote worker.
+
+    The worker builds the model from the spec (same config, seed and
+    device kind => identical params), prefills batch 1, and returns the
+    single-slot cache as CPU tensors, the first token (drawn by
+    :func:`prefill_first_token`, so remote admission is token-identical
+    to inline admission) and the seconds the prefill and the copy took.
+    """
+
+    def __init__(self, spec: dict, prompt, max_len: int, *,
+                 rid: int, temperature: float, sample_seed: int) -> None:
+        self.spec = dict(spec)
+        self.prompt = np.asarray(prompt, np.int64)
+        self.max_len = int(max_len)
+        self.rid = int(rid)
+        self.temperature = float(temperature)
+        self.sample_seed = int(sample_seed)
+
+    def __call__(self, chunk):
+        model, params = _worker_model(self.spec)
+        t0 = time.perf_counter()
+        single, tok = prefill_first_token(
+            model, params, self.prompt, self.max_len, rid=self.rid,
+            temperature=self.temperature, seed=self.sample_seed)
+        cpu = [dataclasses.replace(c, **{f.name: getattr(c, f.name).cpu()
+                                         for f in dataclasses.fields(c)}) for c in single]
+        return cpu, tok, time.perf_counter() - t0
 
 
 @dataclasses.dataclass
@@ -118,17 +203,20 @@ class ServingEngine:
         temperature: float = 0.0,
         seed: int = 0,
         backend: str = "inline",
+        model_spec: Optional[dict] = None,
         policy: Union[str, AdmissionPolicy, None] = "fifo",
         max_queue: Optional[int] = None,
     ) -> None:
         if mode not in ("continuous", "static"):
             raise ValueError(mode)
-        if isinstance(backend, str) and backend.startswith("remote:"):
-            raise NotImplementedError(
-                f"backend {backend!r}: remote prefill needs core/transport.py, which the "
-                "port does not have yet (ROADMAP.md queue 1 item 7, slice B)")
-        if backend not in ("inline", "threads"):
-            raise ValueError(f"backend must be inline|threads, got {backend!r}")
+        is_remote = isinstance(backend, str) and backend.startswith("remote:")
+        if backend not in ("inline", "threads") and not is_remote:
+            raise ValueError(
+                f"backend must be inline|threads|remote:<addr>[,...], got {backend!r}")
+        if is_remote and not model_spec:
+            raise ValueError(
+                "backend='remote:...' needs model_spec={'config': name, 'smoke': bool, "
+                "'seed': int, 'device': str} so workers can build the model")
         self.model = model
         self.params = params
         self.device = torch.device(model.device)
@@ -136,6 +224,9 @@ class ServingEngine:
         self.max_len = max_len
         self.mode = mode
         self.backend = backend
+        self.model_spec = None
+        if is_remote:
+            self.model_spec = {"device": str(self.device), **model_spec}
         self.temperature = temperature
         self.seed = int(seed)
         self.policy = make_policy(policy, max_queue=max_queue)
@@ -150,10 +241,13 @@ class ServingEngine:
         self._prefill_seconds: Dict[int, float] = {}
 
         # decode slots are the compute units; run() opens a WorkQueue over
-        # the submitted requests so refill is completion-driven
+        # the submitted requests so refill is completion-driven (remote
+        # prefill units are built by instance below, so the runtime registry
+        # stays backend-less in remote mode)
         self.runtime = HeteroRuntime()
         for b in range(slots):
-            self.runtime.register_unit(f"slot{b}", WorkerKind.ACC, backend=self.backend)
+            self.runtime.register_unit(f"slot{b}", WorkerKind.ACC,
+                                       backend=None if is_remote else self.backend)
         self._feed: Optional[WorkQueue] = None
         self._pending: List[Request] = []
         self._feed_exhausted = False
@@ -165,13 +259,22 @@ class ServingEngine:
         self.last_run_report = None
 
         # backend="threads": admitted requests prefill on a per-slot
-        # ThreadUnit while the decode loop keeps stepping the active slots
+        # ThreadUnit while the decode loop keeps stepping the active slots;
+        # backend="remote:...": the same per-slot units, but RemoteUnits
         self._prefill_units: Optional[Dict[int, BackendUnit]] = None
         self._prefill_bus: Optional[CompletionBus] = None
         self._prefilling: Dict[int, Request] = {}
         if self.backend == "threads":
             self._prefill_bus = CompletionBus()
             self._prefill_units = {b: ThreadUnit(f"slot{b}") for b in range(slots)}
+        elif is_remote:
+            addrs = self.backend[len("remote:"):].split(",")
+            hosted = "cuda" if torch.device(self.model_spec["device"]).type == "cuda" else "thread"
+            self._prefill_bus = CompletionBus()
+            self._prefill_units = {
+                b: RemoteUnit(f"slot{b}", address=addrs[b % len(addrs)], remote_backend=hosted)
+                for b in range(slots)
+            }
 
         self.caches = model.init_caches(slots, max_len)
         self.active: List[Optional[Request]] = [None] * slots
@@ -204,21 +307,28 @@ class ServingEngine:
             self.queue.append(req)
         return verdict
 
+    @property
+    def has_work(self) -> bool:
+        """True while anything is queued, prefilling, or decoding."""
+        return (bool(self.queue) or bool(self._prefilling)
+                or any(a is not None for a in self.active)
+                or self._feed is not None)
+
     def _generator(self, rid: int, index: int) -> torch.Generator:
         return token_generator(self.seed, rid, index, self.device)
 
     def _prefill(self, req: Request):
-        """Batch-1 prefill + first token (runs on a prefill unit).
+        """Batch-1 prefill + first token, and the seconds the call took.
 
-        The first token honours the engine temperature under the request's
-        index-0 generator; decode steps continue the same stream.
+        Every backend reports the call's own time as the prefill's (a
+        unit's ``elapsed`` depends on how it splits dispatch from work: a
+        ``cuda`` unit counts its host enqueue as dispatch).
         """
-        prompt = torch.as_tensor(np.asarray(req.prompt), dtype=torch.int64,
-                                 device=self.device)[None, :]
-        logits, single = self.model.prefill(self.params, prompt, self.max_len)
-        gens = [self._generator(req.rid, 0)] if self.temperature > 0.0 else None
-        tok = int(sample(logits, gens, temperature=self.temperature)[0])
-        return single, tok
+        t0 = time.perf_counter()
+        single, tok = prefill_first_token(self.model, self.params, req.prompt, self.max_len,
+                                          rid=req.rid, temperature=self.temperature,
+                                          seed=self.seed)  # the token waits for the card
+        return single, tok, time.perf_counter() - t0
 
     def _install(self, slot: int, req: Request, single, tok: int,
                  prefill_elapsed: Optional[float] = None) -> None:
@@ -258,16 +368,22 @@ class ServingEngine:
         self._slot_feed[slot] = self._feed
         req = self._pending[chunk.start]
         if self._prefill_units is not None:
+            # remote units need picklable work, so they get a _RemotePrefill
+            # instead of a closure over the live model
+            if self.model_spec is not None:
+                work = _RemotePrefill(self.model_spec, req.prompt, self.max_len, rid=req.rid,
+                                      temperature=self.temperature, sample_seed=self.seed)
+            else:
+                work = lambda c, req=req: self._prefill(req)  # noqa: E731
             self._prefilling[slot] = req
-            self._prefill_units[slot].submit(chunk, lambda c, req=req: self._prefill(req))
+            self._prefill_units[slot].submit(chunk, work)
             return True
-        t0 = time.perf_counter()
         try:
-            single, tok = self._prefill(req)  # reading the token waits for the card
+            single, tok, seconds = self._prefill(req)
         except Exception as exc:
             self._fail(slot, req, exc)
             return True
-        self._install(slot, req, single, tok, prefill_elapsed=time.perf_counter() - t0)
+        self._install(slot, req, single, tok, prefill_elapsed=seconds)
         return True
 
     def _collect_prefills(self, block: bool = False) -> None:
@@ -294,8 +410,8 @@ class ServingEngine:
             if rec.error is not None:
                 self._fail(slot, req, rec.error)
                 continue
-            single, tok = rec.result
-            self._install(slot, req, single, tok, prefill_elapsed=rec.elapsed)
+            single, tok, seconds = rec.result
+            self._install(slot, req, single, tok, prefill_elapsed=seconds)
 
     def _finish(self, slot: int) -> None:
         req = self.active[slot]
@@ -326,15 +442,15 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def run(self) -> Dict[int, RequestResult]:
         """Serve until the queue drains and all slots finish."""
-        if self._prefill_units is not None:
-            for unit in self._prefill_units.values():
-                unit.start(self._prefill_bus)
+        started: List[BackendUnit] = []
         try:
+            for unit in (self._prefill_units or {}).values():
+                unit.start(self._prefill_bus)  # a refused remote unit raises here
+                started.append(unit)
             return self._run_loop()
         finally:
-            if self._prefill_units is not None:
-                for unit in self._prefill_units.values():
-                    unit.close()
+            for unit in started:
+                unit.close()
 
     def _snapshot_queue(self) -> None:
         """Open a policy-ordered feed over the currently queued requests."""
@@ -443,15 +559,20 @@ class ServingEngine:
         return out
 
     def _attach_dispatch_stats(self, report) -> None:
-        """Expose prefill dispatch latency per slot on the batch report."""
+        """Expose prefill dispatch latency per slot on the batch report, and
+        for remote units its wire part (``RunReport.wire_latency``)."""
         if report is None or self._prefill_units is None:
             return
-        stats = {}
+        stats, wire = {}, {}
         for b, unit in self._prefill_units.items():
             lats = unit.dispatch_latencies
             if lats:
                 stats[f"slot{b}"] = sum(lats) / len(lats)
+            lats = getattr(unit, "wire_latencies", None)
+            if lats:
+                wire[f"slot{b}"] = sum(lats) / len(lats)
         report.dispatch_latency = stats or None
+        report.wire_latency = wire or None
 
     # ------------------------------------------------------------------
     def throughput_report(self) -> Dict[str, float]:

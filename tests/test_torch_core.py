@@ -94,8 +94,11 @@ def test_simulated_elastic_report_equals_reference():
 
 def test_core_exports_only_what_was_copied():
     assert "CudaStreamUnit" in core.__all__
-    for missing in ("JaxDeviceUnit", "RemoteUnit", "FleetManager", "spawn_worker"):
-        assert missing not in core.__all__ and not hasattr(core, missing)
+    assert "JaxDeviceUnit" not in core.__all__ and not hasattr(core, "JaxDeviceUnit")
+    for ported in ("RemoteUnit", "FleetManager", "spawn_worker", "WorkerHandle",
+                   "LoopbackTransport", "SocketTransport", "FlakyTransport"):
+        assert ported in core.__all__ and hasattr(core, ported)
+    assert set(jax_core.__all__) - set(core.__all__) == {"JaxDeviceUnit"}
 
 
 # ---------------------------------------------------------------------------
@@ -186,8 +189,9 @@ def test_cuda_unit_rejects_other_devices():
 def test_make_backend_specs():
     assert isinstance(make_backend("cuda", "g0"), CudaStreamUnit)
     assert isinstance(make_backend(None, "t0"), ThreadUnit)
-    with pytest.raises(NotImplementedError, match="transport"):
-        make_backend("remote:127.0.0.1:9", "r0")
+    remote = make_backend("remote:127.0.0.1:9", "r0")
+    assert isinstance(remote, core.RemoteUnit) and remote.address == "127.0.0.1:9"
+    assert remote.remote_backend == "thread"
     with pytest.raises(ValueError, match="'cuda'"):
         make_backend("jax", "j0")
     with pytest.raises(ValueError, match="names must match"):

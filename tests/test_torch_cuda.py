@@ -14,10 +14,13 @@ its plain version's order, so it is held to it bitwise as well.  K4 and
 K5 sum in other orders than their plain versions and are held to them at
 the reference tests' tolerances (f32 2e-4, bf16 2e-2); K4's bf16 path
 runs on the tensor cores, and one tile of each of its two products is
-also held against a plain matrix product.
+also held against a plain matrix product.  A worker process
+(``spawn_worker``) hosting ``cuda`` units runs K3 bitwise equal to a launch
+here, and a remote prefill equals the inline one.
 """
 
 import ctypes
+import time
 
 import numpy as np
 import pytest
@@ -27,7 +30,9 @@ torch = pytest.importorskip("torch")
 from repro_torch import _build  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.paper_eneac import HotspotConfig  # noqa: E402
-from repro_torch.core import CompletionBus, CudaStreamUnit, HeteroRuntime, WorkerKind  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    CompletionBus, CudaStreamUnit, HeteroRuntime, RemoteUnit, WorkerKind, spawn_worker,
+)
 from repro_torch.core.parallel_for import SplitDecision  # noqa: E402
 from repro_torch.core.scheduler import Chunk  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as fk  # noqa: E402
@@ -35,6 +40,7 @@ from repro_torch.kernels.flash_attention.ref import mha_ref  # noqa: E402
 from repro_torch.kernels.hotspot import hotspot as hk  # noqa: E402
 from repro_torch.kernels.hotspot import ops as hops  # noqa: E402
 from repro_torch.kernels.hotspot import ref as href  # noqa: E402
+from repro_torch.kernels.launches import LaunchCounts  # noqa: E402
 from repro_torch.kernels.spmm import ops as sops  # noqa: E402
 from repro_torch.kernels.spmm import ref as sref  # noqa: E402
 from repro_torch.kernels.spmm import spmm as sk  # noqa: E402
@@ -218,6 +224,28 @@ def test_cuda_unit_runs_on_its_own_stream(cuda):
     assert streams[0] == unit.stream != torch.cuda.default_stream(cuda)
 
 
+def test_cuda_unit_counts_its_enqueue_as_dispatch(cuda):
+    # as the reference's device unit: dispatch runs from the submit to the
+    # end of the work function's call (the enqueue), elapsed from there to
+    # the event
+    unit = CudaStreamUnit("g0")
+    bus = CompletionBus()
+
+    def work(c):
+        time.sleep(0.05)  # a slow host enqueue
+        return torch.ones(c.size, device=cuda).sum()
+
+    unit.start(bus)
+    try:
+        unit.submit(Chunk(0, 8, "g0"), work)
+        assert bus.wait(timeout=30.0)
+        rec = bus.drain()[0]
+    finally:
+        unit.close()
+    assert rec.error is None and float(rec.result) == 8.0
+    assert rec.dispatch_latency >= 0.05 > rec.elapsed
+
+
 def test_cuda_units_cover_exactly_once(cuda):
     out = torch.zeros(4096, device=cuda)
 
@@ -370,3 +398,77 @@ def test_full_width_serve(cuda, arch):
     results = engine.run()
     assert sorted(results) == [0, 1, 2]
     assert all(r.ok and len(r.tokens) == 4 for r in results.values())
+
+
+# ---------------------------------------------------------------------------
+# worker processes hosting cuda units
+# ---------------------------------------------------------------------------
+class K3RowBlocks:
+    """Picklable work: K3 on row blocks ``a:b`` of a seeded problem, on the
+    card of the process that runs it; returns the rows on the CPU."""
+
+    def __init__(self, a, b):
+        self.a, self.b = a, b
+
+    def __call__(self, chunk=None):
+        p = sref.make_problem(1000, 3000, 100, nnz_mean=120.0, seed=7)
+        arrays = sk.BlockEllArrays(sref.to_block_ell(p), "cuda")
+        rhs = torch.from_numpy(sops.pad_rhs(p)).cuda()
+        return sk.spmm_block_ell(arrays.row_block_range(self.a, self.b), rhs).cpu()
+
+
+def on_worker(address, work):
+    unit = RemoteUnit("w0", address=address, remote_backend="cuda", max_retries=1200,
+                      connect_timeout=120.0)
+    bus = CompletionBus()
+    unit.start(bus)
+    try:
+        unit.submit(Chunk(0, 1, "w0"), work)
+        assert bus.wait(timeout=300.0)
+        rec = bus.drain()[0]
+    finally:
+        unit.close()
+    assert rec.error is None, rec.error
+    return rec.result
+
+
+@pytest.fixture
+def cuda_worker(cuda):
+    handle = spawn_worker(startup_timeout=120.0)
+    try:
+        yield handle
+    finally:
+        handle.kill()
+
+
+def test_worker_runs_k3_rows_bitwise_equal_to_local(cuda_worker):
+    on_worker(cuda_worker.address, LaunchCounts())  # zero the worker's counts
+    got = on_worker(cuda_worker.address, K3RowBlocks(40, 97))
+    assert on_worker(cuda_worker.address, LaunchCounts())["spmm_block_ell"] == 1
+    assert got.shape == ((97 - 40) * 8, 128)
+    assert torch.equal(got, K3RowBlocks(40, 97)())
+    assert torch.equal(got, K3RowBlocks(0, 125)()[40 * 8:97 * 8])
+
+
+def test_remote_prefill_equals_inline(cuda_worker):
+    cfg = get_config("tinyllama-1.1b").smoke().replace(head_dim=16)  # K4 takes 16-128
+    model = make_model(cfg, device="cuda")
+    params = model.init(3)
+    rng = np.random.default_rng(4)
+    specs = [(rid, rng.integers(0, cfg.vocab_size, int(rng.integers(20, 60))), 6)
+             for rid in range(5)]
+
+    def serve(**kw):
+        engine = ServingEngine(model, params, slots=2, max_len=64, **kw)
+        for rid, prompt, mx in specs:
+            engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=mx))
+        return {rid: r.tokens for rid, r in engine.run().items()}, engine
+
+    on_worker(cuda_worker.address, LaunchCounts())
+    inline, _ = serve()
+    remote, engine = serve(backend=f"remote:{cuda_worker.address}",
+                           model_spec={"config": cfg, "seed": 3})
+    assert remote == inline
+    assert engine.model_spec["device"] == "cuda"
+    assert on_worker(cuda_worker.address, LaunchCounts())["flash_attention"] == \
+        cfg.num_layers * len(specs)

@@ -1,13 +1,17 @@
 """The PyTorch port stands alone: no jax, nothing of ``repro``.
 
-An AST scan finds every import in ``src/repro_torch`` and ``chip_smoke.py``;
-a subprocess in which ``import jax`` fails imports every module of the
-port and runs its CPU entry points; ``chip_smoke.py`` refuses to run, and
-prints no result, on a host without a card.
+An AST scan finds every import in ``src/repro_torch`` and ``chip_smoke.py``,
+and every string that names a jax or ``repro`` module as code would (an
+entry string for ``python -c``, a module path), docstrings aside; a
+subprocess in which ``import jax`` fails imports every module of the port
+and runs its CPU entry points, a worker process and a checkpoint among
+them; ``chip_smoke.py`` refuses to run, and prints no result, on a host
+without a card.
 """
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -29,12 +33,54 @@ def absolute_imports(path):
             yield node.module
 
 
+FORBIDDEN = ("jax", "jaxlib", "repro")
+# a whole string that is a module path, or an import statement anywhere in one
+MODULE_PATH = re.compile(r"^(jax|jaxlib|repro)(\.\w+)*$")
+IMPORT_STMT = re.compile(r"\b(from|import)\s+(jax|jaxlib|repro)\b(?!_)")
+
+
+def code_strings(path):
+    """String constants of ``path`` other than docstrings."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docstrings = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                docstrings.add(id(body[0].value))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docstrings):
+            yield node.value
+
+
+def names_forbidden_module(text):
+    return bool(MODULE_PATH.match(text.strip()) or IMPORT_STMT.search(text))
+
+
 def test_no_jax_or_reference_import():
     assert len(FILES) > 10, "the scan found too few files"
     offenders = [f"{path.relative_to(ROOT)} imports {name}"
                  for path in FILES for name in absolute_imports(path)
-                 if name.split(".")[0] in ("jax", "jaxlib", "repro")]
+                 if name.split(".")[0] in FORBIDDEN]
+    offenders += [f"{path.relative_to(ROOT)} names {text!r}"
+                  for path in FILES for text in code_strings(path)
+                  if names_forbidden_module(text)]
     assert not offenders, offenders
+
+
+@pytest.mark.parametrize("text,flagged", [
+    ("import sys; from repro.core.transport import _main; sys.exit(_main())", True),
+    ("repro.core.transport", True),
+    ("import jax.numpy as jnp", True),
+    ("jax", True),
+    ("import sys; from repro_torch.core.transport import _main", False),
+    ("repro_torch.core.transport", False),
+    ("the reference's ``repro.core.transport`` module", False),
+    ("jax-free", False),
+])
+def test_string_scan_flags_entry_strings(text, flagged):
+    assert names_forbidden_module(text) == flagged
 
 
 def test_every_module_imports_and_runs_without_jax():
@@ -63,6 +109,17 @@ assert np.allclose(res.numpy()[np.argsort(order)], spmm_dense_ref(p), rtol=1e-4,
 from repro_torch.launch import serve
 for arch in ("tinyllama-1.1b", "mamba2-130m"):
     serve.main(["--arch", arch, "--device", "cpu", "--requests", "3", "--max-new", "5"])
+import tempfile
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.core import HeteroRuntime, FleetManager, spawn_worker
+from repro_torch.core.transport import SleepWork
+with tempfile.TemporaryDirectory() as d:
+    Checkpointer(d).save(1, dict(w=torch.ones(3, dtype=torch.bfloat16)), blocking=True)
+    assert Checkpointer(d).restore(1, dict(w=torch.ones(3)))[0]["w"].dtype == torch.bfloat16
+rt = HeteroRuntime()
+with FleetManager(rt, remote_backend="thread", spawn=lambda: spawn_worker(startup_timeout=120)) as fm:
+    fm.scale_to(1)
+    assert rt.parallel_for(SleepWork(0.0), num_items=32, acc_chunk=8).items == 32
 assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m] is not None]
 print("PORT_OK")
 """
