@@ -1,19 +1,40 @@
 """Model configurations (the port's copy of ``repro.configs.base``).
 
-Every assigned architecture is a :class:`ModelConfig`.  The reference's
-TPU parallelism knobs (``ParallelConfig``: sharding, remat, microbatches)
-are left out: nothing on the port's serving path reads them.
+Every assigned architecture is a :class:`ModelConfig`, and its
+distribution knobs a :class:`ParallelConfig`, with the reference's
+defaults.  The port reads ``capacity_factor`` and ``moe_fallback``
+(``models/moe.py``).  The other fields are kept as the reference's config
+data, because the configs set them, and nothing reads them yet:
+``moe_dispatch`` waits for the shard_map dispatch (slice F), the rest for
+the trainer (slice E).  The reference's sharding and remat knobs,
+``InputShape``, ``SHAPES``, ``cell_status``, ``param_count`` and
+``active_param_count`` come with the slices that read them (ROADMAP.md
+queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Tuple
 
-__all__ = ["ModelConfig", "VOCAB_PAD"]
+__all__ = ["ModelConfig", "ParallelConfig", "VOCAB_PAD"]
 
 VOCAB_PAD = 256  # vocab padded to a multiple of this
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """Distribution knobs, with the reference's defaults."""
+
+    sequence_parallel: bool = False    # Megatron-SP activation sharding
+    microbatches: int = 1              # grad-accum chunks (ENEAC iteration space)
+    opt_state_dtype: str = "float32"   # "bfloat16" halves AdamW memory
+    moe_dispatch: str = "gspmd"        # "gspmd" (global) | "local" (per-shard routing;
+                                       # on one device the global path, as in the reference)
+    grad_accum_dtype: str = "float32"  # bf16 halves the grad-accum resident
+    moe_fallback: bool = True          # ENEAC dense fallback (False = drop overflow)
+    capacity_factor: float = 1.25
 
 
 @dataclass(frozen=True)
@@ -62,6 +83,8 @@ class ModelConfig:
     # --- numerics ---
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
+
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
 
     def __post_init__(self):
         if self.head_dim == 0 and self.num_heads:

@@ -5,7 +5,7 @@ vocab=131072, MoE 8 experts top-2.  [hf:xai-org/grok-1; unverified]
 d_ff (2048/shard) with experts replicated along the expert dim — the
 mesh_rules pick this automatically (see parallel/mesh_rules.py)."""
 
-from .base import ModelConfig
+from .base import ModelConfig, ParallelConfig
 
 CONFIG = ModelConfig(
     name="grok-1-314b",
@@ -20,4 +20,10 @@ CONFIG = ModelConfig(
     num_experts=8,
     experts_per_token=2,
     moe_d_ff=32768,
+    # 314B on 256 chips: fp32 moments alone are 2.5 TB => bf16 moments;
+    # 32 grad-accum microbatches bound the dispatch working set.
+    parallel=ParallelConfig(
+        opt_state_dtype="bfloat16", microbatches=16, moe_dispatch="local",
+        grad_accum_dtype="bfloat16", sequence_parallel=True,
+    ),
 )

@@ -6,7 +6,7 @@ Backbone only: the vision tower is a STUB; ``input_specs()`` provides
 precomputed patch embeddings (batch, 1024, d_model).  Cross-attention
 blocks every 5th layer (20 of 100), gated, llama-3.2-vision style."""
 
-from .base import ModelConfig
+from .base import ModelConfig, ParallelConfig
 
 CONFIG = ModelConfig(
     name="llama-3.2-vision-90b",
@@ -21,4 +21,8 @@ CONFIG = ModelConfig(
     rope_theta=5e5,
     cross_attn_every=5,
     num_image_tokens=1024,
+    # 90B dense on 256 chips: bf16 moments + deeper grad accumulation +
+    # sequence-parallel activations
+    parallel=ParallelConfig(opt_state_dtype="bfloat16", microbatches=16,
+                            sequence_parallel=True),
 )

@@ -5,7 +5,7 @@ vocab=151936, MoE 128 experts top-8.  [hf:Qwen/Qwen3-30B-A3B; hf]
 parallelism with all-to-all dispatch.  This is the cell most representative
 of the paper's technique (irregular routing + capacity chunks + fallback)."""
 
-from .base import ModelConfig
+from .base import ModelConfig, ParallelConfig
 
 CONFIG = ModelConfig(
     name="qwen3-moe-30b-a3b",
@@ -22,4 +22,6 @@ CONFIG = ModelConfig(
     num_experts=128,
     experts_per_token=8,
     moe_d_ff=768,
+    # shard_map local dispatch: per-DP-shard routing, 8 experts/model-shard
+    parallel=ParallelConfig(moe_dispatch="local"),
 )

@@ -22,6 +22,8 @@ of the reference's jax device unit.
   queue-driven autoscaling, seeded churn simulation, and the wall-clock
   manager that owns ``spawn_worker`` subprocesses.
 * :mod:`repro_torch.core.parallel_for` — hybrid dense/sparse executor (SPMM).
+* :mod:`repro_torch.core.moe_dispatch` — capacity-chunk MoE dispatch with a dense
+  fallback: experts are the ACC units, the fallback FFN the CC path.
 * :mod:`repro_torch.core.space` — flat, tiled and host-sharded iteration spaces.
 * :mod:`repro_torch.core.runtime` — :class:`HeteroRuntime`, the front door.
 """
@@ -60,6 +62,7 @@ from .hetero import HeteroPartition, HeterogeneousPartitioner, ThroughputTracker
 from .straggler import MitigationPlan, StragglerDetector, StragglerMitigator, StragglerReport
 from .elastic import DeviceHealth, ElasticEvent, ElasticMeshManager, ElasticSchedule, RescalePlan
 from .parallel_for import HybridExecutor, SplitDecision
+from .moe_dispatch import CapacityController, DispatchPlan, RouterOutput
 from .fleet import (
     Autoscaler,
     FailureTrace,
@@ -127,6 +130,9 @@ __all__ = [
     "RescalePlan",
     "HybridExecutor",
     "SplitDecision",
+    "CapacityController",
+    "DispatchPlan",
+    "RouterOutput",
     "HeartbeatBook",
     "Autoscaler",
     "FailureTrace",

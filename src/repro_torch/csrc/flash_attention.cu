@@ -12,6 +12,12 @@
 //    nothing to l) and query rows past Sq (the ragged last tiles) are
 //    masked here, so any length runs through the kernel.
 //
+// Head dims: any D from 1 to 256.  Each path instantiates a few padded
+// widths DP >= D (bf16: 64, 128, 192, 256; f32: 16, 32, 64, 128, 192,
+// 256); the columns D .. DP - 1 are zero in shared memory, so the padded
+// products add exact zeros and equal the unpadded ones.  Only D columns are
+// read from and written to device memory.
+//
 // Both dtypes give one CTA to each (batch, kv head, block of 64 query
 // rows), where a row is one (position i, group g) pair, numbered i * G + g:
 // the G heads of a position are adjacent in memory and share the CTA's
@@ -23,25 +29,28 @@
 // for tinyllama's prefill at S = 2048, 0.017 ms at the 989 TFLOP/s bf16
 // peak, against 19 MB of q, k, v and o.  One warpgroup (128 threads) owns
 // the CTA's 64 rows, wgmma's M:
-//  - S = Q K^T by wgmma m64n64k16 (bf16 operands, f32 accumulators), Q and
-//    the K tile read from shared memory K-major, as they lie in memory;
-//    scale multiplies the f32 scores.
+//  - S = Q K^T by wgmma m64n64k16 (bf16 operands, f32 accumulators), DP/16
+//    steps, Q and the K tile read from shared memory K-major, as they lie
+//    in memory; scale multiplies the f32 scores.
 //  - The online softmax runs on the accumulator fragments in registers: a
 //    row's max is reduced over the 4 lanes that share the row, its sum l
 //    stays a per-lane share until the end.  Masks are applied only on the
 //    tiles that need them (the diagonal, the window's edge, the ragged
 //    last key tile).
 //  - P is rounded to bf16 in registers, where the S fragment already has
-//    the layout of wgmma's A operand, and O += P V runs in the RS form
-//    (m64n64k16, or m64n128k16 for D = 128) with the V tile read from
-//    shared memory MN-major (the transpose bit), as it lies in memory.
-//    The scale, max, exp, l and O stay f32: only P is rounded.
+//    the layout of wgmma's A operand, and O += P V runs in the RS form,
+//    DP columns as m64n128k16 pieces and an m64n64k16 for the last 64 of
+//    DP = 64 or 192, with the V tile read from shared memory MN-major (the
+//    transpose bit), as it lies in memory.  The scale, max, exp, l and O
+//    stay f32: only P is rounded.
 //  - K and V tiles arrive by 16-byte cp.async copies in a ring of two
 //    stages, each completing on an mbarrier (cp.async.mbarrier.arrive), so
 //    tile t + 1 loads while tile t is multiplied.  Key rows past Sk are
 //    zero-filled by the copy and read nothing.  Tiles are stored with the
-//    128-byte swizzle that wgmma's descriptors name; head dims below 64 are
-//    padded with zero columns to one 128-byte row.
+//    128-byte swizzle that wgmma's descriptors name, in regions of 64
+//    columns.  The copies need D % 8 == 0 and 16-byte aligned tensors: the
+//    wrapper pads D to a multiple of 8 with zero columns, and copies an
+//    unaligned tensor to an aligned one, before the launch.
 //
 // f32 (flash_fwd_kernel): the CUDA cores.  This is the path of the f32
 // parity checks (the serving path's greedy token equality), the tensor
@@ -50,11 +59,12 @@
 // scaled_dot_product_attention.  The CTA stages its q rows (scaled, as
 // f32, transposed) once, then walks the keys in tiles of 64: K
 // (transposed) and V tiles are staged in shared memory as f32; each of the
-// 128 threads computes an 8 x 4 block of the 64 x 64 score tile with FMA,
-// the row max and sum are reduced across the 16 threads that share a row
-// with warp shuffles, P goes through shared memory, and each thread
-// accumulates an 8 x D/16 block of the output in registers.  Bound:
-// operations, at the 67 TFLOP/s f32 rate.
+// 128 threads computes an 8 x 4 block of the 64 x 64 score tile with FMA
+// over the D columns, the row max and sum are reduced across the 16
+// threads that share a row with warp shuffles, P goes through shared
+// memory, and each thread accumulates an 8 x DP/16 block of the output in
+// registers.  At DP = 256 the CTA's shared memory is 222,208 B of the
+// 232,448 a block may use.  Bound: operations, at the 67 TFLOP/s f32 rate.
 //
 // The entry points return cudaGetLastError() so the wrapper can raise on a
 // refused launch.
@@ -68,6 +78,8 @@
 
 namespace {
 
+constexpr int kMaxHeadDim = 256;
+constexpr int kMaxSmemBytes = 232448;  // dynamic shared memory a block may use on sm_90
 constexpr int kRows = 64;      // query rows (position, group) per CTA
 constexpr int kKeys = 64;      // keys per tile
 constexpr int kThreads = 128;  // 8 row groups x 16 column groups
@@ -96,23 +108,26 @@ __device__ __forceinline__ float row_max(float v) {
   return v;
 }
 
-template <int D>
+template <int DP>
 constexpr int smem_floats() {
-  return D * kQStride + D * kKStride + kKeys * D + kKeys * kQStride;
+  return DP * kQStride + DP * kKStride + kKeys * DP + kKeys * kQStride;
 }
+static_assert(smem_floats<kMaxHeadDim>() * 4 <= kMaxSmemBytes, "f32 K4 tiles exceed shared memory");
 
-template <typename T, int D>
+// DP: the padded width (a multiple of 16); head_dim <= DP columns are real.
+template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int seq_q, int seq_k, int heads, int kv_heads, int causal,
-                 int window, float scale) {
-  constexpr int kCols = D / 16;  // output columns per thread
+                 T* __restrict__ o, int seq_q, int seq_k, int heads, int kv_heads, int head_dim,
+                 int causal, int window, float scale) {
+  constexpr int kCols = DP / 16;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                      // [D][kQStride]   q rows, transposed
-  float* ks = qs + D * kQStride;         // [D][kKStride]   key tile, transposed
-  float* vs = ks + D * kKStride;         // [kKeys][D]      value tile
-  float* ps = vs + kKeys * D;            // [kKeys][kQStride] probabilities, transposed
+  float* qs = smem;                      // [DP][kQStride]   q rows, transposed
+  float* ks = qs + DP * kQStride;        // [DP][kKStride]   key tile, transposed
+  float* vs = ks + DP * kKStride;        // [kKeys][DP]      value tile
+  float* ps = vs + kKeys * DP;           // [kKeys][kQStride] probabilities, transposed
 
+  const int D = head_dim;
   const int groups = heads / kv_heads;
   const int b = blockIdx.z;
   const int kvh = blockIdx.y;
@@ -122,11 +137,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int tr = tid / 16;
   const int tc = tid % 16;
 
-  for (int e = tid; e < kRows * D; e += kThreads) {
-    const int r = e / D, d = e % D;
+  for (int e = tid; e < kRows * DP; e += kThreads) {
+    const int r = e / DP, d = e % DP;
     const int rho = row0 + r;
     float val = 0.0f;
-    if (rho < total_rows) {
+    if (rho < total_rows && d < D) {
       const int i = rho / groups, g = rho % groups;
       val = to_f32(q[((static_cast<long>(b) * seq_q + i) * heads + kvh * groups + g) * D + d]) *
             scale;
@@ -157,17 +172,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kKeys;
     __syncthreads();  // the previous tile's K, V and P are no longer read
-    for (int e = tid; e < kKeys * D; e += kThreads) {
-      const int j = e / D, d = e % D;
+    for (int e = tid; e < kKeys * DP; e += kThreads) {
+      const int j = e / DP, d = e % DP;
       const int kp = k0 + j;
       float kv = 0.0f, vv = 0.0f;
-      if (kp < seq_k) {
+      if (kp < seq_k && d < D) {
         const long idx = ((kv_base + kp) * kv_heads + kvh) * D + d;
         kv = to_f32(k[idx]);
         vv = to_f32(v[idx]);
       }
       ks[d * kKStride + j] = kv;
-      vs[j * D + d] = vv;
+      vs[j * DP + d] = vv;
     }
     __syncthreads();
 
@@ -177,7 +192,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int jj = 0; jj < kKeysPerThread; ++jj) s[r][jj] = 0.0f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < D; ++d) {  // the padded columns are zero: skip them
       const float4 qa = *reinterpret_cast<const float4*>(&qs[d * kQStride + tr * 8]);
       const float4 qb = *reinterpret_cast<const float4*>(&qs[d * kQStride + tr * 8 + 4]);
       const float4 kk = *reinterpret_cast<const float4*>(&ks[d * kKStride + tc * 4]);
@@ -232,7 +247,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const float pv[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
-        const float vv = vs[j * D + tc + 16 * c];
+        const float vv = vs[j * DP + tc + 16 * c];
 #pragma unroll
         for (int r = 0; r < kRowsPerThread; ++r) acc[r][c] = fmaf(pv[r], vv, acc[r][c]);
       }
@@ -247,23 +262,25 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const float denom = fmaxf(l_run[r], 1e-30f);
     T* dst = o + ((static_cast<long>(b) * seq_q + i) * heads + kvh * groups + g) * D;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) dst[tc + 16 * c] = from_f32<T>(acc[r][c] / denom);
+    for (int c = 0; c < kCols; ++c) {
+      if (tc + 16 * c < D) dst[tc + 16 * c] = from_f32<T>(acc[r][c] / denom);
+    }
   }
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int batch, int seq_q,
-                   int seq_k, int heads, int kv_heads, int causal, int window, float scale,
-                   cudaStream_t stream) {
-  constexpr int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+                   int seq_k, int heads, int kv_heads, int head_dim, int causal, int window,
+                   float scale, cudaStream_t stream) {
+  constexpr int smem = smem_floats<DP>() * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const long row_blocks = (static_cast<long>(seq_q) * (heads / kv_heads) + kRows - 1) / kRows;
   const dim3 grid(static_cast<unsigned>(row_blocks), kv_heads, batch);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), seq_q, seq_k, heads, kv_heads, causal, window, scale);
+      static_cast<T*>(o), seq_q, seq_k, heads, kv_heads, head_dim, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -271,13 +288,15 @@ template <typename T>
 cudaError_t launch_dim(int head_dim, const void* q, const void* k, const void* v, void* o,
                        int batch, int seq_q, int seq_k, int heads, int kv_heads, int causal,
                        int window, float scale, cudaStream_t stream) {
-  switch (head_dim) {
-    case 16: return launch<T, 16>(q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, causal, window, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, causal, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, causal, window, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
+#define K4_F32(DP) \
+  launch<T, DP>(q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, head_dim, causal, window, scale, stream)
+  if (head_dim <= 16) return K4_F32(16);
+  if (head_dim <= 32) return K4_F32(32);
+  if (head_dim <= 64) return K4_F32(64);
+  if (head_dim <= 128) return K4_F32(128);
+  if (head_dim <= 192) return K4_F32(192);
+  return K4_F32(256);
+#undef K4_F32
 }
 
 
@@ -296,29 +315,34 @@ __device__ __forceinline__ uint32_t tile_offset(int r, int c) {
   return (c / 8) * kRegionBytes + r * 128 + (((c % 8) ^ (r % 8)) << 4);
 }
 
-// Copies a tile of 64 rows of D bf16 into shared memory with cp.async,
-// row r from row_ptr(r), or zeros where row_ptr(r) is null.
-template <int D, typename RowPtr>
-__device__ __forceinline__ void load_tile(uint32_t tile, const __nv_bfloat16* any,
+// Fills a tile of 64 rows of DP bf16 in shared memory by 16-byte cp.async
+// copies of the d / 8 chunks (d % 8 == 0) of row r from row_ptr(r), or
+// zeros where row_ptr(r) is null; the columns past d were zeroed once by
+// zero_padding.
+template <int DP, typename RowPtr>
+__device__ __forceinline__ void load_tile(uint32_t tile, const __nv_bfloat16* any, int d,
                                           RowPtr row_ptr) {
-  constexpr int kChunks = D / 8;
-  for (int e = threadIdx.x; e < kTileRows * kChunks; e += kWarpgroup) {
-    const int r = e / kChunks, c = e % kChunks;
+  constexpr int kSlots = DP / 8;
+  for (int e = threadIdx.x; e < kTileRows * kSlots; e += kWarpgroup) {
+    const int r = e / kSlots, c = e % kSlots;
+    if (8 * c >= d) continue;
     const __nv_bfloat16* src = row_ptr(r);
     sm90::cp_async16(tile + tile_offset(r, c), src ? src + 8 * c : any, src != nullptr);
   }
 }
 
-// Zeroes the columns D .. 63 of `n_tiles` consecutive tiles (D < 64): the
-// products read them, and no copy writes them.
-template <int D>
-__device__ __forceinline__ void zero_padding(unsigned char* tiles, int n_tiles, int tile_bytes) {
-  constexpr int kPadChunks = 8 - D / 8;
-  for (int e = threadIdx.x; e < n_tiles * kTileRows * kPadChunks; e += kWarpgroup) {
-    const int t = e / (kTileRows * kPadChunks);
-    const int r = e / kPadChunks % kTileRows;
-    const int c = D / 8 + e % kPadChunks;
-    *reinterpret_cast<uint4*>(tiles + t * tile_bytes + tile_offset(r, c)) = make_uint4(0, 0, 0, 0);
+// Zeroes the columns d .. DP - 1 (d % 8 == 0) of `n_tiles` consecutive
+// tiles: the products read them, and no copy writes them.
+template <int DP>
+__device__ __forceinline__ void zero_padding(unsigned char* tiles, int n_tiles, int d) {
+  constexpr int kTileBytes = DP * 128;
+  const int pad_chunks = (DP - d) / 8;
+  if (pad_chunks == 0) return;
+  for (int e = threadIdx.x; e < n_tiles * kTileRows * pad_chunks; e += kWarpgroup) {
+    const int t = e / (kTileRows * pad_chunks);
+    const int r = e / pad_chunks % kTileRows;
+    const int c = d / 8 + e % pad_chunks;
+    *reinterpret_cast<uint4*>(tiles + t * kTileBytes + tile_offset(r, c)) = make_uint4(0, 0, 0, 0);
   }
 }
 
@@ -345,7 +369,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // O (64 x DP f32) += bf16(P) V, P in the S fragment's registers (RS form),
-// the V tile (keys x DP, DP contiguous) MN-major in shared memory.
+// the V tile (keys x DP, DP contiguous) MN-major in shared memory.  The DP
+// columns go as n128 pieces (two 64-column regions each), then one n64 for
+// a last odd region; a piece's accumulators are the fragment's next 64 (or
+// 32) registers, the layout of one wide product.
 template <int DP>
 __device__ __forceinline__ void pv_product(float (&o)[DP / 2], const float (&p)[32],
                                            uint32_t v_tile) {
@@ -361,12 +388,18 @@ __device__ __forceinline__ void pv_product(float (&o)[DP / 2], const float (&p)[
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks) {
     // 16 keys are two 8-row groups; the 64-column regions are kRegionBytes apart
-    const uint64_t desc = sm90::wgmma_desc_sw128(v_tile + ks * 2 * kAtomBytes, kRegionBytes,
-                                                 kAtomBytes);
-    if constexpr (DP == 64) {
-      sm90::wgmma_rs_m64n64k16(o, a[ks], desc, 1);
-    } else {
-      sm90::wgmma_rs_m64n128k16(o, a[ks], desc, 1);
+    const uint32_t rows = v_tile + ks * 2 * kAtomBytes;
+#pragma unroll
+    for (int n = 0; n < DP / 128; ++n) {
+      sm90::wgmma_rs_m64n128k16(
+          *reinterpret_cast<float(*)[64]>(o + 64 * n), a[ks],
+          sm90::wgmma_desc_sw128(rows + 2 * n * kRegionBytes, kRegionBytes, kAtomBytes), 1);
+    }
+    if constexpr (DP % 128 != 0) {
+      constexpr int kLast = DP / 64 - 1;
+      sm90::wgmma_rs_m64n64k16(
+          *reinterpret_cast<float(*)[32]>(o + 32 * kLast), a[ks],
+          sm90::wgmma_desc_sw128(rows + kLast * kRegionBytes, kRegionBytes, kAtomBytes), 1);
     }
   }
   sm90::wgmma_commit();
@@ -377,14 +410,16 @@ __device__ __forceinline__ void pv_product(float (&o)[DP / 2], const float (&p)[
 constexpr int bf16_smem_bytes(int dp) {
   return 5 * dp * 128 + 2 * 8 + 1024;  // Q, two K and two V tiles, two barriers, alignment
 }
+static_assert(bf16_smem_bytes(kMaxHeadDim) <= kMaxSmemBytes, "bf16 K4 tiles exceed shared memory");
 
-template <int D>
+// kFull: D == DP, a compile-time head dim for the exact widths 64, 128,
+// 192 and 256 (at D 64 a runtime D took 20 % more time on an H100).
+template <int DP, bool kFull>
 __global__ void __launch_bounds__(kWarpgroup)
 flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                      int seq_q, int seq_k, int heads, int kv_heads, int causal, int window,
-                      float scale) {
-  constexpr int DP = D < 64 ? 64 : D;  // columns held in shared memory
+                      int seq_q, int seq_k, int heads, int kv_heads, int head_dim, int causal,
+                      int window, float scale) {
   constexpr int kTileBytes = DP * 128;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = sm90::smem_u32(smem_raw);
@@ -393,6 +428,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   const uint32_t q_tile = base;                   // then K0, V0, K1, V1
   const uint32_t full = base + 5 * kTileBytes;    // stage s's barrier at full + 8 s
 
+  const int D = kFull ? DP : head_dim;
   const int groups = heads / kv_heads;
   const int b = blockIdx.z;
   const int kvh = blockIdx.y;
@@ -405,10 +441,10 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     sm90::mbar_init(full + 8, kWarpgroup);
     sm90::fence_mbar_init();
   }
-  if constexpr (D < 64) zero_padding<D>(tiles, 5, kTileBytes);
+  if constexpr (!kFull) zero_padding<DP>(tiles, 5, D);
   __syncthreads();
 
-  load_tile<D>(q_tile, q, [&](int r) -> const __nv_bfloat16* {
+  load_tile<DP>(q_tile, q, D, [&](int r) -> const __nv_bfloat16* {
     const int rho = row0 + r;
     if (rho >= total_rows) return nullptr;
     const int i = rho / groups, g = rho % groups;
@@ -423,8 +459,8 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
         return x + ((static_cast<int64_t>(b) * seq_k + j) * kv_heads + kvh) * D;
       };
     };
-    load_tile<D>(kt, k, row(k));
-    load_tile<D>(kt + kTileBytes, v, row(v));
+    load_tile<DP>(kt, k, D, row(k));
+    load_tile<DP>(kt + kTileBytes, v, D, row(v));
     sm90::cp_async_arrive(full + 8 * (t & 1));
   };
   load_kv(0);
@@ -509,36 +545,38 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     const int i = rho / groups, g = rho % groups;
     __nv_bfloat16* dst = o + ((static_cast<int64_t>(b) * seq_q + i) * heads + kvh * groups + g) * D;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + col) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * h] / denom, acc[4 * j + 2 * h + 1] / denom);
+    for (int j = 0; j < DP / 8; ++j) {
+      const float lo = acc[4 * j + 2 * h] / denom, hi = acc[4 * j + 2 * h + 1] / denom;
+      if (8 * j < D)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + col) = __floats2bfloat162_rn(lo, hi);
     }
   }
 }
 
 // One tile of each product on its own, for the card tests: S = q k^T and
-// O = bf16(S) v for (64, D) row-major q, k, v, in the kernel's layouts.
-template <int D>
+// O = bf16(S) v for (64, D) row-major q, k, v (D % 8 == 0), in the kernel's
+// layouts at the padded width DP.
+template <int DP>
 __global__ void __launch_bounds__(kWarpgroup)
 wgmma_probe_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v, float* __restrict__ s_out,
-                   float* __restrict__ o_out) {
-  constexpr int DP = D < 64 ? 64 : D;
+                   float* __restrict__ o_out, int head_dim) {
   constexpr int kTileBytes = DP * 128;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = sm90::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* const tiles = smem_raw + (base - raw);
   const uint32_t full = base + 3 * kTileBytes;
+  const int D = head_dim;
   if (threadIdx.x == 0) {
     sm90::mbar_init(full, kWarpgroup);
     sm90::fence_mbar_init();
   }
-  if constexpr (D < 64) zero_padding<D>(tiles, 3, kTileBytes);
+  zero_padding<DP>(tiles, 3, D);
   __syncthreads();
   const __nv_bfloat16* src[3] = {q, k, v};
   for (int t = 0; t < 3; ++t) {
-    load_tile<D>(base + t * kTileBytes, q, [&](int r) { return src[t] + r * D; });
+    load_tile<DP>(base + t * kTileBytes, q, D, [&](int r) { return src[t] + r * D; });
   }
   sm90::cp_async_arrive(full);
   sm90::mbar_wait(full, 0);
@@ -554,49 +592,67 @@ wgmma_probe_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
   pv_product<DP>(acc, s, base + 2 * kTileBytes);
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o_out[(ra + 8 * (i % 4 / 2)) * D + i / 4 * 8 + col + i % 2] = acc[i];
+  for (int i = 0; i < DP / 2; ++i) {
+    const int c = i / 4 * 8 + col + i % 2;
+    if (c < D) o_out[(ra + 8 * (i % 4 / 2)) * D + c] = acc[i];
+  }
 }
 
-template <int D>
+template <int DP, bool kFull>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int batch,
-                        int seq_q, int seq_k, int heads, int kv_heads, int causal, int window,
-                        float scale, cudaStream_t stream) {
-  constexpr int smem = bf16_smem_bytes(D < 64 ? 64 : D);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
+                        int seq_q, int seq_k, int heads, int kv_heads, int head_dim, int causal,
+                        int window, float scale, cudaStream_t stream) {
+  constexpr int smem = bf16_smem_bytes(DP);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<DP, kFull>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const long row_blocks =
       (static_cast<long>(seq_q) * (heads / kv_heads) + kTileRows - 1) / kTileRows;
   const dim3 grid(static_cast<unsigned>(row_blocks), kv_heads, batch);
-  flash_fwd_bf16_kernel<D><<<grid, kWarpgroup, smem, stream>>>(
+  flash_fwd_bf16_kernel<DP, kFull><<<grid, kWarpgroup, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), seq_q, seq_k, heads,
-      kv_heads, causal, window, scale);
+      kv_heads, head_dim, causal, window, scale);
   return cudaGetLastError();
 }
 
-cudaError_t launch_bf16_dim(int head_dim, const void* q, const void* k, const void* v, void* o,
-                            int batch, int seq_q, int seq_k, int heads, int kv_heads, int causal,
-                            int window, float scale, cudaStream_t stream) {
-  switch (head_dim) {
-    case 16: return launch_bf16<16>(q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, causal, window, scale, stream);
-    case 32: return launch_bf16<32>(q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, causal, window, scale, stream);
-    case 64: return launch_bf16<64>(q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, causal, window, scale, stream);
-    case 128: return launch_bf16<128>(q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, causal, window, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
+template <int DP>
+cudaError_t launch_bf16_dp(int head_dim, const void* q, const void* k, const void* v, void* o,
+                           int batch, int seq_q, int seq_k, int heads, int kv_heads, int causal,
+                           int window, float scale, cudaStream_t stream) {
+#define K4_BF16(FULL)                                                                     \
+  launch_bf16<DP, FULL>(q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, head_dim, causal, \
+                        window, scale, stream)
+  if (head_dim == DP) return K4_BF16(true);
+  return K4_BF16(false);
+#undef K4_BF16
 }
 
-template <int D>
+cudaError_t launch_bf16_width(int head_dim, const void* q, const void* k, const void* v,
+                              void* o, int batch, int seq_q, int seq_k, int heads, int kv_heads,
+                              int causal, int window, float scale, cudaStream_t stream) {
+#define K4_BF16(DP)                                                                        \
+  launch_bf16_dp<DP>(head_dim, q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, causal,   \
+                     window, scale, stream)
+  if (head_dim <= 64) return K4_BF16(64);
+  if (head_dim <= 128) return K4_BF16(128);
+  if (head_dim <= 192) return K4_BF16(192);
+  return K4_BF16(256);
+#undef K4_BF16
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <int DP>
 cudaError_t launch_probe(const void* q, const void* k, const void* v, float* s, float* o,
-                         cudaStream_t stream) {
-  constexpr int smem = 3 * (D < 64 ? 64 : D) * 128 + 8 + 1024;
-  cudaError_t err = cudaFuncSetAttribute(wgmma_probe_kernel<D>,
+                         int head_dim, cudaStream_t stream) {
+  constexpr int smem = 3 * DP * 128 + 8 + 1024;
+  cudaError_t err = cudaFuncSetAttribute(wgmma_probe_kernel<DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  wgmma_probe_kernel<D><<<1, kWarpgroup, smem, stream>>>(
+  wgmma_probe_kernel<DP><<<1, kWarpgroup, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), s, o);
+      static_cast<const __nv_bfloat16*>(v), s, o, head_dim);
   return cudaGetLastError();
 }
 
@@ -609,11 +665,13 @@ const char* flash_attention_error_string(int err) {
 }
 
 // dtype: 0 float32, 1 bfloat16.  q, o (B, Sq, H, D) and k, v (B, Sk, KVH, D),
-// contiguous, on the card.
+// contiguous, on the card, 1 <= D <= 256; bfloat16 also needs D % 8 == 0
+// and 16-byte aligned tensors.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int batch,
                            int seq_q, int seq_k, int heads, int kv_heads, int head_dim,
                            int dtype, int causal, int window, float scale, void* stream) {
-  if (batch <= 0 || seq_q <= 0 || seq_k <= 0 || kv_heads <= 0 || heads % kv_heads)
+  if (batch <= 0 || seq_q <= 0 || seq_k <= 0 || kv_heads <= 0 || heads % kv_heads ||
+      head_dim < 1 || head_dim > kMaxHeadDim)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -621,8 +679,11 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
     err = launch_dim<float>(head_dim, q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, causal,
                             window, scale, s);
   } else if (dtype == 1) {
-    err = launch_bf16_dim(head_dim, q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, causal,
-                          window, scale, s);
+    // 16-byte copies need whole 8-column chunks on 16-byte aligned rows
+    if (head_dim % 8 || !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
+      return static_cast<int>(cudaErrorInvalidValue);
+    err = launch_bf16_width(head_dim, q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, causal,
+                            window, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -630,17 +691,18 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
 }
 
 // One tile of each bf16 product (S = q k^T, O = bf16(S) v) for (64, D)
-// row-major q, k, v on the card; s is (64, 64) and o (64, D), f32.
+// row-major q, k, v on the card (D a multiple of 8 up to 256, 16-byte
+// aligned); s is (64, 64) and o (64, D), f32.
 int flash_attention_wgmma_probe(const void* q, const void* k, const void* v, float* s, float* o,
                                 int head_dim, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 16: return static_cast<int>(launch_probe<16>(q, k, v, s, o, st));
-    case 32: return static_cast<int>(launch_probe<32>(q, k, v, s, o, st));
-    case 64: return static_cast<int>(launch_probe<64>(q, k, v, s, o, st));
-    case 128: return static_cast<int>(launch_probe<128>(q, k, v, s, o, st));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (head_dim < 8 || head_dim > kMaxHeadDim || head_dim % 8 || !aligned16(q) ||
+      !aligned16(k) || !aligned16(v))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim <= 64) return static_cast<int>(launch_probe<64>(q, k, v, s, o, head_dim, st));
+  if (head_dim <= 128) return static_cast<int>(launch_probe<128>(q, k, v, s, o, head_dim, st));
+  if (head_dim <= 192) return static_cast<int>(launch_probe<192>(q, k, v, s, o, head_dim, st));
+  return static_cast<int>(launch_probe<256>(q, k, v, s, o, head_dim, st));
 }
 
 }  // extern "C"

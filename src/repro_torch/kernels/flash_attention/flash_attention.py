@@ -22,9 +22,17 @@ kernel's arithmetic: ``q`` scaled before the product, masked scores set
 to ``-0.7 · FLT_MAX`` (not ``-inf``, so a fully masked row averages V as
 the kernel does instead of giving NaN).
 
+The kernel takes every head dim D from 1 to :data:`MAX_HEAD_DIM` (256),
+as padded widths whose extra columns are zero in shared memory; a larger
+D raises (no config of the repo has one; ROADMAP.md queue 3 lists it as a
+deliberate difference from the reference, which takes any D).
+
 The wrapper takes the plain version for tensors on the CPU, launches the
-kernel for CUDA tensors, and counts its launches in
-``flash_attention.launches``.
+kernel for CUDA tensors (made contiguous first where they are not), and
+counts its launches in ``flash_attention.launches``.  The bf16 kernel
+loads whole 8-column chunks of 16-byte aligned rows, so for it the wrapper
+pads D to a multiple of 8 with zero columns (and slices the output back),
+and copies an unaligned tensor to a fresh buffer.
 """
 
 from __future__ import annotations
@@ -36,10 +44,10 @@ import torch
 
 from ... import _build
 
-__all__ = ["MASK_VALUE", "HEAD_DIMS", "flash_attention", "flash_attention_plain"]
+__all__ = ["MASK_VALUE", "MAX_HEAD_DIM", "flash_attention", "flash_attention_plain"]
 
 MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
-HEAD_DIMS = (16, 32, 64, 128)
+MAX_HEAD_DIM = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
@@ -61,13 +69,22 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if len({q.device, k.device, v.device}) != 1:
         raise ValueError("K4's inputs lie on several devices")
+    if d < 1:
+        raise ValueError(f"K4 needs a head dim of at least 1, got {d}")
     if q.device.type == "cuda":
-        if d not in HEAD_DIMS:
-            raise ValueError(f"the CUDA K4 kernel takes head_dim in {HEAD_DIMS}, got {d}")
-        if not all(t.is_contiguous() for t in (q, k, v)):
-            raise ValueError("the CUDA K4 kernel takes contiguous tensors")
+        if d > MAX_HEAD_DIM:
+            raise ValueError(f"the CUDA K4 kernel takes head_dim up to {MAX_HEAD_DIM}, got {d} "
+                             "(ROADMAP.md queue 3: a deliberate difference from the reference)")
     elif q.device.type != "cpu":
         raise ValueError(f"K4 runs on cpu or cuda, got {q.device}")
+
+
+def _bf16_operand(x: torch.Tensor, d8: int) -> torch.Tensor:
+    """``x`` (contiguous) as the bf16 kernel's 16-byte copies take it: D
+    padded with zero columns to ``d8``, on a 16-byte aligned buffer."""
+    if x.shape[-1] != d8:
+        return torch.nn.functional.pad(x, (0, d8 - x.shape[-1]))
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 def flash_attention_plain(
@@ -105,19 +122,24 @@ def flash_attention(
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     scale = d**-0.5 if scale is None else scale
+    dk = d
+    if q.dtype == torch.bfloat16:
+        dk = -(-d // 8) * 8
+        q, k, v = (_bf16_operand(x, dk) for x in (q, k, v))
     out = torch.empty_like(q)
     launch = _build.function("flash_attention", "flash_attention_launch", _ARGS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     b, sq, sk, h, kvh, d, _DTYPE_CODE[q.dtype], int(causal), int(window),
+                     b, sq, sk, h, kvh, dk, _DTYPE_CODE[q.dtype], int(causal), int(window),
                      float(scale), stream)
     _build.check("flash_attention", err, "flash_attention launch")
     _build.count_launch(flash_attention)
-    return out
+    return out if dk == d else out[..., :d].contiguous()
 
 
 flash_attention.launches = 0

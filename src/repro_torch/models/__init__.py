@@ -1,4 +1,4 @@
-"""Models: the ``dense`` and ``ssm`` families, ported from ``repro.models``."""
+"""Models: the ``dense``, ``moe`` and ``ssm`` families, ported from ``repro.models``."""
 
 from .model_factory import Model, make_model
 

@@ -1,8 +1,9 @@
 """Model factory: one API over the ported architectures.
 
 The port's copy of ``repro.models.model_factory`` for serving: ``init``,
-``init_caches``, ``prefill``, ``decode_step`` and ``logits``.  Training
-(``loss_fn``) comes with slice E (ROADMAP.md queue 1 item 12).
+``init_caches``, ``prefill``, ``prefill_from``, ``decode_step`` and
+``logits``.  Training (``loss_fn``) comes with slice E (ROADMAP.md queue 1,
+'Slice E: training').
 
 ``Model(cfg, device=...)`` builds its tensors on ``device`` ("cuda"
 unless the caller asks for the CPU).  ``plain=True`` runs prefill through
@@ -42,11 +43,13 @@ class Model:
 
     # -- forward ------------------------------------------------------------
     def forward(self, params, tokens: torch.Tensor, *, mode: str = "train",
-                positions: Optional[torch.Tensor] = None, caches=None):
-        """Returns (hidden (B, S, d), caches)."""
+                positions: Optional[torch.Tensor] = None, caches=None,
+                aux: Optional[Dict[str, torch.Tensor]] = None):
+        """Returns (hidden (B, S, d), caches); ``aux``, when given, receives
+        the MoE aux values (``transformer.AUX_KEYS``)."""
         return transformer.decoder_forward(params, tokens, self.cfg, mode=mode,
                                            positions=positions, caches=caches,
-                                           plain=self.plain)
+                                           plain=self.plain, aux=aux)
 
     def logits(self, params, hidden: torch.Tensor) -> torch.Tensor:
         return transformer.lm_logits(params, hidden, self.cfg)
@@ -58,7 +61,14 @@ class Model:
     @torch.no_grad()
     def prefill(self, params, tokens: torch.Tensor, max_len: int) -> Tuple[torch.Tensor, List[Any]]:
         """Full-sequence prefill → (last-position logits (B, V), filled caches)."""
-        caches = self.init_caches(tokens.shape[0], max_len)
+        return self.prefill_from(params, tokens, self.init_caches(tokens.shape[0], max_len))
+
+    @torch.no_grad()
+    def prefill_from(self, params, tokens: torch.Tensor,
+                     caches) -> Tuple[torch.Tensor, List[Any]]:
+        """Prefill into caches that already exist → (last-position logits
+        (B, V), caches filled in place), as the reference's ``prefill_from``:
+        a KV cache is rewritten from position 0, an SSM state is continued."""
         hidden, caches = self.forward(params, tokens, mode="prefill", caches=caches)
         return self.logits(params, hidden[:, -1:, :])[:, 0, :], caches
 
@@ -74,7 +84,7 @@ class Model:
 def make_model(cfg: ModelConfig, *, device: Union[str, torch.device] = "cuda",
                plain: bool = False) -> Model:
     """The model of ``cfg``; raises ``NotImplementedError`` for the families
-    the port does not have yet (moe, hybrid, encdec, vlm)."""
+    the port does not have yet (hybrid, encdec, vlm)."""
     return Model(cfg, device=device, plain=plain)
 
 

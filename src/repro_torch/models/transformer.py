@@ -1,16 +1,20 @@
-"""Decoder-only transformer: the ``dense`` and ``ssm`` patterns.
+"""Decoder-only transformer: the ``dense``, ``moe`` and ``ssm`` patterns.
 
-The port's copy of ``repro.models.transformer`` for the two families the
+The port's copy of ``repro.models.transformer`` for the families the
 serving slice runs:
 
   dense   ("attn",) × L   (tinyllama, llama3.2, qwen3, stablelm)
+  moe     ("moe",)  × L   (qwen3-moe, grok-1)
   ssm     ("ssd",)  × L   (mamba2)
 
 The reference stacks each pattern position's parameters on a leading
 layer dim and scans over them; PyTorch runs eagerly, so the port keeps one
-parameter dict and one cache per layer, in layer order, and loops.  The
-``moe``, ``rglru`` and ``cross`` block kinds (and so the ``moe``,
-``hybrid``, ``vlm`` and ``encdec`` families) are not ported yet.
+parameter dict and one cache per layer, in layer order, and loops.  A
+``moe`` block is an ``attn`` block whose FFN is :func:`~.moe.moe_ffn`; its
+aux values (``AUX_KEYS``, summed over layers) reach a caller that passes
+an ``aux`` dict to :func:`decoder_forward`.  The ``rglru`` and ``cross``
+block kinds (and so the ``hybrid``, ``vlm`` and ``encdec`` families) are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -23,19 +27,21 @@ from ..configs.base import ModelConfig
 from .attention import attention, attention_params, init_kv_cache
 from .ffn import ffn, ffn_params
 from .layers import ParamBuilder, rms_norm
+from .moe import moe_ffn, moe_params
 from .ssm import init_ssm_state, ssd_block, ssd_params
 
-__all__ = ["NOT_PORTED", "pattern_of", "layer_kinds", "build_decoder_params", "init_caches",
-           "decoder_forward", "lm_logits"]
+__all__ = ["NOT_PORTED", "AUX_KEYS", "pattern_of", "layer_kinds", "build_decoder_params",
+           "init_caches", "decoder_forward", "lm_logits"]
 
-# family or block kind -> the ROADMAP.md item that ports it
+AUX_KEYS = ("moe_aux_loss", "moe_z_loss", "moe_overflow_frac", "moe_load_max")
+
+# family or block kind -> the ROADMAP.md queue-1 item that ports it, by name
 NOT_PORTED = {
-    "moe": "ROADMAP.md queue 1 item 10 (models/moe.py)",
-    "hybrid": "ROADMAP.md queue 1 item 10 (models/rglru.py)",
-    "rglru": "ROADMAP.md queue 1 item 10 (models/rglru.py)",
-    "encdec": "ROADMAP.md queue 1 item 10 (models/encdec.py)",
-    "vlm": "ROADMAP.md queue 1 item 10 (the VLM cross-attention path)",
-    "cross": "ROADMAP.md queue 1 item 10 (the VLM cross-attention path)",
+    "hybrid": "ROADMAP.md queue 1, '`rglru` and the `hybrid` family' (models/rglru.py)",
+    "rglru": "ROADMAP.md queue 1, '`rglru` and the `hybrid` family' (models/rglru.py)",
+    "encdec": "ROADMAP.md queue 1, '`encdec`' (models/encdec.py)",
+    "vlm": "ROADMAP.md queue 1, 'VLM cross-attention' (the `cross` block kind)",
+    "cross": "ROADMAP.md queue 1, 'VLM cross-attention' (the `cross` block kind)",
 }
 
 
@@ -47,6 +53,8 @@ def pattern_of(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]
     """(pattern, repeats, remainder), as in the reference."""
     if cfg.family == "dense":
         pat: Tuple[str, ...] = ("attn",)
+    elif cfg.family == "moe":
+        pat = ("moe",)
     elif cfg.family == "ssm":
         pat = ("ssd",)
     elif cfg.family in NOT_PORTED:
@@ -72,6 +80,13 @@ def _block_params(b: ParamBuilder, cfg: ModelConfig, kind: str) -> Dict[str, Any
             "ln_mlp": b.param((d,), init="zeros"),
             "mlp": ffn_params(b, d, cfg.d_ff),
         }
+    if kind == "moe":
+        return {
+            "ln_attn": b.param((d,), init="zeros"),
+            "attn": attention_params(b, cfg),
+            "ln_mlp": b.param((d,), init="zeros"),
+            "moe": moe_params(b, cfg),
+        }
     if kind == "ssd":
         return {"ln": b.param((d,), init="zeros"), "ssd": ssd_params(b, cfg)}
     if kind in NOT_PORTED:
@@ -90,10 +105,11 @@ def build_decoder_params(b: ParamBuilder, cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> List[Any]:
-    """One cache per layer: a KVCache for attention, an SSMState for SSD."""
+    """One cache per layer: a KVCache for attention (``attn``, ``moe``), an
+    SSMState for SSD."""
     caches = []
     for kind in layer_kinds(cfg):
-        if kind == "attn":
+        if kind in ("attn", "moe"):
             caches.append(init_kv_cache(cfg, batch, max_len, device=device))
         else:
             caches.append(init_ssm_state(cfg, batch, device=device))
@@ -101,15 +117,18 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") ->
 
 
 def _apply_block(kind: str, p, x, cfg: ModelConfig, *, mode: str, positions, cache, plain):
-    """One block; its cache (if any) is updated in place."""
-    if kind == "attn":
+    """One block -> (x, aux values); its cache (if any) is updated in place."""
+    if kind in ("attn", "moe"):
         h, _ = attention(p["attn"], rms_norm(x, p["ln_attn"], cfg.norm_eps), cfg,
                          positions=positions, cache=cache, plain=plain)
         x = x + h
-        return x + ffn(p["mlp"], rms_norm(x, p["ln_mlp"], cfg.norm_eps))
+        if kind == "attn":
+            return x + ffn(p["mlp"], rms_norm(x, p["ln_mlp"], cfg.norm_eps)), {}
+        h, aux = moe_ffn(p["moe"], rms_norm(x, p["ln_mlp"], cfg.norm_eps), cfg)
+        return x + h, aux
     h, _ = ssd_block(p["ssd"], rms_norm(x, p["ln"], cfg.norm_eps), cfg, state=cache,
                      decode=mode == "decode", plain=plain)
-    return x + h
+    return x + h, {}
 
 
 def decoder_forward(
@@ -121,12 +140,25 @@ def decoder_forward(
     positions: Optional[torch.Tensor] = None,
     caches: Optional[List[Any]] = None,
     plain: bool = False,
+    aux: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[List[Any]]]:
-    """Returns (final hidden (B, S, d), caches updated in place)."""
+    """Returns (final hidden (B, S, d), caches updated in place).
+
+    ``aux``, when given, receives the ``AUX_KEYS`` values summed over the
+    layers as float32 scalars (zeros for a model without ``moe`` blocks),
+    as the reference's third return value.
+    """
     x = params["embed"][tokens.long()]
+    if aux is not None:
+        aux.update({key: torch.zeros((), dtype=torch.float32, device=x.device)
+                    for key in AUX_KEYS})
     for i, kind in enumerate(layer_kinds(cfg)):
-        x = _apply_block(kind, params["layers"][i], x, cfg, mode=mode, positions=positions,
-                         cache=caches[i] if caches is not None else None, plain=plain)
+        x, block_aux = _apply_block(kind, params["layers"][i], x, cfg, mode=mode,
+                                    positions=positions,
+                                    cache=caches[i] if caches is not None else None, plain=plain)
+        if aux is not None:
+            for key, value in block_aux.items():
+                aux[key] = aux[key] + value.float()
     return rms_norm(x, params["final_norm"], cfg.norm_eps), caches
 
 

@@ -277,6 +277,20 @@ def attention_inputs(b, sq, sk, h, kvh, d, dtype, device, seed=0):
     (1, 77, 6, 3, 16, True, 9),        # ragged everything, odd group count
     (1, 891, 32, 4, 64, True, 0),      # tinyllama's longest served prompt
     (1, 500, 40, 8, 128, True, 0),     # qwen3-14b's heads: G = 5, D = 128
+    # head dims between the padded widths: the smoke configs' 8, then 24, 80,
+    # stablelm-12b's 160, 192 and recurrentgemma-9b's 256 (window 2048 there)
+    (2, 77, 4, 2, 8, True, 0),
+    (1, 130, 6, 3, 24, True, 0),
+    (1, 200, 4, 2, 80, False, 0),
+    (1, 891, 32, 8, 160, True, 0),
+    (1, 150, 4, 1, 192, True, 33),
+    (1, 300, 16, 1, 256, True, 2048),
+    (1, 129, 4, 2, 256, False, 50),
+    # D % 8 != 0: the bf16 path pads D to a multiple of 8 in the wrapper
+    (1, 70, 2, 1, 1, True, 0),
+    (2, 65, 4, 2, 5, True, 0),
+    (1, 100, 4, 4, 100, False, 0),
+    (1, 70, 2, 1, 250, True, 9),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k4_matches_plain(cuda, b, sq, h, kvh, d, causal, window, dtype):
@@ -290,6 +304,36 @@ def test_k4_matches_plain(cuda, b, sq, h, kvh, d, causal, window, dtype):
     torch.testing.assert_close(got.float(), want.float(), **tol)
     torch.testing.assert_close(got.float(), mha_ref(q, k, v, causal=causal, window=window).float(),
                                **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_takes_strided_and_unaligned_inputs(cuda, dtype):
+    # a non-contiguous q, k, v (heads-major storage) is made contiguous by
+    # the wrapper; contiguous views that start 2 bytes past a 16-byte
+    # boundary are copied to aligned buffers for the bf16 path's copies
+    tol = dict(rtol=2e-4, atol=2e-5) if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    q, k, v = attention_inputs(1, 200, 200, 8, 2, 64, dtype, cuda, seed=11)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
+    assert not qt.is_contiguous()
+    torch.testing.assert_close(fk.flash_attention(qt, kt, vt).float(),
+                               fk.flash_attention_plain(q, k, v).float(), **tol)
+    shifted = []
+    for x in (q, k, v):
+        flat = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+        view = flat[1:].view(x.shape)
+        view.copy_(x)
+        shifted.append(view)
+    assert shifted[0].is_contiguous() and shifted[0].data_ptr() % 16 != 0
+    n = fk.flash_attention.launches
+    got = fk.flash_attention(*shifted)
+    assert fk.flash_attention.launches == n + 1
+    torch.testing.assert_close(got.float(), fk.flash_attention_plain(q, k, v).float(), **tol)
+
+
+def test_k4_refuses_head_dims_past_256(cuda):
+    q = torch.zeros(1, 64, 2, 257, device=cuda)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        fk.flash_attention(q, q, q)
 
 
 def test_k4_cross_lengths(cuda):
@@ -313,7 +357,7 @@ def test_k4_cross_lengths_bf16(cuda):
                 torch.testing.assert_close(got, want.float(), rtol=2e-2, atol=2e-2)
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128, 160, 192, 256])
 def test_k4_wgmma_tile_products(cuda, d):
     # one 64-row tile of each bf16 product in K4's shared-memory layouts:
     # S = q kᵀ (K-major operands) and O = bf16(S) v (P from registers, V
@@ -367,11 +411,10 @@ def test_k5_matches_plain(cuda, b, s, h, p, n, chunk, with_h0):
     torch.testing.assert_close(hf, h_want, rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-130m", "stablelm-12b",
+                                  "qwen3-moe-30b-a3b"])
 def test_smoke_model_kernels_match_plain(cuda, arch):
     cfg = get_config(arch).smoke()
-    if cfg.family == "dense":
-        cfg = cfg.replace(head_dim=16)  # K4 takes head_dim 16-128
     model, plain = make_model(cfg, device=cuda), make_model(cfg, device=cuda, plain=True)
     params = model.init(0)
     tokens = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (1, 29))).to(cuda)
@@ -383,6 +426,30 @@ def test_smoke_model_kernels_match_plain(cuda, arch):
     torch.testing.assert_close(model.decode_step(params, step, pos, c_got)[0],
                                plain.decode_step(params, step, pos, c_want)[0],
                                rtol=2e-4, atol=2e-4)
+
+
+def test_moe_smoke_served_kernels_equal_plain(cuda):
+    # qwen3-moe's smoke() (f32, 4 experts, top-2, capacity chunks with
+    # overflow to the fallback) served through the engine with K4 and with
+    # its plain version: every greedy token equal
+    cfg = get_config("qwen3-moe-30b-a3b").smoke()
+    params = make_model(cfg, device=cuda).init(5)
+    rng = np.random.default_rng(6)
+    specs = [(rid, rng.integers(0, cfg.vocab_size, int(rng.integers(10, 60))), 8)
+             for rid in range(6)]
+
+    def serve(plain):
+        engine = ServingEngine(make_model(cfg, device=cuda, plain=plain), params, slots=2,
+                               max_len=96)
+        for rid, prompt, mx in specs:
+            engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=mx))
+        return {rid: r.tokens for rid, r in engine.run().items()}
+
+    n = fk.flash_attention.launches
+    got = serve(False)
+    assert fk.flash_attention.launches - n == cfg.num_layers * len(specs)
+    assert got == serve(True)
+    assert all(len(t) == 8 for t in got.values())
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-130m"])
@@ -451,7 +518,7 @@ def test_worker_runs_k3_rows_bitwise_equal_to_local(cuda_worker):
 
 
 def test_remote_prefill_equals_inline(cuda_worker):
-    cfg = get_config("tinyllama-1.1b").smoke().replace(head_dim=16)  # K4 takes 16-128
+    cfg = get_config("tinyllama-1.1b").smoke()
     model = make_model(cfg, device="cuda")
     params = model.init(3)
     rng = np.random.default_rng(4)

@@ -28,6 +28,13 @@ SHAPES = [  # b, sq, h, kvh, d, causal, window: test_kernels.py's five, then rag
     (1, 128, 2, 2, 128, True, 0),    # wide head
     (1, 100, 4, 2, 32, True, 0),     # ragged Sq: no 64-row tiling
     (2, 77, 6, 3, 16, True, 9),      # ragged, odd group count, window
+    # head dims the card pads to wider tiles: the smoke configs' 8, 24, 80,
+    # stablelm-12b's 160 and recurrentgemma-9b's 256
+    (1, 70, 4, 2, 8, True, 0),
+    (1, 100, 4, 2, 24, True, 0),
+    (1, 128, 2, 1, 80, False, 0),
+    (1, 128, 4, 1, 160, True, 0),
+    (1, 130, 2, 1, 256, True, 64),
 ]
 
 
@@ -148,3 +155,9 @@ def test_bf16_p_rounding_stays_within_bf16_tolerance(b, s, h, kvh, d, causal, wi
     want = jax_mha_ref(*(jnp.asarray(a).astype(jnp.bfloat16) for a in (qn, kn, vn)),
                        causal=causal, window=window)
     np.testing.assert_allclose(to_np(got), to_np(want), **BF16_TOL)
+
+
+def test_wrapper_rejects_an_empty_head_dim():
+    q = torch.zeros(1, 8, 2, 0)
+    with pytest.raises(ValueError, match="head dim"):
+        fk.flash_attention(q, q, q)

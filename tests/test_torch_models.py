@@ -1,9 +1,10 @@
 """The port's model slice against the JAX package on the CPU.
 
 ``rms_norm``, ``apply_rope``, attention prefill and decode, ``ssd_block``
-prefill and decode, and whole-model ``prefill`` / ``decode_step`` logits,
-for the ``smoke()`` configs of tinyllama-1.1b (dense) and mamba2-130m
-(ssm).  The JAX model's parameters are carried across with
+prefill and decode, and whole-model ``prefill`` / ``decode_step`` /
+``prefill_from`` logits, for the ``smoke()`` configs of tinyllama-1.1b and
+stablelm-12b (dense) and mamba2-130m (ssm); ``prefill_from`` also for
+qwen3-moe-30b-a3b (moe, whose other cases are in ``test_torch_moe.py``).  The JAX model's parameters are carried across with
 ``model_params_from_jax``; inputs come from numpy seeds; tolerance 2e-4.
 """
 
@@ -25,7 +26,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import attention, layers, make_model, ssm  # noqa: E402
 
 TOL = dict(rtol=2e-4, atol=2e-4)
-ARCHS = ["tinyllama-1.1b", "mamba2-130m"]
+ARCHS = ["tinyllama-1.1b", "mamba2-130m", "stablelm-12b"]
 
 
 def close(got, want):
@@ -60,7 +61,8 @@ def test_configs_are_copies():
 
 
 def test_unported_families_raise():
-    for name in ("grok-1-314b", "recurrentgemma-9b", "whisper-large-v3", "llama-3.2-vision-90b"):
+    # the moe family (grok-1-314b) is ported: tests/test_torch_moe.py holds it to the reference
+    for name in ("recurrentgemma-9b", "whisper-large-v3", "llama-3.2-vision-90b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_model(get_config(name), device="cpu")
 
@@ -176,3 +178,29 @@ def test_bf16_params_convert_exactly():
                                   np.asarray(jparams["embed"], np.float32))
     np.testing.assert_array_equal(params["layers"][1]["ssd"]["in_proj"].float().numpy(),
                                   np.asarray(jparams["blocks"][0]["ssd"]["in_proj"][1], np.float32))
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-130m", "qwen3-moe-30b-a3b"])
+def test_prefill_from_existing_caches(arch):
+    # prefill a second prompt into caches that already hold a first prompt
+    # and some decode steps: the KV cache is rewritten, the SSM state continued
+    jcfg, cfg = jax_get_config(arch).smoke(), get_config(arch).smoke()
+    jm, model = jax_make_model(jcfg), make_model(cfg, device="cpu")
+    jparams = jm.init(jax.random.PRNGKey(4))
+    params = convert.model_params_from_jax(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    rng = np.random.default_rng(17)
+    first = rng.integers(0, cfg.vocab_size, (1, 11)).astype(np.int32)
+    second = rng.integers(0, cfg.vocab_size, (1, 7)).astype(np.int32)
+    _, jcaches = jm.prefill(jparams, {"tokens": jnp.asarray(first)}, 32)
+    _, caches = model.prefill(params, torch.from_numpy(first), 32)
+    tok, pos = np.array([[5]], np.int32), np.array([[11]], np.int32)
+    _, jcaches = jm.decode_step(jparams, jnp.asarray(tok), jnp.asarray(pos), jcaches)
+    _, caches = model.decode_step(params, torch.from_numpy(tok), torch.from_numpy(pos), caches)
+    jlogits, jcaches = jm.prefill_from(jparams, {"tokens": jnp.asarray(second)}, jcaches)
+    logits, again = model.prefill_from(params, torch.from_numpy(second), caches)
+    assert again is caches  # filled in place
+    close(logits, jlogits)
+    pos = np.array([[7]], np.int32)
+    jlogits, _ = jm.decode_step(jparams, jnp.asarray(tok), jnp.asarray(pos), jcaches)
+    logits, _ = model.decode_step(params, torch.from_numpy(tok), torch.from_numpy(pos), caches)
+    close(logits, jlogits)
