@@ -26,37 +26,65 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    plain ``hotspot_ref`` on the card; every step must cover each row once.
 
 4. K4 (flash attention) and K5 (SSD scan) at the full-width shapes of the
-   serving path, each against its plain version: K4, causal, in bf16
-   (2e-2) and f32 (rtol 2e-4, atol 2e-5) against both its plain version
-   and the ``mha_ref`` oracle, with ``scaled_dot_product_attention`` timed
-   beside it (each row prints kernel ms over SDPA ms), at the prefill
-   attention of tinyllama-1.1b (B 1, S 2048, 1000 and the longest served
-   prompt's 891, whose 7128 rows leave a ragged last tile, H 32, KVH 4,
-   D 64), stablelm-12b (S 2048 and 891, H 32, KVH 8, D 160: padded to 192
-   columns) and recurrentgemma-9b (S 2048 and 891, H 16, KVH 1, D 256,
-   window 2048, which at these lengths masks what the causal mask does, so
-   SDPA's causal call is its yardstick); K5 at mamba2-130m's
-   prefill (B 1, S 2048, 1000 and the longest served prompt's 891, H 24,
-   P 64, N 128, chunk 256) with zero and nonzero h0 at 2e-4.
+   serving path, each against its plain version: K4 in bf16 (rtol 2e-2,
+   atol 2e-2 of the RMS of each expected (query, head) row) and f32 (rtol
+   2e-4, atol 2e-5) against both its plain version and the ``mha_ref``
+   oracle, where Sk >= 128 a check that the same tolerance rejects the
+   output with one 64-key tile masked out, and
+   ``scaled_dot_product_attention`` timed beside it
+   on the same function (each row prints kernel ms over SDPA ms; a window
+   that masks goes to SDPA as a boolean ``attn_mask`` built outside the
+   timed call), at ``K4_SHAPES``: the causal prefill attention of
+   tinyllama-1.1b (B 1, S 2048, 1000 and the longest served prompt's 891,
+   whose 7128 rows leave a ragged last tile, H 32, KVH 4, D 64),
+   stablelm-12b (S 2048 and 891, H 32, KVH 8, D 160: padded to 192
+   columns) and recurrentgemma-9b (H 16, KVH 1, D 256, window 2048: at S
+   2048 and 891 the window masks nothing, at S 4096 it masks);
+   whisper-large-v3's encoder (no mask, S 1500, H 20, KVH 20, D 64),
+   decoder self-attention (causal, S 55, the longest served prompt) and
+   cross-attention (Sq 55, 448 and 1 over Sk 1500 frames);
+   llama-3.2-vision-90b's self-attention (causal, S 891) and
+   cross-attention (Sq 891 over Sk 1024 image tokens, H 64, KVH 8, D
+   128).  K4's bound counts the (query, key) pairs its masks keep.  K5 at
+   mamba2-130m's prefill (B 1, S 2048, 1000 and the longest served
+   prompt's 891, H 24, P 64, N 128, chunk 256) with zero and nonzero h0 at
+   2e-4.
 5. Serving at full width, inline: tinyllama-1.1b (K4, D 64), mamba2-130m
-   (K5), stablelm-12b (K4, D 160; 24 GB in bf16) and qwen3-moe-30b-a3b
-   (K4, D 128, 128 experts top-8 with capacity chunks and the dense
-   fallback; 61.5 GB in bf16), one model on the card at a time, random
-   bf16 weights from a seeded generator on the card, 8 requests through
-   ``ServingEngine`` (4 slots, continuous, inline, greedy, max_len 2048).
-   Every request completes, the RunReport covers each exactly once, the
-   kernel launches equal layers × prefills (176, 192, 320 and 384), and a
-   float32 copy of each model (its bf16 weights moved to the host first;
-   qwen3-moe's first 4 layers, since its 123 GB do not fit) gives the same
-   greedy tokens through the kernels as through their plain versions,
-   with last-position logits within rtol/atol 1e-3; the MoE check prints
-   the smallest top-k router margin it met.  Prints TTFT, prefill and
-   decode times, tokens/s, peak memory, the MoE routing of one prefill
-   (``moe_overflow_frac``, ``moe_load_max`` as means over the layers) and
-   a profiler top-10 of one prefill and one decode step.  stablelm-12b and
-   qwen3-moe-30b-a3b are served last, after phase 6: moving their bf16
-   weights to the host for the f32 checks leaves the process slower on
-   the host, which would reach phase 6a's host-clock times.
+   (K5), stablelm-12b (K4, D 160; 24 GB in bf16), qwen3-moe-30b-a3b (K4,
+   D 128, 128 experts top-8 with capacity chunks and the dense fallback;
+   61.5 GB in bf16) and recurrentgemma-9b (RG-LRU and local attention,
+   K4 in its 12 attn layers, D 256; 17.3 GB in bf16), one model on the
+   card at a time, random bf16 weights from a seeded generator on the
+   card, 8 requests through ``ServingEngine`` (4 slots, continuous,
+   inline, greedy, max_len 2048).  Every request completes, the RunReport
+   covers each exactly once, the kernel launches equal the layers that
+   launch it × prefills (176, 192, 320, 384 and 96), and a float32 copy
+   of each model (its bf16 weights moved to the host first; qwen3-moe's
+   first 4 layers, since its 123 GB do not fit) gives the same greedy
+   tokens through the kernels as through their plain versions, with
+   last-position logits within rtol/atol 1e-3; the MoE check prints the
+   smallest top-k router margin it met; recurrentgemma's f32 copy also
+   prefills a 3000-token prompt (max_len 4096: its KV caches roll at 2048
+   rows) and decodes 16 tokens, equal between kernels and plain.  Prints
+   TTFT, prefill and decode times, tokens/s, peak memory, the MoE routing
+   of one prefill (``moe_overflow_frac``, ``moe_load_max`` as means over
+   the layers) and a profiler top-10 of one prefill and one decode step.
+   The two families whose prefill takes a second input run through
+   ``Model.prefill`` and ``decode_step``: whisper-large-v3 (32 + 32
+   layers; 4 requests, frames (1, 1500, 1280) and prompts of 4–64 tokens
+   from a seed, 32 greedy tokens each) and llama-3.2-vision-90b cut to 10
+   of its 100 layers (two patterns, 8 attn + 2 cross: 181 GB of bf16
+   weights do not fit one card; image embeddings (1, 1024, 8192), an
+   891-token prompt, 16 greedy tokens; its cross gates set to 0.5, since
+   at their initial 0 tanh(0) multiplies the cross path away), after one
+   uncounted, untimed warm-up request.  Their K4 launches are counted by
+   form (encoder, self, cross, cross-decode: read from the arguments of
+   each ``attention`` call that launched it) against the layers, and
+   their f32 copies give equal greedy tokens through the kernels and the
+   plain versions; a profiler top-10 of one prefill and one decode step.
+   Every model but the first two is served last, after phase 6: moving
+   bf16 weights to the host for the f32 checks leaves the process slower
+   on the host, which would reach phase 6a's host-clock times.
 6. Slice B on the card:
    a. Remote prefill: 2 worker processes (``spawn_worker``), each warmed
       once with a short prefill; phase 5's 8 requests served per model
@@ -82,8 +110,9 @@ Launch counts are set to 0 just before each main path (phases 2–3 for
 K1–K3, each model's serving run in phase 5 and in 6a, and 6b for K3) and
 read just after, so they count the main path's launches only; the JSON
 line's ``launches`` is phases 2–3's and phase 5's (summed over the
-models), ``launches_by_path`` names each model's and adds phase 6's, and
-K4's row lists every phase-4 shape under ``shapes``.  Each phase prints
+models), ``launches_by_path`` names each model's (whisper's and the
+vision model's by form, recurrentgemma's past-the-window check apart) and
+adds phase 6's, and K4's row lists every phase-4 shape under ``shapes``.  Each phase prints
 its wall time.  The last lines are a JSON line of the kernels' numbers
 and the JSON result line.
 
@@ -123,22 +152,53 @@ STENCIL_FLOPS = 15
 
 HOTSPOT_TOL = dict(rtol=1e-5, atol=1e-4)
 SPMM_TOL = dict(rtol=1e-4, atol=1e-4)
-ATTN_TOL = {"float32": dict(rtol=2e-4, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+# K4: f32 at the reference tests' tolerance; bf16 at its rtol, with an
+# atol of that fraction of the RMS of each expected output row (one query
+# and head), which falls as 1/sqrt(keys attended): a fixed 2e-2 is half a
+# typical output at 1500 keys and would pass a dropped 64-key tile, and
+# rounding P to bf16 errs by about 2^-9 of that RMS, however the row's
+# terms cancel
+ATTN_TOL = {"float32": dict(rtol=2e-4, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol_rms=2e-2)}
 SSD_TOL = dict(rtol=2e-4, atol=2e-4)
 LOGITS_TOL = dict(rtol=1e-3, atol=1e-3)
 SERVE_ARCHS = ("tinyllama-1.1b", "mamba2-130m")
 # served inline only (phase 5, run after phase 6): at full width each
 # leaves no room for a worker's second copy on the card
-INLINE_ARCHS = ("stablelm-12b", "qwen3-moe-30b-a3b")
+INLINE_ARCHS = ("stablelm-12b", "qwen3-moe-30b-a3b", "recurrentgemma-9b")
 # qwen3-moe in float32 (123 GB) does not fit the card: its f32 check runs
 # this many of its layers
 F32_LAYERS = {"qwen3-moe-30b-a3b": 4}
-# K4 in phase 4: (model, H, KVH, D, window, lengths) of each served or
-# next-served model's prefill attention
+# the block kinds that launch each model kernel, once per layer and prefill
+KERNEL_KINDS = {"flash_attention": ("attn", "moe"), "ssd_scan": ("ssd",)}
+# a windowed model's extra f32 check: (prompt tokens, max_len, decode steps)
+WINDOW_PROMPT = (3000, 4096, 16)
+# served through Model.prefill / decode_step after phase 6, with their second
+# input: (requests, prompt lengths [lo, hi), greedy decode steps, layers kept
+# or None).  llama-3.2-vision-90b keeps 10 of its 100 layers (two whole
+# patterns, 8 attn + 2 cross): all 100 take 181 GB in bf16, past one card
+CROSS_SOURCE_ARCHS = {
+    "whisper-large-v3": (4, (4, 65), 32, None),
+    "llama-3.2-vision-90b": (1, (891, 892), 16, 10),
+}
+# the vision model's cross gates in this run (initialised to 0)
+CROSS_GATE = 0.5
+# K4 in phase 4: (model and use, H, KVH, D, causal, window, (Sq, Sk) pairs)
+# of each served model's attention at full width: causal prefills; the
+# hybrid's local window, which masks from S 2049 on; whisper's encoder
+# (no mask), its decoder's causal self-attention at the longest prompt
+# phase 5 serves (55 tokens) and its cross-attention over 1500 frames at
+# that prompt, at 448 (the published decoder's whole context) and at a
+# decode step (Sq 1); the vision model's causal self-attention and its
+# cross-attention over 1024 image tokens at its 891-token prompt
 K4_SHAPES = (
-    ("tinyllama-1.1b", 32, 4, 64, 0, (2048, 1000, 891)),
-    ("stablelm-12b", 32, 8, 160, 0, (2048, 891)),
-    ("recurrentgemma-9b", 16, 1, 256, 2048, (2048, 891)),
+    ("tinyllama-1.1b", 32, 4, 64, True, 0, ((2048, 2048), (1000, 1000), (891, 891))),
+    ("stablelm-12b", 32, 8, 160, True, 0, ((2048, 2048), (891, 891))),
+    ("recurrentgemma-9b", 16, 1, 256, True, 2048, ((2048, 2048), (891, 891), (4096, 4096))),
+    ("whisper-large-v3 encoder", 20, 20, 64, False, 0, ((1500, 1500),)),
+    ("whisper-large-v3 self", 20, 20, 64, True, 0, ((55, 55),)),
+    ("whisper-large-v3 cross", 20, 20, 64, False, 0, ((55, 1500), (448, 1500), (1, 1500))),
+    ("llama-3.2-vision-90b self", 64, 8, 128, True, 0, ((891, 891),)),
+    ("llama-3.2-vision-90b cross", 64, 8, 128, False, 0, ((891, 1024),)),
 )
 
 
@@ -198,6 +258,63 @@ def time_ms(fn, *, reps: int = 10, warmup: int = 2, hold: bool = False) -> float
     return statistics.median(times)
 
 
+def attended_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs that K4's masks keep: key j <= query i when
+    causal, and j > i - window when windowed."""
+    import numpy as np
+
+    i = np.arange(sq)
+    hi = np.minimum(i + 1, sk) if causal else np.full(sq, sk)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def attn_keep(sq: int, sk: int, causal: bool, window: int):
+    """The (Sq, Sk) boolean mask of the pairs K4 keeps, on the card."""
+    import torch
+
+    i = torch.arange(sq, device="cuda")[:, None]
+    j = torch.arange(sk, device="cuda")[None, :]
+    keep = torch.ones(sq, sk, dtype=torch.bool, device="cuda")
+    if causal:
+        keep &= j <= i
+    if window:
+        keep &= j > i - window
+    return keep
+
+
+def without_a_tile(q, k, v, keep):
+    """Attention in f32 with the 64 keys of one tile in the middle of
+    ``k`` masked out of every row besides ``keep``'s mask: what a kernel
+    that dropped or mis-masked that tile would return."""
+    import torch
+
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    keep = keep.clone()
+    t0 = 64 * (sk // 128)
+    keep[:, t0:t0 + 64] = False
+    qg = q.float().reshape(b, sq, kvh, h // kvh, d)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * d**-0.5
+    w = torch.softmax(s.masked_fill(~keep, float("-inf")), dim=-1)
+    return torch.einsum("bkgqs,bskd->bqkgd", w, v.float()).reshape(b, sq, h, d)
+
+
+def attn_tol(dtype_name: str, want) -> dict:
+    """``ATTN_TOL`` for ``want`` (B, Sq, H, D), bf16's atol scaled by the
+    RMS of each (query, head) row: a tensor (B, Sq, H, 1)."""
+    tol = dict(ATTN_TOL[dtype_name])
+    if "atol_rms" in tol:
+        tol["atol"] = tol.pop("atol_rms") * want.float().pow(2).mean(-1, keepdim=True).sqrt()
+    return tol
+
+
+def within(got, want, tol: dict) -> bool:
+    """``torch.allclose``'s test, |got - want| <= atol + rtol·|want| in
+    every element, with ``atol`` a number or a tensor that broadcasts."""
+    return bool(((got - want).abs() <= tol["atol"] + tol["rtol"] * want.abs()).all())
+
+
 def bound_ms(n_bytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
     """(least milliseconds, "bytes" or "operations") on the published peaks."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / flops_per_s
@@ -208,9 +325,13 @@ def compare(name: str, got, want, tol: dict) -> float:
     import torch
 
     err = float((got - want).abs().max())
+    atol = tol["atol"]
+    if torch.is_tensor(atol):
+        atol = f"{float(atol.min()):.3e}..{float(atol.max()):.3e}"
     require(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
-    require(torch.allclose(got, want, **tol), f"{name}: max |err| {err} beyond {tol}")
-    print(f"{name}: max_abs_err={err:.3e} within rtol={tol['rtol']} atol={tol['atol']}")
+    require(within(got, want, tol), f"{name}: max |err| {err} beyond rtol={tol['rtol']} "
+            f"atol={atol}")
+    print(f"{name}: max_abs_err={err:.3e} within rtol={tol['rtol']} atol={atol}")
     return err
 
 
@@ -472,42 +593,54 @@ def phase4_model_kernels():
     def normal(*shape, scale=1.0):
         return torch.from_numpy(scale * rng.standard_normal(shape, dtype=np.float32)).cuda()
 
-    # -- K4 at the served models' prefill attention --------------------------
+    # -- K4 at the served models' attention -----------------------------------
     rows = []
-    for model_name, h, kvh, d, window, lengths in K4_SHAPES:
-        for s in lengths:
-            q32, k32, v32 = normal(1, s, h, d), normal(1, s, kvh, d), normal(1, s, kvh, d)
+    for model_name, h, kvh, d, causal, window, lengths in K4_SHAPES:
+        for sq, sk in lengths:
+            q32, k32, v32 = normal(1, sq, h, d), normal(1, sk, kvh, d), normal(1, sk, kvh, d)
+            mask = dict(causal=causal, window=window)
             for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
                 q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
-                run = functools.partial(flash_attention, q, k, v, window=window)
-                label = f"K4 flash_attention {model_name} D={d} S={s} {name}"
-                want = flash_attention_plain(q, k, v, window=window)
+                run = functools.partial(flash_attention, q, k, v, **mask)
+                label = f"K4 flash_attention {model_name} D={d} Sq={sq} Sk={sk} {name}"
+                want = flash_attention_plain(q, k, v, **mask)
                 got = run().float()
-                err = compare(label, got, want.float(), ATTN_TOL[name])
-                compare(label + " vs mha_ref", got, mha_ref(q, k, v, window=window).float(),
-                        ATTN_TOL[name])
+                tol = attn_tol(name, want)
+                err = compare(label, got, want.float(), tol)
+                # the largest share of its tolerance that an element takes
+                used = float(((got - want.float()).abs()
+                              / (tol["atol"] + tol["rtol"] * want.float().abs())).max())
+                compare(label + " vs mha_ref", got, mha_ref(q, k, v, **mask).float(), tol)
+                keep = attn_keep(sq, sk, causal, window)
+                if sk >= 128:  # the tolerance rejects an output that lost a 64-key tile
+                    require(not within(got, without_a_tile(q, k, v, keep), tol),
+                            f"{label}: the tolerance passes an output without one key tile")
                 ms = time_ms(run)
                 dev = time_ms(run, hold=True)
-                plain = time_ms(lambda: flash_attention_plain(q, k, v, window=window), reps=5)
-                # yardstick: SDPA's causal mask is the same function while the
-                # window covers the whole sequence (recurrentgemma: 2048 >= S)
-                library = lib_err = None
-                if not window or window >= s:
-                    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-                    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                        qt, kt, vt, is_causal=True, enable_gqa=True)
-                    lib_err = float((sdpa().transpose(1, 2).float() - want.float()).abs().max())
-                    library = time_ms(sdpa)
+                plain = time_ms(lambda: flash_attention_plain(q, k, v, **mask), reps=5)
+                # yardstick: SDPA computes the same function; where the
+                # window masks (recurrentgemma at S > 2048) it takes the
+                # mask as a boolean attn_mask, built outside the timed call
+                qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+                how = (dict(attn_mask=keep) if window and window < sk else
+                       dict(is_causal=causal))
+                sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    qt, kt, vt, enable_gqa=True, **how)
+                lib_err = float((sdpa().transpose(1, 2).float() - want.float()).abs().max())
+                library = time_ms(sdpa)
                 el = 2 if dtype == torch.bfloat16 else 4
                 peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
-                b, by = bound_ms(fops.kernel_hbm_bytes(1, s, s, h, kvh, d, bytes_per_el=el),
-                                 fops.kernel_flops(1, s, s, h, d, causal=True), peak)
-                rows.append(dict(model=model_name, shape=f"H={h} KVH={kvh} D={d} S={s} "
-                                 f"window={window} {name}", max_abs_err=err, ms=ms,
-                                 device_ms=dev, plain_ms=plain, bound_ms=b, bound_by=by,
-                                 library_ms=library,
-                                 x_library=ms / library if library else None,
-                                 library_max_abs_diff=lib_err))
+                # the work this mask leaves: kernel_flops scaled by the
+                # window's share of the causal pairs
+                flops = fops.kernel_flops(1, sq, sk, h, d, causal=causal) * (
+                    attended_pairs(sq, sk, causal, window) / attended_pairs(sq, sk, causal, 0))
+                b, by = bound_ms(fops.kernel_hbm_bytes(1, sq, sk, h, kvh, d, bytes_per_el=el),
+                                 flops, peak)
+                rows.append(dict(model=model_name, shape=f"H={h} KVH={kvh} D={d} Sq={sq} "
+                                 f"Sk={sk} causal={causal} window={window} {name}",
+                                 max_abs_err=err, tolerance_used=used, ms=ms, device_ms=dev,
+                                 plain_ms=plain, bound_ms=b, bound_by=by, library_ms=library,
+                                 x_library=ms / library, library_max_abs_diff=lib_err))
     print("K4 at full width " + json.dumps(rows))
     main_row = rows[0]  # tinyllama's S 2048 bf16, every PR's yardstick
     kernels["flash_attention"] = dict(
@@ -604,9 +737,13 @@ def phase5_serving(arch: str, wrappers: dict):
     from repro_torch.configs import get_config
     from repro_torch.models import make_model
     from repro_torch.models.moe import moe_capacity
+    from repro_torch.models.transformer import layer_kinds
 
     cfg = get_config(arch)
     kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+    # the layers that launch the kernel, once each per prefill (the
+    # hybrid's rglru layers launch none)
+    kernel_layers = sum(kind in KERNEL_KINDS[kernel] for kind in layer_kinds(cfg))
     t0 = time.perf_counter()
     model = make_model(cfg, device="cuda")
     params = model.init(seed=0)
@@ -630,9 +767,10 @@ def phase5_serving(arch: str, wrappers: dict):
     require(rep.items == len(specs) and spans[0][0] == 0 and spans[-1][1] == len(specs)
             and all(b == c for (_, b), (c, _) in zip(spans, spans[1:])),
             f"{arch}: the RunReport does not cover each request exactly once")
-    want = cfg.num_layers * len(specs)
+    want = kernel_layers * len(specs)
     require(launches[kernel] == want,
-            f"{arch}: {kernel} launched {launches[kernel]} times, not layers x prefills = {want}")
+            f"{arch}: {kernel} launched {launches[kernel]} times, not {kernel_layers} layers x "
+            f"{len(specs)} prefills = {want}")
     others = {k: v for k, v in launches.items() if k != kernel and v}
     require(not others, f"{arch}: unexpected launches {others}")
 
@@ -664,8 +802,8 @@ def phase5_serving(arch: str, wrappers: dict):
         # the routing of one prefill: the aux values (summed over the
         # layers) and each layer's overflow and most loaded expert
         aux, per_layer = {}, []
-        with torch.no_grad(), _observing("expert_load_stats",
-                                         lambda _, out: per_layer.append(out)):
+        with torch.no_grad(), _observing("core.moe_dispatch", "expert_load_stats",
+                                         lambda _, __, out: per_layer.append(out)):
             model.forward(params, prompt, mode="prefill", caches=model.init_caches(1, 2048),
                           aux=aux)
         print(f"moe routing {arch} prefill ({len(longest)} tokens) " + json.dumps({
@@ -677,7 +815,8 @@ def phase5_serving(arch: str, wrappers: dict):
     print(f"profile {arch} prefill ({len(longest)} tokens) "
           + json.dumps(profile_top10(lambda: model.prefill(params, prompt, 2048))))
     dec_tokens = torch.zeros((4, 1), dtype=torch.int64, device="cuda")
-    dec_pos = engine.caches[0].length.long()[:, None] if kernel == "flash_attention" else \
+    kv = [c for c in engine.caches if hasattr(c, "length")]
+    dec_pos = kv[0].length.long()[:, None] if kv else \
         torch.full((4, 1), max(prompt_lens), device="cuda")
     print(f"profile {arch} decode step (4 slots) " + json.dumps(profile_top10(
         lambda: model.decode_step(params, dec_tokens, dec_pos, engine.caches))))
@@ -697,7 +836,8 @@ def phase5_serving(arch: str, wrappers: dict):
     del params
     fast, plain = make_model(cfg32, device="cuda"), make_model(cfg32, device="cuda", plain=True)
     margins = []
-    with (_observing("route_topk", lambda args, out: margins.append(_top_k_margin(args, out)))
+    with (_observing("core.moe_dispatch", "route_topk",
+                     lambda args, _, out: margins.append(_top_k_margin(args, out)))
           if cfg.family == "moe" else contextlib.nullcontext()):
         _, res_k, _ = serve(fast, params32, specs)
         _, res_p, _ = serve(plain, params32, specs)
@@ -720,10 +860,229 @@ def phase5_serving(arch: str, wrappers: dict):
     print(f"serve {arch} f32 kernels vs plain: all {len(specs)} token streams equal, logits "
           f"max |diff| {worst:.3e}{margin}{vs_bf16}; peak_mem_GB "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    rolled = 0
+    if cfg.window:
+        rolled = past_the_window(arch, cfg32, fast, plain, params32, wrappers)
     del params32, fast, plain, res_k, res_p
     gc.collect()
     torch.cuda.empty_cache()  # the next model finds the card empty
-    return kernel, launches[kernel], bf16_tokens
+    return kernel, launches[kernel], bf16_tokens, rolled
+
+
+def greedy(model, params, prompt, max_len: int, steps: int, **source):
+    """Batch-1 prefill of ``prompt`` (1, S) and ``steps`` greedy decode
+    steps: (tokens, prefill ms, decode ms a step, caches), host clock
+    through to the card's finish (each token is read back)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, prompt, max_len, **source)
+    tokens = [int(logits.argmax())]
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for i in range(steps):
+        logits, caches = model.decode_step(
+            params, torch.tensor([[tokens[-1]]], device="cuda"),
+            torch.tensor([[prompt.shape[1] + i]], device="cuda"), caches)
+        tokens.append(int(logits.argmax()))
+    return tokens, prefill_ms, (time.perf_counter() - t0) * 1e3 / steps, caches
+
+
+def past_the_window(arch, cfg, fast, plain, params, wrappers):
+    """One prompt longer than ``cfg.window`` (its KV caches roll) through
+    the kernels and the plain versions in float32: greedy tokens equal.
+    Returns K4's launches in the kernels' run."""
+    import numpy as np
+    import torch
+
+    n_prompt, max_len, steps = WINDOW_PROMPT
+    require(n_prompt > cfg.window, f"{arch}: a {n_prompt}-token prompt does not pass the window")
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, n_prompt),
+                             device="cuda")[None, :]
+    out = {}
+    for name, model in (("kernels", fast), ("plain", plain)):
+        for w in wrappers.values():
+            w.launches = 0
+        tokens, prefill_ms, decode_ms, caches = greedy(model, params, prompt, max_len, steps)
+        launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+        rows = {c.k.shape[1] for c in caches if hasattr(c, "length")}
+        require(rows == {cfg.window}, f"{arch}: KV caches of {rows} rows, not {cfg.window}")
+        out[name] = dict(tokens=tokens, prefill_ms=prefill_ms, decode_ms_per_step=decode_ms,
+                         launches=launches.pop("flash_attention", 0))
+        require(not launches, f"{arch} {name}: unexpected launches {launches}")
+    require(out["kernels"]["tokens"] == out["plain"]["tokens"],
+            f"{arch} f32: the {n_prompt}-token prompt's greedy tokens differ between kernels "
+            "and plain")
+    require(out["plain"]["launches"] == 0, f"{arch}: the plain model launched the kernel")
+    print(f"serve {arch} f32 past the window " + json.dumps({
+        "prompt": n_prompt, "max_len": max_len, "window": cfg.window, "decode_steps": steps,
+        "tokens_equal": True, **{f"{name}_{k}": v[k] for name, v in out.items()
+                                 for k in ("prefill_ms", "decode_ms_per_step", "launches")}}))
+    return out["kernels"]["launches"]
+
+
+def _count_forms(counts: dict, wrapper):
+    """An observer of a model's ``attention`` calls that adds the K4
+    launches each call made to its form, read from the call's arguments:
+    ``cross`` (a source given and written to the cache), ``cross-decode``
+    (the cached source reused), ``encoder`` (no source, not causal) and
+    ``self`` (causal)."""
+    seen = [wrapper.launches]
+
+    def observe(args, kw, _):
+        n, seen[0] = wrapper.launches - seen[0], wrapper.launches
+        if kw.get("kv_x") is not None:
+            form = "cross" if kw.get("cache_update", True) else "cross-decode"
+        else:
+            form = "self" if kw.get("causal", True) else "encoder"
+        if n:
+            counts[form] = counts.get(form, 0) + n
+    return observe
+
+
+def phase5_cross_source(arch: str, wrappers: dict):
+    """A model whose prefill takes a second input (whisper's frames, the
+    vision model's image embeddings), at full width, through
+    ``Model.prefill`` and ``decode_step`` (the engine's requests carry
+    tokens only); returns (launches, launches by kind)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import make_model
+    from repro_torch.models.transformer import layer_kinds
+
+    full = get_config(arch)
+    n_req, (lo, hi), steps, layers = CROSS_SOURCE_ARCHS[arch]
+    cfg = full.replace(num_layers=layers) if layers else full
+    reduced = {"num_layers": f"{full.num_layers} -> {cfg.num_layers}"} if layers else {}
+    if cfg.family == "encdec":
+        key, source_shape = "frames", (1, cfg.encoder_seq, cfg.d_model)
+        per_prefill = {"encoder": cfg.encoder_layers, "self": cfg.num_layers,
+                       "cross": cfg.num_layers}
+        per_step = {"cross-decode": cfg.num_layers}
+    else:
+        kinds = layer_kinds(cfg)
+        key, source_shape = "image_embeds", (1, cfg.num_image_tokens, cfg.d_model)
+        per_prefill = {"self": len(kinds), "cross": kinds.count("cross")}
+        per_step = {"cross-decode": kinds.count("cross")}
+    t0 = time.perf_counter()
+    model = make_model(cfg, device="cuda")
+    params = model.init(seed=0)
+    if cfg.family == "vlm":  # at their initial 0, tanh(0) would multiply the cross path away
+        for layer in params["layers"]:
+            if "gate_attn" in layer:
+                layer["gate_attn"].fill_(CROSS_GATE)
+                layer["gate_mlp"].fill_(CROSS_GATE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    reqs = [(rng.integers(0, cfg.vocab_size, int(rng.integers(lo, hi))),
+             rng.standard_normal(source_shape, dtype=np.float32)) for _ in range(n_req)]
+
+    def run(m, p, dtype):
+        """Greedy tokens of every request, and host-clock ms of prefill and decode."""
+        out, prefill_ms, decode_ms = [], [], []
+        for prompt_np, source_np in reqs:
+            prompt = torch.as_tensor(prompt_np, device="cuda")[None, :]
+            source = {key: torch.as_tensor(source_np, device="cuda").to(dtype)}
+            tokens, pre, dec, _ = greedy(m, p, prompt, len(prompt_np) + steps, steps, **source)
+            out.append(tokens)
+            prefill_ms.append(pre)
+            decode_ms.append(dec)
+        return out, prefill_ms, decode_ms
+
+    dtype = getattr(torch, cfg.dtype)
+    prompt = torch.as_tensor(reqs[0][0], device="cuda")[None, :]
+    source = {key: torch.as_tensor(reqs[0][1], device="cuda").to(dtype)}
+    # one uncounted, untimed request first: a shape's first call carries
+    # one-off costs (library heuristics, the allocator's growth)
+    greedy(model, params, prompt, prompt.shape[1] + 1, 1, **source)
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    by_kind = {}
+    caller = "models.encdec" if cfg.family == "encdec" else "models.transformer"
+    with _observing(caller, "attention", _count_forms(by_kind, wrappers["flash_attention"])):
+        bf16_tokens, prefill_ms, decode_ms = run(model, params, dtype)
+    launches = {name: w.launches for name, w in wrappers.items()}
+    want = {kind: n * n_req for kind, n in per_prefill.items()}
+    for kind, n in per_step.items():
+        want[kind] = want.get(kind, 0) + n * n_req * steps
+    require(by_kind == want, f"{arch}: K4 calls by kind {by_kind}, not {want}")
+    require(launches["flash_attention"] == sum(want.values()),
+            f"{arch}: K4 launched {launches['flash_attention']} times, not {sum(want.values())}")
+    others = {k: v for k, v in launches.items() if k != "flash_attention" and v}
+    require(not others, f"{arch}: unexpected launches {others}")
+
+    enc_ms = None
+    if cfg.family == "encdec":
+        from repro_torch.models.encdec import encoder_forward
+
+        with torch.no_grad():
+            enc_ms = statistics.median(_host_ms(lambda: encoder_forward(params, source[key], cfg))
+                                       for _ in range(5))
+    print(f"serve {arch} " + json.dumps({
+        "arch": arch, "layers": cfg.num_layers, "reduced": reduced, "d_model": cfg.d_model,
+        "head_dim": cfg.head_dim, key: list(source_shape),
+        "params_B": sum(t.numel() for t in _leaves(params)) / 1e9, "init_s": init_s,
+        "requests": n_req, "prompt_lens": [len(p) for p, _ in reqs], "decode_steps": steps,
+        "flash_attention_launches": launches["flash_attention"],
+        "flash_attention_launches_by_kind": by_kind,
+        "encoder_ms": enc_ms, "prefill_ms_per_request": prefill_ms,
+        "prefill_ms_mean": statistics.mean(prefill_ms),
+        "decode_ms_per_step": statistics.mean(decode_ms),
+        "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
+    }))
+    print(f"profile {arch} prefill ({prompt.shape[1]} tokens) " + json.dumps(profile_top10(
+        lambda: model.prefill(params, prompt, prompt.shape[1] + steps, **source))))
+    _, caches = model.prefill(params, prompt, prompt.shape[1] + steps, **source)
+    tok, pos = prompt[:, -1:], torch.tensor([[prompt.shape[1]]], device="cuda")
+    print(f"profile {arch} decode step (batch 1) " + json.dumps(profile_top10(
+        lambda: model.decode_step(params, tok, pos, caches))))
+
+    # a float32 copy: kernels against plain versions; bf16 weights to the host first
+    params = _map_leaves(params, lambda t: t.cpu())
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    params32 = _map_leaves(params, lambda t: t.to("cuda", torch.float32))
+    del params
+    fast, plain = make_model(cfg32, device="cuda"), make_model(cfg32, device="cuda", plain=True)
+    tok_k, _, _ = run(fast, params32, torch.float32)
+    tok_p, _, _ = run(plain, params32, torch.float32)
+    require(tok_k == tok_p, f"{arch} f32: greedy tokens differ between kernels and plain")
+    worst = 0.0
+    for prompt_np, source_np in reqs:
+        prompt = torch.as_tensor(prompt_np, device="cuda")[None, :]
+        source = {key: torch.as_tensor(source_np, device="cuda")}
+        lk, _ = fast.prefill(params32, prompt, len(prompt_np), **source)
+        lp, _ = plain.prefill(params32, prompt, len(prompt_np), **source)
+        worst = max(worst, compare(f"{arch} f32 last-position logits", lk, lp, LOGITS_TOL))
+    same = sum(a == b for a, b in zip(tok_k, bf16_tokens))
+    print(f"serve {arch} f32 kernels vs plain: all {n_req} token streams equal, logits max "
+          f"|diff| {worst:.3e}; {same} of {n_req} streams also equal bf16's; peak_mem_GB "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    del params32, fast, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["flash_attention"], by_kind
+
+
+def _host_ms(fn) -> float:
+    """Host-clock milliseconds of ``fn`` through to the card's finish."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def on_worker(address: str, work, timeout: float = 600.0):
@@ -1012,28 +1371,29 @@ def _map_leaves(tree, fn):
 
 
 @contextlib.contextmanager
-def _observing(name: str, observe):
-    """Calls ``observe(args, result)`` after every call of
-    ``repro_torch.core.moe_dispatch.<name>`` made inside the block, and
-    fails unless there was one (a caller that bound the function itself
-    would bypass the observer)."""
-    from repro_torch.core import moe_dispatch
+def _observing(module: str, name: str, observe):
+    """Calls ``observe(args, kwargs, result)`` after every call of
+    ``repro_torch.<module>.<name>`` made inside the block, and fails
+    unless there was one (a caller that bound the function itself would
+    bypass the observer)."""
+    import importlib
 
-    fn = getattr(moe_dispatch, name)
+    mod = importlib.import_module(f"repro_torch.{module}")
+    fn = getattr(mod, name)
     calls = [0]
 
     def observed(*args, **kw):
         out = fn(*args, **kw)
-        observe(args, out)
+        observe(args, kw, out)
         calls[0] += 1
         return out
 
-    setattr(moe_dispatch, name, observed)
+    setattr(mod, name, observed)
     try:
         yield
     finally:
-        setattr(moe_dispatch, name, fn)
-    require(calls[0] > 0, f"moe_dispatch.{name} was not called through the module inside the block")
+        setattr(mod, name, fn)
+    require(calls[0] > 0, f"{module}.{name} was not called through the module inside the block")
 
 
 def _top_k_margin(args, _routing):
@@ -1096,9 +1456,11 @@ def main() -> int:
         kernels[name]["launches_by_path"] = {}
 
     def serve_inline(arch):
-        name, launches, inline_tokens[arch] = phase5_serving(arch, wrappers)
+        name, launches, inline_tokens[arch], rolled = phase5_serving(arch, wrappers)
         kernels[name]["launches"] += launches
         kernels[name]["launches_by_path"][f"phase 5 {arch}"] = launches
+        if rolled:
+            kernels[name]["launches_by_path"][f"phase 5 {arch} f32 past the window"] = rolled
         print(f"phase 5 {arch} done at {time.perf_counter() - t_start:.1f} s")
 
     for arch in SERVE_ARCHS:
@@ -1124,6 +1486,12 @@ def main() -> int:
     print(f"phase 6c done at {time.perf_counter() - t_start:.1f} s")
     for arch in INLINE_ARCHS:
         serve_inline(arch)
+    for arch in CROSS_SOURCE_ARCHS:
+        launches, by_kind = phase5_cross_source(arch, wrappers)
+        kernels["flash_attention"]["launches"] += launches
+        for kind, n in by_kind.items():
+            kernels["flash_attention"]["launches_by_path"][f"phase 5 {arch} {kind}"] = n
+        print(f"phase 5 {arch} done at {time.perf_counter() - t_start:.1f} s")
     print("launches on the main paths: " + ", ".join(
         f"{k}={v['launches_by_path']}" for k, v in kernels.items()))
 

@@ -82,8 +82,21 @@ def model_params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     The reference stacks each pattern position's parameters on a leading
     layer dim (``blocks``) and unrolls the ``remainder``; the port keeps
     one dict per layer in layer order.  ``embed``, ``final_norm`` and
-    ``lm_head`` (absent with tied embeddings) carry over as they are.
+    ``lm_head`` (absent with tied embeddings) carry over as they are.  An
+    ``encdec`` tree's ``enc_blocks`` and ``dec_blocks`` (stacked over
+    ``encoder_layers`` and ``num_layers``) become per-layer lists beside
+    ``embed``, ``dec_pos``, ``enc_ln_out`` and ``dec_ln_out``.
     """
+    if cfg.family == "encdec":
+        return {
+            "embed": _param_tensor(tree["embed"], device),
+            "dec_pos": _param_tensor(tree["dec_pos"], device),
+            "enc_blocks": [_tree(tree["enc_blocks"], device, i)
+                           for i in range(cfg.encoder_layers)],
+            "enc_ln_out": _tree(tree["enc_ln_out"], device),
+            "dec_blocks": [_tree(tree["dec_blocks"], device, i) for i in range(cfg.num_layers)],
+            "dec_ln_out": _tree(tree["dec_ln_out"], device),
+        }
     pat, repeats, rem = pattern_of(cfg)
     layers = [_tree(tree["blocks"][j], device, r) for r in range(repeats)
               for j in range(len(pat))]

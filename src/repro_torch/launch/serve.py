@@ -3,6 +3,7 @@
 CLI (on the card unless ``--device cpu``):
   python -m repro_torch.launch.serve --arch tinyllama-1.1b --requests 16 --slots 4
   python -m repro_torch.launch.serve --arch tinyllama-1.1b --full
+  python -m repro_torch.launch.serve --arch recurrentgemma-9b --full
 
 Flags as in ``python -m repro.launch.serve``, plus ``--device``.  Weights
 are random, drawn from a seeded generator on the device.
@@ -19,6 +20,7 @@ import torch
 from ..configs import get_config
 from ..models import make_model
 from ..serving import Request, ServingEngine
+from ..serving.engine import check_servable
 
 
 def main(argv=None) -> None:
@@ -36,6 +38,10 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.smoke()
+    try:
+        check_servable(cfg)  # before the weights: vision's 90 B would not fit a card
+    except ValueError as e:
+        ap.error(str(e))
     model = make_model(cfg, device=args.device)
     params = model.init(0)
     rng = np.random.default_rng(0)

@@ -1,4 +1,4 @@
-"""Models: the ``dense``, ``moe`` and ``ssm`` families, ported from ``repro.models``."""
+"""Models: every family of ``repro.models`` (dense, moe, ssm, hybrid, encdec, vlm), ported."""
 
 from .model_factory import Model, make_model
 

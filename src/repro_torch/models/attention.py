@@ -1,22 +1,28 @@
-"""Attention: GQA with optional qk-norm, RoPE, local windows and a KV cache.
+"""Attention: GQA with optional qk-norm, RoPE, local windows, biases,
+cross-attention and a KV cache.
 
-The port's copy of ``repro.models.attention`` for self-attention.  Two
-paths, one math:
+The port's copy of ``repro.models.attention``.  Two paths, one math:
 
-* prefill and training (``x`` of any length) — flash attention, K4
+* prefill, training, the encoder and cross-attention (``x`` of any
+  length, or any query against a cross source) — flash attention, K4
   (:func:`repro_torch.kernels.flash_attention.flash_attention`): the CUDA
   kernel for CUDA tensors at every length, its plain version for CPU
   tensors, or the plain version on any device when the caller passes
   ``plain=True``.  The reference runs this path through XLA
   (``_dense_attention`` / ``_chunked_attention``) and names its Pallas
-  kernel as the TPU replacement; here the kernel is the path.
-* decode (``x`` of one token and a cache) — plain torch ops, since no
-  decode kernel exists: one query against the whole cache with a
-  per-sequence validity mask.
+  kernel as the TPU replacement; here the kernel is the path.  A cross
+  query at decode (one token against the cached source keys) keeps the
+  reference's branch structure: it is not the decode path, so it runs
+  through K4 too, with ``Sq = 1`` and no mask.
+* self-attention decode (``x`` of one token and a cache) — plain torch
+  ops, since no decode kernel exists: one query against the whole cache
+  with a per-sequence validity mask.
 
 Weights use the reference's fused 2-D layouts (wq: (d_model, H·hd)).  The
 cache is written in place (the reference returns a new one): prefill and
-decode return the same :class:`KVCache` object they were given.
+decode return the same :class:`KVCache` object they were given.  A cross
+cache takes the source's keys and values (the raw projections, as in the
+reference) at prefill, in place of its tensors, and is read at decode.
 """
 
 from __future__ import annotations
@@ -35,11 +41,15 @@ from .layers import ParamBuilder, apply_rope, rms_norm
 __all__ = ["attention_params", "KVCache", "init_kv_cache", "attention"]
 
 
-def attention_params(b: ParamBuilder, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """Q/K/V/O projections (+ qk-norm scales)."""
+def attention_params(b: ParamBuilder, cfg: ModelConfig, *,
+                     bias: bool = False) -> Dict[str, torch.Tensor]:
+    """Q/K/V/O projections (+ biases, + qk-norm scales)."""
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     p = {"wq": b.param((d, qd)), "wk": b.param((d, kvd)), "wv": b.param((d, kvd)),
          "wo": b.param((qd, d))}
+    if bias:
+        p.update(bq=b.param((qd,), init="zeros"), bk=b.param((kvd,), init="zeros"),
+                 bv=b.param((kvd,), init="zeros"), bo=b.param((d,), init="zeros"))
     if cfg.qk_norm:
         p["q_norm"] = b.param((cfg.head_dim,), init="zeros")
         p["k_norm"] = b.param((cfg.head_dim,), init="zeros")
@@ -110,37 +120,57 @@ def attention(
     cfg: ModelConfig,
     *,
     positions: Optional[torch.Tensor] = None,
+    kv_x: Optional[torch.Tensor] = None,
+    causal: bool = True,
     window: int = 0,
     cache: Optional[KVCache] = None,
+    cache_update: bool = True,
     plain: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Causal self-attention (``window`` > 0 adds a local window).  Modes:
+    """Self-attention (``causal``, and a local window when ``window`` > 0)
+    or cross-attention.  Modes:
 
     * training/prefill: ``cache is None``, or a cache that prefill fills
       with the processed (post qk-norm, post-RoPE) keys and the values;
-    * decode: ``x`` is (B, 1, d) and ``cache.length`` marks each write slot.
+    * decode: ``x`` is (B, 1, d) and ``cache.length`` marks each write slot;
+    * cross: ``kv_x`` given ⇒ no mask and no RoPE; with a cache, prefill
+      (``cache_update=True``) stores ``kv_x``'s keys and values, and
+      ``cache_update=False`` attends the cached ones (``kv_x`` is then
+      only the flag).
 
-    ``plain=True`` runs the prefill through K4's plain version on any
-    device (for comparisons); the default runs the kernel on the card.
+    ``plain=True`` runs K4's plain version on any device (for
+    comparisons); the default runs the kernel on the card.
     """
     b, s, _ = x.shape
     kvh, hd = cfg.num_kv_heads, cfg.head_dim
-    decode = cache is not None and s == 1
+    is_cross = kv_x is not None
+    decode = cache is not None and s == 1 and not is_cross
+    reuse_cross = is_cross and cache is not None and not cache_update
 
-    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, hd)
-    v_f = x @ p["wv"]
-    k = (x @ p["wk"]).reshape(b, s, kvh, hd)
-    v = v_f.reshape(b, s, kvh, hd)
+    q = x @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    q = q.reshape(b, s, cfg.num_heads, hd)
+    if reuse_cross:
+        k_f, v_f = cache.k, cache.v
+    else:
+        src = kv_x if is_cross else x
+        k_f, v_f = src @ p["wk"], src @ p["wv"]
+        if "bk" in p:
+            k_f, v_f = k_f + p["bk"], v_f + p["bv"]
+    k = k_f.reshape(b, -1, kvh, hd)
+    v = v_f.reshape(b, -1, kvh, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        if not reuse_cross:
+            k = rms_norm(k, p["k_norm"], cfg.norm_eps)
 
     if positions is None:
         if decode:
             positions = cache.length[:, None]
         else:
             positions = torch.arange(s, device=x.device)[None, :]
-    if cfg.rope_theta:
+    if cfg.rope_theta and not is_cross:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -148,7 +178,7 @@ def attention(
     if decode:
         out = _decode_attention(q.reshape(b, s, kvh, g, hd), cache, k, v, cfg, window)
     else:
-        if cache is not None:
+        if cache is not None and not is_cross and cache_update:
             # prefill: fill the cache with the (window tail of the) processed K/V
             k_proc = k.reshape(b, s, kvh * hd)
             cache_len = cache.k.shape[1]
@@ -163,9 +193,15 @@ def attention(
             cache.k[:, :k_tail.shape[1]] = k_tail.to(cache.k.dtype)
             cache.v[:, :v_tail.shape[1]] = v_tail.to(cache.v.dtype)
             cache.length.fill_(s)
+        elif is_cross and cache is not None and cache_update:
+            cache.k, cache.v = k_f.to(cache.k.dtype), v_f.to(cache.v.dtype)
+            cache.length.fill_(k_f.shape[1])
         attend = flash_attention_plain if plain else flash_attention
-        out = attend(q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
-                     window=window, scale=hd**-0.5)
+        out = attend(q.contiguous(), k.contiguous(), v.contiguous(),
+                     causal=causal and not is_cross, window=window, scale=hd**-0.5)
 
     out = out.reshape(b, s, cfg.q_dim).to(x.dtype)
-    return out @ p["wo"], cache
+    y = out @ p["wo"]
+    if "bo" in p:
+        y = y + p["bo"]
+    return y, cache

@@ -1,0 +1,127 @@
+"""Whisper-style encoder–decoder backbone (arXiv:2212.04356).
+
+The port's copy of ``repro.models.encdec``.  As in the reference, the conv
+frontend is a stub: the model takes precomputed frame embeddings
+(B, S_enc, d_model).  LayerNorm, biased projections and GELU MLPs
+(whisper's convention), sinusoidal encoder positions, learned decoder
+positions (``dec_pos``, 32768 × d), no RoPE.
+
+The encoder attends without a mask and the decoder's self-attention is
+causal, both through K4; the decoder's cross-attention reads the encoder
+states at prefill and the cross caches at decode (one query per step
+through K4).  The reference stacks the layers' parameters and scans; the
+port keeps per-layer lists (``enc_blocks``, ``dec_blocks``) and loops, and
+each decoder layer's cache is ``{"self": KVCache, "cross": KVCache}``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from .attention import attention, attention_params, init_kv_cache
+from .ffn import gelu_ffn, gelu_ffn_params
+from .layers import ParamBuilder, layer_norm, sinusoidal_positions
+
+__all__ = ["MAX_DECODER_POS", "build_encdec_params", "encoder_forward", "init_encdec_caches",
+           "decoder_forward_encdec"]
+
+MAX_DECODER_POS = 32768
+
+
+def _ln_params(b: ParamBuilder, d: int) -> Dict[str, torch.Tensor]:
+    return {"w": b.param((d,), init="ones"), "b": b.param((d,), init="zeros")}
+
+
+def _enc_block_params(b: ParamBuilder, cfg: ModelConfig) -> Dict[str, Any]:
+    d = cfg.d_model
+    return {
+        "ln_attn": _ln_params(b, d),
+        "attn": attention_params(b, cfg, bias=True),
+        "ln_mlp": _ln_params(b, d),
+        "mlp": gelu_ffn_params(b, d, cfg.d_ff),
+    }
+
+
+def _dec_block_params(b: ParamBuilder, cfg: ModelConfig) -> Dict[str, Any]:
+    d = cfg.d_model
+    return {
+        "ln_attn": _ln_params(b, d),
+        "attn": attention_params(b, cfg, bias=True),
+        "ln_xattn": _ln_params(b, d),
+        "xattn": attention_params(b, cfg, bias=True),
+        "ln_mlp": _ln_params(b, d),
+        "mlp": gelu_ffn_params(b, d, cfg.d_ff),
+    }
+
+
+def build_encdec_params(b: ParamBuilder, cfg: ModelConfig) -> Dict[str, Any]:
+    d, v = cfg.d_model, cfg.padded_vocab
+    return {
+        "embed": b.param((v, d), scale=0.02),
+        "dec_pos": b.param((MAX_DECODER_POS, d), scale=0.01),
+        "enc_blocks": [_enc_block_params(b, cfg) for _ in range(cfg.encoder_layers)],
+        "enc_ln_out": _ln_params(b, d),
+        "dec_blocks": [_dec_block_params(b, cfg) for _ in range(cfg.num_layers)],
+        "dec_ln_out": _ln_params(b, d),
+    }
+
+
+def _ln(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
+    return layer_norm(x, p["w"], p["b"], cfg.norm_eps)
+
+
+def encoder_forward(params: Dict[str, Any], frames: torch.Tensor, cfg: ModelConfig, *,
+                    plain: bool = False) -> torch.Tensor:
+    """frames: (B, S_enc, d) stub embeddings → encoder states (B, S_enc, d)."""
+    s, d = frames.shape[1], frames.shape[2]
+    x = frames + sinusoidal_positions(s, d, device=frames.device).to(frames.dtype)[None]
+    for p in params["enc_blocks"]:
+        h, _ = attention(p["attn"], _ln(x, p["ln_attn"], cfg), cfg, causal=False, plain=plain)
+        x = x + h
+        x = x + gelu_ffn(p["mlp"], _ln(x, p["ln_mlp"], cfg))
+    return _ln(x, params["enc_ln_out"], cfg)
+
+
+def init_encdec_caches(cfg: ModelConfig, batch: int, max_len: int, enc_len: int, *,
+                       device="cuda") -> List[Dict[str, Any]]:
+    """Per decoder layer: a self cache of ``max_len`` rows and a cross
+    cache of ``enc_len`` rows."""
+    return [{"self": init_kv_cache(cfg, batch, max_len, device=device),
+             "cross": init_kv_cache(cfg, batch, enc_len, device=device)}
+            for _ in range(cfg.num_layers)]
+
+
+def decoder_forward_encdec(
+    params: Dict[str, Any],
+    tokens: torch.Tensor,                 # (B, S)
+    enc_out: torch.Tensor,                # (B, S_enc, d); at decode only the cross flag
+    cfg: ModelConfig,
+    *,
+    mode: str = "train",
+    positions: Optional[torch.Tensor] = None,
+    caches: Optional[List[Dict[str, Any]]] = None,
+    plain: bool = False,
+) -> Tuple[torch.Tensor, Optional[List[Dict[str, Any]]]]:
+    """Returns (final hidden (B, S, d), caches updated in place)."""
+    b, s = tokens.shape
+    x = params["embed"][tokens.long()]
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    pos_emb = params["dec_pos"][positions.reshape(-1).long()].reshape(
+        b if positions.shape[0] == b else 1, s, -1)
+    x = x + pos_emb.to(x.dtype)
+    decode = mode == "decode"
+    for i, p in enumerate(params["dec_blocks"]):
+        cache = caches[i] if caches is not None else None
+        h, _ = attention(p["attn"], _ln(x, p["ln_attn"], cfg), cfg, positions=positions,
+                         cache=cache["self"] if cache is not None else None, plain=plain)
+        x = x + h
+        h, _ = attention(p["xattn"], _ln(x, p["ln_xattn"], cfg), cfg, kv_x=enc_out,
+                         causal=False, cache=cache["cross"] if cache is not None else None,
+                         cache_update=not decode, plain=plain)
+        x = x + h
+        x = x + gelu_ffn(p["mlp"], _ln(x, p["ln_mlp"], cfg))
+    return _ln(x, params["dec_ln_out"], cfg), caches

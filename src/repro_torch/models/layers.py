@@ -1,7 +1,9 @@
 """Shared model primitives and the seeded parameter builder.
 
 The port's copy of ``repro.models.layers``: :func:`rms_norm` (the
-``1 + weight`` convention), :func:`apply_rope` (split-half) and
+``1 + weight`` convention), :func:`layer_norm` (whisper's, with the
+population variance), :func:`apply_rope` (split-half),
+:func:`sinusoidal_positions` (whisper's encoder positions) and
 :class:`ParamBuilder`, which draws every parameter from one explicit
 ``torch.Generator`` on the target device with the reference's init scales
 (normal with std 1/√fan_in unless a scale is given, zeros, ones,
@@ -17,7 +19,8 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-__all__ = ["DTYPES", "ParamBuilder", "rms_norm", "apply_rope"]
+__all__ = ["DTYPES", "ParamBuilder", "rms_norm", "layer_norm", "apply_rope",
+           "sinusoidal_positions"]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
@@ -59,6 +62,15 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.
     return (out * (1.0 + weight.float())).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)  # population variance, as jnp.var
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(x.dtype)
+
+
 def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     half = head_dim // 2
     return theta ** (-torch.arange(0, half, dtype=torch.float32, device=device) / half)
@@ -75,3 +87,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int, *, device="cuda") -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings (seq, d), float32."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(half, dtype=torch.float32, device=device)
+                      / max(half - 1, 1))
+    ang = torch.arange(seq, dtype=torch.float32, device=device)[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

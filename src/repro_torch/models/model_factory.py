@@ -1,9 +1,18 @@
-"""Model factory: one API over the ported architectures.
+"""Model factory: one API over every architecture of the repo.
 
 The port's copy of ``repro.models.model_factory`` for serving: ``init``,
 ``init_caches``, ``prefill``, ``prefill_from``, ``decode_step`` and
 ``logits``.  Training (``loss_fn``) comes with slice E (ROADMAP.md queue 1,
 'Slice E: training').
+
+The ``encdec`` family (whisper) takes ``frames=`` (B, S_enc, d) and the
+``vlm`` family ``image_embeds=`` (B, n_img, d), the reference's batch keys,
+at ``forward``, ``prefill`` and ``prefill_from``; at decode their cross
+caches stand in for both, as in the reference.  One deliberate difference
+(ROADMAP.md queue 3): a ``vlm`` forward other than decode without
+``image_embeds`` raises, where the reference attends the text to itself
+in the cross layers and, at prefill, writes the text's keys into the
+cross caches.
 
 ``Model(cfg, device=...)`` builds its tensors on ``device`` ("cuda"
 unless the caller asks for the CPU).  ``plain=True`` runs prefill through
@@ -19,7 +28,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 
 from ..configs.base import ModelConfig
-from . import transformer
+from . import encdec, transformer
 from .layers import DTYPES, ParamBuilder
 
 __all__ = ["Model", "make_model", "splice_slot"]
@@ -32,44 +41,85 @@ class Model:
     plain: bool = False
 
     def __post_init__(self):
-        transformer.pattern_of(self.cfg)  # raises for families not ported yet
+        if self.cfg.family != "encdec":
+            transformer.pattern_of(self.cfg)  # raises for an unknown family
 
     # -- parameters ---------------------------------------------------------
     def init(self, seed: int = 0) -> Dict[str, Any]:
         """Random parameters with the reference's init scales, drawn from a
         ``torch.Generator`` seeded with ``seed`` on the model's device."""
         b = ParamBuilder(seed, DTYPES[self.cfg.param_dtype], self.device)
+        if self.cfg.family == "encdec":
+            return encdec.build_encdec_params(b, self.cfg)
         return transformer.build_decoder_params(b, self.cfg)
 
     # -- forward ------------------------------------------------------------
     def forward(self, params, tokens: torch.Tensor, *, mode: str = "train",
                 positions: Optional[torch.Tensor] = None, caches=None,
-                aux: Optional[Dict[str, torch.Tensor]] = None):
+                aux: Optional[Dict[str, torch.Tensor]] = None,
+                frames: Optional[torch.Tensor] = None,
+                image_embeds: Optional[torch.Tensor] = None):
         """Returns (hidden (B, S, d), caches); ``aux``, when given, receives
-        the MoE aux values (``transformer.AUX_KEYS``)."""
-        return transformer.decoder_forward(params, tokens, self.cfg, mode=mode,
+        the MoE aux values (``transformer.AUX_KEYS``).  ``frames``
+        (``encdec``) and ``image_embeds`` (``vlm``) are the second input
+        outside decode."""
+        cfg = self.cfg
+        if cfg.family in ("encdec", "vlm") and mode == "decode":
+            # the cross caches hold the source: a one-row stand-in marks cross
+            source = torch.zeros((tokens.shape[0], 1, cfg.d_model), dtype=DTYPES[cfg.dtype],
+                                 device=tokens.device)
+            frames = image_embeds = source
+        if cfg.family == "encdec":
+            if frames is None:
+                raise ValueError("the encdec family needs frames= (B, S_enc, d_model)")
+            enc_out = frames if mode == "decode" else encdec.encoder_forward(
+                params, frames, cfg, plain=self.plain)
+            hidden, caches = encdec.decoder_forward_encdec(
+                params, tokens, enc_out, cfg, mode=mode, positions=positions, caches=caches,
+                plain=self.plain)
+            if aux is not None:
+                aux.update({key: torch.zeros((), dtype=torch.float32, device=hidden.device)
+                            for key in transformer.AUX_KEYS})
+            return hidden, caches
+        if cfg.family == "vlm" and image_embeds is None:
+            raise ValueError("the vlm family needs image_embeds= (B, n_img, d_model) outside "
+                             "decode (ROADMAP.md queue 3: a deliberate difference from the "
+                             "reference, which attends the text to itself there)")
+        return transformer.decoder_forward(params, tokens, cfg, mode=mode,
                                            positions=positions, caches=caches,
-                                           plain=self.plain, aux=aux)
+                                           image_embeds=image_embeds, plain=self.plain, aux=aux)
 
     def logits(self, params, hidden: torch.Tensor) -> torch.Tensor:
+        if self.cfg.family == "encdec":
+            return hidden @ params["embed"].T
         return transformer.lm_logits(params, hidden, self.cfg)
 
     # -- serving ------------------------------------------------------------
     def init_caches(self, batch: int, max_len: int) -> List[Any]:
+        if self.cfg.family == "encdec":
+            return encdec.init_encdec_caches(self.cfg, batch, max_len, self.cfg.encoder_seq,
+                                             device=self.device)
         return transformer.init_caches(self.cfg, batch, max_len, device=self.device)
 
     @torch.no_grad()
-    def prefill(self, params, tokens: torch.Tensor, max_len: int) -> Tuple[torch.Tensor, List[Any]]:
+    def prefill(self, params, tokens: torch.Tensor, max_len: int, *,
+                frames: Optional[torch.Tensor] = None,
+                image_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, List[Any]]:
         """Full-sequence prefill → (last-position logits (B, V), filled caches)."""
-        return self.prefill_from(params, tokens, self.init_caches(tokens.shape[0], max_len))
+        return self.prefill_from(params, tokens, self.init_caches(tokens.shape[0], max_len),
+                                 frames=frames, image_embeds=image_embeds)
 
     @torch.no_grad()
-    def prefill_from(self, params, tokens: torch.Tensor,
-                     caches) -> Tuple[torch.Tensor, List[Any]]:
+    def prefill_from(self, params, tokens: torch.Tensor, caches, *,
+                     frames: Optional[torch.Tensor] = None,
+                     image_embeds: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, List[Any]]:
         """Prefill into caches that already exist → (last-position logits
         (B, V), caches filled in place), as the reference's ``prefill_from``:
-        a KV cache is rewritten from position 0, an SSM state is continued."""
-        hidden, caches = self.forward(params, tokens, mode="prefill", caches=caches)
+        a KV cache is rewritten from position 0, an SSM or RG-LRU state is
+        continued, a cross cache takes the new source's keys."""
+        hidden, caches = self.forward(params, tokens, mode="prefill", caches=caches,
+                                      frames=frames, image_embeds=image_embeds)
         return self.logits(params, hidden[:, -1:, :])[:, 0, :], caches
 
     @torch.no_grad()
@@ -83,8 +133,7 @@ class Model:
 
 def make_model(cfg: ModelConfig, *, device: Union[str, torch.device] = "cuda",
                plain: bool = False) -> Model:
-    """The model of ``cfg``; raises ``NotImplementedError`` for the families
-    the port does not have yet (hybrid, encdec, vlm)."""
+    """The model of ``cfg``, of any family of the repo."""
     return Model(cfg, device=device, plain=plain)
 
 

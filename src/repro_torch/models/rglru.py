@@ -1,0 +1,160 @@
+"""RG-LRU recurrent block (RecurrentGemma / Griffin, arXiv:2402.19427).
+
+The port's copy of ``repro.models.rglru``:
+
+    a_t = exp(c · r_t · log σ(Λ))                      (input-dependent decay)
+    h_t = a_t ⊙ h_{t-1} + sqrt(1 − a_t²) ⊙ (i_t ⊙ x_t)
+
+Prefill evaluates the linear recurrence as a log-depth scan of the
+reference's combine ``(a_l·a_r, a_r·b_l + b_r)`` in float32: ⌈log₂ S⌉
+Hillis–Steele steps over tensor slices (the reference runs
+``jax.lax.associative_scan``, and no TPU kernel).  Not a loop over tokens
+(one launch per token and layer), and not ``cumprod(a)`` with a divide
+(``a`` reaches about 0.06, so the product underflows within a few hundred
+steps).  Decode is the O(1) single-step update, written into the state in
+place.  Gates use the paper's block-diagonal (8-block) projections.
+
+The reference's casts are kept: in prefill the conv output is rounded to
+``x``'s dtype and then taken to float32; in decode the conv runs in
+float32 with no rounding.  A prefill with a carried state folds
+``a_0 · h`` into the first step and, as the reference does, convolves the
+prompt from zero padding, not from the carried conv inputs.
+
+One deliberate difference (ROADMAP.md queue 3): a prefill's new conv
+state is the last ``conv_width − 1`` rows of ``cat(state.conv, xb)``.
+That equals the reference's ``xb[:, -(conv_width − 1):]`` whenever the
+prompt has at least ``conv_width − 1`` tokens; with a shorter prompt the
+reference's state has the wrong shape and its next decode fails.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from .layers import ParamBuilder
+from .ssm import _causal_conv
+
+__all__ = ["RGLRUState", "init_rglru_state", "rglru_params", "rglru_block"]
+
+_C = 8.0          # the paper's fixed exponent scale
+_N_BLOCKS = 8     # block-diagonal gate blocks
+
+
+@dataclasses.dataclass
+class RGLRUState:
+    conv: torch.Tensor   # (B, conv_width-1, lru_width) the last conv inputs
+    h: torch.Tensor      # (B, lru_width) recurrent state, float32
+
+
+def _lw(cfg: ModelConfig) -> int:
+    return cfg.lru_width or cfg.d_model
+
+
+def init_rglru_state(cfg: ModelConfig, batch: int, *, device="cuda") -> RGLRUState:
+    lw = _lw(cfg)
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    return RGLRUState(
+        conv=torch.zeros((batch, cfg.conv_width - 1, lw), dtype=dt, device=device),
+        h=torch.zeros((batch, lw), dtype=torch.float32, device=device),
+    )
+
+
+def rglru_params(b: ParamBuilder, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    d, lw, w = cfg.d_model, _lw(cfg), cfg.conv_width
+    blk = lw // _N_BLOCKS
+    return {
+        "w_x": b.param((d, lw)),
+        "w_gate": b.param((d, lw)),
+        "w_out": b.param((lw, d)),
+        "conv_w": b.param((w, lw), scale=0.1),
+        "conv_b": b.param((lw,), init="zeros"),
+        # block-diagonal input/recurrence gates over the post-conv features
+        "gate_r_w": b.param((_N_BLOCKS, blk, blk)),
+        "gate_r_b": b.param((lw,), init="zeros"),
+        "gate_i_w": b.param((_N_BLOCKS, blk, blk)),
+        "gate_i_b": b.param((lw,), init="zeros"),
+        # Λ init so that a = σ(Λ)^c lands in [0.9, 0.999]
+        "lam": b.param((lw,), init="uniform", scale=(0.9, 4.0)),
+    }
+
+
+def _blockdiag(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x: (..., lw) float32, w: (nb, blk, blk) → (..., lw) float32."""
+    nb, blk, _ = w.shape
+    xs = x.reshape(*x.shape[:-1], nb, blk)
+    y = torch.einsum("...nb,nbc->...nc", xs, w.float())
+    return y.reshape(*x.shape[:-1], nb * blk) + b.float()
+
+
+def _gates(p: Dict[str, torch.Tensor], xc: torch.Tensor):
+    """log_a (float32, ≤ 0) and the input gate from post-conv features."""
+    r = torch.sigmoid(_blockdiag(xc, p["gate_r_w"], p["gate_r_b"]))
+    i = torch.sigmoid(_blockdiag(xc, p["gate_i_w"], p["gate_i_b"]))
+    log_a = _C * r * F.logsigmoid(p["lam"].float())
+    return log_a, i
+
+
+def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t · h_{t-1} + b_t from h_{-1} = 0 along dim 1, in ⌈log₂ S⌉
+    steps: after the step of offset d, (a_t, b_t) combines positions
+    t − 2d + 1 .. t."""
+    d = 1
+    while d < a.shape[1]:
+        b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+        d *= 2
+    return b
+
+
+def rglru_block(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,                     # (B, S, d)
+    cfg: ModelConfig,
+    *,
+    state: Optional[RGLRUState] = None,
+    decode: bool = False,
+) -> Tuple[torch.Tensor, Optional[RGLRUState]]:
+    """One RG-LRU block.  Prefill with a ``state`` continues from
+    ``state.h`` and writes the state decode continues from; decode takes
+    one token and updates the state in place."""
+    s = x.shape[1]
+    xb = x @ p["w_x"]
+    gate = F.gelu((x @ p["w_gate"]).float(), approximate="tanh")
+
+    if decode:
+        if state is None or s != 1:
+            raise ValueError(f"decode takes one token and a state, got {s} tokens, "
+                             f"state {'set' if state is not None else 'None'}")
+        window = torch.cat([state.conv, xb.to(state.conv.dtype)], dim=1)   # (B, W, lw)
+        xc = torch.einsum("bwc,wc->bc", window.float(), p["conv_w"].float()) \
+            + p["conv_b"].float()
+        log_a, i_g = _gates(p, xc)
+        a = torch.exp(log_a)
+        beta = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
+        h_new = a * state.h + beta * (i_g * xc)
+        y = h_new[:, None, :]
+        state.conv.copy_(window[:, 1:, :])
+        state.h.copy_(h_new)
+    else:
+        xc = _causal_conv(xb, p["conv_w"], p["conv_b"]).float()
+        log_a, i_g = _gates(p, xc)
+        a = torch.exp(log_a)
+        beta = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
+        bterm = beta * (i_g * xc)                                           # (B, S, lw)
+        if state is not None:
+            # fold the carried state into the first step's additive term
+            bterm = torch.cat([bterm[:, :1] + a[:, :1] * state.h[:, None, :], bterm[:, 1:]],
+                              dim=1)
+        y = _linear_scan(a, bterm)
+        if state is not None:
+            w1 = cfg.conv_width - 1
+            state.conv.copy_(torch.cat([state.conv, xb.to(state.conv.dtype)], dim=1)[:, -w1:])
+            state.h.copy_(y[:, -1, :])
+
+    out = (gate * y).to(x.dtype) @ p["w_out"]
+    return out, state

@@ -1,20 +1,25 @@
-"""Decoder-only transformer: the ``dense``, ``moe`` and ``ssm`` patterns.
+"""Decoder-only transformer supporting every decoder family.
 
-The port's copy of ``repro.models.transformer`` for the families the
-serving slice runs:
+The port's copy of ``repro.models.transformer``:
 
   dense   ("attn",) × L   (tinyllama, llama3.2, qwen3, stablelm)
   moe     ("moe",)  × L   (qwen3-moe, grok-1)
   ssm     ("ssd",)  × L   (mamba2)
+  hybrid  ("rglru", "rglru", "attn") × 12 + remainder ("rglru", "rglru")
+          (recurrentgemma; local attention over ``cfg.window``, Gemma's
+          embedding scale √d_model)
+  vlm     ("attn",) × 4 + ("cross",), repeated (llama-3.2-vision)
 
-The reference stacks each pattern position's parameters on a leading
-layer dim and scans over them; PyTorch runs eagerly, so the port keeps one
-parameter dict and one cache per layer, in layer order, and loops.  A
-``moe`` block is an ``attn`` block whose FFN is :func:`~.moe.moe_ffn`; its
-aux values (``AUX_KEYS``, summed over layers) reach a caller that passes
-an ``aux`` dict to :func:`decoder_forward`.  The ``rglru`` and ``cross``
-block kinds (and so the ``hybrid``, ``vlm`` and ``encdec`` families) are
-not ported yet.
+(whisper's encoder and decoder stacks live in ``encdec.py`` and reuse
+these blocks.)  The reference stacks each pattern position's parameters
+on a leading layer dim and scans over them; PyTorch runs eagerly, so the
+port keeps one parameter dict and one cache per layer, in layer order,
+and loops.  A ``moe`` block is an ``attn`` block whose FFN is
+:func:`~.moe.moe_ffn`; its aux values (``AUX_KEYS``, summed over layers)
+reach a caller that passes an ``aux`` dict to :func:`decoder_forward`.  A
+``cross`` block is an ``attn`` block with a gated cross-attention to
+``image_embeds`` and a gated FFN; its cache is ``{"self": KVCache,
+"cross": KVCache}``.
 """
 
 from __future__ import annotations
@@ -28,25 +33,13 @@ from .attention import attention, attention_params, init_kv_cache
 from .ffn import ffn, ffn_params
 from .layers import ParamBuilder, rms_norm
 from .moe import moe_ffn, moe_params
+from .rglru import init_rglru_state, rglru_block, rglru_params
 from .ssm import init_ssm_state, ssd_block, ssd_params
 
-__all__ = ["NOT_PORTED", "AUX_KEYS", "pattern_of", "layer_kinds", "build_decoder_params",
+__all__ = ["AUX_KEYS", "pattern_of", "layer_kinds", "build_decoder_params",
            "init_caches", "decoder_forward", "lm_logits"]
 
 AUX_KEYS = ("moe_aux_loss", "moe_z_loss", "moe_overflow_frac", "moe_load_max")
-
-# family or block kind -> the ROADMAP.md queue-1 item that ports it, by name
-NOT_PORTED = {
-    "hybrid": "ROADMAP.md queue 1, '`rglru` and the `hybrid` family' (models/rglru.py)",
-    "rglru": "ROADMAP.md queue 1, '`rglru` and the `hybrid` family' (models/rglru.py)",
-    "encdec": "ROADMAP.md queue 1, '`encdec`' (models/encdec.py)",
-    "vlm": "ROADMAP.md queue 1, 'VLM cross-attention' (the `cross` block kind)",
-    "cross": "ROADMAP.md queue 1, 'VLM cross-attention' (the `cross` block kind)",
-}
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what!r} is not ported to PyTorch yet: {NOT_PORTED[what]}")
 
 
 def pattern_of(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
@@ -57,8 +50,11 @@ def pattern_of(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]
         pat = ("moe",)
     elif cfg.family == "ssm":
         pat = ("ssd",)
-    elif cfg.family in NOT_PORTED:
-        raise _not_ported(cfg.family)
+    elif cfg.family == "hybrid":
+        pat = cfg.block_pattern or ("rglru", "rglru", "attn")
+    elif cfg.family == "vlm":
+        ce = cfg.cross_attn_every or 5
+        pat = ("attn",) * (ce - 1) + ("cross",)
     else:
         raise ValueError(f"pattern_of: unsupported family {cfg.family}")
     repeats, rem = divmod(cfg.num_layers, len(pat))
@@ -89,8 +85,24 @@ def _block_params(b: ParamBuilder, cfg: ModelConfig, kind: str) -> Dict[str, Any
         }
     if kind == "ssd":
         return {"ln": b.param((d,), init="zeros"), "ssd": ssd_params(b, cfg)}
-    if kind in NOT_PORTED:
-        raise _not_ported(kind)
+    if kind == "rglru":
+        return {
+            "ln_rec": b.param((d,), init="zeros"),
+            "rec": rglru_params(b, cfg),
+            "ln_mlp": b.param((d,), init="zeros"),
+            "mlp": ffn_params(b, d, cfg.d_ff),
+        }
+    if kind == "cross":
+        return {
+            "ln_attn": b.param((d,), init="zeros"),
+            "attn": attention_params(b, cfg),
+            "ln_xattn": b.param((d,), init="zeros"),
+            "xattn": attention_params(b, cfg),
+            "gate_attn": b.param((), init="zeros"),
+            "ln_mlp": b.param((d,), init="zeros"),
+            "mlp": ffn_params(b, d, cfg.d_ff),
+            "gate_mlp": b.param((), init="zeros"),
+        }
     raise ValueError(f"unknown block kind {kind!r}")
 
 
@@ -104,31 +116,64 @@ def build_decoder_params(b: ParamBuilder, cfg: ModelConfig) -> Dict[str, Any]:
     return params
 
 
+def _window(cfg: ModelConfig) -> int:
+    """The local attention window: ``cfg.window`` for the hybrid family only."""
+    return cfg.window if cfg.family == "hybrid" else 0
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> List[Any]:
-    """One cache per layer: a KVCache for attention (``attn``, ``moe``), an
-    SSMState for SSD."""
-    caches = []
+    """One cache per layer: a KVCache for attention (``attn``, ``moe``;
+    window-sized for the hybrid family), an SSMState for SSD, an
+    RGLRUState for RG-LRU, and ``{"self", "cross"}`` KVCaches for
+    ``cross`` (the cross one holds ``num_image_tokens`` rows)."""
+    caches: List[Any] = []
     for kind in layer_kinds(cfg):
         if kind in ("attn", "moe"):
-            caches.append(init_kv_cache(cfg, batch, max_len, device=device))
-        else:
+            caches.append(init_kv_cache(cfg, batch, max_len, _window(cfg), device=device))
+        elif kind == "ssd":
             caches.append(init_ssm_state(cfg, batch, device=device))
+        elif kind == "rglru":
+            caches.append(init_rglru_state(cfg, batch, device=device))
+        else:
+            caches.append({"self": init_kv_cache(cfg, batch, max_len, device=device),
+                           "cross": init_kv_cache(cfg, batch, cfg.num_image_tokens,
+                                                  device=device)})
     return caches
 
 
-def _apply_block(kind: str, p, x, cfg: ModelConfig, *, mode: str, positions, cache, plain):
+def _apply_block(kind: str, p, x, cfg: ModelConfig, *, mode: str, positions, cache,
+                 image_embeds, plain):
     """One block -> (x, aux values); its cache (if any) is updated in place."""
+    decode = mode == "decode"
     if kind in ("attn", "moe"):
         h, _ = attention(p["attn"], rms_norm(x, p["ln_attn"], cfg.norm_eps), cfg,
-                         positions=positions, cache=cache, plain=plain)
+                         positions=positions, window=_window(cfg), cache=cache, plain=plain)
         x = x + h
         if kind == "attn":
             return x + ffn(p["mlp"], rms_norm(x, p["ln_mlp"], cfg.norm_eps)), {}
         h, aux = moe_ffn(p["moe"], rms_norm(x, p["ln_mlp"], cfg.norm_eps), cfg)
         return x + h, aux
-    h, _ = ssd_block(p["ssd"], rms_norm(x, p["ln"], cfg.norm_eps), cfg, state=cache,
-                     decode=mode == "decode", plain=plain)
-    return x + h, {}
+    if kind == "ssd":
+        h, _ = ssd_block(p["ssd"], rms_norm(x, p["ln"], cfg.norm_eps), cfg, state=cache,
+                         decode=decode, plain=plain)
+        return x + h, {}
+    if kind == "rglru":
+        h, _ = rglru_block(p["rec"], rms_norm(x, p["ln_rec"], cfg.norm_eps), cfg, state=cache,
+                           decode=decode)
+        x = x + h
+        return x + ffn(p["mlp"], rms_norm(x, p["ln_mlp"], cfg.norm_eps)), {}
+    # cross: self-attention, then gated cross-attention and a gated FFN
+    h, _ = attention(p["attn"], rms_norm(x, p["ln_attn"], cfg.norm_eps), cfg,
+                     positions=positions, cache=cache["self"] if cache is not None else None,
+                     plain=plain)
+    x = x + h
+    h, _ = attention(p["xattn"], rms_norm(x, p["ln_xattn"], cfg.norm_eps), cfg,
+                     kv_x=image_embeds, causal=False,
+                     cache=cache["cross"] if cache is not None else None,
+                     cache_update=not decode, plain=plain)
+    x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * h
+    return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * ffn(
+        p["mlp"], rms_norm(x, p["ln_mlp"], cfg.norm_eps)), {}
 
 
 def decoder_forward(
@@ -139,6 +184,7 @@ def decoder_forward(
     mode: str = "train",                  # "train" | "prefill" | "decode"
     positions: Optional[torch.Tensor] = None,
     caches: Optional[List[Any]] = None,
+    image_embeds: Optional[torch.Tensor] = None,   # (B, n_img, d): the vlm's cross source
     plain: bool = False,
     aux: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[List[Any]]]:
@@ -149,13 +195,16 @@ def decoder_forward(
     as the reference's third return value.
     """
     x = params["embed"][tokens.long()]
+    if cfg.family == "hybrid":  # gemma-style embedding scale
+        x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)
     if aux is not None:
         aux.update({key: torch.zeros((), dtype=torch.float32, device=x.device)
                     for key in AUX_KEYS})
     for i, kind in enumerate(layer_kinds(cfg)):
         x, block_aux = _apply_block(kind, params["layers"][i], x, cfg, mode=mode,
                                     positions=positions,
-                                    cache=caches[i] if caches is not None else None, plain=plain)
+                                    cache=caches[i] if caches is not None else None,
+                                    image_embeds=image_embeds, plain=plain)
         if aux is not None:
             for key, value in block_aux.items():
                 aux[key] = aux[key] + value.float()

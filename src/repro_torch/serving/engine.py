@@ -38,6 +38,11 @@ tensor would reopen on the card inside this process's unpickler) and is
 copied into its slot here.  A remote prefill that fails fails its request
 (an error in its :class:`RequestResult`).
 
+Requests carry tokens only, as the reference engine's do, so the engine
+serves the token-only families (dense, moe, ssm, hybrid) and refuses
+``encdec`` and ``vlm``, whose prefill also needs frames or image
+embeddings: drive those through ``Model.prefill`` and ``decode_step``.
+
 The reference jits prefill and decode; the port runs them eagerly.
 Sampling is reproducible by construction: each sampled token draws from a
 ``torch.Generator`` seeded from (engine seed, request id, token index), so
@@ -57,6 +62,7 @@ import numpy as np
 import torch
 
 from ..configs import get_config
+from ..configs.base import ModelConfig
 from ..core.backends import BackendUnit, CompletionBus, ThreadUnit
 from ..core.runtime import HeteroRuntime, WorkQueue
 from ..core.scheduler import WorkerKind
@@ -66,7 +72,7 @@ from ..models.model_factory import Model, make_model, splice_slot
 from .admission import AdmissionPolicy, AdmissionVerdict, make_policy
 from .sampling import sample, token_generator
 
-__all__ = ["Request", "RequestResult", "ServingEngine"]
+__all__ = ["Request", "RequestResult", "ServingEngine", "check_servable"]
 
 
 # seconds a blocking wait for a threads- or remote-backend prefill may last
@@ -87,6 +93,18 @@ def prefill_first_token(model: Model, params, prompt, max_len: int, *, rid: int,
     logits, single = model.prefill(params, prompt, max_len)
     gens = [token_generator(seed, rid, 0, device)] if temperature > 0.0 else None
     return single, int(sample(logits, gens, temperature=temperature)[0])
+
+
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for a family whose prefill needs more than the
+    tokens a :class:`Request` carries (``encdec``: frames; ``vlm``: image
+    embeddings)."""
+    source = {"encdec": "frames", "vlm": "image_embeds"}.get(cfg.family)
+    if source is not None:
+        raise ValueError(
+            f"ServingEngine's requests carry tokens only, and the {cfg.family} family's "
+            f"prefill also needs {source}=: drive {cfg.name} through Model.prefill and "
+            "Model.decode_step")
 
 
 # ---------------------------------------------------------------------------
@@ -209,6 +227,7 @@ class ServingEngine:
     ) -> None:
         if mode not in ("continuous", "static"):
             raise ValueError(mode)
+        check_servable(model.cfg)
         is_remote = isinstance(backend, str) and backend.startswith("remote:")
         if backend not in ("inline", "threads") and not is_remote:
             raise ValueError(

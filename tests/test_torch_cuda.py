@@ -16,7 +16,10 @@ the reference tests' tolerances (f32 2e-4, bf16 2e-2); K4's bf16 path
 runs on the tensor cores, and one tile of each of its two products is
 also held against a plain matrix product.  A worker process
 (``spawn_worker``) hosting ``cuda`` units runs K3 bitwise equal to a launch
-here, and a remote prefill equals the inline one.
+here, and a remote prefill equals the inline one.  K4 is also held in the
+forms the hybrid, encdec and vlm families call it in (no mask at Sq ≠ Sk,
+Sq 1, a window that masks), and those families' smoke models give the same
+greedy tokens through K4 as through its plain version.
 """
 
 import ctypes
@@ -45,7 +48,7 @@ from repro_torch.kernels.spmm import ops as sops  # noqa: E402
 from repro_torch.kernels.spmm import ref as sref  # noqa: E402
 from repro_torch.kernels.spmm import spmm as sk  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan as ssk  # noqa: E402
-from repro_torch.models import make_model  # noqa: E402
+from repro_torch.models import make_model, transformer  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -357,6 +360,37 @@ def test_k4_cross_lengths_bf16(cuda):
                 torch.testing.assert_close(got, want.float(), rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("sq,sk,h,kvh,d,causal,window", [
+    # cross-attention, no mask: whisper's decoder (20/20 heads, D 64) over
+    # 1500 encoder frames at a decode step (Sq 1), a short and a long
+    # prompt; the vision model's 891-token prompt over 1024 image tokens
+    (1, 1500, 20, 20, 64, False, 0),
+    (7, 1500, 20, 20, 64, False, 0),
+    (448, 1500, 20, 20, 64, False, 0),
+    (891, 1024, 64, 8, 128, False, 0),
+    # recurrentgemma-9b's local attention past its window: 52 keys masked
+    # for the last query
+    (2100, 2100, 16, 1, 256, True, 2048),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_cross_and_windowed_forms(cuda, sq, sk, h, kvh, d, causal, window, dtype):
+    q, k, v = attention_inputs(1, sq, sk, h, kvh, d, dtype, cuda, seed=sq + sk)
+    n = fk.flash_attention.launches
+    got = fk.flash_attention(q, k, v, causal=causal, window=window)
+    assert fk.flash_attention.launches == n + 1
+    assert got.shape == q.shape and bool(torch.isfinite(got).all())
+    for want in (fk.flash_attention_plain(q, k, v, causal=causal, window=window),
+                 mha_ref(q, k, v, causal=causal, window=window)):
+        want = want.float()
+        # bf16: an atol of 2e-2 of the RMS of each (query, head) row, which
+        # falls as 1/sqrt(keys attended); a fixed 2e-2 would pass a lost
+        # key tile
+        rtol, atol = ((2e-4, 2e-5) if dtype == torch.float32 else
+                      (2e-2, 2e-2 * want.pow(2).mean(-1, keepdim=True).sqrt()))
+        excess = (got.float() - want).abs() - (atol + rtol * want.abs())
+        assert float(excess.max()) <= 0, f"beyond the tolerance by {float(excess.max())}"
+
+
 @pytest.mark.parametrize("d", [8, 16, 32, 64, 128, 160, 192, 256])
 def test_k4_wgmma_tile_products(cuda, d):
     # one 64-row tile of each bf16 product in K4's shared-memory layouts:
@@ -450,6 +484,75 @@ def test_moe_smoke_served_kernels_equal_plain(cuda):
     assert fk.flash_attention.launches - n == cfg.num_layers * len(specs)
     assert got == serve(True)
     assert all(len(t) == 8 for t in got.values())
+
+
+def test_hybrid_smoke_served_kernels_equal_plain(cuda):
+    # recurrentgemma-9b's smoke() (f32, window 8) through the engine with K4
+    # and with its plain version: prompts past the window roll the cache;
+    # only the attn layers launch K4, once per prefill
+    cfg = get_config("recurrentgemma-9b").smoke()
+    params = make_model(cfg, device=cuda).init(5)
+    rng = np.random.default_rng(7)
+    specs = [(rid, rng.integers(0, cfg.vocab_size, int(rng.integers(3, 40))), 8)
+             for rid in range(6)]
+
+    def serve(plain):
+        engine = ServingEngine(make_model(cfg, device=cuda, plain=plain), params, slots=2,
+                               max_len=64)
+        for rid, prompt, mx in specs:
+            engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=mx))
+        return {rid: r.tokens for rid, r in engine.run().items()}
+
+    n = fk.flash_attention.launches
+    got = serve(False)
+    attn_layers = transformer.layer_kinds(cfg).count("attn")
+    assert fk.flash_attention.launches - n == attn_layers * len(specs)
+    assert got == serve(True)
+    assert all(len(t) == 8 for t in got.values())
+
+
+def greedy(model, params, prompt, steps, **source):
+    """Batch-1 prefill and ``steps`` greedy decode steps -> the tokens."""
+    logits, caches = model.prefill(params, prompt, 64, **source)
+    tokens = [int(logits.argmax())]
+    for i in range(steps):
+        tok = torch.tensor([[tokens[-1]]], device=prompt.device)
+        pos = torch.tensor([[prompt.shape[1] + i]], device=prompt.device)
+        logits, caches = model.decode_step(params, tok, pos, caches)
+        tokens.append(int(logits.argmax()))
+    return tokens
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "llama-3.2-vision-90b"])
+def test_cross_family_smoke_kernels_equal_plain(cuda, arch):
+    # whisper's smoke() (encoder, causal decoder self-attention, cross
+    # attention) and the vision model's (cross gates opened to 0.5: at 0
+    # the cross path is multiplied away) with K4 and with its plain
+    # version: greedy tokens equal; K4 launches per prefill and per step
+    cfg = get_config(arch).smoke()
+    model, plain = make_model(cfg, device=cuda), make_model(cfg, device=cuda, plain=True)
+    params = model.init(5)
+    rng = np.random.default_rng(8)
+    if cfg.family == "encdec":
+        shape, key = (1, cfg.encoder_seq, cfg.d_model), "frames"
+        per_prefill = cfg.encoder_layers + 2 * cfg.num_layers
+        per_step = cfg.num_layers
+    else:
+        for layer in params["layers"]:
+            if "gate_attn" in layer:
+                layer["gate_attn"].fill_(0.5)
+                layer["gate_mlp"].fill_(0.5)
+        shape, key = (1, cfg.num_image_tokens, cfg.d_model), "image_embeds"
+        kinds = transformer.layer_kinds(cfg)
+        per_step = kinds.count("cross")
+        per_prefill = len(kinds) + per_step
+    for rid in range(3):
+        source = {key: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(cuda)}
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 5 + 9 * rid))).to(cuda)
+        n = fk.flash_attention.launches
+        got = greedy(model, params, prompt, 8, **source)
+        assert fk.flash_attention.launches - n == per_prefill + 8 * per_step
+        assert got == greedy(plain, params, prompt, 8, **source)
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-130m"])

@@ -4,7 +4,9 @@
 prefill and decode, and whole-model ``prefill`` / ``decode_step`` /
 ``prefill_from`` logits, for the ``smoke()`` configs of tinyllama-1.1b and
 stablelm-12b (dense) and mamba2-130m (ssm); ``prefill_from`` also for
-qwen3-moe-30b-a3b (moe, whose other cases are in ``test_torch_moe.py``).  The JAX model's parameters are carried across with
+qwen3-moe-30b-a3b (moe, whose other cases are in ``test_torch_moe.py``).
+The hybrid, encdec and vlm families are held in ``test_torch_hybrid.py``
+and ``test_torch_encdec.py``.  The JAX model's parameters are carried across with
 ``model_params_from_jax``; inputs come from numpy seeds; tolerance 2e-4.
 """
 
@@ -49,22 +51,20 @@ def pair(request):
 
 
 def test_configs_are_copies():
-    for name in ARCHS:
+    # the hybrid, encdec and vlm families' configs too (tests/test_torch_hybrid.py and
+    # tests/test_torch_encdec.py hold their models to the reference)
+    for name in ARCHS + ["recurrentgemma-9b", "whisper-large-v3", "llama-3.2-vision-90b"]:
         for smoke in (False, True):
             jc, c = jax_get_config(name), get_config(name)
             if smoke:
                 jc, c = jc.smoke(), c.smoke()
-            for f in ("num_layers", "d_model", "num_heads", "num_kv_heads", "head_dim", "d_ff",
-                      "vocab_size", "ssm_state", "ssm_head_dim", "ssm_chunk", "dtype"):
+            for f in ("family", "num_layers", "d_model", "num_heads", "num_kv_heads", "head_dim",
+                      "d_ff", "vocab_size", "ssm_state", "ssm_head_dim", "ssm_chunk", "dtype",
+                      "rope_theta", "tie_embeddings", "conv_width", "block_pattern", "window",
+                      "lru_width", "encoder_layers", "encoder_seq", "cross_attn_every",
+                      "num_image_tokens"):
                 assert getattr(c, f) == getattr(jc, f), (name, f)
             assert (c.padded_vocab, c.q_dim, c.kv_dim) == (jc.padded_vocab, jc.q_dim, jc.kv_dim)
-
-
-def test_unported_families_raise():
-    # the moe family (grok-1-314b) is ported: tests/test_torch_moe.py holds it to the reference
-    for name in ("recurrentgemma-9b", "whisper-large-v3", "llama-3.2-vision-90b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_model(get_config(name), device="cpu")
 
 
 def test_rms_norm():
