@@ -105,14 +105,43 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
       ``parallel_for`` of ``SleepWork``; one worker is frozen (SIGSTOP)
       mid-run, convicted by missed heartbeats (``action="dead"``) and its
       chunk requeued exactly once; then it is killed and reaped.
+7. Training at full width (last, so the earlier host-clock numbers stay
+   comparable): tinyllama-1.1b (K4; bf16 parameters, f32 AdamW moments)
+   and mamba2-130m (K5), each through ``run_training`` (batch 8 × 2048,
+   2 microbatches, 10 steps, lr 3e-4, a checkpoint every 5 steps).  Every
+   loss is finite; step 0's batch scores below its first loss with the
+   trained parameters (step 10's checkpoint), and for tinyllama the last
+   step's loss is below the first's (``FRESH_BATCH_LOSS_FALLS``); for
+   mamba2 the same 10 steps run again with ``plain=True`` and their
+   losses are printed beside the kernels' (a witness, not a check); the
+   kernel launches equal 2 × the layers that hold it × 2 microbatches ×
+   10 steps (remat runs each unit's forward twice); a second run resumes
+   at step 5 from its checkpoint, runs exactly 5 steps and ends within
+   rtol 1e-2 of the first's final loss.  Then: the step's host-clock time
+   (the resumed run's steps after its first two, median; each ends in
+   ``torch.cuda.synchronize()``), tokens/s, the model-flops share (6 · ``active_param_count()`` · tokens
+   over the step time and the 989 TFLOP/s bf16 peak, attention excluded),
+   peak memory, and a profiler top-10 of one step with the shares in the
+   kernel and in its ``Function``'s backward recomputation; a float32
+   copy at full width takes one step on a 4 × 2048 batch through the
+   kernels and with ``plain=True``: loss within rtol 1e-5, ``grad_norm``
+   within 1e-4, every gradient within 1e-4 of the tree's largest |g|
+   (before the optimizer), and 2 microbatches against 1 at the same
+   tolerance.  Last, the ``Function``'s forward + backward is timed at the
+   training microbatch (K4: B 4, S 2048, H 32, KVH 4, D 64, bf16, beside
+   ``scaled_dot_product_attention``'s forward + backward; K5: B 4, S
+   2048, H 24, P 64, N 128) against autograd of its plain version.
 
 Launch counts are set to 0 just before each main path (phases 2–3 for
-K1–K3, each model's serving run in phase 5 and in 6a, and 6b for K3) and
-read just after, so they count the main path's launches only; the JSON
-line's ``launches`` is phases 2–3's and phase 5's (summed over the
-models), ``launches_by_path`` names each model's (whisper's and the
-vision model's by form, recurrentgemma's past-the-window check apart) and
-adds phase 6's, and K4's row lists every phase-4 shape under ``shapes``.  Each phase prints
+K1–K3, each model's serving run in phase 5 and in 6a, 6b for K3, and
+each training run in phase 7) and read just after, so they count the
+main path's launches only; the JSON line's ``launches`` is phases 2–3's,
+phase 5's and phase 7's (summed over the models), ``launches_by_path``
+names each model's (whisper's and the vision model's by form,
+recurrentgemma's past-the-window check apart) and adds phase 6's, K4's
+row lists every phase-4 shape under ``shapes``, and K4's and K5's rows
+carry phase 7's forward + backward times under ``train_fwd_bwd``.
+Profiler totals sum the CUDA kernels' rows only.  Each phase prints
 its wall time.  The last lines are a JSON line of the kernels' numbers
 and the JSON result line.
 
@@ -182,6 +211,27 @@ CROSS_SOURCE_ARCHS = {
 }
 # the vision model's cross gates in this run (initialised to 0)
 CROSS_GATE = 0.5
+# phase 7: training at full width, one model per kernel, through
+# run_training: 2 microbatches is default_microbatches' count at 8 x 2048
+# tokens and 8192 tokens per device
+TRAIN_ARCHS = ("tinyllama-1.1b", "mamba2-130m")
+TRAIN_RUN = dict(global_batch=8, seq_len=2048, microbatches=2, steps=10, lr=3e-4, ckpt_every=5)
+# the models whose last step's loss, on its own fresh batch, must also fall
+# below the first step's.  mamba2-130m's per-step losses stay within the
+# spread between batches over 10 steps at lr 3e-4 (10.9788 -> 10.9794 on
+# the card).  For such a model the same 10 steps run again with
+# plain=True, no kernel on the path, and both runs' losses are printed
+# side by side: the witness that the flat losses are the model's and the
+# data's.  A gradient lost in a kernel's Function fails the float32
+# parity step, which holds every gradient leaf (in_proj's too) against
+# the plain path's.  Every model's learning is also held on step 0's
+# batch, which the trained parameters must score lower
+FRESH_BATCH_LOSS_FALLS = ("tinyllama-1.1b",)
+# the float32 parity step's batch (x 2048 tokens)
+PARITY_BATCH = 4
+# gradients: an atol of this share of the tree's largest |g|, not per leaf:
+# a true gradient of 0 (whisper's attention key biases) is rounding alone
+GRAD_REL = 1e-4
 # K4 in phase 4: (model and use, H, KVH, D, causal, window, (Sq, Sk) pairs)
 # of each served model's attention at full width: causal prefills; the
 # hybrid's local window, which masks from S 2049 on; whisper's encoder
@@ -706,21 +756,31 @@ def serve(model, params, specs):
     return engine, results, time.perf_counter() - t0
 
 
+def _kernel_rows(prof):
+    """[(device µs, name, calls)] of the CUDA kernels a profile traced, the
+    largest first: the device's own events only.  An operator's row also
+    carries its kernels' time and a ``record_function`` range has a device
+    span of its own, so summing every row would count the time twice."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CPU or getattr(evt, "is_user_annotation", False):
+            continue
+        rows.append((evt.self_device_time_total, evt.key, evt.count))
+    rows.sort(reverse=True)
+    return rows
+
+
 def profile_top10(fn):
-    """The 10 operations with the most device time in one call of ``fn``."""
+    """The 10 CUDA kernels with the most device time in one call of ``fn``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = []
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
-        rows.append((dev_us, evt.key, evt.count))
-    rows.sort(reverse=True)
+    rows = _kernel_rows(prof)
     total = sum(r[0] for r in rows)
     return {"device_ms_total": total / 1e3,
             "top10": [{"name": k[:80], "calls": c, "device_ms": us / 1e3}
@@ -1407,6 +1467,343 @@ def _top_k_margin(args, _routing):
     return (top[:, k - 1] - top[:, k]).min()
 
 
+def profile_train_step(fn, kernel_names, backward_label: str) -> dict:
+    """Device time of one call of ``fn`` (a train step): the CUDA kernels'
+    total and top 10, the share in the kernel's own launches (kernels whose
+    names hold one of ``kernel_names``) and the share in the kernels its
+    backward's ``record_function`` range launched (the plain
+    recomputation), beside that range's span on the device."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = _kernel_rows(prof)
+    total = sum(r[0] for r in rows)
+    kernel_us = sum(us for us, key, _ in rows if any(n in key for n in kernel_names))
+    backward_us = span_us = 0.0
+    for evt in prof.key_averages():
+        if evt.key == backward_label:
+            if evt.device_type == DeviceType.CPU:  # the kernels launched inside the range
+                backward_us += evt.device_time_total
+            else:                                 # the range's span on the device
+                span_us += evt.self_device_time_total
+    share = (lambda us: us / total) if total else (lambda us: None)  # no device time traced
+    return {"device_ms_total": total / 1e3,
+            "kernel_ms": kernel_us / 1e3, "kernel_share": share(kernel_us),
+            "backward_recompute_ms": backward_us / 1e3,
+            "backward_recompute_share": share(backward_us),
+            "backward_recompute_span_ms": span_us / 1e3,
+            "top10": [{"name": k[:80], "calls": c, "device_ms": us / 1e3}
+                      for us, k, c in rows[:10]]}
+
+
+def grads_within(name: str, got, want) -> float:
+    """Every gradient leaf of ``got`` within GRAD_REL × the largest |g| of
+    ``want``; returns the largest difference over that largest |g|."""
+    gmax = max(float(g.abs().max()) for g in _leaves(want))
+    worst = max(float((a.float() - b.float()).abs().max()) for a, b in zip(_leaves(got),
+                                                                            _leaves(want)))
+    require(worst <= GRAD_REL * gmax, f"{name}: a gradient differs by {worst:.3e}, beyond "
+            f"{GRAD_REL} x the largest |g| {gmax:.3e}")
+    print(f"{name}: max |dg| {worst:.3e} = {worst / gmax:.3e} of the largest |g| {gmax:.3e}")
+    return worst / gmax
+
+
+def train_function_ms(kernel: str) -> dict:
+    """K4's or K5's ``Function``, forward + backward, at phase 7's training
+    microbatch (B 4, S 2048; K4 bf16 with tinyllama's heads, K5 f32 at
+    mamba2's), against autograd of its plain version and, for K4, against
+    ``scaled_dot_product_attention``'s forward + backward (a comparison only)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, flash_attention_plain,
+    )
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan, ssd_scan_plain
+
+    rng = np.random.default_rng(7)
+
+    def normal(*shape, scale=1.0, dtype=torch.float32):
+        return torch.from_numpy(scale * rng.standard_normal(shape, dtype=np.float32)).to(
+            "cuda", dtype).requires_grad_()
+
+    def fwd_bwd(fn, inputs, weights):
+        def run():
+            outs = fn(*inputs)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            torch.autograd.grad(outs, inputs, weights)
+        return run
+
+    if kernel == "flash_attention":
+        b, s, h, kvh, d = 4, 2048, 32, 4, 64
+        q, k, v = (normal(b, s, n, d, dtype=torch.bfloat16) for n in (h, kvh, kvh))
+        gy = normal(b, s, h, d, dtype=torch.bfloat16).detach()
+        qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        out = dict(shape=f"B={b} S={s} H={h} KVH={kvh} D={d} causal bfloat16",
+                   fwd_bwd_ms=time_ms(fwd_bwd(flash_attention, (q, k, v), (gy,))),
+                   plain_fwd_bwd_ms=time_ms(fwd_bwd(flash_attention_plain, (q, k, v), (gy,)),
+                                            reps=5),
+                   library_fwd_bwd_ms=time_ms(fwd_bwd(
+                       lambda *x: F.scaled_dot_product_attention(*x, is_causal=True,
+                                                                 enable_gqa=True),
+                       (qt, kt, vt), (gy.transpose(1, 2).contiguous(),))))
+    else:
+        b, s, h, p, n, chunk = 4, 2048, 24, 64, 128, 256
+        x = normal(b, s, h, p)
+        log_a = torch.from_numpy(-0.2 * rng.random((b, s, h), np.float32)).cuda().requires_grad_()
+        bm, cm = normal(b, s, n, scale=0.3), normal(b, s, n, scale=0.3)
+        gy, gh = normal(b, s, h, p).detach(), normal(b, h, p, n).detach()
+        out = dict(shape=f"B={b} S={s} H={h} P={p} N={n} chunk={chunk} float32",
+                   fwd_bwd_ms=time_ms(fwd_bwd(lambda *a: ssd_scan(*a, chunk=chunk),
+                                              (x, log_a, bm, cm), (gy, gh))),
+                   plain_fwd_bwd_ms=time_ms(fwd_bwd(lambda *a: ssd_scan_plain(*a, chunk=chunk),
+                                                    (x, log_a, bm, cm), (gy, gh)), reps=5),
+                   library_fwd_bwd_ms=None)
+    print(f"{kernel} Function forward + backward " + json.dumps(out))
+    return out
+
+
+def plain_training_witness(arch: str, kernel_losses, kernel_refit: float, wrappers: dict,
+                           batch_of) -> None:
+    """The run's 10 steps again with ``plain=True`` (no kernel on the path):
+    the same initial parameters, batches, optimizer and step as
+    ``run_training``'s; prints both runs' losses side by side, and step 0's
+    batch scored after each run."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import make_model
+    from repro_torch.optim import AdamW
+
+    cfg = get_config(arch)
+    gb, seq, mb, steps = (TRAIN_RUN[k] for k in ("global_batch", "seq_len", "microbatches",
+                                                   "steps"))
+    before = {name: w.launches for name, w in wrappers.items()}
+    model = make_model(cfg, device="cuda", plain=True)
+    opt = AdamW(state_dtype=torch.bfloat16 if cfg.parallel.opt_state_dtype == "bfloat16"
+                else torch.float32, cfg=cfg)
+    params = model.init(0)
+    state = opt.init(params)
+    step_fn = make_train_step(model, opt, InputShape("train", seq, gb, "train"),
+                              lr=TRAIN_RUN["lr"], loss_chunk=0, microbatches=mb)
+    losses = []
+    for step in range(steps):
+        params, state, metrics = step_fn(params, state, batch_of(step, gb))
+        losses.append(float(metrics["loss"]))
+    with torch.no_grad():
+        refit = float(model.loss_fn(params, batch_of(0, gb), loss_chunk=0)[0])
+    require(all(math.isfinite(loss) for loss in losses), f"{arch} plain: a loss is not finite")
+    launched = {name: w.launches - before[name] for name, w in wrappers.items()
+                if w.launches != before[name]}
+    require(not launched, f"{arch} plain: kernels launched {launched}")
+    print(f"train {arch} plain witness " + json.dumps({
+        "losses_kernels": kernel_losses, "losses_plain": losses,
+        "max_abs_loss_diff": max(abs(a - b) for a, b in zip(kernel_losses, losses)),
+        "final_minus_first_kernels": kernel_losses[-1] - kernel_losses[0],
+        "final_minus_first_plain": losses[-1] - losses[0],
+        "step0_batch_loss_after_run_kernels": kernel_refit,
+        "step0_batch_loss_after_run_plain": refit}))
+    del model, params, state, step_fn
+
+
+def phase7_training(arch: str, wrappers: dict, card: str):
+    """Train one model at full width through ``run_training`` and check it;
+    returns (kernel name, launches in the run, the Function's timings)."""
+    import dataclasses
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels.flash_attention import flash_attention as fa_module
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_module
+    from repro_torch.launch.steps import default_microbatches, make_train_step
+    from repro_torch.launch.train import TrainLoopConfig, run_training
+    from repro_torch.models import make_model
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.optim import AdamW, global_norm
+
+    cfg = get_config(arch)
+    kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+    module = ssd_module if kernel == "ssd_scan" else fa_module
+    kernel_names = ("ssd_state_kernel", "ssd_pass_kernel", "ssd_output_kernel") \
+        if kernel == "ssd_scan" else ("flash_fwd",)
+    kernel_layers = sum(kind in KERNEL_KINDS[kernel] for kind in layer_kinds(cfg))
+    gb, seq, mb, steps = (TRAIN_RUN[k] for k in ("global_batch", "seq_len", "microbatches",
+                                                   "steps"))
+    shape = InputShape("train", seq, gb, "train")
+    require(default_microbatches(cfg, shape) == mb,
+            f"{arch}: default_microbatches gives {default_microbatches(cfg, shape)}, not {mb}")
+    model = make_model(cfg, device="cuda")
+    source = SyntheticTokens(cfg.padded_vocab, seq, seed=0)   # run_training's, at seed 0
+
+    def batch_of(step: int, rows: int):
+        b = source.batch(step, shard=0, num_shards=1, per_shard=rows)
+        return {k: torch.from_numpy(getattr(b, k)).cuda() for k in ("tokens", "labels", "mask")}
+
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_", dir=root))
+    try:
+        # -- the run: 10 steps, checkpoints at steps 5 and 10 ------------------
+        run = TrainLoopConfig(arch=arch, smoke=False, device="cuda", ckpt_dir=str(tmp / "run"),
+                              log_every=1, **TRAIN_RUN)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        whole = run_training(run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: w.launches for name, w in wrappers.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        require(whole["steps"] == len(whole["losses"]) == steps,
+                f"{arch}: the run took {whole['steps']} steps, not {steps}")
+        require(all(math.isfinite(loss) for loss in whole["losses"]),
+                f"{arch}: a loss is not finite")
+        # the loss falls: step 0's batch scores lower with the trained
+        # parameters (step 10's checkpoint) than with the initial ones
+        trained = Checkpointer(tmp / "run").restore(steps, (model.init(run.seed),))[0][0]
+        with torch.no_grad():
+            refit_loss = float(model.loss_fn(
+                _map_leaves(trained, lambda t: t.cuda()), batch_of(0, gb), loss_chunk=0)[0])
+        del trained
+        require(refit_loss < whole["first_loss"], f"{arch}: step 0's batch scores "
+                f"{refit_loss} after the run, not below its first loss {whole['first_loss']}")
+        if arch in FRESH_BATCH_LOSS_FALLS:
+            require(whole["final_loss"] < whole["first_loss"], f"{arch}: the loss did not "
+                    f"fall ({whole['first_loss']} -> {whole['final_loss']})")
+        # each layer that holds the kernel launches it twice per microbatch
+        # and step: in the forward, and again when remat recomputes its unit
+        # (one layer) in the backward; the Function's backward recomputes
+        # with torch ops and launches nothing.  tinyllama: 2 x 22 x 2 x 10 =
+        # 880; mamba2: 2 x 24 x 2 x 10 = 960
+        want = 2 * kernel_layers * mb * steps
+        require(launches[kernel] == want,
+                f"{arch}: {kernel} launched {launches[kernel]} times in training, not 2 x "
+                f"{kernel_layers} layers x {mb} microbatches x {steps} steps = {want}")
+        others = {k: v for k, v in launches.items() if k != kernel and v}
+        require(not others, f"{arch}: unexpected launches in training {others}")
+
+        # -- resume from step 5: steps 5-9 again ---------------------------------
+        # step 10's checkpoint goes, as if the run had stopped before writing
+        # it (tinyllama's take 11 GB each: bf16 parameters, f32 moments), and
+        # the resumed run writes none
+        shutil.rmtree(tmp / "run" / f"step_{steps:08d}")
+        t0 = time.perf_counter()
+        rest = run_training(dataclasses.replace(run, resume=True, ckpt_every=10 * steps))
+        resume_wall = time.perf_counter() - t0
+        rest_seconds = rest["step_seconds"]
+        require(rest["steps"] == len(rest["losses"]) == steps - 5,
+                f"{arch}: the resumed run took {rest['steps']} steps, not {steps - 5}")
+        resume_rel = abs(rest["final_loss"] - whole["final_loss"]) / abs(whole["final_loss"])
+        require(resume_rel <= 1e-2, f"{arch}: the resumed run's final loss {rest['final_loss']} "
+                f"is not within 1e-2 of the uninterrupted run's {whole['final_loss']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    if arch not in FRESH_BATCH_LOSS_FALLS:
+        plain_training_witness(arch, whole["losses"], refit_loss, wrappers, batch_of)
+
+    # -- the step's time: the resumed run's steps after its first two (no
+    # checkpoint is written then); its profile: one more step outside the run
+    params = model.init(0)
+    opt = AdamW(state_dtype=torch.bfloat16 if cfg.parallel.opt_state_dtype == "bfloat16"
+                else torch.float32, cfg=cfg)
+    state = opt.init(params)
+    step_fn = make_train_step(model, opt, shape, lr=TRAIN_RUN["lr"], loss_chunk=0,
+                              microbatches=mb)
+    batch = batch_of(0, gb)
+    step_s = statistics.median(rest_seconds[2:])
+    n_active = cfg.active_param_count()
+    prof_holder = {}
+
+    def one_step():
+        prof_holder["out"] = step_fn(params, state, batch)
+
+    prof = profile_train_step(one_step, kernel_names, module.BACKWARD_LABEL)
+    del prof_holder
+    summary = {
+        "arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "params_B": sum(t.numel() for t in _leaves(params)) / 1e9,
+        "active_param_count": n_active, "global_batch": gb, "seq_len": seq, "microbatches": mb,
+        "steps": steps, "losses": whole["losses"],
+        "first_loss": whole["first_loss"], "final_loss": whole["final_loss"],
+        "step0_batch_loss_after_run": refit_loss,
+        "resumed_final_loss": rest["final_loss"], "resume_rel_diff": resume_rel,
+        f"{kernel}_launches": launches[kernel], "run_wall_s": wall,
+        "resumed_run_wall_s": resume_wall,
+        "run_mean_tok_per_s": whole["mean_tok_per_s"], "peak_mem_GB": peak_gb,
+        "resumed_step_ms_each": [t * 1e3 for t in rest_seconds],
+        "step_ms_median_after_2": step_s * 1e3,
+        "tokens_per_s": gb * seq / step_s,
+        "model_flops_share": 6 * n_active * gb * seq / step_s / BF16_FLOPS_PER_S,
+        "card": card,
+    }
+    print(f"train {arch} " + json.dumps(summary))
+    print(f"profile {arch} train step ({gb} x {seq}, {mb} microbatches) " + json.dumps(prof))
+
+    # -- float32 at full width: kernels against plain, 1 against 2 microbatches
+    params32 = _map_leaves(params, lambda t: t.float())
+    del model, params, state, step_fn, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    opt32 = AdamW(cfg=cfg32)
+    state32 = opt32.init(params32)
+    shape32 = InputShape("parity", seq, PARITY_BATCH, "train")
+    batch = batch_of(100, PARITY_BATCH)
+    results = {}
+    for plain in (False, True):
+        step32 = make_train_step(make_model(cfg32, device="cuda", plain=plain), opt32, shape32,
+                                 lr=TRAIN_RUN["lr"], loss_chunk=0, microbatches=1)
+        grads, metrics = step32.grads(params32, batch)
+        metrics = step32.update(params32, state32, grads, metrics)[2]
+        results[plain] = (grads, {k: float(v) for k, v in metrics.items()})
+        del grads, step32
+    (gk, mk), (gp, mp) = results[False], results[True]
+    del results
+    require(abs(mk["loss"] - mp["loss"]) <= 1e-5 * abs(mp["loss"]),
+            f"{arch} f32: loss {mk['loss']} through the kernels, {mp['loss']} plain")
+    require(abs(mk["grad_norm"] - mp["grad_norm"]) <= 1e-4 * abs(mp["grad_norm"]),
+            f"{arch} f32: grad_norm {mk['grad_norm']} through the kernels, {mp['grad_norm']} plain")
+    vs_plain = grads_within(f"{arch} f32 train step gradients, kernels vs plain", gk, gp)
+    del gp
+    step2 = make_train_step(make_model(cfg32, device="cuda"), opt32, shape32,
+                            lr=TRAIN_RUN["lr"], loss_chunk=0, microbatches=2)
+    g2, m2 = step2.grads(params32, batch)
+    vs_mb = grads_within(f"{arch} f32 gradients, 2 microbatches vs 1", g2, gk)
+    require(abs(float(global_norm(g2)) - mk["grad_norm"]) <= 1e-4 * mk["grad_norm"],
+            f"{arch} f32: 2 microbatches give grad_norm {float(global_norm(g2))}, not "
+            f"{mk['grad_norm']}")
+    print(f"train {arch} f32 parity " + json.dumps({
+        "batch": f"{PARITY_BATCH} x {seq}", "kernels": mk, "plain": mp,
+        "loss_rel_diff": abs(mk["loss"] - mp["loss"]) / abs(mp["loss"]),
+        "grad_norm_rel_diff": abs(mk["grad_norm"] - mp["grad_norm"]) / mp["grad_norm"],
+        "grads_max_diff_over_max_g": vs_plain, "microbatches_2_vs_1_max_diff_over_max_g": vs_mb,
+        "loss_2_microbatches": float(m2["loss"]), "peak_mem_GB":
+            torch.cuda.max_memory_allocated() / 1e9}))
+    del params32, state32, gk, g2, step2, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return kernel, launches[kernel], train_function_ms(kernel)
+
+
 def main() -> int:
     import torch
 
@@ -1492,14 +1889,21 @@ def main() -> int:
         for kind, n in by_kind.items():
             kernels["flash_attention"]["launches_by_path"][f"phase 5 {arch} {kind}"] = n
         print(f"phase 5 {arch} done at {time.perf_counter() - t_start:.1f} s")
+    for arch in TRAIN_ARCHS:
+        name, launches, train_ms = phase7_training(arch, wrappers, card)
+        kernels[name]["launches"] += launches
+        kernels[name]["launches_by_path"][f"phase 7 train {arch}"] = launches
+        kernels[name]["train_fwd_bwd"] = train_ms
+        print(f"phase 7 {arch} done at {time.perf_counter() - t_start:.1f} s")
     print("launches on the main paths: " + ", ".join(
         f"{k}={v['launches_by_path']}" for k, v in kernels.items()))
 
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # K4's row also carries every phase-4 shape it was held and timed at
+    # K4's row also carries every phase-4 shape it was held and timed at, and
+    # K4's and K5's the Function's forward + backward at phase 7's microbatch
     print(json.dumps({"kernels": [dict({k: v[k] for k in keys},
-                                       **({"shapes": v["shapes"]} if "shapes" in v else {}))
+                                       **{k: v[k] for k in ("shapes", "train_fwd_bwd") if k in v})
                                   for v in kernels.values()]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

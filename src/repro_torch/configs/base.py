@@ -1,15 +1,17 @@
 """Model configurations (the port's copy of ``repro.configs.base``).
 
-Every assigned architecture is a :class:`ModelConfig`, and its
-distribution knobs a :class:`ParallelConfig`, with the reference's
-defaults.  The port reads ``capacity_factor`` and ``moe_fallback``
-(``models/moe.py``).  The other fields are kept as the reference's config
-data, because the configs set them, and nothing reads them yet:
-``moe_dispatch`` waits for the shard_map dispatch (slice F), the rest for
-the trainer (slice E).  The reference's sharding and remat knobs,
-``InputShape``, ``SHAPES``, ``cell_status``, ``param_count`` and
-``active_param_count`` come with the slices that read them (ROADMAP.md
-queue 1).
+Every assigned architecture is a :class:`ModelConfig`, its distribution
+knobs a :class:`ParallelConfig`, with the reference's defaults, and a
+training or serving batch an :class:`InputShape`.  The port reads
+``capacity_factor`` and ``moe_fallback`` (``models/moe.py``), and the
+trainer reads ``remat`` (``models/transformer.py``, ``models/encdec.py``),
+``microbatches``, ``opt_state_dtype`` and ``grad_accum_dtype``
+(``launch/``).  ``param_count`` and ``active_param_count`` give the
+6·N·tokens model flops of a training step.  ``moe_dispatch`` and
+``sequence_parallel`` are kept as the reference's config data, because
+the configs set them; they wait for the shard_map dispatch and the mesh
+(slice F), as do the reference's sharding knobs, ``SHAPES``,
+``cell_status`` and ``sub_quadratic`` (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -18,9 +20,17 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Tuple
 
-__all__ = ["ModelConfig", "ParallelConfig", "VOCAB_PAD"]
+__all__ = ["ModelConfig", "InputShape", "ParallelConfig", "VOCAB_PAD"]
 
 VOCAB_PAD = 256  # vocab padded to a multiple of this
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
 
 
 @dataclass(frozen=True)
@@ -28,6 +38,7 @@ class ParallelConfig:
     """Distribution knobs, with the reference's defaults."""
 
     sequence_parallel: bool = False    # Megatron-SP activation sharding
+    remat: str = "block"               # "none" | "block" | "full"
     microbatches: int = 1              # grad-accum chunks (ENEAC iteration space)
     opt_state_dtype: str = "float32"   # "bfloat16" halves AdamW memory
     moe_dispatch: str = "gspmd"        # "gspmd" (global) | "local" (per-shard routing;
@@ -109,6 +120,76 @@ class ModelConfig:
     @property
     def ssm_heads(self) -> int:
         return self.ssm_d_inner // self.ssm_head_dim
+
+    # -- parameter count (for 6ND and memory estimates) --------------------
+    def param_count(self) -> int:
+        d, L, V = self.d_model, self.num_layers, self.padded_vocab
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":
+            di, st, nh = self.ssm_d_inner, self.ssm_state, self.ssm_heads
+            # in_proj (z,x,B,C,dt) + conv + out_proj + A,D + norm
+            per = d * (2 * di + 2 * st + nh) + self.conv_width * (di + 2 * st) \
+                + di * d + 2 * nh + di + d
+            return emb + L * per + d
+        att = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        if self.qk_norm:
+            att += 2 * self.head_dim
+        dense_ffn = 3 * d * self.d_ff  # SwiGLU
+        norms = 2 * d
+        if self.family == "moe":
+            eff = self.moe_d_ff or self.d_ff
+            moe = self.num_experts * 3 * d * eff + d * self.num_experts
+            if self.parallel.moe_fallback:
+                moe += 3 * d * eff  # shared fallback FFN (the CC path)
+            per = att + moe + norms
+        elif self.family == "hybrid":
+            # pattern mix of rglru + local-attn blocks
+            lw = self.lru_width or d
+            rglru = d * 2 * lw + lw * d + self.conv_width * lw + 3 * lw \
+                + lw * 2 * lw // 8  # gates (block-diagonal, 8 blocks)
+            n_attn = self.attn_layer_count()
+            n_rec = self.num_layers - n_attn
+            total = n_attn * (att + dense_ffn + norms) + n_rec * (rglru + dense_ffn + norms)
+            return emb + total + d
+        elif self.family == "encdec":
+            # decoder layers have an extra cross-attention
+            enc_per = att + dense_ffn + norms
+            dec_per = 2 * att + dense_ffn + 3 * d
+            return emb + self.encoder_layers * enc_per + L * dec_per + 2 * d
+        elif self.family == "vlm":
+            n_cross = self.cross_attn_layer_count()
+            n_self = self.num_layers - n_cross
+            cross = att + dense_ffn + norms + 2 * d  # gate params
+            return (emb + n_self * (att + dense_ffn + norms)
+                    + n_cross * (att + dense_ffn + norms + cross) + d)
+        else:
+            per = att + dense_ffn + norms
+        return emb + L * per + d
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed experts + fallback)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, L = self.d_model, self.num_layers
+        eff = self.moe_d_ff or self.d_ff
+        att = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        active_moe = self.experts_per_token * 3 * d * eff + d * self.num_experts
+        if self.parallel.moe_fallback:
+            active_moe += 3 * d * eff
+        emb = self.padded_vocab * d * (1 if self.tie_embeddings else 2)
+        return emb + L * (att + active_moe + 2 * d) + d
+
+    def attn_layer_count(self) -> int:
+        if self.family != "hybrid" or not self.block_pattern:
+            return self.num_layers
+        pat = self.block_pattern
+        full, rem = divmod(self.num_layers, len(pat))
+        return full * pat.count("attn") + sum(1 for b in pat[:rem] if b == "attn")
+
+    def cross_attn_layer_count(self) -> int:
+        if self.family != "vlm" or not self.cross_attn_every:
+            return 0
+        return self.num_layers // self.cross_attn_every
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

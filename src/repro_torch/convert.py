@@ -4,8 +4,10 @@ The functions here take the reference package's data as numpy arrays and
 return the port's tensors on a given device, and back: the paper's
 benchmark data (the fields of an ``SpmmProblem`` or ``BlockEll``,
 temperature and power grids, read by name, so the reference's dataclasses
-and the port's own copies both work) and a model's parameter tree
-(:func:`model_params_from_jax`).
+and the port's own copies both work), a model's parameter tree
+(:func:`model_params_from_jax`) and an AdamW state over it
+(:func:`adamw_state_from_jax`), so that both packages can start from the
+same mid-training state.
 """
 
 from __future__ import annotations
@@ -19,9 +21,10 @@ from .configs.base import ModelConfig
 from .kernels.spmm.ref import BlockEll
 from .kernels.spmm.spmm import BlockEllArrays
 from .models.transformer import pattern_of
+from .optim.adamw import AdamWState
 
 __all__ = ["to_tensor", "spmm_problem_tensors", "block_ell_tensors",
-           "block_ell_numpy", "hotspot_grids", "model_params_from_jax"]
+           "block_ell_numpy", "hotspot_grids", "model_params_from_jax", "adamw_state_from_jax"]
 
 Device = Union[str, torch.device]
 
@@ -106,3 +109,15 @@ def model_params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     if not cfg.tie_embeddings:
         params["lm_head"] = _param_tensor(tree["lm_head"], device)
     return params
+
+
+def adamw_state_from_jax(state, cfg: ModelConfig, device: Device = "cuda") -> AdamWState:
+    """The reference's ``AdamWState`` (leaves as numpy arrays, e.g.
+    ``jax.tree.map(np.asarray, state)``) as the port's: ``mu`` and ``nu``
+    in the port's parameter layout (as :func:`model_params_from_jax`, each
+    moment in its own dtype), ``step`` an int32 0-dim tensor on the CPU."""
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32),
+        mu=model_params_from_jax(state.mu, cfg, device),
+        nu=model_params_from_jax(state.nu, cfg, device),
+    )

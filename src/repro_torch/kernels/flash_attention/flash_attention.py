@@ -33,6 +33,22 @@ counts its launches in ``flash_attention.launches``.  The bf16 kernel
 loads whole 8-column chunks of 16-byte aligned rows, so for it the wrapper
 pads D to a multiple of 8 with zero columns (and slices the output back),
 and copies an unaligned tensor to a fresh buffer.
+
+**Gradients.**  :func:`flash_attention` is a ``torch.autograd.Function``:
+its output requires grad whenever ``q``, ``k`` or ``v`` does, on either
+device.  The forward is the kernel above (the plain version for CPU
+tensors), and it saves ``q``, ``k`` and ``v``.  The backward is the
+gradient of the same function, taken by autograd through the plain
+version recomputed from the saved inputs (with the causal flag, window
+and scale).  This is no fallback: the value the model uses always comes
+from the kernel on the card, and a failed launch still raises.  The JAX
+package has no backward kernel either (its model never calls K4, and its
+training takes XLA's autodiff of plain ``jnp`` code), so autodiff of the
+plain version is the port's equivalent.  The recomputation holds float32
+scores of shape (B, KVH, G, Sq, Sk): 2.1 GB at a microbatch of 4 × 2048
+with 32 heads, several such tensors at once, one layer at a time under
+remat.  A backward kernel written by hand is later speed work (ROADMAP.md
+queue 2), not a kernel still to port.
 """
 
 from __future__ import annotations
@@ -44,8 +60,11 @@ import torch
 
 from ... import _build
 
-__all__ = ["MASK_VALUE", "MAX_HEAD_DIM", "flash_attention", "flash_attention_plain"]
+__all__ = ["MASK_VALUE", "MAX_HEAD_DIM", "BACKWARD_LABEL", "flash_attention",
+           "flash_attention_plain"]
 
+# the profiler's name for the backward's recomputation
+BACKWARD_LABEL = "flash_attention backward (plain recomputation)"
 MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
 MAX_HEAD_DIM = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -114,18 +133,12 @@ def flash_attention_plain(
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
 
 
-def flash_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-    causal: bool = True, window: int = 0, scale: Optional[float] = None,
-) -> torch.Tensor:
-    """GQA attention forward through K4; returns (B, Sq, H, D) in q's dtype."""
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int,
+            scale: float) -> torch.Tensor:
+    """One launch of the CUDA kernel on CUDA tensors, counted."""
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
-    scale = d**-0.5 if scale is None else scale
     dk = d
     if q.dtype == torch.bfloat16:
         dk = -(-d // 8) * 8
@@ -140,6 +153,41 @@ def flash_attention(
     _build.check("flash_attention", err, "flash_attention launch")
     _build.count_launch(flash_attention)
     return out if dk == d else out[..., :d].contiguous()
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K4 with a gradient: the forward is the kernel (the plain version on
+    the CPU), the backward autograd of the plain version recomputed from
+    the saved q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, scale: float):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = dict(causal=causal, window=window, scale=scale)
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, **ctx.mask)
+        return _launch(q, k, v, causal, window, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        need = ctx.needs_input_grad[:3]
+        with torch.profiler.record_function(BACKWARD_LABEL), torch.enable_grad():
+            leaves = [x.detach().requires_grad_(n) for x, n in zip(ctx.saved_tensors, need)]
+            out = flash_attention_plain(*leaves, **ctx.mask)
+            grads = iter(torch.autograd.grad(out, [x for x in leaves if x.requires_grad],
+                                             grad_out))
+        return tuple(next(grads) if n else None for n in need) + (None, None, None)
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, window: int = 0, scale: Optional[float] = None,
+) -> torch.Tensor:
+    """GQA attention forward through K4; returns (B, Sq, H, D) in q's dtype,
+    differentiable in q, k and v."""
+    _check(q, k, v)
+    scale = q.shape[-1]**-0.5 if scale is None else scale
+    return _FlashAttention.apply(q, k, v, causal, window, scale)
 
 
 flash_attention.launches = 0

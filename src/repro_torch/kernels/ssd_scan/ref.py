@@ -3,7 +3,10 @@
 It is both the oracle and K5's plain version.  ``h0`` is the state
 carried in (zeros when None), and a sequence that does not fill its last
 chunk is padded with ``log_a = 0`` (decay 1) and ``B = 0``, which leaves
-the final state unchanged.
+the final state unchanged.  One deliberate difference (ROADMAP.md queue
+3): the intra-chunk decays are masked before their exponential, not
+after, so that the gradient stays finite where a masked decay overflows
+(the reference's gradient is NaN there); the values are the same.
 """
 
 from __future__ import annotations
@@ -45,7 +48,11 @@ def ssd_chunked(
     # intra-chunk: L[i,j] = exp(cs_i - cs_j) for i >= j
     seg = a_cs[:, :, :, None, :] - a_cs[:, :, None, :, :]               # (b,nc,Q,Q,h)
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
-    L = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0)
+    # masked before the exp: above the diagonal seg = cs_i - cs_j > 0 can
+    # pass 88 and exp() overflow, and the gradient of where(tri, exp(seg), 0)
+    # there is 0 · inf = NaN (the reference's form); exp(-inf) = 0 gives the
+    # same values and a finite gradient
+    L = torch.exp(seg.masked_fill(~tri[None, None, :, :, None], float("-inf")))
     S = torch.einsum("bcin,bcjn->bcij", Cr, Br)                         # (b,nc,Q,Q)
     M = S[..., None] * L
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", M, xr)

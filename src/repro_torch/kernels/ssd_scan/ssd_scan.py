@@ -21,6 +21,20 @@ recurrence over the sub-chunks in order, then y from the states passed in
 chunk.  The wrapper takes it for tensors on the CPU, launches the kernels
 for CUDA tensors, and counts each call in ``ssd_scan.launches`` (one call
 runs three kernels on the stream).
+
+**Gradients.**  :func:`ssd_scan` is a ``torch.autograd.Function``: ``y``
+and the final state require grad whenever an input does, on either
+device.  The forward is the kernels (the plain version for CPU tensors),
+and it saves ``x``, ``log_a``, ``B``, ``C`` and ``h0``.  The backward is
+the gradient of the same function, taken by autograd through the plain
+version recomputed from the saved inputs at the caller's chunk; it takes
+a gradient for ``y``, for the final state, or for both.  This is no
+fallback: the values the model uses always come from the kernels on the
+card, and a failed launch still raises.  The JAX package has no backward
+kernel either (its model never calls K5, and its training takes XLA's
+autodiff of plain ``jnp`` code), so autodiff of the plain version is the
+port's equivalent.  A backward kernel written by hand is later speed work
+(ROADMAP.md queue 2), not a kernel still to port.
 """
 
 from __future__ import annotations
@@ -33,7 +47,10 @@ import torch
 from ... import _build
 from .ref import ssd_chunked
 
-__all__ = ["ssd_scan", "ssd_scan_plain", "SUB", "MAX_STATE"]
+__all__ = ["ssd_scan", "ssd_scan_plain", "SUB", "MAX_STATE", "BACKWARD_LABEL"]
+
+# the profiler's name for the backward's recomputation
+BACKWARD_LABEL = "ssd_scan backward (plain recomputation)"
 
 SUB = 64          # the CUDA kernels' sub-chunk (steps)
 MAX_STATE = 256
@@ -77,12 +94,8 @@ def ssd_scan_plain(x, log_a, Bm, Cm, *, chunk: int = 64,
     return ssd_chunked(x, log_a, Bm, Cm, chunk, h0)
 
 
-def ssd_scan(x, log_a, Bm, Cm, *, chunk: int = 64,
-             h0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(y (B, S, H, P), final state (B, H, P, N)) through K5, in float32."""
-    _check(x, log_a, Bm, Cm, chunk, h0)
-    if x.device.type == "cpu":
-        return ssd_scan_plain(x, log_a, Bm, Cm, chunk=chunk, h0=h0)
+def _launch(x, log_a, Bm, Cm, h0: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One call of the CUDA kernels on CUDA tensors (three launches), counted once."""
     b, s, h, p = x.shape
     n = Bm.shape[2]
     n_sub = (s + SUB - 1) // SUB
@@ -103,6 +116,46 @@ def ssd_scan(x, log_a, Bm, Cm, *, chunk: int = 64,
     _build.check("ssd_scan", err, "ssd_scan launch")
     _build.count_launch(ssd_scan)
     return y, h_out
+
+
+class _SsdScan(torch.autograd.Function):
+    """K5 with a gradient: the forward is the kernels (the plain version on
+    the CPU), the backward autograd of the plain version recomputed from
+    the saved x, log_a, B, C and h0."""
+
+    @staticmethod
+    def forward(ctx, x, log_a, Bm, Cm, h0, chunk: int):
+        ctx.save_for_backward(x, log_a, Bm, Cm, h0)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)  # an output that reaches no loss: None
+        if x.device.type == "cpu":
+            return ssd_scan_plain(x, log_a, Bm, Cm, chunk=chunk, h0=h0)
+        return _launch(x, log_a, Bm, Cm, h0)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_h):
+        need = ctx.needs_input_grad[:5]
+        if grad_y is None and grad_h is None:
+            return (None,) * 6
+        with torch.profiler.record_function(BACKWARD_LABEL), torch.enable_grad():
+            leaves = [x if x is None else x.detach().requires_grad_(n)
+                      for x, n in zip(ctx.saved_tensors, need)]
+            outs = ssd_scan_plain(*leaves[:4], chunk=ctx.chunk, h0=leaves[4])
+            # y, the final state, or both reach the loss
+            pairs = [(o, g) for o, g in zip(outs, (grad_y, grad_h)) if g is not None]
+            # C reaches y only: through the final state alone its gradient is None (zero)
+            grads = iter(torch.autograd.grad(
+                [o for o, _ in pairs], [x for x in leaves if x is not None and x.requires_grad],
+                [g for _, g in pairs], allow_unused=True))
+        return tuple(next(grads) if n else None for n in need) + (None,)
+
+
+def ssd_scan(x, log_a, Bm, Cm, *, chunk: int = 64,
+             h0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y (B, S, H, P), final state (B, H, P, N)) through K5, in float32,
+    differentiable in every input."""
+    _check(x, log_a, Bm, Cm, chunk, h0)
+    return _SsdScan.apply(x, log_a, Bm, Cm, h0, chunk)
 
 
 ssd_scan.launches = 0

@@ -12,6 +12,8 @@ states at prefill and the cross caches at decode (one query per step
 through K4).  The reference stacks the layers' parameters and scans; the
 port keeps per-layer lists (``enc_blocks``, ``dec_blocks``) and loops, and
 each decoder layer's cache is ``{"self": KVCache, "cross": KVCache}``.
+A training forward with grad enabled checkpoints each encoder and each
+decoder block, the units the reference's ``jax.checkpoint`` wraps.
 """
 
 from __future__ import annotations
@@ -19,11 +21,13 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .attention import attention, attention_params, init_kv_cache
 from .ffn import gelu_ffn, gelu_ffn_params
 from .layers import ParamBuilder, layer_norm, sinusoidal_positions
+from .transformer import remat_enabled
 
 __all__ = ["MAX_DECODER_POS", "build_encdec_params", "encoder_forward", "init_encdec_caches",
            "decoder_forward_encdec"]
@@ -74,14 +78,19 @@ def _ln(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig) -> torch.
 
 
 def encoder_forward(params: Dict[str, Any], frames: torch.Tensor, cfg: ModelConfig, *,
-                    plain: bool = False) -> torch.Tensor:
-    """frames: (B, S_enc, d) stub embeddings → encoder states (B, S_enc, d)."""
+                    plain: bool = False, remat: bool = False) -> torch.Tensor:
+    """frames: (B, S_enc, d) stub embeddings → encoder states (B, S_enc, d).
+    ``remat`` checkpoints each block (the training forward's choice)."""
     s, d = frames.shape[1], frames.shape[2]
     x = frames + sinusoidal_positions(s, d, device=frames.device).to(frames.dtype)[None]
-    for p in params["enc_blocks"]:
+
+    def block(x, p):
         h, _ = attention(p["attn"], _ln(x, p["ln_attn"], cfg), cfg, causal=False, plain=plain)
         x = x + h
-        x = x + gelu_ffn(p["mlp"], _ln(x, p["ln_mlp"], cfg))
+        return x + gelu_ffn(p["mlp"], _ln(x, p["ln_mlp"], cfg))
+
+    for p in params["enc_blocks"]:
+        x = checkpoint(block, x, p, use_reentrant=False) if remat else block(x, p)
     return _ln(x, params["enc_ln_out"], cfg)
 
 
@@ -114,8 +123,8 @@ def decoder_forward_encdec(
         b if positions.shape[0] == b else 1, s, -1)
     x = x + pos_emb.to(x.dtype)
     decode = mode == "decode"
-    for i, p in enumerate(params["dec_blocks"]):
-        cache = caches[i] if caches is not None else None
+
+    def block(x, p, cache):
         h, _ = attention(p["attn"], _ln(x, p["ln_attn"], cfg), cfg, positions=positions,
                          cache=cache["self"] if cache is not None else None, plain=plain)
         x = x + h
@@ -123,5 +132,10 @@ def decoder_forward_encdec(
                          causal=False, cache=cache["cross"] if cache is not None else None,
                          cache_update=not decode, plain=plain)
         x = x + h
-        x = x + gelu_ffn(p["mlp"], _ln(x, p["ln_mlp"], cfg))
+        return x + gelu_ffn(p["mlp"], _ln(x, p["ln_mlp"], cfg))
+
+    remat = remat_enabled(cfg, mode)
+    for i, p in enumerate(params["dec_blocks"]):
+        cache = caches[i] if caches is not None else None
+        x = checkpoint(block, x, p, cache, use_reentrant=False) if remat else block(x, p, cache)
     return _ln(x, params["dec_ln_out"], cfg), caches

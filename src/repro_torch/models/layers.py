@@ -3,7 +3,8 @@
 The port's copy of ``repro.models.layers``: :func:`rms_norm` (the
 ``1 + weight`` convention), :func:`layer_norm` (whisper's, with the
 population variance), :func:`apply_rope` (split-half),
-:func:`sinusoidal_positions` (whisper's encoder positions) and
+:func:`sinusoidal_positions` (whisper's encoder positions),
+:func:`cross_entropy_loss` (the training loss) and
 :class:`ParamBuilder`, which draws every parameter from one explicit
 ``torch.Generator`` on the target device with the reference's init scales
 (normal with std 1/√fan_in unless a scale is given, zeros, ones,
@@ -20,7 +21,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 
 __all__ = ["DTYPES", "ParamBuilder", "rms_norm", "layer_norm", "apply_rope",
-           "sinusoidal_positions"]
+           "sinusoidal_positions", "cross_entropy_loss"]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
@@ -96,3 +97,24 @@ def sinusoidal_positions(seq: int, d: int, *, device="cuda") -> torch.Tensor:
                       / max(half - 1, 1))
     ang = torch.arange(seq, dtype=torch.float32, device=device)[:, None] * freqs[None, :]
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def cross_entropy_loss(
+    logits: torch.Tensor,                 # (..., V) any float dtype
+    labels: torch.Tensor,                 # (...) int
+    mask: Optional[torch.Tensor] = None,
+    *,
+    z_loss: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean token NLL in fp32 (+ optional z-loss); returns (loss, denom)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    picked = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - picked
+    if z_loss:
+        nll = nll + z_loss * lse**2
+    if mask is not None:
+        m = mask.float()
+        denom = torch.clamp(m.sum(), min=1.0)
+        return (nll * m).sum() / denom, denom
+    return nll.mean(), torch.tensor(float(nll.numel()), device=nll.device)

@@ -1,9 +1,12 @@
 """Model factory: one API over every architecture of the repo.
 
-The port's copy of ``repro.models.model_factory`` for serving: ``init``,
-``init_caches``, ``prefill``, ``prefill_from``, ``decode_step`` and
-``logits``.  Training (``loss_fn``) comes with slice E (ROADMAP.md queue 1,
-'Slice E: training').
+The port's copy of ``repro.models.model_factory``: ``init``, ``forward``,
+``logits``, the training loss ``loss_fn``, and for serving
+``init_caches``, ``prefill``, ``prefill_from`` and ``decode_step``.  The
+serving methods run under ``torch.no_grad()``; ``loss_fn`` runs its
+forward with grad enabled, checkpointing the reference's units under
+``cfg.parallel.remat``, and its gradients are autograd's
+(``launch/steps.py``).
 
 The ``encdec`` family (whisper) takes ``frames=`` (B, S_enc, d) and the
 ``vlm`` family ``image_embeds=`` (B, n_img, d), the reference's batch keys,
@@ -29,9 +32,12 @@ import torch
 
 from ..configs.base import ModelConfig
 from . import encdec, transformer
-from .layers import DTYPES, ParamBuilder
+from .layers import DTYPES, ParamBuilder, cross_entropy_loss
 
-__all__ = ["Model", "make_model", "splice_slot"]
+__all__ = ["Model", "make_model", "splice_slot", "MOE_AUX_COEF", "MOE_Z_COEF"]
+
+MOE_AUX_COEF = 0.01
+MOE_Z_COEF = 1e-3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +79,8 @@ class Model:
             if frames is None:
                 raise ValueError("the encdec family needs frames= (B, S_enc, d_model)")
             enc_out = frames if mode == "decode" else encdec.encoder_forward(
-                params, frames, cfg, plain=self.plain)
+                params, frames, cfg, plain=self.plain,
+                remat=transformer.remat_enabled(cfg, mode))
             hidden, caches = encdec.decoder_forward_encdec(
                 params, tokens, enc_out, cfg, mode=mode, positions=positions, caches=caches,
                 plain=self.plain)
@@ -93,6 +100,47 @@ class Model:
         if self.cfg.family == "encdec":
             return hidden @ params["embed"].T
         return transformer.lm_logits(params, hidden, self.cfg)
+
+    # -- training loss (chunked over the sequence: no full logits) ---------
+    def loss_fn(self, params, batch: Dict[str, torch.Tensor], *,
+                loss_chunk: int = 1024) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, metrics) of one batch: ``tokens``, ``labels`` (B, S),
+        optional ``mask`` (B, S) float, and ``frames`` (encdec) or
+        ``image_embeds`` (vlm).  With ``loss_chunk`` dividing S (and below
+        it) the logits are formed one chunk of positions at a time, as in
+        the reference.  ``metrics`` holds ``ce_loss``, ``loss`` and the MoE
+        aux values; a ``moe`` model's loss adds ``MOE_AUX_COEF`` ·
+        ``moe_aux_loss`` and ``MOE_Z_COEF`` · ``moe_z_loss``."""
+        cfg = self.cfg
+        aux: Dict[str, torch.Tensor] = {}
+        hidden, _ = self.forward(params, batch["tokens"], mode="train", aux=aux,
+                                 frames=batch.get("frames"),
+                                 image_embeds=batch.get("image_embeds"))
+        labels = batch["labels"]
+        mask = batch.get("mask")
+        s = hidden.shape[1]
+        if loss_chunk and s > loss_chunk and s % loss_chunk == 0:
+            head = (params["embed"].T if cfg.tie_embeddings or cfg.family == "encdec"
+                    else params["lm_head"])
+            tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+            denom = torch.zeros((), dtype=torch.float32, device=hidden.device)
+            for c in range(s // loss_chunk):
+                cols = slice(c * loss_chunk, (c + 1) * loss_chunk)
+                lf = (hidden[:, cols] @ head).float()
+                lse = torch.logsumexp(lf, dim=-1)
+                picked = torch.gather(lf, -1, labels[:, cols].long()[..., None])[..., 0]
+                m = (mask[:, cols].float() if mask is not None
+                     else torch.ones_like(lse))
+                tot = tot + torch.sum((lse - picked) * m)
+                denom = denom + torch.sum(m)
+            loss = tot / torch.clamp(denom, min=1.0)
+        else:
+            loss, _ = cross_entropy_loss(self.logits(params, hidden), labels, mask)
+        metrics = {"ce_loss": loss, **aux}
+        if cfg.family == "moe":
+            loss = loss + MOE_AUX_COEF * aux["moe_aux_loss"] + MOE_Z_COEF * aux["moe_z_loss"]
+        metrics["loss"] = loss
+        return loss, metrics
 
     # -- serving ------------------------------------------------------------
     def init_caches(self, batch: int, max_len: int) -> List[Any]:

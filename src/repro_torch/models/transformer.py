@@ -19,7 +19,10 @@ and loops.  A ``moe`` block is an ``attn`` block whose FFN is
 reach a caller that passes an ``aux`` dict to :func:`decoder_forward`.  A
 ``cross`` block is an ``attn`` block with a gated cross-attention to
 ``image_embeds`` and a gated FFN; its cache is ``{"self": KVCache,
-"cross": KVCache}``.
+"cross": KVCache}``.  A training forward with grad enabled checkpoints
+each repetition of the pattern (:func:`remat_enabled`), the unit the
+reference's ``jax.checkpoint`` wraps; the remainder's layers are not
+checkpointed, as in the reference.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .attention import attention, attention_params, init_kv_cache
@@ -37,7 +41,7 @@ from .rglru import init_rglru_state, rglru_block, rglru_params
 from .ssm import init_ssm_state, ssd_block, ssd_params
 
 __all__ = ["AUX_KEYS", "pattern_of", "layer_kinds", "build_decoder_params",
-           "init_caches", "decoder_forward", "lm_logits"]
+           "init_caches", "remat_enabled", "decoder_forward", "lm_logits"]
 
 AUX_KEYS = ("moe_aux_loss", "moe_z_loss", "moe_overflow_frac", "moe_load_max")
 
@@ -176,6 +180,13 @@ def _apply_block(kind: str, p, x, cfg: ModelConfig, *, mode: str, positions, cac
         p["mlp"], rms_norm(x, p["ln_mlp"], cfg.norm_eps)), {}
 
 
+def remat_enabled(cfg: ModelConfig, mode: str) -> bool:
+    """Whether a forward checkpoints its units (``torch.utils.checkpoint``):
+    a training forward with grad enabled and ``cfg.parallel.remat`` other
+    than "none", as the reference's ``jax.checkpoint`` of each unit."""
+    return mode == "train" and torch.is_grad_enabled() and cfg.parallel.remat != "none"
+
+
 def decoder_forward(
     params: Dict[str, Any],
     tokens: torch.Tensor,                 # (B, S) int
@@ -200,14 +211,35 @@ def decoder_forward(
     if aux is not None:
         aux.update({key: torch.zeros((), dtype=torch.float32, device=x.device)
                     for key in AUX_KEYS})
-    for i, kind in enumerate(layer_kinds(cfg)):
-        x, block_aux = _apply_block(kind, params["layers"][i], x, cfg, mode=mode,
-                                    positions=positions,
-                                    cache=caches[i] if caches is not None else None,
-                                    image_embeds=image_embeds, plain=plain)
+    kinds = layer_kinds(cfg)
+
+    def run(x, lo: int, hi: int):
+        """Layers [lo, hi) -> (x, each layer's aux values)."""
+        auxes = []
+        for i in range(lo, hi):
+            x, block_aux = _apply_block(kinds[i], params["layers"][i], x, cfg, mode=mode,
+                                        positions=positions,
+                                        cache=caches[i] if caches is not None else None,
+                                        image_embeds=image_embeds, plain=plain)
+            auxes.append(block_aux)
+        return x, auxes
+
+    # the reference's units: one per repetition of the pattern (checkpointed
+    # under remat), then the remainder's layers one by one (never)
+    pat, repeats, _ = pattern_of(cfg)
+    n = len(pat)
+    units = [(r * n, (r + 1) * n, True) for r in range(repeats)]
+    units += [(i, i + 1, False) for i in range(repeats * n, len(kinds))]
+    remat = remat_enabled(cfg, mode)
+    for lo, hi, stacked in units:
+        if remat and stacked:
+            x, auxes = checkpoint(run, x, lo, hi, use_reentrant=False)
+        else:
+            x, auxes = run(x, lo, hi)
         if aux is not None:
-            for key, value in block_aux.items():
-                aux[key] = aux[key] + value.float()
+            for block_aux in auxes:
+                for key, value in block_aux.items():
+                    aux[key] = aux[key] + value.float()
     return rms_norm(x, params["final_norm"], cfg.norm_eps), caches
 
 

@@ -1,0 +1,21 @@
+"""Optimizer substrate: AdamW, schedules, clipping.
+
+The port's copy of ``repro.optim``; gradient compression
+(``compression.py``) waits for slice F with its only reader,
+``collectives.compressed_psum`` (ROADMAP.md queue 1).
+"""
+
+from .adamw import AdamW, AdamWState, reference_decay_mask
+from .clipping import clip_by_global_norm, global_norm
+from .schedule import constant, warmup_cosine, warmup_linear_decay
+
+__all__ = [
+    "AdamW",
+    "AdamWState",
+    "reference_decay_mask",
+    "clip_by_global_norm",
+    "global_norm",
+    "warmup_cosine",
+    "warmup_linear_decay",
+    "constant",
+]

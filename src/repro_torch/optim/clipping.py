@@ -1,0 +1,25 @@
+"""Global-norm gradient clipping (fp32 accumulation).
+
+The port's copy of ``repro.optim.clipping``, over the port's trees.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..tree import tree_leaves, tree_map
+
+__all__ = ["global_norm", "clip_by_global_norm"]
+
+
+def global_norm(tree) -> torch.Tensor:
+    sq = sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree))
+    return torch.sqrt(sq)
+
+
+@torch.no_grad()
+def clip_by_global_norm(tree, max_norm: float):
+    """(``tree`` scaled to a global norm of at most ``max_norm``, the norm before)."""
+    norm = global_norm(tree)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    return tree_map(lambda x: (x.float() * scale).to(x.dtype), tree), norm

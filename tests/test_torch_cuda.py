@@ -19,7 +19,10 @@ also held against a plain matrix product.  A worker process
 here, and a remote prefill equals the inline one.  K4 is also held in the
 forms the hybrid, encdec and vlm families call it in (no mask at Sq ≠ Sk,
 Sq 1, a window that masks), and those families' smoke models give the same
-greedy tokens through K4 as through its plain version.
+greedy tokens through K4 as through its plain version.  K4's and K5's
+``Function``s carry gradients: an output requires grad when an input
+does, the gradients match autograd of the plain versions, and a smoke
+train step through the kernels matches one through the plain versions.
 """
 
 import ctypes
@@ -443,6 +446,112 @@ def test_k5_matches_plain(cuda, b, s, h, p, n, chunk, with_h0):
     y_want, h_want = ssk.ssd_scan_plain(x, log_a, bm, cm, chunk=chunk, h0=h0)
     torch.testing.assert_close(y, y_want, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(hf, h_want, rtol=2e-4, atol=2e-4)
+
+
+# -- K4 and K5 carry gradients ------------------------------------------------
+def within_tol(got, want, dtype):
+    """K4's tolerance of phase 4 in ``chip_smoke.py``: f32 2e-4 / 2e-5; bf16
+    rtol 2e-2 with an atol of 2e-2 of the RMS of each expected row (the
+    last dim)."""
+    got, want = got.float(), want.float()
+    if dtype == torch.float32:
+        rtol, atol = 2e-4, 2e-5
+    else:
+        rtol, atol = 2e-2, 2e-2 * want.pow(2).mean(-1, keepdim=True).sqrt()
+    return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+
+
+def grads_through(fn, inputs, weights):
+    """(outputs, input gradients) of sum(output · weight) through ``fn``."""
+    leaves = [x.clone().requires_grad_() if x is not None else None for x in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    assert all(o.requires_grad for o in outs)
+    sum((o.float() * w).sum() for o, w in zip(outs, weights)).backward()
+    return outs, [x.grad if x is not None else None for x in leaves]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,window", [
+    (2, 128, 128, 4, 2, 64, True, 0),
+    (1, 300, 300, 4, 1, 128, True, 64),
+    (1, 55, 150, 4, 4, 64, False, 0),
+    (1, 200, 200, 4, 2, 160, True, 0),
+    (1, 2048, 2048, 32, 4, 64, True, 0),   # tinyllama's training rows, at B 1
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_function_gradients_match_autograd_of_plain(cuda, b, sq, sk, h, kvh, d, causal,
+                                                      window, dtype):
+    q, k, v = attention_inputs(b, sq, sk, h, kvh, d, dtype, cuda, seed=sq + d)
+    w = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (b, sq, h, d), dtype=np.float32)).to(cuda)
+    mask = dict(causal=causal, window=window)
+    n = fk.flash_attention.launches
+    out, grads = grads_through(lambda *x: fk.flash_attention(*x, **mask), (q, k, v), [w])
+    assert fk.flash_attention.launches == n + 1   # the backward launches nothing
+    want_out, want = grads_through(lambda *x: fk.flash_attention_plain(*x, **mask),
+                                   (q, k, v), [w])
+    assert within_tol(out[0], want_out[0], dtype)
+    for name, g, gw in zip("qkv", grads, want):
+        assert g.dtype == dtype and bool(torch.isfinite(g).all()), name
+        assert within_tol(g, gw, dtype), name
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 100, 3, 8, 16, 32),
+    (1, 891, 24, 64, 128, 256),
+    (4, 2048, 24, 64, 128, 256),           # mamba2-130m's training microbatch
+])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_k5_function_gradients_match_autograd_of_plain(cuda, b, s, h, p, n, chunk, with_h0):
+    x, log_a, bm, cm, h0 = ssd_inputs(b, s, h, p, n, cuda, seed=s, with_h0=with_h0)
+    rng = np.random.default_rng(2)
+    w = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(cuda)
+         for shape in ((b, s, h, p), (b, h, p, n))]
+    before = ssk.ssd_scan.launches
+    outs, grads = grads_through(lambda *a: ssk.ssd_scan(*a[:4], chunk=chunk, h0=a[4]),
+                                (x, log_a, bm, cm, h0), w)
+    assert ssk.ssd_scan.launches == before + 1
+    want_outs, want = grads_through(lambda *a: ssk.ssd_scan_plain(*a[:4], chunk=chunk, h0=a[4]),
+                                    (x, log_a, bm, cm, h0), w)
+    for o, wo in zip(outs, want_outs):
+        torch.testing.assert_close(o, wo, rtol=2e-4, atol=2e-4)
+    for name, g, gw in zip(("x", "log_a", "B", "C", "h0"), grads, want):
+        if gw is None:
+            assert g is None and not with_h0 and name == "h0"
+            continue
+        torch.testing.assert_close(g, gw, rtol=2e-4, atol=2e-4, msg=name)
+
+
+def test_smoke_train_step_through_kernels_matches_plain(cuda):
+    """One tinyllama smoke() train step (f32) through K4 against plain=True:
+    each layer launches K4 twice, in the forward and in remat's recomputation."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamW
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("tinyllama-1.1b").smoke()
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 65))).to(cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "mask": torch.ones((4, 64), device=cuda)}
+    shape = InputShape("t", 64, 4, "train")
+    out = {}
+    for plain in (False, True):
+        model = make_model(cfg, device=cuda, plain=plain)
+        params = model.init(0)
+        opt = AdamW(cfg=cfg)
+        step = make_train_step(model, opt, shape, lr=1e-3, loss_chunk=0, microbatches=2)
+        n = fk.flash_attention.launches
+        grads, _ = step.grads(params, batch)
+        launches = fk.flash_attention.launches - n
+        out[plain] = (grads, step(params, opt.init(params), batch)[2], launches)
+    assert out[False][2] == 2 * cfg.num_layers * 2 and out[True][2] == 0
+    for key in ("loss", "ce_loss", "grad_norm"):
+        torch.testing.assert_close(out[False][1][key], out[True][1][key], rtol=1e-5, atol=0)
+    gmax = max(float(g.abs().max()) for g in tree_leaves(out[True][0]))
+    for g, gw in zip(tree_leaves(out[False][0]), tree_leaves(out[True][0])):
+        torch.testing.assert_close(g, gw, rtol=0, atol=1e-4 * gmax)
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-130m", "stablelm-12b",

@@ -2,10 +2,11 @@
 
 An AST scan finds every import in ``src/repro_torch`` and ``chip_smoke.py``,
 and every string that names a jax or ``repro`` module as code would (an
-entry string for ``python -c``, a module path), docstrings aside; a
-subprocess in which ``import jax`` fails imports every module of the port
-and runs its CPU entry points, a worker process and a checkpoint among
-them; ``chip_smoke.py`` refuses to run, and prints no result, on a host
+entry string for ``python -c``, a module path), docstrings aside, the
+training slice's modules (``data``, ``optim``, ``launch/steps.py``,
+``launch/train.py``) among them; a subprocess in which ``import jax``
+fails imports every module of the port and runs its CPU entry points
+(serving and training), a worker process and a checkpoint among them; ``chip_smoke.py`` refuses to run, and prints no result, on a host
 without a card.
 """
 
@@ -60,6 +61,9 @@ def names_forbidden_module(text):
 
 def test_no_jax_or_reference_import():
     assert len(FILES) > 10, "the scan found too few files"
+    scanned = {str(path.relative_to(PORT)) for path in FILES if PORT in path.parents}
+    assert {"data/tokens.py", "data/prefetch.py", "optim/adamw.py", "optim/clipping.py",
+            "optim/schedule.py", "launch/steps.py", "launch/train.py", "tree.py"} <= scanned
     offenders = [f"{path.relative_to(ROOT)} imports {name}"
                  for path in FILES for name in absolute_imports(path)
                  if name.split(".")[0] in FORBIDDEN]
@@ -109,6 +113,9 @@ assert np.allclose(res.numpy()[np.argsort(order)], spmm_dense_ref(p), rtol=1e-4,
 from repro_torch.launch import serve
 for arch in ("tinyllama-1.1b", "mamba2-130m"):
     serve.main(["--arch", arch, "--device", "cpu", "--requests", "3", "--max-new", "5"])
+from repro_torch.launch import train
+train.main(["--arch", "mamba2-130m", "--device", "cpu", "--steps", "2", "--global-batch", "2",
+            "--seq-len", "16", "--microbatches", "2"])
 import tempfile
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.core import HeteroRuntime, FleetManager, spawn_worker
