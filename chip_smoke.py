@@ -130,17 +130,43 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    tolerance.  Last, the ``Function``'s forward + backward is timed at the
    training microbatch (K4: B 4, S 2048, H 32, KVH 4, D 64, bf16, beside
    ``scaled_dot_product_attention``'s forward + backward; K5: B 4, S
-   2048, H 24, P 64, N 128) against autograd of its plain version.
+   2048, H 24, P 64, N 128) against autograd of its plain version, with
+  the bound of its forward + backward.  Phase 7 runs ``run_training`` on
+  its (1, 1) mesh and keeps mamba2's step-5 checkpoint for phase 8.
+8. The distribution layer (slice F1): two ranks spawned on the one card
+   share gloo (NCCL refuses two ranks on one device; ``Group`` stages
+   gloo's send and recv of CUDA tensors through pinned host buffers and
+   counts the bytes); the parent built the kernels, the ranks load them.
+   a. mamba2-130m at full width: phase 7's step-5 checkpoint restored
+      onto a (2, 1) ``("data", "model")`` mesh with ``reshard_tree``
+      (every shard bitwise its slice of the saved arrays), an
+      ``ElasticMeshManager`` plan's ``elastic_restore_summary``, then
+      ``run_training`` on the mesh for steps 5–9 (batch 8 × 2048, 4 ×
+      2048 a rank, 1 microbatch from ``default_microbatches``): each
+      loss within 5e-3 of phase 7's resumed one-rank run, 2 × 24 × 5 K5
+      launches a rank; one more step's time and the bytes its
+      collectives move.
+   b. tinyllama-1.1b's 22 layers in 2 GPipe stages (``stage_partition``,
+      ``pipeline_apply``), 4 microbatches of 1 × 2048 in bf16, against
+      the same blocks in order on rank 0 (the bf16 tolerance); 11 × 4 K4
+      launches a stage.
+   c. tinyllama-1.1b at published widths cut to 4 layers, f32, batch 4 ×
+      512: the two-rank step against the one-rank step with 2
+      microbatches (loss 1e-5, ``grad_norm`` 1e-4, every gathered
+      gradient 1e-4 of the largest |g|), and ``compressed_psum`` of each
+      rank's gradients within 0.02 of the exact sum, with the bytes each
+      hands to the collective.
 
 Launch counts are set to 0 just before each main path (phases 2–3 for
-K1–K3, each model's serving run in phase 5 and in 6a, 6b for K3, and
-each training run in phase 7) and read just after, so they count the
-main path's launches only; the JSON line's ``launches`` is phases 2–3's,
-phase 5's and phase 7's (summed over the models), ``launches_by_path``
-names each model's (whisper's and the vision model's by form,
-recurrentgemma's past-the-window check apart) and adds phase 6's, K4's
-row lists every phase-4 shape under ``shapes``, and K4's and K5's rows
-carry phase 7's forward + backward times under ``train_fwd_bwd``.
+K1–K3, each model's serving run in phase 5 and in 6a, 6b for K3, each
+training run in phase 7, and in each rank 8a's run and 8b's pipeline)
+and read just after, so they count the main path's launches only; the
+JSON line's ``launches`` is phases 2–3's, phase 5's, phase 7's and
+phase 8's (summed over the models and ranks), ``launches_by_path`` names
+each model's (whisper's and the vision model's by form, recurrentgemma's
+past-the-window check apart) and adds phase 6's, K4's row lists every
+phase-4 shape under ``shapes``, and K4's and K5's rows carry phase 7's
+forward + backward times and bound under ``train_fwd_bwd``.
 Profiler totals sum the CUDA kernels' rows only.  Each phase prints
 its wall time.  The last lines are a JSON line of the kernels' numbers
 and the JSON result line.
@@ -156,6 +182,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import os
 import shutil
@@ -171,11 +198,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# Published peaks of one H100 SXM (dense, at its 700 W limit): device
-# memory rate, f32 rate outside the tensor cores, bf16 tensor-core rate.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12
+# bounds divide by the published peaks of one H100 SXM (dense, at its 700 W
+# limit): repro_torch.launch.mesh.H100_SXM
 # flops of one stencil update of one cell (_step_math: 10 adds/subs, 5 muls)
 STENCIL_FLOPS = 15
 
@@ -365,9 +389,13 @@ def within(got, want, tol: dict) -> bool:
     return bool(((got - want).abs() <= tol["atol"] + tol["rtol"] * want.abs()).all())
 
 
-def bound_ms(n_bytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
-    """(least milliseconds, "bytes" or "operations") on the published peaks."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / flops_per_s
+def bound_ms(n_bytes: float, flops: float, bf16: bool = False):
+    """(least milliseconds, "bytes" or "operations") on the published peaks
+    (the operations at the bf16 tensor-core rate, else at the f32 rate)."""
+    from repro_torch.launch.mesh import H100_SXM
+
+    t_bytes = n_bytes / H100_SXM.hbm_bw
+    t_ops = flops / (H100_SXM.peak_flops if bf16 else H100_SXM.f32_flops)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -679,13 +707,12 @@ def phase4_model_kernels():
                 lib_err = float((sdpa().transpose(1, 2).float() - want.float()).abs().max())
                 library = time_ms(sdpa)
                 el = 2 if dtype == torch.bfloat16 else 4
-                peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
                 # the work this mask leaves: kernel_flops scaled by the
                 # window's share of the causal pairs
                 flops = fops.kernel_flops(1, sq, sk, h, d, causal=causal) * (
                     attended_pairs(sq, sk, causal, window) / attended_pairs(sq, sk, causal, 0))
                 b, by = bound_ms(fops.kernel_hbm_bytes(1, sq, sk, h, kvh, d, bytes_per_el=el),
-                                 flops, peak)
+                                 flops, bf16=dtype == torch.bfloat16)
                 rows.append(dict(model=model_name, shape=f"H={h} KVH={kvh} D={d} Sq={sq} "
                                  f"Sk={sk} causal={causal} window={window} {name}",
                                  max_abs_err=err, tolerance_used=used, ms=ms, device_ms=dev,
@@ -1521,9 +1548,11 @@ def train_function_ms(kernel: str) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention, flash_attention_plain,
     )
+    from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan, ssd_scan_plain
 
     rng = np.random.default_rng(7)
@@ -1552,6 +1581,11 @@ def train_function_ms(kernel: str) -> dict:
                        lambda *x: F.scaled_dot_product_attention(*x, is_causal=True,
                                                                  enable_gqa=True),
                        (qt, kt, vt), (gy.transpose(1, 2).contiguous(),))))
+        # forward and backward products (the backward about 2.5x the forward's);
+        # q, k, v, dO read and O, dQ, dK, dV written, each once
+        out["bound_ms"], out["bound_by"] = bound_ms(
+            fops.kernel_hbm_bytes(b, s, s, h, kvh, d, bytes_per_el=2, backward=True),
+            fops.kernel_flops(b, s, s, h, d, causal=True, backward=True), bf16=True)
     else:
         b, s, h, p, n, chunk = 4, 2048, 24, 64, 128, 256
         x = normal(b, s, h, p)
@@ -1564,6 +1598,12 @@ def train_function_ms(kernel: str) -> dict:
                    plain_fwd_bwd_ms=time_ms(fwd_bwd(lambda *a: ssd_scan_plain(*a, chunk=chunk),
                                                     (x, log_a, bm, cm), (gy, gh)), reps=5),
                    library_fwd_bwd_ms=None)
+        # the forward's bytes, then x, log_a, B, C, dy, dh read and dx, dlog_a,
+        # dB, dC written; the backward's products about 2.5x the forward's
+        inputs = 4 * (b * s * h * p + b * s * h + 2 * b * s * n)
+        out["bound_ms"], out["bound_by"] = bound_ms(
+            sops.kernel_hbm_bytes(b, s, h, p, n) + 2 * inputs + 4 * (b * s * h * p + b * h * p * n),
+            3.5 * sops.kernel_flops(b, s, h, p, n))
     print(f"{kernel} Function forward + backward " + json.dumps(out))
     return out
 
@@ -1583,6 +1623,7 @@ def plain_training_witness(arch: str, kernel_losses, kernel_refit: float, wrappe
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import make_model
     from repro_torch.optim import AdamW
+    from repro_torch.parallel.mesh_rules import MeshRules, MeshShape
 
     cfg = get_config(arch)
     gb, seq, mb, steps = (TRAIN_RUN[k] for k in ("global_batch", "seq_len", "microbatches",
@@ -1593,8 +1634,10 @@ def plain_training_witness(arch: str, kernel_losses, kernel_refit: float, wrappe
                 else torch.float32, cfg=cfg)
     params = model.init(0)
     state = opt.init(params)
-    step_fn = make_train_step(model, opt, InputShape("train", seq, gb, "train"),
-                              lr=TRAIN_RUN["lr"], loss_chunk=0, microbatches=mb)
+    step_fn = make_train_step(model, opt, MeshRules(MeshShape((1, 1), ("data", "model")),
+                                                    cfg.parallel),
+                              InputShape("train", seq, gb, "train"), lr=TRAIN_RUN["lr"],
+                              loss_chunk=0, microbatches=mb)
     losses = []
     for step in range(steps):
         params, state, metrics = step_fn(params, state, batch_of(step, gb))
@@ -1615,9 +1658,11 @@ def plain_training_witness(arch: str, kernel_losses, kernel_refit: float, wrappe
     del model, params, state, step_fn
 
 
-def phase7_training(arch: str, wrappers: dict, card: str):
-    """Train one model at full width through ``run_training`` and check it;
-    returns (kernel name, launches in the run, the Function's timings)."""
+def phase7_training(arch: str, wrappers: dict, card: str, keep=None):
+    """Train one model at full width through ``run_training`` (on its (1, 1)
+    mesh) and check it; returns (kernel name, launches in the run, the
+    Function's timings, the resumed run's losses).  ``keep``: a directory
+    that receives the run's step-5 checkpoint."""
     import dataclasses
     import gc
     import math
@@ -1630,11 +1675,13 @@ def phase7_training(arch: str, wrappers: dict, card: str):
     from repro_torch.data import SyntheticTokens
     from repro_torch.kernels.flash_attention import flash_attention as fa_module
     from repro_torch.kernels.ssd_scan import ssd_scan as ssd_module
+    from repro_torch.launch.mesh import H100_SXM
     from repro_torch.launch.steps import default_microbatches, make_train_step
     from repro_torch.launch.train import TrainLoopConfig, run_training
     from repro_torch.models import make_model
     from repro_torch.models.transformer import layer_kinds
     from repro_torch.optim import AdamW, global_norm
+    from repro_torch.parallel.mesh_rules import MeshRules, MeshShape
 
     cfg = get_config(arch)
     kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
@@ -1645,8 +1692,9 @@ def phase7_training(arch: str, wrappers: dict, card: str):
     gb, seq, mb, steps = (TRAIN_RUN[k] for k in ("global_batch", "seq_len", "microbatches",
                                                    "steps"))
     shape = InputShape("train", seq, gb, "train")
-    require(default_microbatches(cfg, shape) == mb,
-            f"{arch}: default_microbatches gives {default_microbatches(cfg, shape)}, not {mb}")
+    rules = MeshRules(MeshShape((1, 1), ("data", "model")), cfg.parallel)
+    require(default_microbatches(cfg, shape, rules) == mb, f"{arch}: default_microbatches "
+            f"gives {default_microbatches(cfg, shape, rules)}, not {mb}")
     model = make_model(cfg, device="cuda")
     source = SyntheticTokens(cfg.padded_vocab, seq, seed=0)   # run_training's, at seed 0
 
@@ -1714,6 +1762,8 @@ def phase7_training(arch: str, wrappers: dict, card: str):
         resume_rel = abs(rest["final_loss"] - whole["final_loss"]) / abs(whole["final_loss"])
         require(resume_rel <= 1e-2, f"{arch}: the resumed run's final loss {rest['final_loss']} "
                 f"is not within 1e-2 of the uninterrupted run's {whole['final_loss']}")
+        if keep is not None:
+            shutil.move(tmp / "run", keep)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1726,7 +1776,7 @@ def phase7_training(arch: str, wrappers: dict, card: str):
     opt = AdamW(state_dtype=torch.bfloat16 if cfg.parallel.opt_state_dtype == "bfloat16"
                 else torch.float32, cfg=cfg)
     state = opt.init(params)
-    step_fn = make_train_step(model, opt, shape, lr=TRAIN_RUN["lr"], loss_chunk=0,
+    step_fn = make_train_step(model, opt, rules, shape, lr=TRAIN_RUN["lr"], loss_chunk=0,
                               microbatches=mb)
     batch = batch_of(0, gb)
     step_s = statistics.median(rest_seconds[2:])
@@ -1752,7 +1802,7 @@ def phase7_training(arch: str, wrappers: dict, card: str):
         "resumed_step_ms_each": [t * 1e3 for t in rest_seconds],
         "step_ms_median_after_2": step_s * 1e3,
         "tokens_per_s": gb * seq / step_s,
-        "model_flops_share": 6 * n_active * gb * seq / step_s / BF16_FLOPS_PER_S,
+        "model_flops_share": 6 * n_active * gb * seq / step_s / H100_SXM.peak_flops,
         "card": card,
     }
     print(f"train {arch} " + json.dumps(summary))
@@ -1770,8 +1820,8 @@ def phase7_training(arch: str, wrappers: dict, card: str):
     batch = batch_of(100, PARITY_BATCH)
     results = {}
     for plain in (False, True):
-        step32 = make_train_step(make_model(cfg32, device="cuda", plain=plain), opt32, shape32,
-                                 lr=TRAIN_RUN["lr"], loss_chunk=0, microbatches=1)
+        step32 = make_train_step(make_model(cfg32, device="cuda", plain=plain), opt32, rules,
+                                 shape32, lr=TRAIN_RUN["lr"], loss_chunk=0, microbatches=1)
         grads, metrics = step32.grads(params32, batch)
         metrics = step32.update(params32, state32, grads, metrics)[2]
         results[plain] = (grads, {k: float(v) for k, v in metrics.items()})
@@ -1784,7 +1834,7 @@ def phase7_training(arch: str, wrappers: dict, card: str):
             f"{arch} f32: grad_norm {mk['grad_norm']} through the kernels, {mp['grad_norm']} plain")
     vs_plain = grads_within(f"{arch} f32 train step gradients, kernels vs plain", gk, gp)
     del gp
-    step2 = make_train_step(make_model(cfg32, device="cuda"), opt32, shape32,
+    step2 = make_train_step(make_model(cfg32, device="cuda"), opt32, rules, shape32,
                             lr=TRAIN_RUN["lr"], loss_chunk=0, microbatches=2)
     g2, m2 = step2.grads(params32, batch)
     vs_mb = grads_within(f"{arch} f32 gradients, 2 microbatches vs 1", g2, gk)
@@ -1801,7 +1851,313 @@ def phase7_training(arch: str, wrappers: dict, card: str):
     del params32, state32, gk, g2, step2, batch
     gc.collect()
     torch.cuda.empty_cache()
-    return kernel, launches[kernel], train_function_ms(kernel)
+    return kernel, launches[kernel], train_function_ms(kernel), rest["losses"]
+
+# phase 8: the distribution layer (slice F1) with two ranks on the one card.
+# NCCL refuses two ranks on one device, so they share gloo (its send and
+# recv of CUDA tensors, the pipeline's hand-offs, are staged through host
+# buffers in parallel/collectives.py, which counts the bytes)
+DIST_RANKS = 2
+# 8a: phase 7's mamba2 run resumed at step 5 on a (2, 1) mesh: steps 5-9
+DIST_TRAIN = dict(arch="mamba2-130m", from_step=5, loss_atol=5e-3)
+# 8b: tinyllama's 22 layers in 2 GPipe stages, 4 microbatches of 1 x 2048, bf16
+PIPELINE = dict(arch="tinyllama-1.1b", microbatches=4, rows=1, seq=2048)
+# 8c: tinyllama at published widths cut to 4 layers, float32, batch 4 x 512
+DIST_PARITY = dict(arch="tinyllama-1.1b", layers=4, batch=4, seq=512, psum_rel=0.02)
+
+
+def _phase8a(rank: int, mesh, plan: dict) -> dict:
+    """Restore phase 7's step-5 checkpoint onto the mesh and train steps 5-9."""
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer, elastic_restore_summary, reshard_tree
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.elastic import ElasticMeshManager
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+    from repro_torch.launch.steps import default_microbatches, make_train_step
+    from repro_torch.launch.train import TrainLoopConfig, run_training
+    from repro_torch.models import make_model
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.optim import AdamW
+    from repro_torch.parallel.mesh_rules import MeshRules, axes_leaves
+
+    arch, device, start = DIST_TRAIN["arch"], plan["device"], DIST_TRAIN["from_step"]
+    cfg = get_config(arch)
+    cfg = cfg.smoke() if plan["smoke"] else cfg
+    gb, seq, steps, lr = (plan["train"][k] for k in ("global_batch", "seq_len", "steps", "lr"))
+    model = make_model(cfg, device=device)
+    rules = MeshRules(mesh, cfg.parallel)
+    shape = InputShape("train", seq, gb, "train")
+    mb = default_microbatches(cfg, shape, rules)
+    require(mb == 1, f"8a: default_microbatches gives {mb} with dp 2, not 1")
+    opt = AdamW(state_dtype=torch.bfloat16 if cfg.parallel.opt_state_dtype == "bfloat16"
+                else torch.float32, cfg=cfg)
+    params = model.init(0)
+    like = (params, tuple(opt.init(params)))
+    (host_p, (_, host_mu, host_nu)), step = Checkpointer(plan["ckpt"]).restore(None, like)
+    require(step == start, f"8a: the checkpoint is step {step}, not {start}")
+    # each rank's shards are its slices of the saved arrays, bitwise
+    specs, coords, sharded = model.param_specs(), rules.coordinate(), 0
+    for tree in (host_p, host_mu, host_nu):
+        shards = reshard_tree(tree, specs, rules, device=device)
+        for axes, full, part in zip(axes_leaves(specs), _leaves(tree), _leaves(shards)):
+            index = rules.local_slice(rules.spec(axes, tuple(full.shape)), tuple(full.shape),
+                                      coords)
+            require(torch.equal(part.cpu(), full[index]), f"8a: a shard of {axes} differs")
+            sharded += part.numel() < full.numel()
+        del shards
+    del host_p, host_mu, host_nu, like
+    manager = ElasticMeshManager((DIST_RANKS, 1), ("data", "model"), host_size=1)
+    manager.mark_failed(DIST_RANKS - 1)
+    summary = elastic_restore_summary(manager.plan(), old_lr=lr)
+
+    wrappers = {"flash_attention": flash_attention, "ssd_scan": ssd_scan}
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats() if device == "cuda" else None
+    t0 = time.perf_counter()
+    run = run_training(TrainLoopConfig(arch=arch, smoke=plan["smoke"], device=device,
+                                       ckpt_dir=plan["ckpt"], resume=True, steps=steps,
+                                       global_batch=gb, seq_len=seq, microbatches=mb, lr=lr,
+                                       ckpt_every=100 * steps, log_every=1), mesh=mesh)
+    wall = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else None
+    require(run["steps"] == steps - start, f"8a: {run['steps']} steps, not {steps - start}")
+    diffs = [abs(a - b) for a, b in zip(run["losses"], plan["want_losses"])]
+    require(len(diffs) == steps - start and max(diffs) <= DIST_TRAIN["loss_atol"],
+            f"8a: losses {run['losses']} not within {DIST_TRAIN['loss_atol']} of the one-rank "
+            f"resumed run's {plan['want_losses']}")
+    kernel_layers = sum(kind == "ssd" for kind in layer_kinds(cfg))
+    want = 2 * kernel_layers * mb * (steps - start)   # forward and remat, a layer and step
+    if device == "cuda":
+        require(launches["ssd_scan"] == want and not launches["flash_attention"],
+                f"8a rank {rank}: launches {launches}, not ssd_scan {want}")
+
+    # one step outside the run: its time and the bytes its collectives move
+    step_fn = make_train_step(model, opt, rules, shape, lr=lr, loss_chunk=0, microbatches=mb)
+    shards = step_fn.shard(model.init(0))
+    state = opt.init(shards)
+    b = SyntheticTokens(cfg.padded_vocab, seq, seed=0).batch(start, shard=0, num_shards=1,
+                                                             per_shard=gb)
+    batch = {k: torch.from_numpy(getattr(b, k)).to(device) for k in ("tokens", "labels", "mask")}
+    step_fn(shards, state, batch)                      # warm-up
+    sent, staged = step_fn.group.sent_bytes, step_fn.group.staged_bytes
+    _sync(device)
+    t0 = time.perf_counter()
+    step_fn(shards, state, batch)
+    _sync(device)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    return dict(arch=arch, sharded_leaves=sharded, restore_summary=summary, microbatches=mb,
+                losses=run["losses"], one_rank_losses=plan["want_losses"],
+                max_abs_loss_diff=max(diffs), run_step_ms=[t * 1e3 for t in run["step_seconds"]],
+                run_wall_s=wall, launches=launches, peak_mem_GB=peak_gb,
+                step_ms=step_ms, sent_bytes_per_step=step_fn.group.sent_bytes - sent,
+                staged_bytes_per_step=step_fn.group.staged_bytes - staged)
+
+
+def _phase8b(rank: int, plan: dict) -> dict:
+    """tinyllama's layers in GPipe stages, against the same blocks in order."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.models import make_model
+    from repro_torch.models.transformer import _apply_block, layer_kinds
+    from repro_torch.parallel import Group, pipeline_apply, stage_partition
+
+    device = plan["device"]
+    cfg = get_config(PIPELINE["arch"])
+    cfg = cfg.smoke() if plan["smoke"] else cfg
+    n_micro, rows = PIPELINE["microbatches"], PIPELINE["rows"]
+    seq = plan["pipeline_seq"]
+    group = Group()
+    lo, hi = stage_partition(cfg.num_layers, group.size)[group.rank]
+    require(set(layer_kinds(cfg)) == {"attn"}, "8b: a model of attn blocks only")
+    params = make_model(cfg, device=device).init(0)     # every rank draws the whole tree
+    tokens = np.random.default_rng(11).integers(0, cfg.vocab_size, (n_micro, rows, seq))
+
+    def layer_fn(p, x):
+        return _apply_block("attn", p, x, cfg, mode="train", positions=None, cache=None,
+                            image_embeds=None, plain=False)[0]
+
+    with torch.no_grad():
+        x = params["embed"][torch.from_numpy(tokens).to(device)]
+        flash_attention.launches = 0
+        _sync(device)
+        t0 = time.perf_counter()
+        out = pipeline_apply(params["layers"][lo:hi], x, layer_fn, group)
+        _sync(device)
+        pipe_ms = (time.perf_counter() - t0) * 1e3
+        launches = flash_attention.launches
+        if device == "cuda":
+            require(launches == (hi - lo) * n_micro,
+                    f"8b stage {group.rank}: K4 launched {launches}, not {(hi - lo) * n_micro}")
+        result = dict(arch=cfg.name, stage=group.rank, layers=[lo, hi], microbatches=n_micro,
+                      shape=list(x.shape[1:]), dtype=str(x.dtype), k4_launches=launches,
+                      pipeline_ms=pipe_ms, sent_bytes=group.sent_bytes,
+                      staged_bytes=group.staged_bytes)
+        if group.rank == 0:       # the same blocks applied in order on one rank
+            _sync(device)
+            t0 = time.perf_counter()
+            want = []
+            for m in range(n_micro):
+                y = x[m]
+                for p in params["layers"]:
+                    y = layer_fn(p, y)
+                want.append(y)
+            want = torch.stack(want)
+            _sync(device)
+            result["sequential_ms"] = (time.perf_counter() - t0) * 1e3
+            result["max_abs_err"] = compare("8b GPipe vs the layers in order", out.float(),
+                                            want.float(), attn_tol("bfloat16", want))
+            result["bitwise"] = bool(torch.equal(out, want))
+    return result
+
+
+def _phase8c(rank: int, mesh, plan: dict) -> dict:
+    """f32 parity of the two-rank step at a cut depth, and compressed_psum."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import make_model
+    from repro_torch.optim import AdamW
+    from repro_torch.parallel import Group, MeshRules, MeshShape, compressed_psum_tree
+
+    device = plan["device"]
+    cfg = get_config(DIST_PARITY["arch"])
+    cfg = (cfg.smoke() if plan["smoke"] else cfg).replace(
+        num_layers=DIST_PARITY["layers"], dtype="float32", param_dtype="float32")
+    rows, seq = DIST_PARITY["batch"], plan["parity_seq"]
+    model = make_model(cfg, device=device)
+    params = model.init(0)
+    opt = AdamW(cfg=cfg)
+    shape = InputShape("parity", seq, rows, "train")
+    b = SyntheticTokens(cfg.padded_vocab, seq, seed=0).batch(100, shard=0, num_shards=1,
+                                                             per_shard=rows)
+    batch = {k: torch.from_numpy(getattr(b, k)).to(device) for k in ("tokens", "labels", "mask")}
+    lr = plan["train"]["lr"]
+    two = make_train_step(model, opt, MeshRules(mesh, cfg.parallel), shape, lr=lr,
+                          loss_chunk=0, microbatches=1)
+    shards = two.shard(params)
+    grads, metrics = two.grads(shards, batch)
+    metrics = {k: float(v) for k, v in two.update(shards, opt.init(shards), grads,
+                                                  metrics)[2].items()}
+    grads = two.gather(grads)
+    one_rules = MeshRules(MeshShape((1, 1), ("data", "model")), cfg.parallel)
+    result = dict(arch=cfg.name, layers=cfg.num_layers, batch=f"{rows} x {seq}",
+                  two_ranks=metrics)
+    if rank == 0:       # the one-rank step with 2 microbatches: the same rows in 2 pieces
+        one = make_train_step(model, opt, one_rules, shape, lr=lr, loss_chunk=0, microbatches=2)
+        g1, m1 = one.grads(params, batch)
+        m1 = {k: float(v) for k, v in one.update(params, opt.init(params), g1, m1)[2].items()}
+        loss_rel = abs(metrics["loss"] - m1["loss"]) / abs(m1["loss"])
+        norm_rel = abs(metrics["grad_norm"] - m1["grad_norm"]) / m1["grad_norm"]
+        require(loss_rel <= 1e-5, f"8c: loss {metrics['loss']} on 2 ranks, {m1['loss']} on one")
+        require(norm_rel <= 1e-4,
+                f"8c: grad_norm {metrics['grad_norm']} on 2 ranks, {m1['grad_norm']} on one")
+        result.update(one_rank=m1, loss_rel_diff=loss_rel, grad_norm_rel_diff=norm_rel,
+                      grads_max_diff_over_max_g=grads_within("8c gathered gradients, 2 ranks "
+                                                             "vs 1", grads, g1))
+        del g1
+    del grads
+    # compressed_psum of this rank's gradients (its rows' mean) against the exact sum
+    local, _ = make_train_step(model, opt, one_rules, shape, lr=lr, loss_chunk=0,
+                               microbatches=1).grads(params, two.local_batch(batch))
+    group = Group()
+    sent = group.sent_bytes
+    exact = [group.all_reduce(g.clone()) for g in _leaves(local)]
+    exact_bytes, sent = group.sent_bytes - sent, group.sent_bytes
+    comp = _leaves(compressed_psum_tree(local, group))
+    comp_bytes = group.sent_bytes - sent
+    rel = max(float((c - e).abs().max()) / max(float(e.abs().max()), 1e-9)
+              for c, e in zip(comp, exact))
+    require(rel < DIST_PARITY["psum_rel"], f"8c: compressed_psum is {rel} of the exact sum away")
+    result.update(compressed_psum_max_rel_err=rel, psum_sent_bytes_f32=exact_bytes,
+                  psum_sent_bytes_compressed=comp_bytes,
+                  int8_payload_bytes=sum(g.numel() for g in _leaves(local)))
+    return result
+
+
+def _sync(device: str) -> None:
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase8_rank(rank: int, plan: dict) -> None:
+    """One of phase 8's ranks: 8a, 8b and 8c on a (ranks, 1) mesh of gloo
+    over ``plan["device"]``; writes its readings to ``rank<r>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    tmp = Path(plan["tmp"])
+    if plan["device"] == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous", rank=rank,
+                            world_size=plan["world"], timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh((plan["world"], 1), ("data", "model"), device_type=plan["device"])
+        out = {"rank": rank}
+        for name, run in (("8a", lambda: _phase8a(rank, mesh, plan)),
+                          ("8b", lambda: _phase8b(rank, plan)),
+                          ("8c", lambda: _phase8c(rank, mesh, plan))):
+            t0 = time.perf_counter()
+            out[name] = run()
+            out[name]["wall_s"] = time.perf_counter() - t0
+            gc.collect()
+            if plan["device"] == "cuda":
+                torch.cuda.empty_cache()
+        (tmp / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase8_distributed(ckpt: Path, want_losses, card: str, *, device: str = "cuda",
+                       smoke: bool = False) -> dict:
+    """Spawn phase 8's ranks (the kernels are built: they only load them);
+    returns {path: {kernel: launches}} of its main paths."""
+    import torch
+    import torch.multiprocessing as mp
+
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_", dir=ROOT / "build"))
+    plan = dict(tmp=str(tmp), ckpt=str(ckpt), want_losses=want_losses, world=DIST_RANKS,
+                device=device, smoke=smoke, train=TRAIN_RUN,
+                pipeline_seq=PIPELINE["seq"], parity_seq=DIST_PARITY["seq"])
+    if smoke:   # a rehearsal on the CPU at small sizes
+        plan.update(train=dict(TRAIN_RUN, global_batch=4, seq_len=32), pipeline_seq=16,
+                    parity_seq=16)
+    try:
+        t0 = time.perf_counter()
+        mp.spawn(phase8_rank, args=(plan,), nprocs=DIST_RANKS, join=True)
+        wall = time.perf_counter() - t0
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(DIST_RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for part in ("8a", "8b", "8c"):
+        print(f"phase {part} " + json.dumps({"card": card, "ranks": [r[part] for r in ranks]}))
+    print(f"phase 8 wall {wall:.1f} s (spawn, 8a, 8b, 8c)")
+    launches = {}
+    for r in ranks:
+        launches[f"phase 8a train {DIST_TRAIN['arch']} rank {r['rank']}"] = r["8a"]["launches"]
+        launches[f"phase 8b pipeline {PIPELINE['arch']} stage {r['rank']}"] = {
+            "flash_attention": r["8b"]["k4_launches"]}
+    return launches
 
 
 def main() -> int:
@@ -1889,12 +2245,28 @@ def main() -> int:
         for kind, n in by_kind.items():
             kernels["flash_attention"]["launches_by_path"][f"phase 5 {arch} {kind}"] = n
         print(f"phase 5 {arch} done at {time.perf_counter() - t_start:.1f} s")
-    for arch in TRAIN_ARCHS:
-        name, launches, train_ms = phase7_training(arch, wrappers, card)
-        kernels[name]["launches"] += launches
-        kernels[name]["launches_by_path"][f"phase 7 train {arch}"] = launches
-        kernels[name]["train_fwd_bwd"] = train_ms
-        print(f"phase 7 {arch} done at {time.perf_counter() - t_start:.1f} s")
+    # phase 7 keeps mamba2's step-5 checkpoint and resumed losses for phase 8a
+    kept = Path(tempfile.mkdtemp(prefix="chip_smoke_kept_", dir=ROOT / "build"))
+    try:
+        resumed = {}
+        for arch in TRAIN_ARCHS:
+            keep = kept / arch if arch == DIST_TRAIN["arch"] else None
+            name, launches, train_ms, resumed[arch] = phase7_training(arch, wrappers, card, keep)
+            kernels[name]["launches"] += launches
+            kernels[name]["launches_by_path"][f"phase 7 train {arch}"] = launches
+            kernels[name]["train_fwd_bwd"] = train_ms
+            print(f"phase 7 {arch} done at {time.perf_counter() - t_start:.1f} s")
+        t8 = time.perf_counter()
+        for path, counts in phase8_distributed(kept / DIST_TRAIN["arch"],
+                                               resumed[DIST_TRAIN["arch"]], card).items():
+            for name, n in counts.items():
+                if n:
+                    kernels[name]["launches"] += n
+                    kernels[name]["launches_by_path"][path] = n
+        print(f"phase 8 done at {time.perf_counter() - t_start:.1f} s "
+              f"({time.perf_counter() - t8:.1f} s)")
+    finally:
+        shutil.rmtree(kept, ignore_errors=True)
     print("launches on the main paths: " + ", ".join(
         f"{k}={v['launches_by_path']}" for k, v in kernels.items()))
 

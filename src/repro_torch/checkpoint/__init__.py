@@ -1,9 +1,8 @@
 """Fault-tolerant checkpointing: async save, integrity-verified restore,
-and coverage bitmaps that let a dead run resume from its last checkpoint
-instead of recomputing.
+elastic (mesh-changing) restore, and coverage bitmaps that let a dead
+run resume from its last checkpoint instead of recomputing.
 
-The port's copy of ``repro.checkpoint`` without ``elastic_restore``
-(mesh-changing restore, ROADMAP.md queue 1 slice F).
+The port's copy of ``repro.checkpoint``.
 """
 
 from .checkpointer import Checkpointer, CheckpointInfo
@@ -14,10 +13,13 @@ from .coverage import (
     load_coverage,
     save_coverage,
 )
+from .elastic_restore import elastic_restore_summary, reshard_tree
 
 __all__ = [
     "Checkpointer",
     "CheckpointInfo",
+    "reshard_tree",
+    "elastic_restore_summary",
     "CoverageMap",
     "CheckpointedRun",
     "checkpointed_parallel_for",

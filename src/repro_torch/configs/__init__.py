@@ -8,7 +8,7 @@ paper's HOTSPOT and SPMM configurations.
 
 from typing import Dict, List
 
-from .base import ModelConfig
+from .base import SHAPES, InputShape, ModelConfig, ParallelConfig, cell_status
 from .grok_1_314b import CONFIG as _grok
 from .llama3_2_3b import CONFIG as _llama3
 from .llama3_2_vision_90b import CONFIG as _vision
@@ -20,7 +20,8 @@ from .stablelm_12b import CONFIG as _stablelm
 from .tinyllama_1_1b import CONFIG as _tinyllama
 from .whisper_large_v3 import CONFIG as _whisper
 
-__all__ = ["ModelConfig", "get_config", "all_configs", "ARCH_NAMES"]
+__all__ = ["ModelConfig", "ParallelConfig", "InputShape", "SHAPES", "cell_status",
+           "get_config", "all_configs", "ARCH_NAMES"]
 
 _REGISTRY: Dict[str, ModelConfig] = {
     c.name: c

@@ -1,28 +1,35 @@
 """Model configurations (the port's copy of ``repro.configs.base``).
 
 Every assigned architecture is a :class:`ModelConfig`, its distribution
-knobs a :class:`ParallelConfig`, with the reference's defaults, and a
-training or serving batch an :class:`InputShape`.  The port reads
-``capacity_factor`` and ``moe_fallback`` (``models/moe.py``), and the
-trainer reads ``remat`` (``models/transformer.py``, ``models/encdec.py``),
-``microbatches``, ``opt_state_dtype`` and ``grad_accum_dtype``
-(``launch/``).  ``param_count`` and ``active_param_count`` give the
-6·N·tokens model flops of a training step.  ``moe_dispatch`` and
-``sequence_parallel`` are kept as the reference's config data, because
-the configs set them; they wait for the shard_map dispatch and the mesh
-(slice F), as do the reference's sharding knobs, ``SHAPES``,
-``cell_status`` and ``sub_quadratic`` (ROADMAP.md queue 1).
+knobs a :class:`ParallelConfig`, with the reference's fields and
+defaults, a training or serving batch an :class:`InputShape`, the
+benchmark shapes :data:`SHAPES`, and the pairing rule of an arch and a
+shape :func:`cell_status`.  The port reads ``capacity_factor`` and
+``moe_fallback`` (``models/moe.py``); the trainer reads ``remat``
+(``models/transformer.py``, ``models/encdec.py``), ``microbatches``,
+``opt_state_dtype`` and ``grad_accum_dtype`` (``launch/``); the mesh
+rules (``parallel/mesh_rules.py``) read ``fsdp``, ``tensor_parallel``,
+``replicate_kv`` and ``sequence_parallel``.  ``param_count`` and
+``active_param_count`` give the 6·N·tokens model flops of a training
+step.
+
+Config data that nothing reads, kept because the reference keeps it:
+``grad_reduce``, ``grad_compression`` and ``pipeline_stages`` (nothing
+in the reference reads them either: ``parallel/collectives.py`` and
+``parallel/pipeline.py`` are library functions), ``scan_layers`` (the
+port keeps one parameter dict per layer and has no ``lax.scan``), and
+``moe_dispatch`` (the per-shard routing waits for slice F2).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Dict, Tuple
 
-__all__ = ["ModelConfig", "InputShape", "ParallelConfig", "VOCAB_PAD"]
+__all__ = ["ModelConfig", "InputShape", "ParallelConfig", "SHAPES", "cell_status", "VOCAB_PAD"]
 
-VOCAB_PAD = 256  # vocab padded to a multiple of this
+VOCAB_PAD = 256  # vocab padded to a multiple of this (TP divisibility)
 
 
 @dataclass(frozen=True)
@@ -33,17 +40,34 @@ class InputShape:
     kind: str  # "train" | "prefill" | "decode"
 
 
+SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
 @dataclass(frozen=True)
 class ParallelConfig:
-    """Distribution knobs, with the reference's defaults."""
+    """Distribution knobs, with the reference's fields and defaults."""
 
+    fsdp: bool = True                  # shard weights over "data" (ZeRO-3)
+    tensor_parallel: bool = True       # shard heads/ffn/vocab over "model"
     sequence_parallel: bool = False    # Megatron-SP activation sharding
+    pipeline_stages: int = 1           # >1 => pipeline over "pod" (read by nothing)
     remat: str = "block"               # "none" | "block" | "full"
+    grad_reduce: str = "reduce_scatter"  # "all_reduce" | "reduce_scatter" (read by nothing)
+    grad_compression: bool = False     # int8 error-feedback DP compression (read by nothing)
     microbatches: int = 1              # grad-accum chunks (ENEAC iteration space)
     opt_state_dtype: str = "float32"   # "bfloat16" halves AdamW memory
     moe_dispatch: str = "gspmd"        # "gspmd" (global) | "local" (per-shard routing;
                                        # on one device the global path, as in the reference)
     grad_accum_dtype: str = "float32"  # bf16 halves the grad-accum resident
+    replicate_kv: bool = False         # replicate K/V projections instead of sharding
+                                       # the fused kv_dim across head boundaries
+    scan_layers: bool = True           # the reference's lax.scan over block groups
+                                       # (read by nothing: the port loops over layers)
     moe_fallback: bool = True          # ENEAC dense fallback (False = drop overflow)
     capacity_factor: float = 1.25
 
@@ -112,6 +136,13 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch serve a 500k-token context?  SSM state is O(1);
+        RG-LRU + windowed local attention is O(window).  Everything else
+        holds a dense KV cache with full attention."""
+        return self.family in ("ssm", "hybrid")
 
     @property
     def ssm_d_inner(self) -> int:
@@ -226,3 +257,13 @@ class ModelConfig:
             dtype="float32",
             param_dtype="float32",
         )
+
+
+def cell_status(cfg: ModelConfig, shape: InputShape) -> Tuple[bool, str]:
+    """(runnable, reason): the reference's skip rule of an arch and a shape."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, (
+            "skip: 500k-token decode requires sub-quadratic attention; "
+            f"{cfg.name} is full-attention ({cfg.family})"
+        )
+    return True, "run"

@@ -1,13 +1,22 @@
-"""Training driver: ENEAC microbatching + fault tolerance, on one card.
+"""Training driver: ENEAC microbatching + fault tolerance, on a mesh.
 
 The port's copy of ``repro.launch.train``.  It wires together:
+  * mesh + rule-derived shardings              (parallel/)
   * the train step w/ grad accumulation        (launch/steps.py)
   * async data prefetch                        (data/prefetch.py)
   * async checkpointing + restart              (checkpoint/)
   * straggler detection and throughput tracking (core/straggler.py, core/hetero.py)
 
-It runs on the card unless the caller asks for the CPU (``device``), with
-no mesh until slice F.  ``warmup`` is kept as the reference keeps it: set,
+It runs on the card unless the caller asks for the CPU (``device``).
+Without a mesh it trains on one device, on the (1, 1) ``("data",
+"model")`` mesh the reference builds there, with no process group.  With
+a mesh (``launch.mesh.make_mesh``, every rank calling ``run_training``
+alike) it runs the sharded step: every rank builds the whole parameter
+tree from the seed and keeps its shards, draws the same global batch and
+takes its rows of it; checkpoints are the reference's full arrays,
+gathered and written by rank 0, and restored onto any mesh; only rank 0
+prints, and every rank returns the same result (a step's seconds are the
+slowest rank's).  ``warmup`` is kept as the reference keeps it: set,
 and read by nothing.  The ``encdec`` and ``vlm`` families need frames or
 image embeddings in their batches, which the token source does not make,
 so they do not train here, as in the reference.
@@ -35,6 +44,7 @@ from ..core.straggler import StragglerDetector
 from ..data import Prefetcher, SyntheticTokens
 from ..models import make_model
 from ..optim import AdamW, AdamWState
+from ..parallel.mesh_rules import MeshRules, MeshShape
 from ..tree import tree_map
 from .steps import make_train_step
 
@@ -59,7 +69,7 @@ class TrainLoopConfig:
     device: str = "cuda"
 
 
-def run_training(cfg: TrainLoopConfig) -> Dict[str, Any]:
+def run_training(cfg: TrainLoopConfig, *, mesh=None) -> Dict[str, Any]:
     """The reference's result (``first_loss``, ``final_loss``,
     ``mean_tok_per_s``, ``steps``), and each step's loss and seconds
     (``losses``, ``step_seconds``) of the steps this call ran."""
@@ -70,14 +80,19 @@ def run_training(cfg: TrainLoopConfig) -> Dict[str, Any]:
     shape = InputShape("custom", cfg.seq_len, cfg.global_batch, "train")
     device = torch.device(cfg.device)
 
+    if mesh is None:
+        mesh = MeshShape((1, 1), ("data", "model"))
+    rules = MeshRules(mesh, model_cfg.parallel)
+
     optimizer = AdamW(
         state_dtype=torch.bfloat16
         if model_cfg.parallel.opt_state_dtype == "bfloat16"
         else torch.float32,
         cfg=model_cfg,
     )
-    step_fn = make_train_step(model, optimizer, shape, lr=cfg.lr,
+    step_fn = make_train_step(model, optimizer, rules, shape, lr=cfg.lr,
                               microbatches=cfg.microbatches, loss_chunk=0)
+    lead = step_fn.dp == 1 or step_fn.group.rank == 0
 
     params = model.init(cfg.seed)
     opt_state = optimizer.init(params)
@@ -92,6 +107,10 @@ def run_training(cfg: TrainLoopConfig) -> Dict[str, Any]:
 
         params = tree_map(back, params, restored_p)
         opt_state = AdamWState(*tree_map(back, tuple(opt_state), restored_o))
+    # each rank keeps its shards (at dp 1, the trees themselves)
+    params = step_fn.shard(params)
+    opt_state = AdamWState(opt_state.step, step_fn.shard(opt_state.mu),
+                           step_fn.shard(opt_state.nu))
 
     source = SyntheticTokens(model_cfg.padded_vocab, cfg.seq_len, seed=cfg.seed)
 
@@ -118,24 +137,32 @@ def run_training(cfg: TrainLoopConfig) -> Dict[str, Any]:
                 torch.cuda.synchronize(device)  # the step's update too, not only its loss
             loss = float(metrics["loss"])
             dt = time.perf_counter() - t0
+            if step_fn.dp > 1:  # the slowest rank's
+                dt = step_fn.group.all_reduce_float(dt, "max")
             tracker.update("pod0", cfg.global_batch * cfg.seq_len, dt)
             detector.observe({"pod0": dt})
             losses.append(loss)
             step_seconds.append(dt)
-            if step % cfg.log_every == 0 or step == cfg.steps - 1:
+            if lead and (step % cfg.log_every == 0 or step == cfg.steps - 1):
                 print(
                     f"step {step:5d}  loss {loss:.4f}  "
                     f"gnorm {float(metrics['grad_norm']):.3f}  "
                     f"{cfg.global_batch * cfg.seq_len / dt:,.0f} tok/s"
                 )
             if ckpt and (step + 1) % cfg.ckpt_every == 0:
-                ckpt.save(step + 1, (params, tuple(opt_state)))
+                full = (step_fn.gather(params), (opt_state.step, step_fn.gather(opt_state.mu),
+                                                 step_fn.gather(opt_state.nu)))
+                if lead:
+                    ckpt.save(step + 1, full)
+                del full
     finally:
         prefetch.close()
         if ckpt:
             ckpt.wait_all()
 
     wall = time.perf_counter() - t_start
+    if step_fn.dp > 1:
+        wall = step_fn.group.all_reduce_float(wall, "max")
     return {
         "first_loss": losses[0],
         "final_loss": losses[-1],

@@ -45,14 +45,18 @@ def attention_params(b: ParamBuilder, cfg: ModelConfig, *,
                      bias: bool = False) -> Dict[str, torch.Tensor]:
     """Q/K/V/O projections (+ biases, + qk-norm scales)."""
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
-    p = {"wq": b.param((d, qd)), "wk": b.param((d, kvd)), "wv": b.param((d, kvd)),
-         "wo": b.param((qd, d))}
+    p = {"wq": b.param((d, qd), ("embed", "qheads")),
+         "wk": b.param((d, kvd), ("embed", "kvheads")),
+         "wv": b.param((d, kvd), ("embed", "kvheads")),
+         "wo": b.param((qd, d), ("qheads", "embed"))}
     if bias:
-        p.update(bq=b.param((qd,), init="zeros"), bk=b.param((kvd,), init="zeros"),
-                 bv=b.param((kvd,), init="zeros"), bo=b.param((d,), init="zeros"))
+        p.update(bq=b.param((qd,), ("qheads",), init="zeros"),
+                 bk=b.param((kvd,), ("kvheads",), init="zeros"),
+                 bv=b.param((kvd,), ("kvheads",), init="zeros"),
+                 bo=b.param((d,), ("embed",), init="zeros"))
     if cfg.qk_norm:
-        p["q_norm"] = b.param((cfg.head_dim,), init="zeros")
-        p["k_norm"] = b.param((cfg.head_dim,), init="zeros")
+        p["q_norm"] = b.param((cfg.head_dim,), ("heads_vec",), init="zeros")
+        p["k_norm"] = b.param((cfg.head_dim,), ("heads_vec",), init="zeros")
     return p
 
 

@@ -36,7 +36,8 @@ MAX_DECODER_POS = 32768
 
 
 def _ln_params(b: ParamBuilder, d: int) -> Dict[str, torch.Tensor]:
-    return {"w": b.param((d,), init="ones"), "b": b.param((d,), init="zeros")}
+    return {"w": b.param((d,), ("embed",), init="ones"),
+            "b": b.param((d,), ("embed",), init="zeros")}
 
 
 def _enc_block_params(b: ParamBuilder, cfg: ModelConfig) -> Dict[str, Any]:
@@ -64,8 +65,8 @@ def _dec_block_params(b: ParamBuilder, cfg: ModelConfig) -> Dict[str, Any]:
 def build_encdec_params(b: ParamBuilder, cfg: ModelConfig) -> Dict[str, Any]:
     d, v = cfg.d_model, cfg.padded_vocab
     return {
-        "embed": b.param((v, d), scale=0.02),
-        "dec_pos": b.param((MAX_DECODER_POS, d), scale=0.01),
+        "embed": b.param((v, d), ("vocab", None), scale=0.02),
+        "dec_pos": b.param((MAX_DECODER_POS, d), (None, "embed"), scale=0.01),
         "enc_blocks": [_enc_block_params(b, cfg) for _ in range(cfg.encoder_layers)],
         "enc_ln_out": _ln_params(b, d),
         "dec_blocks": [_dec_block_params(b, cfg) for _ in range(cfg.num_layers)],

@@ -16,7 +16,8 @@ __all__ = ["ffn_params", "ffn", "gelu_ffn_params", "gelu_ffn"]
 
 def ffn_params(b: ParamBuilder, d: int, ff: int) -> Dict[str, torch.Tensor]:
     """SwiGLU: gate (w1), up (w3), down (w2)."""
-    return {"w1": b.param((d, ff)), "w3": b.param((d, ff)), "w2": b.param((ff, d))}
+    return {"w1": b.param((d, ff), ("embed", "mlp")), "w3": b.param((d, ff), ("embed", "mlp")),
+            "w2": b.param((ff, d), ("mlp", "embed"))}
 
 
 def ffn(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
@@ -24,8 +25,9 @@ def ffn(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
 
 
 def gelu_ffn_params(b: ParamBuilder, d: int, ff: int) -> Dict[str, torch.Tensor]:
-    return {"w1": b.param((d, ff)), "b1": b.param((ff,), init="zeros"),
-            "w2": b.param((ff, d)), "b2": b.param((d,), init="zeros")}
+    return {"w1": b.param((d, ff), ("embed", "mlp")), "b1": b.param((ff,), ("mlp",), init="zeros"),
+            "w2": b.param((ff, d), ("mlp", "embed")),
+            "b2": b.param((d,), ("embed",), init="zeros")}
 
 
 def gelu_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,13 @@ population variance), :func:`apply_rope` (split-half),
 uniform ranges).  The reference draws from ``jax.random``, so
 the two give different values from the same seed; parity tests carry the
 reference's parameters across with :mod:`repro_torch.convert` instead.
+
+Every builder call names its parameter's logical axes (``"embed"``,
+``"qheads"`` …, one per dim, as the reference passes them), which the
+other two builders return instead of drawing: :class:`SpecBuilder` the
+axes tuple (resolved against a mesh by ``parallel/mesh_rules.py``) and
+:class:`AbstractBuilder` a ``meta`` tensor (shape and dtype, no memory).
+One code path builds all three trees, so they cannot drift apart.
 """
 
 from __future__ import annotations
@@ -20,10 +27,19 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-__all__ = ["DTYPES", "ParamBuilder", "rms_norm", "layer_norm", "apply_rope",
-           "sinusoidal_positions", "cross_entropy_loss"]
+__all__ = ["DTYPES", "ParamBuilder", "SpecBuilder", "AbstractBuilder", "rms_norm",
+           "layer_norm", "apply_rope", "sinusoidal_positions", "cross_entropy_loss"]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
+
+Axes = Tuple[Optional[str], ...]
+
+
+def _checked(shape: Sequence[int], axes: Sequence[Optional[str]]) -> Tuple[int, ...]:
+    shape = tuple(shape)
+    if len(axes) != len(shape):
+        raise ValueError(f"a {len(shape)}-d parameter with {len(axes)} logical axes {axes}")
+    return shape
 
 
 class ParamBuilder:
@@ -36,9 +52,10 @@ class ParamBuilder:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
 
-    def param(self, shape: Sequence[int], *, init: str = "normal",
+    def param(self, shape: Sequence[int], axes: Sequence[Optional[str]], *,
+              init: str = "normal",
               scale: Optional[Union[float, Tuple[float, float]]] = None) -> torch.Tensor:
-        shape = tuple(shape)
+        shape = _checked(shape, axes)
         kw = dict(dtype=torch.float32, device=self.device)
         if init == "normal":
             fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
@@ -54,6 +71,24 @@ class ParamBuilder:
         else:
             raise ValueError(f"unknown init {init!r}")
         return x.to(self.dtype)
+
+
+class SpecBuilder:
+    """Each parameter's logical axes, in place of the parameter."""
+
+    def param(self, shape: Sequence[int], axes: Sequence[Optional[str]], **_) -> Axes:
+        _checked(shape, axes)
+        return tuple(axes)
+
+
+class AbstractBuilder:
+    """Each parameter as a ``meta`` tensor: its shape and dtype, no memory."""
+
+    def __init__(self, dtype: torch.dtype) -> None:
+        self.dtype = dtype
+
+    def param(self, shape: Sequence[int], axes: Sequence[Optional[str]], **_) -> torch.Tensor:
+        return torch.empty(_checked(shape, axes), dtype=self.dtype, device="meta")
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

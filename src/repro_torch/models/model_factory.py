@@ -32,7 +32,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from . import encdec, transformer
-from .layers import DTYPES, ParamBuilder, cross_entropy_loss
+from .layers import DTYPES, AbstractBuilder, ParamBuilder, SpecBuilder, cross_entropy_loss
 
 __all__ = ["Model", "make_model", "splice_slot", "MOE_AUX_COEF", "MOE_Z_COEF"]
 
@@ -54,10 +54,22 @@ class Model:
     def init(self, seed: int = 0) -> Dict[str, Any]:
         """Random parameters with the reference's init scales, drawn from a
         ``torch.Generator`` seeded with ``seed`` on the model's device."""
-        b = ParamBuilder(seed, DTYPES[self.cfg.param_dtype], self.device)
+        return self._build(ParamBuilder(seed, DTYPES[self.cfg.param_dtype], self.device))
+
+    def abstract_params(self) -> Dict[str, Any]:
+        """``init()``'s tree with each parameter as a ``meta`` tensor (its
+        shape and dtype; nothing allocated)."""
+        return self._build(AbstractBuilder(DTYPES[self.cfg.param_dtype]))
+
+    def param_specs(self) -> Dict[str, Any]:
+        """``init()``'s tree with each parameter's logical axes (a tuple of
+        names or ``None``, one per dim) in its place."""
+        return self._build(SpecBuilder())
+
+    def _build(self, builder):
         if self.cfg.family == "encdec":
-            return encdec.build_encdec_params(b, self.cfg)
-        return transformer.build_decoder_params(b, self.cfg)
+            return encdec.build_encdec_params(builder, self.cfg)
+        return transformer.build_decoder_params(builder, self.cfg)
 
     # -- forward ------------------------------------------------------------
     def forward(self, params, tokens: torch.Tensor, *, mode: str = "train",

@@ -42,10 +42,10 @@ def moe_params(b: ParamBuilder, cfg: ModelConfig) -> Dict[str, object]:
     the dense ``fallback`` FFN when ``cfg.parallel.moe_fallback``."""
     d, eff, e = cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.num_experts
     p: Dict[str, object] = {
-        "router": b.param((d, e), scale=0.02),
-        "w1": b.param((e, d, eff)),
-        "w3": b.param((e, d, eff)),
-        "w2": b.param((e, eff, d)),
+        "router": b.param((d, e), ("embed", None), scale=0.02),
+        "w1": b.param((e, d, eff), ("experts", "expert_embed", "expert_mlp")),
+        "w3": b.param((e, d, eff), ("experts", "expert_embed", "expert_mlp")),
+        "w2": b.param((e, eff, d), ("experts", "expert_mlp", "expert_embed")),
     }
     if cfg.parallel.moe_fallback:
         p["fallback"] = ffn_params(b, d, eff)

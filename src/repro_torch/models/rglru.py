@@ -68,18 +68,18 @@ def rglru_params(b: ParamBuilder, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     d, lw, w = cfg.d_model, _lw(cfg), cfg.conv_width
     blk = lw // _N_BLOCKS
     return {
-        "w_x": b.param((d, lw)),
-        "w_gate": b.param((d, lw)),
-        "w_out": b.param((lw, d)),
-        "conv_w": b.param((w, lw), scale=0.1),
-        "conv_b": b.param((lw,), init="zeros"),
+        "w_x": b.param((d, lw), ("embed", "lru")),
+        "w_gate": b.param((d, lw), ("embed", "lru")),
+        "w_out": b.param((lw, d), ("lru", "embed")),
+        "conv_w": b.param((w, lw), (None, "conv_ch"), scale=0.1),
+        "conv_b": b.param((lw,), ("conv_ch",), init="zeros"),
         # block-diagonal input/recurrence gates over the post-conv features
-        "gate_r_w": b.param((_N_BLOCKS, blk, blk)),
-        "gate_r_b": b.param((lw,), init="zeros"),
-        "gate_i_w": b.param((_N_BLOCKS, blk, blk)),
-        "gate_i_b": b.param((lw,), init="zeros"),
+        "gate_r_w": b.param((_N_BLOCKS, blk, blk), (None, None, None)),
+        "gate_r_b": b.param((lw,), ("lru",), init="zeros"),
+        "gate_i_w": b.param((_N_BLOCKS, blk, blk), (None, None, None)),
+        "gate_i_b": b.param((lw,), ("lru",), init="zeros"),
         # Λ init so that a = σ(Λ)^c lands in [0.9, 0.999]
-        "lam": b.param((lw,), init="uniform", scale=(0.9, 4.0)),
+        "lam": b.param((lw,), ("lru",), init="uniform", scale=(0.9, 4.0)),
     }
 
 

@@ -43,14 +43,14 @@ def ssd_params(b: ParamBuilder, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     d, di, n, nh, w = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.conv_width
     return {
         # z (gate), x, B, C, dt — one fused projection, mamba2-style
-        "in_proj": b.param((d, 2 * di + 2 * n + nh)),
-        "conv_w": b.param((w, di + 2 * n), scale=0.1),
-        "conv_b": b.param((di + 2 * n,), init="zeros"),
-        "A_log": b.param((nh,), init="uniform", scale=(0.0, 1.5)),
-        "D": b.param((nh,), init="ones"),
-        "dt_bias": b.param((nh,), init="uniform", scale=(-4.6, -2.3)),
-        "norm": b.param((di,), init="zeros"),
-        "out_proj": b.param((di, d)),
+        "in_proj": b.param((d, 2 * di + 2 * n + nh), ("embed", "ssm_inner")),
+        "conv_w": b.param((w, di + 2 * n), (None, "conv_ch"), scale=0.1),
+        "conv_b": b.param((di + 2 * n,), ("conv_ch",), init="zeros"),
+        "A_log": b.param((nh,), ("ssm_heads",), init="uniform", scale=(0.0, 1.5)),
+        "D": b.param((nh,), ("ssm_heads",), init="ones"),
+        "dt_bias": b.param((nh,), ("ssm_heads",), init="uniform", scale=(-4.6, -2.3)),
+        "norm": b.param((di,), ("ssm_inner",), init="zeros"),
+        "out_proj": b.param((di, d), ("ssm_inner", "embed")),
     }
 
 

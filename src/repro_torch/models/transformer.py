@@ -75,48 +75,49 @@ def _block_params(b: ParamBuilder, cfg: ModelConfig, kind: str) -> Dict[str, Any
     d = cfg.d_model
     if kind == "attn":
         return {
-            "ln_attn": b.param((d,), init="zeros"),
+            "ln_attn": b.param((d,), ("embed",), init="zeros"),
             "attn": attention_params(b, cfg),
-            "ln_mlp": b.param((d,), init="zeros"),
+            "ln_mlp": b.param((d,), ("embed",), init="zeros"),
             "mlp": ffn_params(b, d, cfg.d_ff),
         }
     if kind == "moe":
         return {
-            "ln_attn": b.param((d,), init="zeros"),
+            "ln_attn": b.param((d,), ("embed",), init="zeros"),
             "attn": attention_params(b, cfg),
-            "ln_mlp": b.param((d,), init="zeros"),
+            "ln_mlp": b.param((d,), ("embed",), init="zeros"),
             "moe": moe_params(b, cfg),
         }
     if kind == "ssd":
-        return {"ln": b.param((d,), init="zeros"), "ssd": ssd_params(b, cfg)}
+        return {"ln": b.param((d,), ("embed",), init="zeros"), "ssd": ssd_params(b, cfg)}
     if kind == "rglru":
         return {
-            "ln_rec": b.param((d,), init="zeros"),
+            "ln_rec": b.param((d,), ("embed",), init="zeros"),
             "rec": rglru_params(b, cfg),
-            "ln_mlp": b.param((d,), init="zeros"),
+            "ln_mlp": b.param((d,), ("embed",), init="zeros"),
             "mlp": ffn_params(b, d, cfg.d_ff),
         }
     if kind == "cross":
         return {
-            "ln_attn": b.param((d,), init="zeros"),
+            "ln_attn": b.param((d,), ("embed",), init="zeros"),
             "attn": attention_params(b, cfg),
-            "ln_xattn": b.param((d,), init="zeros"),
+            "ln_xattn": b.param((d,), ("embed",), init="zeros"),
             "xattn": attention_params(b, cfg),
-            "gate_attn": b.param((), init="zeros"),
-            "ln_mlp": b.param((d,), init="zeros"),
+            "gate_attn": b.param((), (), init="zeros"),
+            "ln_mlp": b.param((d,), ("embed",), init="zeros"),
             "mlp": ffn_params(b, d, cfg.d_ff),
-            "gate_mlp": b.param((), init="zeros"),
+            "gate_mlp": b.param((), (), init="zeros"),
         }
     raise ValueError(f"unknown block kind {kind!r}")
 
 
 def build_decoder_params(b: ParamBuilder, cfg: ModelConfig) -> Dict[str, Any]:
     d, v = cfg.d_model, cfg.padded_vocab
-    params: Dict[str, Any] = {"embed": b.param((v, d), scale=0.02)}
+    # vocab-only sharding of the table, as the reference's
+    params: Dict[str, Any] = {"embed": b.param((v, d), ("vocab", None), scale=0.02)}
     params["layers"] = [_block_params(b, cfg, kind) for kind in layer_kinds(cfg)]
-    params["final_norm"] = b.param((d,), init="zeros")
+    params["final_norm"] = b.param((d,), ("embed",), init="zeros")
     if not cfg.tie_embeddings:
-        params["lm_head"] = b.param((d, v), scale=0.02)
+        params["lm_head"] = b.param((d, v), ("embed", "vocab"), scale=0.02)
     return params
 
 

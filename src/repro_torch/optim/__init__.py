@@ -1,8 +1,6 @@
-"""Optimizer substrate: AdamW, schedules, clipping.
+"""Optimizer substrate: AdamW, schedules, clipping, gradient compression.
 
-The port's copy of ``repro.optim``; gradient compression
-(``compression.py``) waits for slice F with its only reader,
-``collectives.compressed_psum`` (ROADMAP.md queue 1).
+The port's copy of ``repro.optim``.
 """
 
 from .adamw import AdamW, AdamWState, reference_decay_mask

@@ -5,6 +5,8 @@ The port's copy of ``repro.optim.clipping``, over the port's trees.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..tree import tree_leaves, tree_map
@@ -18,8 +20,10 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(tree, max_norm: float):
-    """(``tree`` scaled to a global norm of at most ``max_norm``, the norm before)."""
-    norm = global_norm(tree)
+def clip_by_global_norm(tree, max_norm: float, *, norm: Optional[torch.Tensor] = None):
+    """(``tree`` scaled to a global norm of at most ``max_norm``, the norm
+    before).  ``norm`` is the tree's norm where the tree holds only this
+    rank's shards of it (computed over the mesh by the caller)."""
+    norm = global_norm(tree) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return tree_map(lambda x: (x.float() * scale).to(x.dtype), tree), norm

@@ -1,0 +1,144 @@
+"""Collectives over one mesh axis's process group, and the compressed psum.
+
+:class:`Group` wraps one ``torch.distributed`` process group (or none: a
+group of one rank, where every collective is the identity) with the
+collectives the port's distributed paths run: all-reduce, broadcast,
+all-gather and reduce-scatter of flat tensors, and point-to-point
+send / recv.  It counts the bytes this rank hands to them
+(``sent_bytes``).
+
+**Host staging.**  On one card two ranks cannot share NCCL ("Duplicate
+GPU detected"), so they share gloo.  Gloo takes CUDA tensors in
+``all_reduce`` and ``broadcast`` (its documented table) and, on the
+H100 machine's PyTorch 2.11, in ``all_gather_into_tensor`` and
+``reduce_scatter_tensor`` too (``chip_smoke.py`` phase 8 runs them
+there); its point-to-point ``send`` / ``recv`` of a CUDA tensor fail in
+its TCP transport ("writev: Bad address"), and the failure can be thrown
+on gloo's own thread, where it aborts the process instead of raising, so
+they are never tried unstaged.  Those two are staged here, and only here: the tensor is copied to a pinned host buffer, sent or
+received there, and copied back.  This is transport, not compute; it
+counts the bytes it copies (``staged_bytes``, both directions), and it
+never runs when the backend is NCCL or the tensors are on the CPU.
+
+:func:`compressed_psum` is the reference's int8 all-reduce step for step:
+each rank's scale (its max |x|, at least 1e-12, over 127) is maxed across
+the group so the quanta are commensurable, ``x / scale`` is rounded half
+to even (``torch.round`` as ``jnp.round``) and clipped to ±127 as int8,
+the int32 sum of the quanta is all-reduced, and the sum dequantized.  As
+in the reference, the sum runs in int32, so the bytes on the wire are
+those of float32; the int8 payload is what an all-gather of the quanta
+would carry.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from ..tree import tree_map
+
+__all__ = ["Group", "compressed_psum", "compressed_psum_tree"]
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+class Group:
+    """One process group (``None``: the default group when one is
+    initialised, else a group of this rank alone)."""
+
+    def __init__(self, pg: Optional[dist.ProcessGroup] = None) -> None:
+        self.pg = pg
+        active = dist.is_available() and dist.is_initialized()
+        self.size = dist.get_world_size(pg) if active else 1
+        self.rank = dist.get_rank(pg) if active else 0
+        self.backend = dist.get_backend(pg) if active else None
+        self.sent_bytes = 0
+        self.staged_bytes = 0
+
+    def _global(self, rank: int) -> int:
+        return rank if self.pg is None else dist.get_global_rank(self.pg, rank)
+
+    def _staged(self, t: torch.Tensor) -> bool:
+        """Whether a point-to-point transfer of ``t`` goes through the host."""
+        return self.backend == "gloo" and t.is_cuda
+
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        self.staged_bytes += t.numel() * t.element_size()
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+
+    def _back(self, host: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        self.staged_bytes += host.numel() * host.element_size()
+        return like.copy_(host)
+
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``t`` reduced over the group, in place."""
+        if self.size > 1:
+            self.sent_bytes += t.numel() * t.element_size()
+            dist.all_reduce(t, op=_OPS[op], group=self.pg)
+        return t
+
+    def all_reduce_float(self, x: float, op: str = "sum") -> float:
+        """A host number reduced over the group (through the card for NCCL,
+        which takes no host tensors)."""
+        t = torch.tensor([x], dtype=torch.float64,
+                         device="cuda" if self.backend == "nccl" else "cpu")
+        return float(self.all_reduce(t, op)[0])
+
+    def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        """``t`` of group rank ``src`` on every rank, in place."""
+        if self.size > 1:
+            if self.rank == src:
+                self.sent_bytes += t.numel() * t.element_size()
+            dist.broadcast(t, src=self._global(src), group=self.pg)
+        return t
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """(size, *t.shape): every rank's ``t``, in group-rank order."""
+        t = t.contiguous()
+        out = torch.empty((self.size, *t.shape), dtype=t.dtype, device=t.device)
+        if self.size == 1:
+            return out.copy_(t[None])
+        self.sent_bytes += t.numel() * t.element_size()
+        dist.all_gather_into_tensor(out.view(-1), t.view(-1), group=self.pg)
+        return out
+
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (size, ...) summed over the group; this rank's row of the sum."""
+        t = t.contiguous()
+        out = torch.empty(t.shape[1:], dtype=t.dtype, device=t.device)
+        if self.size == 1:
+            return out.copy_(t[0])
+        self.sent_bytes += t.numel() * t.element_size()
+        dist.reduce_scatter_tensor(out.view(-1), t.view(-1), op=dist.ReduceOp.SUM, group=self.pg)
+        return out
+
+    def send(self, t: torch.Tensor, dst: int) -> None:
+        t = t.contiguous()
+        self.sent_bytes += t.numel() * t.element_size()
+        dist.send(self._to_host(t) if self._staged(t) else t, dst=self._global(dst),
+                  group=self.pg)
+
+    def recv(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        """Group rank ``src``'s tensor into ``t`` (contiguous), in place."""
+        if self._staged(t):
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            dist.recv(host, src=self._global(src), group=self.pg)
+            return self._back(host, t)
+        dist.recv(t, src=self._global(src), group=self.pg)
+        return t
+
+
+def compressed_psum(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """All-reduce with int8 quanta on a shared grid (the reference's)."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().max(), min=1e-12) / 127.0
+    scale = group.all_reduce(scale.reshape(1), "max")[0]  # shared grid
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    total = group.all_reduce(q.to(torch.int32), "sum")    # int payload
+    return (total.float() * scale).to(x.dtype)
+
+
+def compressed_psum_tree(tree, group: Group):
+    return tree_map(lambda g: compressed_psum(g, group), tree)

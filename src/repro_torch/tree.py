@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Iterator, List, Tuple
 
-__all__ = ["tree_map", "tree_leaves", "tree_leaves_with_path"]
+__all__ = ["tree_map", "tree_map_with_path", "tree_leaves", "tree_leaves_with_path"]
 
 
 def tree_map(fn: Callable[..., Any], tree, *rest):
@@ -20,6 +20,15 @@ def tree_map(fn: Callable[..., Any], tree, *rest):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
     return fn(tree, *rest)
+
+
+def tree_map_with_path(fn: Callable[[Tuple, Any], Any], tree, prefix: Tuple = ()):
+    """``tree`` with each leaf replaced by ``fn(its path, leaf)``."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, prefix + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, prefix + (i,)) for i, v in enumerate(tree))
+    return fn(prefix, tree)
 
 
 def tree_leaves_with_path(tree, prefix: Tuple = ()) -> Iterator[Tuple[Tuple, Any]]:

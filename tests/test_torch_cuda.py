@@ -528,9 +528,11 @@ def test_smoke_train_step_through_kernels_matches_plain(cuda):
     from repro_torch.configs.base import InputShape
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import AdamW
+    from repro_torch.parallel.mesh_rules import MeshRules, MeshShape
     from repro_torch.tree import tree_leaves
 
     cfg = get_config("tinyllama-1.1b").smoke()
+    rules = MeshRules(MeshShape((1, 1), ("data", "model")), cfg.parallel)
     rng = np.random.default_rng(3)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 65))).to(cuda)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
@@ -541,7 +543,7 @@ def test_smoke_train_step_through_kernels_matches_plain(cuda):
         model = make_model(cfg, device=cuda, plain=plain)
         params = model.init(0)
         opt = AdamW(cfg=cfg)
-        step = make_train_step(model, opt, shape, lr=1e-3, loss_chunk=0, microbatches=2)
+        step = make_train_step(model, opt, rules, shape, lr=1e-3, loss_chunk=0, microbatches=2)
         n = fk.flash_attention.launches
         grads, _ = step.grads(params, batch)
         launches = fk.flash_attention.launches - n
@@ -751,3 +753,85 @@ def test_remote_prefill_equals_inline(cuda_worker):
     assert engine.model_spec["device"] == "cuda"
     assert on_worker(cuda_worker.address, LaunchCounts())["flash_attention"] == \
         cfg.num_layers * len(specs)
+
+
+# -- slice F1: two gloo ranks on the one card ---------------------------------
+def _gloo_cuda_rank(rank: int, world: int, tmp: str) -> None:
+    """The collectives of ``Group`` on CUDA tensors of two gloo ranks, and
+    one sharded smoke() train step against the one-device step."""
+    import json
+    import pathlib
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamW
+    from repro_torch.parallel import Group, MeshRules, MeshShape, compressed_psum
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous", rank=rank,
+                            world_size=world)
+    try:
+        g = Group()
+        v = (torch.arange(6, dtype=torch.float32, device="cuda") + 10 * rank)
+        out = {"all_gather": g.all_gather(v.reshape(2, 3)).cpu().tolist(),
+               "reduce_scatter": g.reduce_scatter(torch.stack([v + k for k in range(world)]))
+               .cpu().tolist(),
+               "broadcast": g.broadcast(v.clone(), world - 1).cpu().tolist(),
+               "psum": compressed_psum(v, g).cpu().tolist()}
+        if rank == 0:
+            g.send(v, 1)
+        else:
+            out["recv"] = g.recv(torch.empty(6, device="cuda"), 0).cpu().tolist()
+        out["staged_bytes"] = g.staged_bytes
+        cfg = get_config("mamba2-130m").smoke()
+        model = make_model(cfg, device="cuda")
+        params = model.init(0)
+        rng = np.random.default_rng(3)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 65))).cuda()
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                 "mask": torch.ones((4, 64), device="cuda")}
+        shape = InputShape("t", 64, 4, "train")
+        opt = AdamW(cfg=cfg)
+        two = make_train_step(model, opt, MeshRules(make_mesh((world, 1)), cfg.parallel), shape,
+                              loss_chunk=0, microbatches=1)
+        n = ssk.ssd_scan.launches
+        shards = two.shard(params)
+        _, _, m2 = two(shards, opt.init(shards), batch)
+        out["launches"] = ssk.ssd_scan.launches - n
+        one = make_train_step(model, opt, MeshRules(MeshShape((1, 1), ("data", "model")),
+                                                    cfg.parallel),
+                              shape, loss_chunk=0, microbatches=2)
+        _, _, m1 = one(params, opt.init(params), batch)
+        out["metrics"] = [{k: float(m[k]) for k in ("loss", "grad_norm")} for m in (m2, m1)]
+        out["step_staged_bytes"] = two.group.staged_bytes
+        pathlib.Path(tmp, f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_gloo_ranks_share_the_card(cuda, tmp_path):
+    """Two gloo ranks on cuda:0: the collectives on CUDA tensors give the
+    same results as on the host; only send and recv are staged, and count
+    their bytes; a sharded mamba2 smoke() step launches K5, stages
+    nothing, and equals the one-device step with 2 microbatches."""
+    import json
+
+    import torch.multiprocessing as mp
+
+    mp.spawn(_gloo_cuda_rank, args=(2, str(tmp_path)), nprocs=2)
+    outs = [json.loads((tmp_path / f"rank{r}.json").read_text()) for r in range(2)]
+    v = [np.arange(6, dtype=np.float32) + 10 * r for r in range(2)]
+    for r, out in enumerate(outs):
+        np.testing.assert_array_equal(out["all_gather"], np.stack(v).reshape(2, 2, 3))
+        np.testing.assert_array_equal(out["reduce_scatter"], v[0] + v[1] + 2 * r)
+        np.testing.assert_array_equal(out["broadcast"], v[1])
+        np.testing.assert_allclose(out["psum"], v[0] + v[1], rtol=0.02, atol=0.02 * 15)
+        assert out["staged_bytes"] == 24    # rank 0's send, rank 1's recv
+        assert out["launches"] == 2 * get_config("mamba2-130m").smoke().num_layers
+        two, one = out["metrics"]
+        np.testing.assert_allclose(two["loss"], one["loss"], rtol=1e-5)
+        np.testing.assert_allclose(two["grad_norm"], one["grad_norm"], rtol=1e-4)
+        assert out["step_staged_bytes"] == 0

@@ -4,7 +4,9 @@ An AST scan finds every import in ``src/repro_torch`` and ``chip_smoke.py``,
 and every string that names a jax or ``repro`` module as code would (an
 entry string for ``python -c``, a module path), docstrings aside, the
 training slice's modules (``data``, ``optim``, ``launch/steps.py``,
-``launch/train.py``) among them; a subprocess in which ``import jax``
+``launch/train.py``) and the distribution layer's (``parallel/``,
+``optim/compression.py``, ``checkpoint/elastic_restore.py``,
+``launch/mesh.py``) among them; a subprocess in which ``import jax``
 fails imports every module of the port and runs its CPU entry points
 (serving and training), a worker process and a checkpoint among them; ``chip_smoke.py`` refuses to run, and prints no result, on a host
 without a card.
@@ -63,7 +65,10 @@ def test_no_jax_or_reference_import():
     assert len(FILES) > 10, "the scan found too few files"
     scanned = {str(path.relative_to(PORT)) for path in FILES if PORT in path.parents}
     assert {"data/tokens.py", "data/prefetch.py", "optim/adamw.py", "optim/clipping.py",
-            "optim/schedule.py", "launch/steps.py", "launch/train.py", "tree.py"} <= scanned
+            "optim/schedule.py", "launch/steps.py", "launch/train.py", "tree.py",
+            "parallel/__init__.py", "parallel/mesh_rules.py", "parallel/collectives.py",
+            "parallel/pipeline.py", "optim/compression.py", "checkpoint/elastic_restore.py",
+            "launch/mesh.py"} <= scanned
     offenders = [f"{path.relative_to(ROOT)} imports {name}"
                  for path in FILES for name in absolute_imports(path)
                  if name.split(".")[0] in FORBIDDEN]

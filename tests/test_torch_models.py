@@ -82,12 +82,14 @@ def test_apply_rope():
 
 def test_param_builder_scales():
     b = layers.ParamBuilder(0, torch.float32, "cpu")
-    w = b.param((256, 512))
+    w = b.param((256, 512), ("embed", "mlp"))
     assert abs(float(w.std()) - 256**-0.5) < 0.01 * 256**-0.5 * 10
-    u = b.param((1000,), init="uniform", scale=(-4.6, -2.3))
+    u = b.param((1000,), ("ssm_heads",), init="uniform", scale=(-4.6, -2.3))
     assert float(u.min()) >= -4.6 and float(u.max()) <= -2.3
-    again = layers.ParamBuilder(0, torch.float32, "cpu").param((256, 512))
+    again = layers.ParamBuilder(0, torch.float32, "cpu").param((256, 512), ("embed", "mlp"))
     assert torch.equal(w, again)
+    with pytest.raises(ValueError, match="logical axes"):
+        b.param((4, 4), ("embed",))
 
 
 @pytest.mark.parametrize("window", [0, 8])

@@ -40,6 +40,7 @@ from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan, ssd_scan_plain  # no
 from repro_torch.launch.steps import default_microbatches, make_train_step  # noqa: E402
 from repro_torch.launch.train import TrainLoopConfig, run_training  # noqa: E402
 from repro_torch.models import layers, make_model, transformer  # noqa: E402
+from repro_torch.parallel import mesh_rules  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_leaves_with_path  # noqa: E402
 
 MODEL_TOL = dict(rtol=2e-4, atol=2e-4)     # the port's model tolerance
@@ -51,6 +52,11 @@ GRAD_REL = 1e-4
 ARCHS = ["tinyllama-1.1b", "mamba2-130m", "qwen3-moe-30b-a3b", "recurrentgemma-9b",
          "whisper-large-v3", "llama-3.2-vision-90b"]
 B, S, CHUNK = 2, 16, 8
+
+
+def one_device(cfg):
+    """The rules of the one-device (1, 1) mesh, no process group."""
+    return mesh_rules.MeshRules(mesh_rules.MeshShape((1, 1), ("data", "model")), cfg.parallel)
 
 
 def with_open_gates(jparams):
@@ -113,7 +119,7 @@ def family(request):
 
 
 def port_grads(model, params, batch, loss_chunk=CHUNK):
-    step = make_train_step(model, optim.AdamW(cfg=model.cfg),
+    step = make_train_step(model, optim.AdamW(cfg=model.cfg), one_device(model.cfg),
                            InputShape("t", S, B, "train"), loss_chunk=loss_chunk, microbatches=1)
     return step.grads(params, torch_batch(batch))
 
@@ -194,7 +200,8 @@ def test_train_step_matches_reference(auto_mesh, arch, mb):
                              JaxInputShape("t", S, 4, "train"), lr=lr, loss_chunk=CHUNK,
                              microbatches=mb).jit()
     opt = optim.AdamW(cfg=cfg)
-    step = make_train_step(make_model(cfg, device="cpu"), opt, InputShape("t", S, 4, "train"),
+    step = make_train_step(make_model(cfg, device="cpu"), opt, one_device(cfg),
+                           InputShape("t", S, 4, "train"),
                            lr=lr, loss_chunk=CHUNK, microbatches=mb)
     assert step.microbatches == mb
     params = to_port(jparams, cfg)
@@ -224,12 +231,19 @@ def test_train_step_matches_reference(auto_mesh, arch, mb):
 
 def test_default_microbatches():
     cfg = get_config("tinyllama-1.1b")
-    assert default_microbatches(cfg, InputShape("t", 2048, 8, "train")) == 2
-    assert default_microbatches(cfg, InputShape("t", 2048, 3, "train")) == 1
-    assert default_microbatches(cfg, InputShape("t", 64, 8, "train")) == 1
-    assert default_microbatches(cfg, InputShape("t", 2048, 8, "train"), dp=2) == 1
+    rules = one_device(cfg)
+    assert default_microbatches(cfg, InputShape("t", 2048, 8, "train"), rules) == 2
+    assert default_microbatches(cfg, InputShape("t", 2048, 3, "train"), rules) == 1
+    assert default_microbatches(cfg, InputShape("t", 64, 8, "train"), rules) == 1
+    for shape, dp in (((2, 1), 2), ((2, 2, 1), 4)):     # dp from the mesh: pod x data
+        names = ("pod", "data", "model")[-len(shape):]
+        rules = mesh_rules.MeshRules(mesh_rules.MeshShape(shape, names), cfg.parallel)
+        assert default_microbatches(cfg, InputShape("t", 2048, 8, "train"), rules) == {
+            2: 1, 4: 1}[dp]
+        assert default_microbatches(cfg, InputShape("t", 2048, 32, "train"), rules) == {
+            2: 4, 4: 2}[dp]
     mb4 = cfg.replace(parallel=dataclasses.replace(cfg.parallel, microbatches=4))
-    assert default_microbatches(mb4, InputShape("t", 64, 8, "train")) == 4
+    assert default_microbatches(mb4, InputShape("t", 64, 8, "train"), rules) == 4
 
 
 def test_training_loss_decreases(tmp_path):
@@ -279,7 +293,8 @@ def test_microbatched_step_matches_monolithic():
     outs = {}
     for mb in (1, 4):
         opt = optim.AdamW(cfg=cfg)
-        step = make_train_step(model, opt, shape, microbatches=mb, loss_chunk=0)
+        step = make_train_step(model, opt, one_device(cfg), shape, microbatches=mb,
+                               loss_chunk=0)
         grads, _ = step.grads(params, batch)
         outs[mb] = (grads,) + step(params, opt.init(params), batch)
     assert_grads_close(outs[4][0], outs[1][0])
