@@ -45,7 +45,9 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    cross-attention (Sq 55, 448 and 1 over Sk 1500 frames);
    llama-3.2-vision-90b's self-attention (causal, S 891) and
    cross-attention (Sq 891 over Sk 1024 image tokens, H 64, KVH 8, D
-   128).  K4's bound counts the (query, key) pairs its masks keep.  K5 at
+   128); and what phase 9 hands K4 on a rank of its (2, 2) mesh (B 2, S
+   2048, 16 query and 2 kv heads: tinyllama's at D 64, qwen3-moe's at
+   D 128).  K4's bound counts the (query, key) pairs its masks keep.  K5 at
    mamba2-130m's prefill (B 1, S 2048, 1000 and the longest served
    prompt's 891, H 24, P 64, N 128, chunk 256) with zero and nonzero h0 at
    2e-4.
@@ -156,13 +158,37 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
       gradient 1e-4 of the largest |g|), and ``compressed_psum`` of each
       rank's gradients within 0.02 of the exact sum, with the bytes each
       hands to the collective.
+9. Tensor and sequence parallelism (slice F2): four ranks spawned on the
+   one card share gloo on a (2, 2) ``("data", "model")`` mesh; each rank
+   holds its block of every leaf, computes on its ``model`` block (its
+   heads through K4, its experts) and reduces over the model group.
+   a. ``run_training`` on the mesh, tinyllama-1.1b at full width, bf16,
+      global batch 4 × 2048, 1 microbatch, 3 steps from the seed: finite
+      losses, 2 × 22 × 3 K4 launches a rank (16 query and 2 kv heads a
+      call); a rank's step ms (the steps after the first; each ends in
+      ``torch.cuda.synchronize()``), the bytes it hands to the model
+      group's and the data group's collectives a step, its peak memory.
+   b. The same for qwen3-moe-30b-a3b at published widths cut to 4 of 48
+      layers (``local`` dispatch: each model rank serves 64 of the 128
+      experts), and each data shard's own ``moe_overflow_frac`` and
+      ``moe_load_max`` in the first step's forward, read where the
+      routing plan's statistics are computed (before their mean over the
+      data shards).
+   c. float32, batch 4 × 512: tinyllama at 4 layers, sequence
+      parallelism off and on, and mamba2-130m at full width (K5 on the
+      gathered ``in_proj`` path), each held to the one-rank step on the
+      same card as 8c holds; qwen3-moe at 4 layers held to itself through
+      K4's plain version (per-shard routing differs from one rank's
+      global routing by design): every token's experts equal, the aux
+      losses within 1e-5, the same f32 measures.
 
 Launch counts are set to 0 just before each main path (phases 2–3 for
 K1–K3, each model's serving run in phase 5 and in 6a, 6b for K3, each
-training run in phase 7, and in each rank 8a's run and 8b's pipeline)
-and read just after, so they count the main path's launches only; the
-JSON line's ``launches`` is phases 2–3's, phase 5's, phase 7's and
-phase 8's (summed over the models and ranks), ``launches_by_path`` names
+training run in phase 7, in each rank 8a's run and 8b's pipeline, and
+9a's and 9b's runs and 9c's steps) and read just after, so they count
+the main path's launches only; the JSON line's ``launches`` is phases
+2–3's, phase 5's, phase 7's, phase 8's and phase 9's (summed over the
+models and ranks), ``launches_by_path`` names
 each model's (whisper's and the vision model's by form, recurrentgemma's
 past-the-window check apart) and adds phase 6's, K4's row lists every
 phase-4 shape under ``shapes``, and K4's and K5's rows carry phase 7's
@@ -256,23 +282,27 @@ PARITY_BATCH = 4
 # gradients: an atol of this share of the tree's largest |g|, not per leaf:
 # a true gradient of 0 (whisper's attention key biases) is rounding alone
 GRAD_REL = 1e-4
-# K4 in phase 4: (model and use, H, KVH, D, causal, window, (Sq, Sk) pairs)
-# of each served model's attention at full width: causal prefills; the
-# hybrid's local window, which masks from S 2049 on; whisper's encoder
+# K4 in phase 4: (model and use, B, H, KVH, D, causal, window, (Sq, Sk)
+# pairs) of each served model's attention at full width: causal prefills;
+# the hybrid's local window, which masks from S 2049 on; whisper's encoder
 # (no mask), its decoder's causal self-attention at the longest prompt
 # phase 5 serves (55 tokens) and its cross-attention over 1500 frames at
 # that prompt, at 448 (the published decoder's whole context) and at a
 # decode step (Sq 1); the vision model's causal self-attention and its
-# cross-attention over 1024 image tokens at its 891-token prompt
+# cross-attention over 1024 image tokens at its 891-token prompt; and
+# what phase 9a and 9b hand K4 on each rank of the (2, 2) mesh: a data
+# shard's 2 rows of 2048 tokens on a model rank's half of the heads
 K4_SHAPES = (
-    ("tinyllama-1.1b", 32, 4, 64, True, 0, ((2048, 2048), (1000, 1000), (891, 891))),
-    ("stablelm-12b", 32, 8, 160, True, 0, ((2048, 2048), (891, 891))),
-    ("recurrentgemma-9b", 16, 1, 256, True, 2048, ((2048, 2048), (891, 891), (4096, 4096))),
-    ("whisper-large-v3 encoder", 20, 20, 64, False, 0, ((1500, 1500),)),
-    ("whisper-large-v3 self", 20, 20, 64, True, 0, ((55, 55),)),
-    ("whisper-large-v3 cross", 20, 20, 64, False, 0, ((55, 1500), (448, 1500), (1, 1500))),
-    ("llama-3.2-vision-90b self", 64, 8, 128, True, 0, ((891, 891),)),
-    ("llama-3.2-vision-90b cross", 64, 8, 128, False, 0, ((891, 1024),)),
+    ("tinyllama-1.1b", 1, 32, 4, 64, True, 0, ((2048, 2048), (1000, 1000), (891, 891))),
+    ("stablelm-12b", 1, 32, 8, 160, True, 0, ((2048, 2048), (891, 891))),
+    ("recurrentgemma-9b", 1, 16, 1, 256, True, 2048, ((2048, 2048), (891, 891), (4096, 4096))),
+    ("whisper-large-v3 encoder", 1, 20, 20, 64, False, 0, ((1500, 1500),)),
+    ("whisper-large-v3 self", 1, 20, 20, 64, True, 0, ((55, 55),)),
+    ("whisper-large-v3 cross", 1, 20, 20, 64, False, 0, ((55, 1500), (448, 1500), (1, 1500))),
+    ("llama-3.2-vision-90b self", 1, 64, 8, 128, True, 0, ((891, 891),)),
+    ("llama-3.2-vision-90b cross", 1, 64, 8, 128, False, 0, ((891, 1024),)),
+    ("tinyllama-1.1b a model rank's heads (9a)", 2, 16, 2, 64, True, 0, ((2048, 2048),)),
+    ("qwen3-moe-30b-a3b a model rank's heads (9b)", 2, 16, 2, 128, True, 0, ((2048, 2048),)),
 )
 
 
@@ -673,9 +703,9 @@ def phase4_model_kernels():
 
     # -- K4 at the served models' attention -----------------------------------
     rows = []
-    for model_name, h, kvh, d, causal, window, lengths in K4_SHAPES:
+    for model_name, nb, h, kvh, d, causal, window, lengths in K4_SHAPES:
         for sq, sk in lengths:
-            q32, k32, v32 = normal(1, sq, h, d), normal(1, sk, kvh, d), normal(1, sk, kvh, d)
+            q32, k32, v32 = normal(nb, sq, h, d), normal(nb, sk, kvh, d), normal(nb, sk, kvh, d)
             mask = dict(causal=causal, window=window)
             for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
                 q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
@@ -709,11 +739,11 @@ def phase4_model_kernels():
                 el = 2 if dtype == torch.bfloat16 else 4
                 # the work this mask leaves: kernel_flops scaled by the
                 # window's share of the causal pairs
-                flops = fops.kernel_flops(1, sq, sk, h, d, causal=causal) * (
+                flops = fops.kernel_flops(nb, sq, sk, h, d, causal=causal) * (
                     attended_pairs(sq, sk, causal, window) / attended_pairs(sq, sk, causal, 0))
-                b, by = bound_ms(fops.kernel_hbm_bytes(1, sq, sk, h, kvh, d, bytes_per_el=el),
+                b, by = bound_ms(fops.kernel_hbm_bytes(nb, sq, sk, h, kvh, d, bytes_per_el=el),
                                  flops, bf16=dtype == torch.bfloat16)
-                rows.append(dict(model=model_name, shape=f"H={h} KVH={kvh} D={d} Sq={sq} "
+                rows.append(dict(model=model_name, shape=f"B={nb} H={h} KVH={kvh} D={d} Sq={sq} "
                                  f"Sk={sk} causal={causal} window={window} {name}",
                                  max_abs_err=err, tolerance_used=used, ms=ms, device_ms=dev,
                                  plain_ms=plain, bound_ms=b, bound_by=by, library_ms=library,
@@ -1815,7 +1845,6 @@ def phase7_training(arch: str, wrappers: dict, card: str, keep=None):
     torch.cuda.empty_cache()
     cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
     opt32 = AdamW(cfg=cfg32)
-    state32 = opt32.init(params32)
     shape32 = InputShape("parity", seq, PARITY_BATCH, "train")
     batch = batch_of(100, PARITY_BATCH)
     results = {}
@@ -1823,7 +1852,7 @@ def phase7_training(arch: str, wrappers: dict, card: str, keep=None):
         step32 = make_train_step(make_model(cfg32, device="cuda", plain=plain), opt32, rules,
                                  shape32, lr=TRAIN_RUN["lr"], loss_chunk=0, microbatches=1)
         grads, metrics = step32.grads(params32, batch)
-        metrics = step32.update(params32, state32, grads, metrics)[2]
+        metrics = dict(metrics, grad_norm=global_norm(grads))  # the step's, before clipping
         results[plain] = (grads, {k: float(v) for k, v in metrics.items()})
         del grads, step32
     (gk, mk), (gp, mp) = results[False], results[True]
@@ -1848,7 +1877,7 @@ def phase7_training(arch: str, wrappers: dict, card: str, keep=None):
         "grads_max_diff_over_max_g": vs_plain, "microbatches_2_vs_1_max_diff_over_max_g": vs_mb,
         "loss_2_microbatches": float(m2["loss"]), "peak_mem_GB":
             torch.cuda.max_memory_allocated() / 1e9}))
-    del params32, state32, gk, g2, step2, batch
+    del params32, gk, g2, step2, batch
     gc.collect()
     torch.cuda.empty_cache()
     return kernel, launches[kernel], train_function_ms(kernel), rest["losses"]
@@ -2028,7 +2057,7 @@ def _phase8c(rank: int, mesh, plan: dict) -> dict:
     from repro_torch.data import SyntheticTokens
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import make_model
-    from repro_torch.optim import AdamW
+    from repro_torch.optim import AdamW, global_norm
     from repro_torch.parallel import Group, MeshRules, MeshShape, compressed_psum_tree
 
     device = plan["device"]
@@ -2048,8 +2077,7 @@ def _phase8c(rank: int, mesh, plan: dict) -> dict:
                           loss_chunk=0, microbatches=1)
     shards = two.shard(params)
     grads, metrics = two.grads(shards, batch)
-    metrics = {k: float(v) for k, v in two.update(shards, opt.init(shards), grads,
-                                                  metrics)[2].items()}
+    metrics = {k: float(v) for k, v in dict(metrics, grad_norm=two.global_norm(grads)).items()}
     grads = two.gather(grads)
     one_rules = MeshRules(MeshShape((1, 1), ("data", "model")), cfg.parallel)
     result = dict(arch=cfg.name, layers=cfg.num_layers, batch=f"{rows} x {seq}",
@@ -2057,7 +2085,7 @@ def _phase8c(rank: int, mesh, plan: dict) -> dict:
     if rank == 0:       # the one-rank step with 2 microbatches: the same rows in 2 pieces
         one = make_train_step(model, opt, one_rules, shape, lr=lr, loss_chunk=0, microbatches=2)
         g1, m1 = one.grads(params, batch)
-        m1 = {k: float(v) for k, v in one.update(params, opt.init(params), g1, m1)[2].items()}
+        m1 = {k: float(v) for k, v in dict(m1, grad_norm=global_norm(g1)).items()}
         loss_rel = abs(metrics["loss"] - m1["loss"]) / abs(m1["loss"])
         norm_rel = abs(metrics["grad_norm"] - m1["grad_norm"]) / m1["grad_norm"]
         require(loss_rel <= 1e-5, f"8c: loss {metrics['loss']} on 2 ranks, {m1['loss']} on one")
@@ -2157,6 +2185,297 @@ def phase8_distributed(ckpt: Path, want_losses, card: str, *, device: str = "cud
         launches[f"phase 8a train {DIST_TRAIN['arch']} rank {r['rank']}"] = r["8a"]["launches"]
         launches[f"phase 8b pipeline {PIPELINE['arch']} stage {r['rank']}"] = {
             "flash_attention": r["8b"]["k4_launches"]}
+    return launches
+
+
+# phase 9: tensor and sequence parallelism (slice F2): four gloo ranks on
+# the one card, a (2, 2) ("data", "model") mesh
+TP_MESH = (2, 2)
+# 9a and 9b through run_training on the mesh, bf16, 1 microbatch, 3 steps
+# from the seed: tinyllama-1.1b at full width; qwen3-moe-30b-a3b at
+# published widths cut to 4 of its 48 layers (every rank builds the whole
+# tree before it keeps its block: 6.3 GB at 4 layers, 61.5 GB at 48)
+TP_TRAIN = (("9a", "tinyllama-1.1b", 0), ("9b", "qwen3-moe-30b-a3b", 4))
+TP_RUN = dict(global_batch=4, seq_len=2048, steps=3)
+# 9c: float32 at a batch of 4 x 512: (arch, layers kept (0: all), sequence
+# parallel) held to the one-rank step on the same card, and qwen3-moe at
+# 4 layers held to itself through K4's plain version (per-shard routing
+# differs from one rank's global routing by design)
+TP_PARITY = (("tinyllama-1.1b", 4, False), ("tinyllama-1.1b", 4, True), ("mamba2-130m", 0, False))
+TP_PARITY_MOE = ("qwen3-moe-30b-a3b", 4)
+TP_PARITY_BATCH = dict(batch=4, seq=512)
+
+
+def _phase9_train(mesh, plan: dict, part: str, arch: str, layers: int) -> dict:
+    """run_training on the mesh: losses, step ms, bytes a step to each group,
+    peak memory, launches; for the moe model each data shard's own routing
+    readings in the first step's forward (before their mean over the shards)."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+    from repro_torch.launch.train import TrainLoopConfig, run_training
+    from repro_torch.models.transformer import layer_kinds
+
+    device = plan["device"]
+    run_cfg = dict(plan["tp_run"], lr=plan["train"]["lr"])
+    layers = 0 if plan["smoke"] else layers
+    cfg = get_config(arch)
+    cfg = cfg.smoke() if plan["smoke"] else cfg
+    cfg = cfg.replace(num_layers=layers) if layers else cfg
+    wrappers = {"flash_attention": flash_attention, "ssd_scan": ssd_scan}
+    for w in wrappers.values():
+        w.launches = 0
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    stats, served = [], []      # each moe layer call's (load, overflow); its experts
+    watch = contextlib.ExitStack()
+    if cfg.family == "moe":
+        watch.enter_context(_observing("core.moe_dispatch", "expert_load_stats",
+                                       lambda args, kw, r: stats.append(
+                                           (r[0].detach().max(), r[1].detach()))))
+        watch.enter_context(_observing("models.moe", "_place_rows",
+                                       lambda args, kw, r: served.append(args[0].shape[0])))
+    with watch:
+        run = run_training(TrainLoopConfig(arch=arch, smoke=plan["smoke"], layers=layers,
+                                           device=device, microbatches=1, log_every=1,
+                                           **run_cfg), mesh=mesh)
+    launches = {name: w.launches for name, w in wrappers.items()}
+    cuda = device == "cuda"
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    reserved_gb = torch.cuda.max_memory_reserved() / 1e9 if cuda else None
+    require(all(math.isfinite(x) for x in run["losses"]), f"{part}: losses {run['losses']}")
+    attn = sum(kind in ("attn", "moe") for kind in layer_kinds(cfg))
+    want = 2 * attn * run_cfg["steps"]      # forward and remat, a layer and step
+    if device == "cuda":
+        require(launches["flash_attention"] == want and not launches["ssd_scan"],
+                f"{part}: launches {launches}, not flash_attention {want}")
+    result = dict(arch=arch, layers=cfg.num_layers, mesh=list(TP_MESH),
+                  batch=f"{run_cfg['global_batch']} x {run_cfg['seq_len']}", losses=run["losses"],
+                  step_ms=[t * 1e3 for t in run["step_seconds"]],
+                  step_ms_after_first=[t * 1e3 for t in run["step_seconds"][1:]],
+                  bytes_per_step=run["collective_bytes"][-1], peak_mem_GB=peak_gb,
+                  peak_reserved_GB=reserved_gb, launches=launches)
+    if cfg.family == "moe":     # the first step's forward: its first num_layers calls
+        first = stats[:cfg.num_layers]
+        result.update(experts_a_rank=served[0],
+                      shard_moe_overflow_frac_mean=sum(float(o) for _, o in first) / len(first),
+                      shard_moe_load_max_mean=sum(float(m) for m, _ in first) / len(first))
+        require(plan["smoke"] or served[0] == cfg.num_experts // TP_MESH[1],
+                f"{part}: a rank serves {served[0]} experts")
+    return result
+
+
+def _phase9c(rank: int, mesh, plan: dict) -> dict:
+    """float32: the (2, 2) step against the one-rank step, and qwen3-moe's
+    (2, 2) step through K4 against the same through K4's plain version."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import make_model
+    from repro_torch.optim import AdamW, global_norm
+    from repro_torch.parallel import Group, MeshRules, MeshShape
+
+    device = plan["device"]
+    rows, seq = TP_PARITY_BATCH["batch"], plan["tp_parity_seq"]
+    shape = InputShape("parity", seq, rows, "train")
+    world = Group()
+    wrappers = {"flash_attention": flash_attention, "ssd_scan": ssd_scan}
+
+    def config(arch, layers, sp=False, dtype="float32"):
+        cfg = get_config(arch)
+        cfg = cfg.smoke() if plan["smoke"] else cfg
+        cfg = cfg.replace(num_layers=layers) if layers and not plan["smoke"] else cfg
+        return cfg.replace(dtype=dtype, param_dtype=dtype, parallel=dataclasses.replace(
+            cfg.parallel, sequence_parallel=sp))
+
+    def batch_of(cfg):
+        b = SyntheticTokens(cfg.padded_vocab, seq, seed=0).batch(100, shard=0, num_shards=1,
+                                                                 per_shard=rows)
+        return {k: torch.from_numpy(getattr(b, k)).to(device) for k in ("tokens", "labels", "mask")}
+
+    out, launches = {}, {}
+    for arch, layers, sp in TP_PARITY:
+        name = f"{arch} {'sp' if sp else 'tp'}"
+        cfg = config(arch, layers, sp)
+        model = make_model(cfg, device=device)
+        params = model.init(0)
+        opt = AdamW(cfg=cfg)
+        batch = batch_of(cfg)
+        two = make_train_step(model, opt, MeshRules(mesh, cfg.parallel), shape,
+                              lr=plan["train"]["lr"], loss_chunk=0, microbatches=1)
+        shards = two.shard(params)
+        for w in wrappers.values():
+            w.launches = 0
+        grads, metrics = two.grads(shards, batch)
+        metrics = {k: float(v) for k, v in dict(metrics,
+                                                grad_norm=two.global_norm(grads)).items()}
+        launches[name] = {k: w.launches for k, w in wrappers.items()}
+        grads = two.gather(grads)
+        result = dict(layers=cfg.num_layers, sequence_parallel=sp, batch=f"{rows} x {seq}",
+                      mesh=metrics, launches=launches[name])
+        if rank == 0:
+            one = make_train_step(model, opt, MeshRules(MeshShape((1, 1), ("data", "model")),
+                                                        cfg.parallel),
+                                  shape, lr=plan["train"]["lr"], loss_chunk=0, microbatches=1)
+            g1, m1 = one.grads(params, batch)
+            m1 = {k: float(v) for k, v in dict(m1, grad_norm=global_norm(g1)).items()}
+            loss_rel = abs(metrics["loss"] - m1["loss"]) / abs(m1["loss"])
+            norm_rel = abs(metrics["grad_norm"] - m1["grad_norm"]) / m1["grad_norm"]
+            require(loss_rel <= 1e-5, f"9c {name}: loss {metrics['loss']} on (2, 2), "
+                    f"{m1['loss']} on one rank")
+            require(norm_rel <= 1e-4, f"9c {name}: grad_norm {metrics['grad_norm']} on (2, 2), "
+                    f"{m1['grad_norm']} on one rank")
+            result.update(one_rank=m1, loss_rel_diff=loss_rel, grad_norm_rel_diff=norm_rel,
+                          grads_max_diff_over_max_g=grads_within(
+                              f"9c {name} gathered gradients, (2, 2) vs 1", grads, g1))
+            del g1, one
+        out[name] = result
+        del grads, shards, params, model, two
+        gc.collect()
+
+    # qwen3-moe: the (2, 2) step through K4 and through its plain version
+    arch, layers = TP_PARITY_MOE
+    cfg16, cfg = config(arch, layers, dtype="bfloat16"), config(arch, layers)
+    rules = MeshRules(mesh, cfg.parallel)
+    batch = batch_of(cfg)
+    runs = []
+    for plain in (False, True):
+        model = make_model(cfg, device=device, plain=plain)
+        step = make_train_step(model, AdamW(cfg=cfg), rules, shape, loss_chunk=0,
+                               microbatches=1)
+        if not runs:    # built in bf16 (half the transient tree), held in f32
+            blocks = _map_leaves(step.shard(make_model(cfg16, device=device).init(0)),
+                                 lambda t: t.float())
+        routes = []     # each layer's routing (forward and remat): experts, aux losses
+        for w in wrappers.values():
+            w.launches = 0
+        with _observing("core.moe_dispatch", "route_topk",
+                        lambda args, kw, r: routes.append(
+                            (r.expert_ids.cpu(), float(r.aux_loss.detach()),
+                             float(r.router_z_loss.detach())))):
+            grads, metrics = step.grads(blocks, batch)
+        norm = float(step.global_norm(grads))
+        if not plain:
+            launches[f"{arch} tp"] = {k: w.launches for k, w in wrappers.items()}
+        runs.append(dict(routes=routes, metrics={k: float(v) for k, v in metrics.items()},
+                         grad_norm=norm, grads=_map_leaves(grads, lambda t: t.cpu())))
+        del grads, step, model
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    kern, pl = runs
+    # the same experts for every token (so the same capacity chunks, overflow
+    # and loads), and the same aux losses
+    require(len(kern["routes"]) == len(pl["routes"]) and all(
+        torch.equal(a[0], b[0]) for a, b in zip(kern["routes"], pl["routes"])),
+        "9c qwen3-moe: a token's experts differ between K4 and its plain version")
+    aux_rel = max(abs(a[i] - b[i]) / abs(b[i]) for a, b in zip(kern["routes"], pl["routes"])
+                  for i in (1, 2))
+    require(aux_rel <= 1e-5, f"9c qwen3-moe: an aux loss differs by {aux_rel:.3e} (relative)")
+    loss_rel = abs(kern["metrics"]["loss"] - pl["metrics"]["loss"]) / abs(pl["metrics"]["loss"])
+    norm_rel = abs(kern["grad_norm"] - pl["grad_norm"]) / pl["grad_norm"]
+    require(loss_rel <= 1e-5 and norm_rel <= 1e-4,
+            f"9c qwen3-moe: loss {kern['metrics']['loss']} / {pl['metrics']['loss']}, grad_norm "
+            f"{kern['grad_norm']} / {pl['grad_norm']} through K4 / plain")
+    gmax = world.all_reduce_float(max(float(g.abs().max()) for g in _leaves(pl["grads"])), "max")
+    worst = world.all_reduce_float(max(float((a - b).abs().max()) for a, b in zip(
+        _leaves(kern["grads"]), _leaves(pl["grads"]))), "max")
+    require(worst <= GRAD_REL * gmax, f"9c qwen3-moe: a gradient differs by {worst:.3e}, beyond "
+            f"{GRAD_REL} x the largest |g| {gmax:.3e}")
+    out[f"{arch} kernels vs plain"] = dict(
+        layers=cfg.num_layers, batch=f"{rows} x {seq}", loss_rel_diff=loss_rel,
+        grad_norm_rel_diff=norm_rel, grads_max_diff_over_max_g=worst / gmax,
+        routings_equal=len(kern["routes"]), aux_max_rel_diff=aux_rel,
+        launches=launches[f"{arch} tp"])
+    return dict(cases=out, launches=launches)
+
+
+def phase9_rank(rank: int, plan: dict) -> None:
+    """One of phase 9's ranks: 9a, 9b and 9c on the (2, 2) mesh of gloo over
+    ``plan["device"]``; writes its readings to ``rank<r>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    tmp = Path(plan["tmp"])
+    if plan["device"] == "cuda":
+        # four ranks share the card: segments that grow, not a cache of fixed
+        # blocks each, leave the others room (read when this process's
+        # allocator starts, on its first allocation)
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous", rank=rank,
+                            world_size=plan["world"], timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh(TP_MESH, ("data", "model"), device_type=plan["device"])
+        out = {"rank": rank, "coordinate": mesh.get_coordinate()}
+        for part, arch, layers in TP_TRAIN:
+            t0 = time.perf_counter()
+            out[part] = _phase9_train(mesh, plan, part, arch, layers)
+            out[part]["wall_s"] = time.perf_counter() - t0
+            gc.collect()
+            if plan["device"] == "cuda":
+                torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["9c"] = _phase9c(rank, mesh, plan)
+        out["9c"]["wall_s"] = time.perf_counter() - t0
+        (tmp / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase9_tensor_parallel(card: str, *, device: str = "cuda", smoke: bool = False) -> dict:
+    """Spawn phase 9's ranks (the kernels are built: they only load them);
+    returns {path: {kernel: launches}} of its main paths."""
+    import torch
+    import torch.multiprocessing as mp
+
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_", dir=ROOT / "build"))
+    world = TP_MESH[0] * TP_MESH[1]
+    plan = dict(tmp=str(tmp), world=world, device=device, smoke=smoke, train=TRAIN_RUN,
+                tp_run=TP_RUN, tp_parity_seq=TP_PARITY_BATCH["seq"])
+    if smoke:   # a rehearsal on the CPU at small sizes
+        plan.update(tp_run=dict(TP_RUN, seq_len=32), tp_parity_seq=16)
+    try:
+        t0 = time.perf_counter()
+        mp.spawn(phase9_rank, args=(plan,), nprocs=world, join=True)
+        wall = time.perf_counter() - t0
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(world)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for part in ("9a", "9b", "9c"):
+        print(f"phase {part} " + json.dumps({"card": card, "ranks": [
+            dict(r[part], rank=r["rank"], coordinate=r["coordinate"]) for r in ranks]}))
+    print(f"phase 9 wall {wall:.1f} s (spawn, 9a, 9b, 9c)")
+    if device == "cuda":    # what the four ranks' allocators held at most, against the card
+        total = torch.cuda.get_device_properties(0).total_memory / 1e9
+        print("phase 9 memory " + json.dumps({"card_GB": total, **{
+            part: {"ranks_peak_reserved_GB": sum(r[part]["peak_reserved_GB"] for r in ranks),
+                   "headroom_GB": total - sum(r[part]["peak_reserved_GB"] for r in ranks)}
+            for part in ("9a", "9b")}}))
+    launches = {}
+    for r in ranks:
+        for part, arch, _ in TP_TRAIN:
+            launches[f"phase {part} train {arch} rank {r['rank']}"] = r[part]["launches"]
+        for name, counts in r["9c"]["launches"].items():
+            launches[f"phase 9c {name} rank {r['rank']}"] = counts
     return launches
 
 
@@ -2267,6 +2586,14 @@ def main() -> int:
               f"({time.perf_counter() - t8:.1f} s)")
     finally:
         shutil.rmtree(kept, ignore_errors=True)
+    t9 = time.perf_counter()
+    for path, counts in phase9_tensor_parallel(card).items():
+        for name, n in counts.items():
+            if n:
+                kernels[name]["launches"] += n
+                kernels[name]["launches_by_path"][path] = n
+    print(f"phase 9 done at {time.perf_counter() - t_start:.1f} s "
+          f"({time.perf_counter() - t9:.1f} s)")
     print("launches on the main paths: " + ", ".join(
         f"{k}={v['launches_by_path']}" for k, v in kernels.items()))
 

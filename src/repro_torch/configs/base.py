@@ -16,9 +16,9 @@ step.
 Config data that nothing reads, kept because the reference keeps it:
 ``grad_reduce``, ``grad_compression`` and ``pipeline_stages`` (nothing
 in the reference reads them either: ``parallel/collectives.py`` and
-``parallel/pipeline.py`` are library functions), ``scan_layers`` (the
-port keeps one parameter dict per layer and has no ``lax.scan``), and
-``moe_dispatch`` (the per-shard routing waits for slice F2).
+``parallel/pipeline.py`` are library functions) and ``scan_layers`` (the
+port keeps one parameter dict per layer and has no ``lax.scan``).
+``moe_dispatch`` is read by ``models/moe.py`` on a mesh.
 """
 
 from __future__ import annotations

@@ -23,8 +23,9 @@ promise, so :func:`route_topk` takes the first ``k`` of a stable
 descending sort; and the rank within an expert comes from
 ``torch.argsort(..., stable=True)``, as in the reference.  Index tensors
 are int64, PyTorch's index dtype (the reference's are int32).  The
-reference's ``shard_hint`` annotations have no counterpart: the port runs
-on one device.
+reference's ``shard_hint`` annotations have no counterpart: on a mesh
+``models/moe.py`` hands these functions one rank's tokens (or its data
+group's) and the slots of its experts, and runs the collectives itself.
 """
 
 from __future__ import annotations

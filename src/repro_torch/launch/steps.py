@@ -10,28 +10,39 @@ gradients are clipped to a global norm of ``GRAD_CLIP`` and AdamW updates
 the parameters.  The gradients are autograd's, through K4 and K5's
 ``Function``s on the card.
 
-**On a mesh** (``MeshRules``; data axes ``pod`` × ``data`` of ``dp``
-ranks, a ``model`` axis of 1) the step is FSDP done by hand, the work
-GSPMD derives for the reference's shardings there:
+**On a mesh** (``MeshRules`` over a ``DeviceMesh``; data axes ``pod`` ×
+``data`` of ``dp`` ranks, a ``model`` axis of ``mp``) the step is FSDP
+over the data axes and Megatron's tensor parallelism over ``model``,
+done by hand — the work GSPMD derives for the reference's shardings:
 
-* each rank holds the parameter and AdamW-moment shards that the rules
-  give (:meth:`TrainStep.shard`; the moments mirror the parameters);
-* each parameter is all-gathered to a plain tensor before the forward,
-  so K4 and K5 only ever see plain, contiguous tensors;
-* each rank takes its rows of every microbatch of the global batch
-  (:func:`batch_shardings`) and runs them through the microbatch loop;
-  its gradients are weighted by its share of each microbatch's mask sum,
-  so the loss is the reference's mean over the global microbatch;
-* the gradients are reduce-scattered (all-reduced for a replicated
-  leaf), clipped by the global norm summed over the mesh, and AdamW
-  updates the shards.
+* each rank holds the parameter and AdamW-moment blocks that the rules
+  give over the whole mesh (:meth:`TrainStep.shard`; the moments mirror
+  the parameters);
+* each parameter is all-gathered over the data axes only, before the
+  forward: the rank keeps its ``model`` block (the models gather the
+  few leaves they need whole: cut kv heads, the SSD block's ``in_proj``
+  and conv, RG-LRU's ``lru`` leaves where the model size does not
+  divide 8).  K4 and K5 see plain, contiguous tensors: the rank's heads;
+* the model runs its tensor-parallel forms
+  (:class:`~repro_torch.parallel.tensor_parallel.TensorParallel`), whose
+  collectives carry the gradients within the model group;
+* every rank of a data group takes the same rows of every microbatch of
+  the global batch (:func:`batch_shardings`) and runs them through the
+  microbatch loop; its loss is weighted by its share of each
+  microbatch's mask sum, so the sum over the data ranks is the
+  reference's mean over the global microbatch;
+* the gradients are reduce-scattered over the data axes (all-reduced for
+  a leaf replicated there); under sequence parallelism every leaf the
+  rules do not split over ``model`` (the norms, the router, the vision
+  model's gates) holds a partial sum over its sequence shard and is
+  all-reduced over ``model`` too; the global norm counts each block once
+  on the whole mesh, and AdamW updates the blocks;
+* the metrics are summed over the data axes only (the model ranks of a
+  data group hold the same values).
 
-With ``dp`` 1 no collective runs, and the step is the one-card step
-unchanged.  A ``model`` axis larger than 1 (tensor and sequence
-parallelism) waits for slice F2, as does the ``moe`` family on a mesh
-(its aux losses are not per-token means; ``_moe_ffn_local`` is F2's).
-``make_decode_step`` and ``make_prefill_step``, which give the dry-run a
-function to lower, wait for slice F3.
+With a mesh of one rank no collective runs, and the step is the one-card
+step unchanged.  ``make_decode_step`` and ``make_prefill_step``, which
+give the dry-run a function to lower, wait for slice F3.
 """
 
 from __future__ import annotations
@@ -40,20 +51,25 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..checkpoint.elastic_restore import reshard_tree
 from ..configs.base import InputShape, ModelConfig
 from ..models import Model
 from ..optim import AdamW, AdamWState, clip_by_global_norm
 from ..parallel.collectives import Group
-from ..parallel.mesh_rules import MeshRules, Spec, axes_leaves
+from ..parallel.mesh_rules import DATA_AXES, MeshRules, Spec, axes_leaves
+from ..parallel.tensor_parallel import TensorParallel
 from ..tree import tree_leaves, tree_leaves_with_path, tree_map, tree_map_with_path
 
 __all__ = ["GRAD_CLIP", "TrainStep", "batch_shardings", "data_parallel_size",
            "default_microbatches", "make_train_step"]
 
 GRAD_CLIP = 1.0
-DATA_AXES = ("pod", "data")
+# logical axes whose split over ``model`` the models compute on as blocks
+# (a parameter naming one must have that dim split there); the rest of the
+# split axes (kvheads, ssm_inner, conv_ch) are gathered where needed
+_SPLIT_AXES = ("qheads", "mlp", "vocab", "lru")
 
 
 def _batch_specs(cfg: ModelConfig, kind: str) -> Dict[str, tuple]:
@@ -108,17 +124,49 @@ def default_microbatches(cfg: ModelConfig, shape: InputShape, rules: MeshRules,
 
 
 class _Leaf:
-    """One parameter's layout over the data-parallel group: its full shape,
-    every group rank's index of it (``None``: every rank holds it whole),
-    and whether this rank counts it in the global norm (the first rank that
-    holds its block does)."""
+    """One parameter's layout: its full shape, its shape in the forward
+    (the ``model`` block), every data-group rank's index of that block
+    (``data``; ``None``: every data rank holds it whole), every mesh rank's
+    index of the full parameter (``mesh``; ``None``: every rank holds it
+    whole), whether the rules split it over ``model``, and whether this
+    rank counts it in the global norm (the first mesh rank that holds its
+    block does)."""
 
     def __init__(self, shape: Tuple[int, ...], spec: Spec, rules: MeshRules,
-                 coords: List[Dict[str, int]], rank: int) -> None:
+                 data_coords: List[Dict[str, int]], mesh_coords: List[Dict[str, int]],
+                 rank: int) -> None:
+        def names(entry):
+            return () if entry is None else (entry,) if isinstance(entry, str) else entry
+
+        model = tuple("model" if "model" in names(e) else None for e in spec)
+        data = tuple(None if "model" in names(e) else e for e in spec)
         self.shape = shape
-        slices = [rules.local_slice(spec, shape, c) for c in coords]
-        self.slices = None if all(sl == slices[0] for sl in slices) else slices
-        self.counted = slices.index(slices[rank]) == rank
+        self.model_split = any(model)
+        self.local_shape = tuple(len(range(n)[sl]) for n, sl in
+                                 zip(shape, rules.local_slice(model, shape)))
+        dslices = [rules.local_slice(data, self.local_shape, c) for c in data_coords]
+        self.data = None if all(sl == dslices[0] for sl in dslices) else dslices
+        mslices = [rules.local_slice(spec, shape, c) for c in mesh_coords]
+        self.mesh = None if all(sl == mslices[0] for sl in mslices) else mslices
+        self.counted = mslices.index(mslices[rank]) == rank
+
+
+def _check_split(path, axes, spec: Spec, mp: int) -> None:
+    """Raise unless the rules split over ``model`` the dims the models
+    compute on as blocks (an expert's: its expert or its hidden dim)."""
+    split = {name for name, entry in zip(axes, spec) if entry == "model"}
+    need = [name for name in axes if name in _SPLIT_AXES and name not in split]
+    if "experts" in axes and not split & {"experts", "expert_mlp"}:
+        need.append("experts")
+    if need:
+        raise NotImplementedError(f"{'/'.join(map(str, path))}: its {need[0]!r} dim does not "
+                                  f"split over {mp} model ranks")
+
+
+def _coords(mesh, ranks) -> List[Dict[str, int]]:
+    """Each global rank's coordinate on ``mesh``."""
+    return [dict(zip(mesh.mesh_dim_names, (mesh.mesh == k).nonzero()[0].tolist()))
+            for k in ranks]
 
 
 class TrainStep:
@@ -134,49 +182,70 @@ class TrainStep:
         self.loss_chunk = loss_chunk
         self.microbatches = microbatches
         self.dp = data_parallel_size(rules)
-        if rules.axis_sizes.get("model", 1) > 1:
-            raise NotImplementedError("a model axis larger than 1 (tensor and sequence "
-                                      "parallelism) waits for slice F2")
-        if self.dp == 1:
+        self.mp = rules.model_size
+        self.tp = None
+        if self.dp * self.mp == 1:
             return
-        if model.cfg.family == "moe":
-            raise NotImplementedError("the moe family on a data-parallel mesh (its aux "
-                                      "losses, _moe_ffn_local) waits for slice F2")
         mesh = rules.mesh
-        self.group = Group()
-        if not hasattr(mesh, "mesh") or self.group.size != self.dp:
-            raise ValueError(f"a mesh of {self.dp} ranks is a DeviceMesh over a process group "
-                             f"of {self.dp} (launch.mesh.make_mesh)")
-        # every group rank's coordinate: the process group is the mesh's ranks
-        coords = [dict(zip(mesh.mesh_dim_names, (mesh.mesh == k).nonzero()[0].tolist()))
-                  for k in range(self.dp)]
+        self.world = Group()
+        if not hasattr(mesh, "mesh") or self.world.size != self.dp * self.mp:
+            raise ValueError(f"a mesh of {self.dp * self.mp} ranks is a DeviceMesh over a "
+                             f"process group of as many (launch.mesh.make_mesh)")
+        self.group = rules.data_group            # the data axes
+        self.tp = TensorParallel(rules)
+        data_ranks = ([self.world.rank] if self.group.size == 1
+                      else list(range(self.world.size)) if self.group.pg is None
+                      else dist.get_process_group_ranks(self.group.pg))
         self.param_axes = model.param_specs()
-        self.layout = {path: _Leaf(tuple(a.shape), rules.spec(axes, tuple(a.shape)), rules,
-                                   coords, self.group.rank)
-                       for axes, (path, a) in zip(axes_leaves(self.param_axes),
-                                                  tree_leaves_with_path(model.abstract_params()))}
+        data_coords = _coords(mesh, data_ranks)
+        mesh_coords = _coords(mesh, range(self.world.size))
+        self.layout = {}
+        for axes, (path, a) in zip(axes_leaves(self.param_axes),
+                                   tree_leaves_with_path(model.abstract_params())):
+            shape = tuple(a.shape)
+            spec = rules.spec(axes, shape)
+            if self.mp > 1:
+                _check_split(path, axes, spec, self.mp)
+            self.layout[path] = _Leaf(shape, spec, rules, data_coords, mesh_coords,
+                                      self.world.rank)
 
     # -- layouts ----------------------------------------------------------
     def shard(self, tree):
-        """This rank's shards of a full tree laid out like the parameters
-        (parameters, gradients, AdamW moments); the tree itself at dp 1."""
-        if self.dp == 1:
+        """This rank's blocks of a full tree laid out like the parameters
+        (parameters, gradients, AdamW moments); the tree itself on one rank."""
+        if self.tp is None:
             return tree
         return reshard_tree(tree, self.param_axes, self.rules, device=self.model.device)
 
     def gather(self, shards):
-        """The full tree of a tree of this rank's shards (a collective: every
-        rank calls it); the tree itself at dp 1."""
-        if self.dp == 1:
+        """The full tree of a tree of this rank's blocks (a collective: every
+        rank of the mesh calls it); the tree itself on one rank."""
+        if self.tp is None:
             return shards
 
         def one(path, t):
             leaf = self.layout[path]
-            if leaf.slices is None:
+            if leaf.mesh is None:
+                return t
+            parts = self.world.all_gather(t)
+            full = torch.empty(leaf.shape, dtype=t.dtype, device=t.device)
+            for sl, part in zip(leaf.mesh, parts):
+                full[sl] = part
+            return full
+
+        return tree_map_with_path(one, shards)
+
+    def forward_params(self, shards):
+        """This rank's ``model`` block of each parameter, what its forward
+        computes with: its data-axis shards gathered (a collective over the
+        data group)."""
+        def one(path, t):
+            leaf = self.layout[path]
+            if leaf.data is None:
                 return t
             parts = self.group.all_gather(t)
-            full = torch.empty(leaf.shape, dtype=t.dtype, device=t.device)
-            for sl, part in zip(leaf.slices, parts):
+            full = torch.empty(leaf.local_shape, dtype=t.dtype, device=t.device)
+            for sl, part in zip(leaf.data, parts):
                 full[sl] = part
             return full
 
@@ -184,7 +253,7 @@ class TrainStep:
 
     def local_batch(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """This rank's rows of each microbatch of the global ``batch``, the
-        microbatches in order."""
+        microbatches in order (the same rows on every rank of a data group)."""
         rows, seq = batch["tokens"].shape
         per = rows // self.microbatches
         specs = batch_shardings(self.model, InputShape("microbatch", seq, per, "train"),
@@ -194,35 +263,52 @@ class TrainStep:
                 for k, v in batch.items()}
 
     # -- the step -----------------------------------------------------------
-    def _value_and_grad(self, params, batch) -> Tuple[Any, Dict[str, torch.Tensor]]:
+    def _value_and_grad(self, params, batch, weight=None) -> Tuple[Any, Dict[str, torch.Tensor]]:
+        """(gradients of the loss, or of ``weight`` × the loss, metrics)."""
         live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         it = iter(live)
         loss, metrics = self.model.loss_fn(tree_map(lambda _: next(it), params), batch,
-                                           loss_chunk=self.loss_chunk)
+                                           loss_chunk=self.loss_chunk, tp=self.tp)
+        if weight is not None:
+            loss = loss * weight
         grads = torch.autograd.grad(loss, live, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(live, grads)]
         it = iter(grads)
         return (tree_map(lambda _: next(it), params),
                 {k: metrics[k].detach() for k in ("loss", "ce_loss")})
 
-    def _accumulate(self, params, batch, weights=None):
+    def _accumulate(self, params, batch, weights=None, reduce=None):
         """(gradients, metrics) of ``batch`` in ``microbatches`` pieces: the
         mean of the pieces' (one card), or their sum weighted by ``weights``
-        (one per piece, on a mesh)."""
+        (one per piece, on a mesh).  On a mesh the weight scales the loss
+        before the backward: a gradient crosses the data ranks inside it
+        (the MoE aux values' mean, the global plan's gathered tokens), so
+        each rank's share must be weighed where it arises.  One piece keeps
+        no accumulator.  ``reduce``, when given, takes each piece's
+        gradients to this rank's blocks of their sum over the mesh before
+        they are added up."""
         mb = self.microbatches
-        if mb == 1 and weights is None:
-            return self._value_and_grad(params, batch)
+        if mb == 1:
+            w = None if weights is None else weights[0]
+            grads, metrics = self._value_and_grad(params, batch, w)
+            return grads, metrics if w is None else {k: v * w for k, v in metrics.items()}
         acc_dtype = (torch.bfloat16 if self.model.cfg.parallel.grad_accum_dtype == "bfloat16"
                      else torch.float32)
-        gacc = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dtype, device=p.device), params)
-        macc = None
+        gacc = macc = None
         size = next(iter(batch.values())).shape[0] // mb
         for i in range(mb):
             piece = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-            grads, metrics = self._value_and_grad(params, piece)
             weigh = (lambda x: x / mb) if weights is None else (lambda x, w=weights[i]: x * w)
+            grads, metrics = self._value_and_grad(params, piece,
+                                                  None if weights is None else weights[i])
+            if reduce is not None:
+                grads = reduce(grads)
+            if gacc is None:
+                gacc = tree_map(lambda g: torch.zeros(g.shape, dtype=acc_dtype, device=g.device),
+                                grads)
             with torch.no_grad():
-                tree_map(lambda a, g: a.add_(weigh(g.to(a.dtype))), gacc, grads)
+                tree_map(lambda a, g: a.add_(g.to(a.dtype) / mb if weights is None
+                                             else g.to(a.dtype)), gacc, grads)
             del grads
             if macc is None:
                 macc = {k: torch.zeros((), dtype=torch.float32, device=v.device)
@@ -244,48 +330,66 @@ class TrainStep:
     def grads(self, params, batch: Dict[str, torch.Tensor]) -> Tuple[Any, Dict[str, torch.Tensor]]:
         """(gradients, {"loss", "ce_loss"}) of one global batch, accumulated
         over the microbatches: the step's work before the optimizer.  On a
-        mesh ``params`` and the gradients are this rank's shards, and the
+        mesh ``params`` and the gradients are this rank's blocks, and the
         metrics the global batch's."""
-        if self.dp == 1:
+        if self.tp is None:
             return self._accumulate(params, batch)
         local = self.local_batch(batch)
-        full = self.gather(params)
-        gacc, macc = self._accumulate(full, local, self._weights(local))
+        full = self.forward_params(params)
+        # a bf16 sum rounds each piece: the pieces are summed over the mesh
+        # first, in float32, as the reference's step sums them
+        each = self.microbatches > 1 and self.model.cfg.parallel.grad_accum_dtype == "bfloat16"
+        gacc, macc = self._accumulate(full, local, self._weights(local),
+                                      self._reduce if each else None)
         del full
-
-        def reduce(path, g):
-            leaf = self.layout[path]
-            if leaf.slices is None:
-                return self.group.all_reduce(g)
-            return self.group.reduce_scatter(torch.stack([g[sl] for sl in leaf.slices]))
-
-        grads = tree_map_with_path(reduce, gacc)
+        grads = gacc if each else self._reduce(gacc)
         del gacc
         keys = list(macc)
         summed = self.group.all_reduce(torch.stack([macc[k] for k in keys]))
         return grads, dict(zip(keys, summed.unbind()))
 
-    def _global_norm(self, grads) -> torch.Tensor:
+    def _reduce(self, grads):
+        """This rank's blocks of gradients summed over the mesh, in float32."""
+        sp = self.tp.sp
+
+        def one(path, g):
+            leaf = self.layout[path]
+            g = g.float()
+            if leaf.data is None:
+                g = self.group.all_reduce(g)
+            else:
+                g = self.group.reduce_scatter(torch.stack([g[sl] for sl in leaf.data]))
+            if sp and not leaf.model_split:    # partial over the sequence shards
+                g = self.tp.group.all_reduce(g)
+            return g
+
+        return tree_map_with_path(one, grads)
+
+    def global_norm(self, grads) -> torch.Tensor:
         """The gradients' norm over the mesh: each block's squares counted
         once, by the first rank that holds it."""
         sq = torch.stack([torch.sum(torch.square(g.float())) if self.layout[path].counted
                           else torch.zeros((), device=g.device)
                           for path, g in tree_leaves_with_path(grads)])
-        return torch.sqrt(sum(self.group.all_reduce(sq).unbind()))
+        return torch.sqrt(sum(self.world.all_reduce(sq).unbind()))
 
     def update(self, params, opt_state: AdamWState, grads, metrics: Dict[str, torch.Tensor]):
         """The step's work after the gradients: clip to ``GRAD_CLIP``, AdamW,
         apply -> (params, opt_state, metrics with ``grad_norm``, the norm
-        before clipping).  On a mesh every tree holds this rank's shards."""
-        norm = None if self.dp == 1 else self._global_norm(grads)
-        grads, gnorm = clip_by_global_norm(grads, GRAD_CLIP, norm=norm)
+        before clipping).  On a mesh every tree holds this rank's blocks.
+        ``grads`` are clipped in place and ``opt_state``'s moments updated in
+        place (donated, as the reference's jitted step donates its state):
+        the caller reads neither again."""
+        norm = None if self.tp is None else self.global_norm(grads)
+        grads, gnorm = clip_by_global_norm(grads, GRAD_CLIP, norm=norm, inplace=True)
         updates, opt_state = self.optimizer.update(grads, opt_state, params, self.lr)
         del grads
         params = AdamW.apply_updates(params, updates)
         return params, opt_state, dict(metrics, grad_norm=gnorm)
 
     def __call__(self, params, opt_state: AdamWState, batch: Dict[str, torch.Tensor]):
-        return self.update(params, opt_state, *self.grads(params, batch))
+        grads, metrics = self.grads(params, batch)
+        return self.update(params, opt_state, grads, metrics)
 
 
 def make_train_step(model: Model, optimizer: AdamW, rules: MeshRules, shape: InputShape, *,

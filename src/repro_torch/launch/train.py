@@ -11,12 +11,13 @@ It runs on the card unless the caller asks for the CPU (``device``).
 Without a mesh it trains on one device, on the (1, 1) ``("data",
 "model")`` mesh the reference builds there, with no process group.  With
 a mesh (``launch.mesh.make_mesh``, every rank calling ``run_training``
-alike) it runs the sharded step: every rank builds the whole parameter
-tree from the seed and keeps its shards, draws the same global batch and
-takes its rows of it; checkpoints are the reference's full arrays,
-gathered and written by rank 0, and restored onto any mesh; only rank 0
-prints, and every rank returns the same result (a step's seconds are the
-slowest rank's).  ``warmup`` is kept as the reference keeps it: set,
+alike; any (data, model) shape) it runs the sharded step: every rank
+builds the whole parameter tree from the seed and keeps its blocks (a
+fresh run's AdamW moments are made on the blocks alone), draws the same
+global batch and takes its rows of it; checkpoints are the reference's
+full arrays, gathered and written by rank 0, and restored onto any mesh;
+only rank 0 prints, and every rank returns the same losses and seconds (a
+step's seconds are the slowest rank's).  ``warmup`` is kept as the reference keeps it: set,
 and read by nothing.  The ``encdec`` and ``vlm`` families need frames or
 image embeddings in their batches, which the token source does not make,
 so they do not train here, as in the reference.
@@ -60,6 +61,7 @@ class TrainLoopConfig:
     lr: float = 3e-4
     warmup: int = 10
     smoke: bool = True                  # reduced model dims (CPU-runnable)
+    layers: int = 0                     # cut the depth to this many layers (0: the config's)
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 25
     resume: bool = False
@@ -72,10 +74,15 @@ class TrainLoopConfig:
 def run_training(cfg: TrainLoopConfig, *, mesh=None) -> Dict[str, Any]:
     """The reference's result (``first_loss``, ``final_loss``,
     ``mean_tok_per_s``, ``steps``), and each step's loss and seconds
-    (``losses``, ``step_seconds``) of the steps this call ran."""
+    (``losses``, ``step_seconds``) of the steps this call ran, with the
+    bytes this rank handed to the collectives of each of its groups in
+    each of them (``collective_bytes``: ``model``, ``data`` and ``mesh``;
+    empty dicts on one rank)."""
     model_cfg = get_config(cfg.arch)
     if cfg.smoke:
         model_cfg = model_cfg.smoke()
+    if cfg.layers:
+        model_cfg = model_cfg.replace(num_layers=cfg.layers)
     model = make_model(model_cfg, device=cfg.device)
     shape = InputShape("custom", cfg.seq_len, cfg.global_batch, "train")
     device = torch.device(cfg.device)
@@ -92,14 +99,15 @@ def run_training(cfg: TrainLoopConfig, *, mesh=None) -> Dict[str, Any]:
     )
     step_fn = make_train_step(model, optimizer, rules, shape, lr=cfg.lr,
                               microbatches=cfg.microbatches, loss_chunk=0)
-    lead = step_fn.dp == 1 or step_fn.group.rank == 0
+    spread = step_fn.tp is not None        # a mesh of more than one rank
+    lead = not spread or step_fn.world.rank == 0
 
     params = model.init(cfg.seed)
-    opt_state = optimizer.init(params)
     start_step = 0
 
     ckpt = Checkpointer(cfg.ckpt_dir) if cfg.ckpt_dir else None
     if ckpt and cfg.resume and ckpt.latest_step() is not None:
+        opt_state = optimizer.init(params)
         (restored_p, restored_o), start_step = ckpt.restore(None, (params, tuple(opt_state)))
 
         def back(like, restored):
@@ -107,10 +115,13 @@ def run_training(cfg: TrainLoopConfig, *, mesh=None) -> Dict[str, Any]:
 
         params = tree_map(back, params, restored_p)
         opt_state = AdamWState(*tree_map(back, tuple(opt_state), restored_o))
-    # each rank keeps its shards (at dp 1, the trees themselves)
-    params = step_fn.shard(params)
-    opt_state = AdamWState(opt_state.step, step_fn.shard(opt_state.mu),
-                           step_fn.shard(opt_state.nu))
+        # each rank keeps its blocks (on one rank, the trees themselves)
+        params = step_fn.shard(params)
+        opt_state = AdamWState(opt_state.step, step_fn.shard(opt_state.mu),
+                               step_fn.shard(opt_state.nu))
+    else:   # fresh moments are zeros: made on the blocks alone
+        params = step_fn.shard(params)
+        opt_state = optimizer.init(params)
 
     source = SyntheticTokens(model_cfg.padded_vocab, cfg.seq_len, seed=cfg.seed)
 
@@ -126,19 +137,23 @@ def run_training(cfg: TrainLoopConfig, *, mesh=None) -> Dict[str, Any]:
     detector = StragglerDetector()
     tracker = ThroughputTracker()
 
-    losses, step_seconds = [], []
+    losses, step_seconds, step_bytes = [], [], []
+    groups = ({"model": step_fn.tp.group, "data": step_fn.group, "mesh": step_fn.world}
+              if spread else {})
     t_start = time.perf_counter()
     try:
         for step in range(start_step, cfg.steps):
             _, batch = prefetch.get()
+            sent = {k: g.sent_bytes for k, g in groups.items()}
             t0 = time.perf_counter()
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)  # the step's update too, not only its loss
             loss = float(metrics["loss"])
             dt = time.perf_counter() - t0
-            if step_fn.dp > 1:  # the slowest rank's
-                dt = step_fn.group.all_reduce_float(dt, "max")
+            step_bytes.append({k: g.sent_bytes - sent[k] for k, g in groups.items()})
+            if spread:  # the slowest rank's
+                dt = step_fn.world.all_reduce_float(dt, "max")
             tracker.update("pod0", cfg.global_batch * cfg.seq_len, dt)
             detector.observe({"pod0": dt})
             losses.append(loss)
@@ -161,8 +176,8 @@ def run_training(cfg: TrainLoopConfig, *, mesh=None) -> Dict[str, Any]:
             ckpt.wait_all()
 
     wall = time.perf_counter() - t_start
-    if step_fn.dp > 1:
-        wall = step_fn.group.all_reduce_float(wall, "max")
+    if spread:
+        wall = step_fn.world.all_reduce_float(wall, "max")
     return {
         "first_loss": losses[0],
         "final_loss": losses[-1],
@@ -170,6 +185,7 @@ def run_training(cfg: TrainLoopConfig, *, mesh=None) -> Dict[str, Any]:
         "steps": len(losses),
         "losses": losses,
         "step_seconds": step_seconds,
+        "collective_bytes": step_bytes,
     }
 
 

@@ -18,6 +18,29 @@ The port's copy of ``repro.models.attention``.  Two paths, one math:
   ops, since no decode kernel exists: one query against the whole cache
   with a per-sequence validity mask.
 
+**On a model axis larger than 1** (``tp``, training only: no cache) the
+layer is column-parallel over this rank's heads: ``wq`` (``qheads``) and
+``wk`` / ``wv`` (``kvheads``) are the rank's blocks, K4 runs on the
+local heads with the GQA ratio kept (tinyllama's 32 / 4 heads are 16 / 2
+a rank on two ranks), and ``out @ wo`` (its rows, ``qheads``) leaves
+through ``reduce_from`` (``scatter_seq`` under sequence parallelism)
+before the bias.  The keys and values are computed whole, over every
+kv head, and each rank reads the kv heads of its query heads, where the
+rules do not split ``kvheads`` by whole heads:
+
+* the split cuts a head (the fused ``kv_dim`` split by divisibility
+  alone: recurrentgemma-9b's one kv head of 256 columns, the smoke
+  config's of 8): ``wk``, ``wv``, ``bk`` and ``bv`` are gathered over
+  ``model`` (their gradients reduce-scattered back);
+* ``replicate_kv=True``, or a ``kv_dim`` that does not split: they are
+  replicated, and enter the layer through ``TensorParallel.shared``.
+
+``q_norm`` and ``k_norm`` (replicated, one scale for every head) enter
+the same way.  A cross layer's source (whisper's encoder states, the
+vision model's image embeddings) reaches it whole and replicated, as the
+caller made it enter the region once for every layer.  A split that
+cuts a query head raises.
+
 Weights use the reference's fused 2-D layouts (wq: (d_model, H·hd)).  The
 cache is written in place (the reference returns a new one): prefill and
 decode return the same :class:`KVCache` object they were given.  A cross
@@ -36,7 +59,8 @@ from ..configs.base import ModelConfig
 from ..kernels.flash_attention.flash_attention import (
     MASK_VALUE, flash_attention, flash_attention_plain,
 )
-from .layers import ParamBuilder, apply_rope, rms_norm
+from ..parallel.tensor_parallel import TensorParallel
+from .layers import ParamBuilder, apply_rope, model_split, rms_norm
 
 __all__ = ["attention_params", "KVCache", "init_kv_cache", "attention"]
 
@@ -130,6 +154,7 @@ def attention(
     cache: Optional[KVCache] = None,
     cache_update: bool = True,
     plain: bool = False,
+    tp: Optional[TensorParallel] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Self-attention (``causal``, and a local window when ``window`` > 0)
     or cross-attention.  Modes:
@@ -143,10 +168,19 @@ def attention(
       only the flag).
 
     ``plain=True`` runs K4's plain version on any device (for
-    comparisons); the default runs the kernel on the card.
+    comparisons); the default runs the kernel on the card.  ``tp`` (a
+    model axis larger than 1) runs this rank's heads; ``x`` is then in
+    the residual stream's layout and ``kv_x`` whole.
     """
+    split = tp is not None and tp.size > 1
+    if split:
+        if cache is not None:
+            raise ValueError("tensor parallelism runs the training forward: no cache")
+        x = tp.enter(x)
+        p, kv_heads = _local_weights(p, cfg, tp)
     b, s, _ = x.shape
-    kvh, hd = cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    nh, kvh = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
     is_cross = kv_x is not None
     decode = cache is not None and s == 1 and not is_cross
     reuse_cross = is_cross and cache is not None and not cache_update
@@ -154,7 +188,7 @@ def attention(
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
-    q = q.reshape(b, s, cfg.num_heads, hd)
+    q = q.reshape(b, s, nh, hd)
     if reuse_cross:
         k_f, v_f = cache.k, cache.v
     else:
@@ -164,6 +198,9 @@ def attention(
             k_f, v_f = k_f + p["bk"], v_f + p["bv"]
     k = k_f.reshape(b, -1, kvh, hd)
     v = v_f.reshape(b, -1, kvh, hd)
+    if split and kv_heads is not None:   # whole kv: the heads of this rank's queries
+        k, v = k[:, :, kv_heads], v[:, :, kv_heads]
+        kvh = k.shape[2]
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         if not reuse_cross:
@@ -178,7 +215,7 @@ def attention(
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
-    g = cfg.num_heads // max(kvh, 1)
+    g = nh // max(kvh, 1)
     if decode:
         out = _decode_attention(q.reshape(b, s, kvh, g, hd), cache, k, v, cfg, window)
     else:
@@ -204,8 +241,34 @@ def attention(
         out = attend(q.contiguous(), k.contiguous(), v.contiguous(),
                      causal=causal and not is_cross, window=window, scale=hd**-0.5)
 
-    out = out.reshape(b, s, cfg.q_dim).to(x.dtype)
+    out = out.reshape(b, s, nh * hd).to(x.dtype)
     y = out @ p["wo"]
+    if split:
+        y = tp.leave(y)
     if "bo" in p:
         y = y + p["bo"]
     return y, cache
+
+
+def _local_weights(p: Dict[str, torch.Tensor], cfg: ModelConfig, tp: TensorParallel):
+    """(this rank's attention weights, the kv heads its query heads read:
+    None where ``wk``/``wv`` are its kv heads' blocks, else an index into
+    the whole kv heads)."""
+    first, count = tp.heads(cfg.num_heads, "query")
+    dims = model_split(tp, attention_params, cfg, bias="bk" in p)
+    p = dict(p)
+    for name in ("q_norm", "k_norm"):
+        if name in p:
+            p[name] = tp.shared(p[name])
+    if dims["wk"] is not None and cfg.num_kv_heads % tp.size == 0:
+        return p, None                         # this rank's kv heads, GQA ratio kept
+    for name in ("wk", "wv", "bk", "bv"):
+        if name in p:
+            p[name] = tp.full(p[name], dims[name])
+    g = cfg.num_heads // cfg.num_kv_heads
+    idx = [(first + i) // g for i in range(count)]
+    lo, hi = idx[0], idx[-1] + 1
+    per = count // (hi - lo)
+    if per * (hi - lo) == count and idx == [lo + i // per for i in range(count)]:
+        return p, slice(lo, hi)                # whole kv heads, ratio per
+    return p, torch.tensor(idx)                # one kv head a query head

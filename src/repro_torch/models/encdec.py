@@ -14,6 +14,14 @@ port keeps per-layer lists (``enc_blocks``, ``dec_blocks``) and loops, and
 each decoder layer's cache is ``{"self": KVCache, "cross": KVCache}``.
 A training forward with grad enabled checkpoints each encoder and each
 decoder block, the units the reference's ``jax.checkpoint`` wraps.
+
+On a mesh (``tp``, training) the blocks are tensor-parallel as the
+decoder family's (attention over this rank's heads, the GELU MLP over
+its block of ``mlp``), the token embedding is vocab-parallel, and under
+sequence parallelism the encoder's and decoder's residual streams hold
+this rank's block of positions (the frames and ``dec_pos`` are sliced to
+it).  The encoder states enter the decoder's cross-attention once, whole
+and replicated, for every layer.
 """
 
 from __future__ import annotations
@@ -26,8 +34,9 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from .attention import attention, attention_params, init_kv_cache
 from .ffn import gelu_ffn, gelu_ffn_params
+from ..parallel.tensor_parallel import TensorParallel
 from .layers import ParamBuilder, layer_norm, sinusoidal_positions
-from .transformer import remat_enabled
+from .transformer import embed_lookup, remat_enabled
 
 __all__ = ["MAX_DECODER_POS", "build_encdec_params", "encoder_forward", "init_encdec_caches",
            "decoder_forward_encdec"]
@@ -78,17 +87,26 @@ def _ln(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig) -> torch.
     return layer_norm(x, p["w"], p["b"], cfg.norm_eps)
 
 
+def _positions_block(x: torch.Tensor, tp: Optional[TensorParallel]) -> torch.Tensor:
+    """``x``'s block of positions that this rank's residual stream holds."""
+    return x[:, tp.block(x.shape[1])] if tp is not None and tp.sp else x
+
+
 def encoder_forward(params: Dict[str, Any], frames: torch.Tensor, cfg: ModelConfig, *,
-                    plain: bool = False, remat: bool = False) -> torch.Tensor:
-    """frames: (B, S_enc, d) stub embeddings → encoder states (B, S_enc, d).
-    ``remat`` checkpoints each block (the training forward's choice)."""
+                    plain: bool = False, remat: bool = False,
+                    tp: Optional[TensorParallel] = None) -> torch.Tensor:
+    """frames: (B, S_enc, d) stub embeddings → encoder states (B, S_enc, d)
+    (with ``tp``, in the residual stream's layout).  ``remat`` checkpoints
+    each block (the training forward's choice)."""
     s, d = frames.shape[1], frames.shape[2]
     x = frames + sinusoidal_positions(s, d, device=frames.device).to(frames.dtype)[None]
+    x = _positions_block(x, tp)
 
     def block(x, p):
-        h, _ = attention(p["attn"], _ln(x, p["ln_attn"], cfg), cfg, causal=False, plain=plain)
+        h, _ = attention(p["attn"], _ln(x, p["ln_attn"], cfg), cfg, causal=False, plain=plain,
+                         tp=tp)
         x = x + h
-        return x + gelu_ffn(p["mlp"], _ln(x, p["ln_mlp"], cfg))
+        return x + gelu_ffn(p["mlp"], _ln(x, p["ln_mlp"], cfg), tp)
 
     for p in params["enc_blocks"]:
         x = checkpoint(block, x, p, use_reentrant=False) if remat else block(x, p)
@@ -114,26 +132,32 @@ def decoder_forward_encdec(
     positions: Optional[torch.Tensor] = None,
     caches: Optional[List[Dict[str, Any]]] = None,
     plain: bool = False,
+    tp: Optional[TensorParallel] = None,
 ) -> Tuple[torch.Tensor, Optional[List[Dict[str, Any]]]]:
-    """Returns (final hidden (B, S, d), caches updated in place)."""
+    """Returns (final hidden (B, S, d), caches updated in place).  With
+    ``tp``, ``enc_out`` and the hidden state are in the residual stream's
+    layout."""
     b, s = tokens.shape
-    x = params["embed"][tokens.long()]
+    x = embed_lookup(params["embed"], tokens, tp)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     pos_emb = params["dec_pos"][positions.reshape(-1).long()].reshape(
         b if positions.shape[0] == b else 1, s, -1)
-    x = x + pos_emb.to(x.dtype)
+    x = x + _positions_block(pos_emb, tp).to(x.dtype)
     decode = mode == "decode"
+    if tp is not None and tp.size > 1:
+        enc_out = tp.enter(enc_out)        # whole and replicated, for every layer
 
     def block(x, p, cache):
         h, _ = attention(p["attn"], _ln(x, p["ln_attn"], cfg), cfg, positions=positions,
-                         cache=cache["self"] if cache is not None else None, plain=plain)
+                         cache=cache["self"] if cache is not None else None, plain=plain,
+                         tp=tp)
         x = x + h
         h, _ = attention(p["xattn"], _ln(x, p["ln_xattn"], cfg), cfg, kv_x=enc_out,
                          causal=False, cache=cache["cross"] if cache is not None else None,
-                         cache_update=not decode, plain=plain)
+                         cache_update=not decode, plain=plain, tp=tp)
         x = x + h
-        return x + gelu_ffn(p["mlp"], _ln(x, p["ln_mlp"], cfg))
+        return x + gelu_ffn(p["mlp"], _ln(x, p["ln_mlp"], cfg), tp)
 
     remat = remat_enabled(cfg, mode)
     for i, p in enumerate(params["dec_blocks"]):

@@ -23,12 +23,12 @@ One code path builds all three trees, so they cannot drift apart.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
-__all__ = ["DTYPES", "ParamBuilder", "SpecBuilder", "AbstractBuilder", "rms_norm",
-           "layer_norm", "apply_rope", "sinusoidal_positions", "cross_entropy_loss"]
+__all__ = ["DTYPES", "ParamBuilder", "SpecBuilder", "AbstractBuilder", "param_layout", "model_split",
+           "rms_norm", "layer_norm", "apply_rope", "sinusoidal_positions", "cross_entropy_loss"]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
@@ -89,6 +89,27 @@ class AbstractBuilder:
 
     def param(self, shape: Sequence[int], axes: Sequence[Optional[str]], **_) -> torch.Tensor:
         return torch.empty(_checked(shape, axes), dtype=self.dtype, device="meta")
+
+
+def param_layout(build, *args, **kw) -> dict:
+    """{name: (logical axes, full shape)} of the flat parameter dict that
+    ``build(builder, *args, **kw)`` makes (a model module's ``*_params``)."""
+    axes = build(SpecBuilder(), *args, **kw)
+    shapes = build(AbstractBuilder(torch.float32), *args, **kw)
+    return {k: (axes[k], tuple(shapes[k].shape)) for k in axes}
+
+
+def model_split(tp, build, *args, **kw) -> Dict[str, Optional[int]]:
+    """{name: the dim that ``tp``'s rules split over ``model``, or None} of
+    each parameter of the flat dict ``build(builder, *args, **kw)`` makes:
+    resolved on a layer's first call and kept in ``tp.layouts`` for every
+    later call of the model's forward (remat's recomputation included)."""
+    key = (build, args, tuple(sorted(kw.items())))
+    dims = tp.layouts.get(key)
+    if dims is None:
+        dims = tp.layouts[key] = {name: tp.split_dim(axes, shape) for name, (axes, shape)
+                                  in param_layout(build, *args, **kw).items()}
+    return dims
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

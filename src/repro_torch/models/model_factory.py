@@ -17,6 +17,14 @@ caches stand in for both, as in the reference.  One deliberate difference
 in the cross layers and, at prefill, writes the text's keys into the
 cross caches.
 
+On a mesh the train step hands ``forward`` and ``loss_fn`` a
+``TensorParallel`` (``tp``) and this rank's blocks of the parameters:
+the blocks run their tensor-parallel forms, and the loss's head is
+column-parallel over this rank's block of the vocabulary (``lm_head``'s
+columns, or the tied table's rows) with a vocab-parallel cross-entropy:
+the row max and the sum of exponentials are reduced over ``model``, and
+the label's logit comes from the rank whose block holds it.
+
 ``Model(cfg, device=...)`` builds its tensors on ``device`` ("cuda"
 unless the caller asks for the CPU).  ``plain=True`` runs prefill through
 the kernels' plain PyTorch versions on any device; it exists for
@@ -31,6 +39,8 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 
 from ..configs.base import ModelConfig
+from ..parallel.collectives import reduce_from
+from ..parallel.tensor_parallel import TensorParallel
 from . import encdec, transformer
 from .layers import DTYPES, AbstractBuilder, ParamBuilder, SpecBuilder, cross_entropy_loss
 
@@ -76,11 +86,12 @@ class Model:
                 positions: Optional[torch.Tensor] = None, caches=None,
                 aux: Optional[Dict[str, torch.Tensor]] = None,
                 frames: Optional[torch.Tensor] = None,
-                image_embeds: Optional[torch.Tensor] = None):
+                image_embeds: Optional[torch.Tensor] = None,
+                tp: Optional[TensorParallel] = None):
         """Returns (hidden (B, S, d), caches); ``aux``, when given, receives
         the MoE aux values (``transformer.AUX_KEYS``).  ``frames``
         (``encdec``) and ``image_embeds`` (``vlm``) are the second input
-        outside decode."""
+        outside decode.  ``tp``: this rank's part on a mesh (training)."""
         cfg = self.cfg
         if cfg.family in ("encdec", "vlm") and mode == "decode":
             # the cross caches hold the source: a one-row stand-in marks cross
@@ -92,10 +103,10 @@ class Model:
                 raise ValueError("the encdec family needs frames= (B, S_enc, d_model)")
             enc_out = frames if mode == "decode" else encdec.encoder_forward(
                 params, frames, cfg, plain=self.plain,
-                remat=transformer.remat_enabled(cfg, mode))
+                remat=transformer.remat_enabled(cfg, mode), tp=tp)
             hidden, caches = encdec.decoder_forward_encdec(
                 params, tokens, enc_out, cfg, mode=mode, positions=positions, caches=caches,
-                plain=self.plain)
+                plain=self.plain, tp=tp)
             if aux is not None:
                 aux.update({key: torch.zeros((), dtype=torch.float32, device=hidden.device)
                             for key in transformer.AUX_KEYS})
@@ -106,7 +117,8 @@ class Model:
                              "reference, which attends the text to itself there)")
         return transformer.decoder_forward(params, tokens, cfg, mode=mode,
                                            positions=positions, caches=caches,
-                                           image_embeds=image_embeds, plain=self.plain, aux=aux)
+                                           image_embeds=image_embeds, plain=self.plain, aux=aux,
+                                           tp=tp)
 
     def logits(self, params, hidden: torch.Tensor) -> torch.Tensor:
         if self.cfg.family == "encdec":
@@ -114,26 +126,31 @@ class Model:
         return transformer.lm_logits(params, hidden, self.cfg)
 
     # -- training loss (chunked over the sequence: no full logits) ---------
-    def loss_fn(self, params, batch: Dict[str, torch.Tensor], *,
-                loss_chunk: int = 1024) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def loss_fn(self, params, batch: Dict[str, torch.Tensor], *, loss_chunk: int = 1024,
+                tp: Optional[TensorParallel] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(loss, metrics) of one batch: ``tokens``, ``labels`` (B, S),
         optional ``mask`` (B, S) float, and ``frames`` (encdec) or
         ``image_embeds`` (vlm).  With ``loss_chunk`` dividing S (and below
         it) the logits are formed one chunk of positions at a time, as in
         the reference.  ``metrics`` holds ``ce_loss``, ``loss`` and the MoE
         aux values; a ``moe`` model's loss adds ``MOE_AUX_COEF`` ·
-        ``moe_aux_loss`` and ``MOE_Z_COEF`` · ``moe_z_loss``."""
+        ``moe_aux_loss`` and ``MOE_Z_COEF`` · ``moe_z_loss``.  With ``tp``
+        (a mesh) the batch is this rank's rows and ``params`` its blocks."""
         cfg = self.cfg
         aux: Dict[str, torch.Tensor] = {}
         hidden, _ = self.forward(params, batch["tokens"], mode="train", aux=aux,
                                  frames=batch.get("frames"),
-                                 image_embeds=batch.get("image_embeds"))
+                                 image_embeds=batch.get("image_embeds"), tp=tp)
         labels = batch["labels"]
         mask = batch.get("mask")
-        s = hidden.shape[1]
-        if loss_chunk and s > loss_chunk and s % loss_chunk == 0:
-            head = (params["embed"].T if cfg.tie_embeddings or cfg.family == "encdec"
-                    else params["lm_head"])
+        s = labels.shape[1]
+        head = (params["embed"].T if cfg.tie_embeddings or cfg.family == "encdec"
+                else params.get("lm_head"))
+        if tp is not None and tp.size > 1:
+            loss = _vocab_parallel_loss(tp.enter(hidden), head, labels, mask, tp,
+                                        loss_chunk if loss_chunk and s % loss_chunk == 0 else s)
+        elif loss_chunk and s > loss_chunk and s % loss_chunk == 0:
             tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
             denom = torch.zeros((), dtype=torch.float32, device=hidden.device)
             for c in range(s // loss_chunk):
@@ -189,6 +206,30 @@ class Model:
         hidden, caches = self.forward(params, tokens, mode="decode", positions=positions,
                                       caches=caches)
         return self.logits(params, hidden)[:, 0, :], caches
+
+
+def _vocab_parallel_loss(hidden: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                         mask: Optional[torch.Tensor], tp: TensorParallel,
+                         chunk: int) -> torch.Tensor:
+    """The masked mean token NLL of ``hidden`` (whole and replicated over
+    the model group) against ``head`` (d, this rank's block of the
+    vocabulary), ``chunk`` positions at a time."""
+    rows = head.shape[1]
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    denom = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(hidden.shape[1] // chunk):
+        cols = slice(c * chunk, (c + 1) * chunk)
+        lf = (hidden[:, cols] @ head).float()                         # (B, c, V / model)
+        top = tp.group.all_reduce(lf.detach().amax(dim=-1), "max")
+        lse = torch.log(reduce_from(torch.exp(lf - top[..., None]).sum(dim=-1), tp.group)) + top
+        local = labels[:, cols].long() - tp.rank * rows
+        inside = (local >= 0) & (local < rows)
+        picked = torch.gather(lf, -1, local.clamp(0, rows - 1)[..., None])[..., 0]
+        picked = reduce_from(torch.where(inside, picked, torch.zeros_like(picked)), tp.group)
+        m = mask[:, cols].float() if mask is not None else torch.ones_like(lse)
+        tot = tot + torch.sum((lse - picked) * m)
+        denom = denom + torch.sum(m)
+    return tot / torch.clamp(denom, min=1.0)
 
 
 def make_model(cfg: ModelConfig, *, device: Union[str, torch.device] = "cuda",

@@ -25,6 +25,18 @@ state is the last ``conv_width − 1`` rows of ``cat(state.conv, xb)``.
 That equals the reference's ``xb[:, -(conv_width − 1):]`` whenever the
 prompt has at least ``conv_width − 1`` tokens; with a shorter prompt the
 reference's state has the wrong shape and its next decode fails.
+
+On a model axis larger than 1 (``tp``, training) the block is
+column-parallel over this rank's block of ``lru``: ``w_x``, ``w_gate``,
+the conv (``conv_ch``), the gate biases and ``lam`` are its blocks, and
+the recurrence runs on its features alone.  The block-diagonal gates
+(``_N_BLOCKS`` = 8 blocks, replicated) stay local where the model size
+divides 8: the rank's features are whole blocks, and it takes those
+blocks of ``gate_r_w`` / ``gate_i_w`` (entering through
+``TensorParallel.shared``).  Otherwise every ``lru`` leaf is gathered
+over ``model`` and the recurrence runs replicated.  ``w_out`` is
+row-parallel on the rank's features, its partial product leaving
+through ``reduce_from`` (``scatter_seq`` under sequence parallelism).
 """
 
 from __future__ import annotations
@@ -36,7 +48,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from .layers import ParamBuilder
+from ..parallel.tensor_parallel import TensorParallel
+from .layers import ParamBuilder, model_split
 from .ssm import _causal_conv
 
 __all__ = ["RGLRUState", "init_rglru_state", "rglru_params", "rglru_block"]
@@ -118,10 +131,18 @@ def rglru_block(
     *,
     state: Optional[RGLRUState] = None,
     decode: bool = False,
+    tp: Optional[TensorParallel] = None,
 ) -> Tuple[torch.Tensor, Optional[RGLRUState]]:
     """One RG-LRU block.  Prefill with a ``state`` continues from
     ``state.h`` and writes the state decode continues from; decode takes
-    one token and updates the state in place."""
+    one token and updates the state in place.  ``tp``: see the module
+    docstring (no state)."""
+    split = tp is not None and tp.size > 1
+    if split:
+        if state is not None:
+            raise ValueError("tensor parallelism runs the training forward: no state")
+        x = tp.enter(x)
+        p, features = _local_params(p, cfg, tp)
     s = x.shape[1]
     xb = x @ p["w_x"]
     gate = F.gelu((x @ p["w_gate"]).float(), approximate="tanh")
@@ -156,5 +177,28 @@ def rglru_block(
             state.conv.copy_(torch.cat([state.conv, xb.to(state.conv.dtype)], dim=1)[:, -w1:])
             state.h.copy_(y[:, -1, :])
 
+    if split:
+        return tp.leave((gate * y)[..., features].to(x.dtype) @ p["w_out"]), None
     out = (gate * y).to(x.dtype) @ p["w_out"]
     return out, state
+
+
+def _local_params(p: Dict[str, torch.Tensor], cfg: ModelConfig, tp: TensorParallel):
+    """(the weights this rank computes with, its features' index into the
+    recurrence's output) on a model axis larger than 1."""
+    dims = model_split(tp, rglru_params, cfg)
+    lw = _lw(cfg)
+    for name in ("w_x", "w_gate", "w_out", "conv_w", "conv_b", "gate_r_b", "gate_i_b", "lam"):
+        if dims[name] is None:
+            raise NotImplementedError(f"an lru width of {lw} does not split over {tp.size} "
+                                      "model ranks")
+    p = dict(p)
+    if _N_BLOCKS % tp.size == 0:         # whole gate blocks: the rank's own
+        per = _N_BLOCKS // tp.size
+        for name in ("gate_r_w", "gate_i_w"):
+            p[name] = tp.shared(p[name])[tp.rank * per:(tp.rank + 1) * per]
+        return p, slice(None)
+    for name in ("w_x", "w_gate", "conv_w", "conv_b", "gate_r_b", "gate_i_b", "lam",
+                 "gate_r_w", "gate_i_w"):
+        p[name] = tp.full(p[name], dims[name])
+    return p, tp.block(lw)

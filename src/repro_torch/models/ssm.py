@@ -6,6 +6,17 @@ the state ``h0`` in: the CUDA kernel for CUDA tensors, its plain version
 (the reference's ``_ssd_chunked``) for CPU tensors or when the caller
 passes ``plain=True``.  Decode carries the recurrent state directly, O(1)
 per token, in torch ops.
+
+On a model axis larger than 1 (``tp``, training) ``in_proj``'s
+``ssm_inner`` columns are the concatenation z | x | B | C | dt, which a
+column split cuts across, and the depthwise conv and the gated norm
+read every column of their parts.  So ``in_proj``, ``conv_w``,
+``conv_b`` and ``norm`` are gathered over ``model`` (their gradients
+reduce-scattered back), ``A_log``, ``D`` and ``dt_bias`` (replicated)
+enter through ``TensorParallel.shared``, and the layer up to the norm
+runs replicated, K5 on every head.  ``out_proj`` is row-parallel on this
+rank's columns of y, and its partial product leaves through
+``reduce_from`` (``scatter_seq`` under sequence parallelism).
 """
 
 from __future__ import annotations
@@ -18,7 +29,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels.ssd_scan.ssd_scan import ssd_scan, ssd_scan_plain
-from .layers import ParamBuilder, rms_norm
+from ..parallel.tensor_parallel import TensorParallel
+from .layers import ParamBuilder, model_split, rms_norm
 
 __all__ = ["ssd_params", "SSMState", "init_ssm_state", "ssd_block"]
 
@@ -72,12 +84,24 @@ def ssd_block(
     state: Optional[SSMState] = None,
     decode: bool = False,
     plain: bool = False,
+    tp: Optional[TensorParallel] = None,
 ) -> Tuple[torch.Tensor, Optional[SSMState]]:
     """One SSD block.  Prefill (``decode=False``) with a ``state`` starts
     from ``state.h`` and returns the state decode continues from; decode
-    takes one token and updates the state in place."""
-    b, s, _ = x.shape
+    takes one token and updates the state in place.  ``tp``: see the
+    module docstring (no state)."""
     di, n, nh, hd = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    split = tp is not None and tp.size > 1
+    if split:
+        if state is not None:
+            raise ValueError("tensor parallelism runs the training forward: no state")
+        x = tp.enter(x)
+        out_proj, dims = p["out_proj"], model_split(tp, ssd_params, cfg)
+        p = {k: tp.full(v, dims[k]) for k, v in p.items() if k != "out_proj"}
+        if dims["out_proj"] != 0:
+            raise NotImplementedError(f"out_proj's {di} rows do not split over {tp.size} "
+                                      "model ranks")
+    b, s, _ = x.shape
 
     zxbcdt = x @ p["in_proj"]
     z = zxbcdt[..., :di]
@@ -130,4 +154,7 @@ def ssd_block(
             new_state = state
 
     y = rms_norm((y * F.silu(z.float())).to(x.dtype), p["norm"], cfg.norm_eps)
+    if split:
+        return tp.leave(y[..., tp.block(di)] @ out_proj), None
     return y @ p["out_proj"], new_state
+

@@ -23,6 +23,15 @@ reach a caller that passes an ``aux`` dict to :func:`decoder_forward`.  A
 each repetition of the pattern (:func:`remat_enabled`), the unit the
 reference's ``jax.checkpoint`` wraps; the remainder's layers are not
 checkpointed, as in the reference.
+
+On a mesh (``tp``, training) every block runs its own tensor-parallel
+form (its module says which), and the embedding is vocab-parallel:
+``embed`` holds this rank's rows of the vocabulary, each rank looks its
+tokens up there with the others' set to zero, and the sum leaves
+through ``reduce_from`` (``scatter_seq`` under sequence parallelism,
+where the residual stream holds this rank's block of positions); the
+hybrid's embedding scale follows the lookup.  The norms are replicated
+and run on the residual stream as it is.
 """
 
 from __future__ import annotations
@@ -35,13 +44,14 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from .attention import attention, attention_params, init_kv_cache
 from .ffn import ffn, ffn_params
+from ..parallel.tensor_parallel import TensorParallel
 from .layers import ParamBuilder, rms_norm
 from .moe import moe_ffn, moe_params
 from .rglru import init_rglru_state, rglru_block, rglru_params
 from .ssm import init_ssm_state, ssd_block, ssd_params
 
 __all__ = ["AUX_KEYS", "pattern_of", "layer_kinds", "build_decoder_params",
-           "init_caches", "remat_enabled", "decoder_forward", "lm_logits"]
+           "init_caches", "remat_enabled", "embed_lookup", "decoder_forward", "lm_logits"]
 
 AUX_KEYS = ("moe_aux_loss", "moe_z_loss", "moe_overflow_frac", "moe_load_max")
 
@@ -147,38 +157,39 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") ->
 
 
 def _apply_block(kind: str, p, x, cfg: ModelConfig, *, mode: str, positions, cache,
-                 image_embeds, plain):
+                 image_embeds, plain, tp: Optional[TensorParallel] = None):
     """One block -> (x, aux values); its cache (if any) is updated in place."""
     decode = mode == "decode"
     if kind in ("attn", "moe"):
         h, _ = attention(p["attn"], rms_norm(x, p["ln_attn"], cfg.norm_eps), cfg,
-                         positions=positions, window=_window(cfg), cache=cache, plain=plain)
+                         positions=positions, window=_window(cfg), cache=cache, plain=plain,
+                         tp=tp)
         x = x + h
         if kind == "attn":
-            return x + ffn(p["mlp"], rms_norm(x, p["ln_mlp"], cfg.norm_eps)), {}
-        h, aux = moe_ffn(p["moe"], rms_norm(x, p["ln_mlp"], cfg.norm_eps), cfg)
+            return x + ffn(p["mlp"], rms_norm(x, p["ln_mlp"], cfg.norm_eps), tp), {}
+        h, aux = moe_ffn(p["moe"], rms_norm(x, p["ln_mlp"], cfg.norm_eps), cfg, tp)
         return x + h, aux
     if kind == "ssd":
         h, _ = ssd_block(p["ssd"], rms_norm(x, p["ln"], cfg.norm_eps), cfg, state=cache,
-                         decode=decode, plain=plain)
+                         decode=decode, plain=plain, tp=tp)
         return x + h, {}
     if kind == "rglru":
         h, _ = rglru_block(p["rec"], rms_norm(x, p["ln_rec"], cfg.norm_eps), cfg, state=cache,
-                           decode=decode)
+                           decode=decode, tp=tp)
         x = x + h
-        return x + ffn(p["mlp"], rms_norm(x, p["ln_mlp"], cfg.norm_eps)), {}
+        return x + ffn(p["mlp"], rms_norm(x, p["ln_mlp"], cfg.norm_eps), tp), {}
     # cross: self-attention, then gated cross-attention and a gated FFN
     h, _ = attention(p["attn"], rms_norm(x, p["ln_attn"], cfg.norm_eps), cfg,
                      positions=positions, cache=cache["self"] if cache is not None else None,
-                     plain=plain)
+                     plain=plain, tp=tp)
     x = x + h
     h, _ = attention(p["xattn"], rms_norm(x, p["ln_xattn"], cfg.norm_eps), cfg,
                      kv_x=image_embeds, causal=False,
                      cache=cache["cross"] if cache is not None else None,
-                     cache_update=not decode, plain=plain)
+                     cache_update=not decode, plain=plain, tp=tp)
     x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * h
     return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * ffn(
-        p["mlp"], rms_norm(x, p["ln_mlp"], cfg.norm_eps)), {}
+        p["mlp"], rms_norm(x, p["ln_mlp"], cfg.norm_eps), tp), {}
 
 
 def remat_enabled(cfg: ModelConfig, mode: str) -> bool:
@@ -199,14 +210,17 @@ def decoder_forward(
     image_embeds: Optional[torch.Tensor] = None,   # (B, n_img, d): the vlm's cross source
     plain: bool = False,
     aux: Optional[Dict[str, torch.Tensor]] = None,
+    tp: Optional[TensorParallel] = None,
 ) -> Tuple[torch.Tensor, Optional[List[Any]]]:
     """Returns (final hidden (B, S, d), caches updated in place).
 
     ``aux``, when given, receives the ``AUX_KEYS`` values summed over the
     layers as float32 scalars (zeros for a model without ``moe`` blocks),
-    as the reference's third return value.
+    as the reference's third return value.  With ``tp`` the hidden state
+    is in the residual stream's layout (this rank's positions under
+    sequence parallelism).
     """
-    x = params["embed"][tokens.long()]
+    x = embed_lookup(params["embed"], tokens, tp)
     if cfg.family == "hybrid":  # gemma-style embedding scale
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)
     if aux is not None:
@@ -221,7 +235,7 @@ def decoder_forward(
             x, block_aux = _apply_block(kinds[i], params["layers"][i], x, cfg, mode=mode,
                                         positions=positions,
                                         cache=caches[i] if caches is not None else None,
-                                        image_embeds=image_embeds, plain=plain)
+                                        image_embeds=image_embeds, plain=plain, tp=tp)
             auxes.append(block_aux)
         return x, auxes
 
@@ -242,6 +256,20 @@ def decoder_forward(
                 for key, value in block_aux.items():
                     aux[key] = aux[key] + value.float()
     return rms_norm(x, params["final_norm"], cfg.norm_eps), caches
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 tp: Optional[TensorParallel] = None) -> torch.Tensor:
+    """The rows of ``tokens``; with ``tp``, ``table`` is this rank's block
+    of the vocabulary and the lookup is vocab-parallel."""
+    if tp is None or tp.size == 1:
+        return table[tokens.long()]
+    rows = table.shape[0]
+    local = tokens.long() - tp.rank * rows
+    inside = (local >= 0) & (local < rows)
+    x = torch.where(inside[..., None], table[local.clamp(0, rows - 1)],
+                    torch.zeros((), dtype=table.dtype, device=table.device))
+    return tp.leave(x)
 
 
 def lm_logits(params: Dict[str, Any], hidden: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

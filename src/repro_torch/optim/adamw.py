@@ -2,9 +2,11 @@
 
 The port's copy of ``repro.optim.adamw``, over the port's parameter tree
 (nested dicts and lists of tensors, :mod:`repro_torch.tree`).
-Functional, as the reference: ``init(params) -> state``, ``update(grads,
-state, params, lr) -> (updates, state)``, ``apply_updates(params,
-updates)``.  Moments are stored in ``state_dtype``, the arithmetic is
+As the reference: ``init(params) -> state``, ``update(grads, state,
+params, lr) -> (updates, state)``, ``apply_updates(params, updates)``;
+``update`` writes the new moments into ``state``'s tensors (donated, as
+the reference's jitted step donates its state), so the moments are never
+held twice.  Moments are stored in ``state_dtype``, the arithmetic is
 float32, and the updates are cast to each parameter's dtype; there are no
 float32 master weights (the reference keeps none).
 
@@ -88,6 +90,8 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads, state: AdamWState, params, lr) -> Tuple[Any, AdamWState]:
+        """(updates, the new state, whose moments are ``state``'s tensors
+        updated in place: the old state is gone)."""
         step = state.step + 1
         b1, b2 = self.b1, self.b2
         f32 = torch.float32
@@ -104,7 +108,7 @@ class AdamW:
             u = mhat / (torch.sqrt(vhat) + self.eps)
             if self.wd and decays[path]:
                 u = u + self.wd * p.to(f32)
-            return (-lr * u).to(p.dtype), mf.to(m.dtype), vf.to(v.dtype)
+            return (-lr * u).to(p.dtype), m.copy_(mf), v.copy_(vf)
 
         outs = [upd(path, g, m, v, p) for (path, g), m, v, p in zip(
             tree_leaves_with_path(grads), tree_leaves(state.mu), tree_leaves(state.nu),

@@ -1,4 +1,5 @@
-"""Collectives over one mesh axis's process group, and the compressed psum.
+"""Collectives over one mesh axis's process group, those that carry
+gradients, and the compressed psum.
 
 :class:`Group` wraps one ``torch.distributed`` process group (or none: a
 group of one rank, where every collective is the identity) with the
@@ -6,6 +7,29 @@ collectives the port's distributed paths run: all-reduce, broadcast,
 all-gather and reduce-scatter of flat tensors, and point-to-point
 send / recv.  It counts the bytes this rank hands to them
 (``sent_bytes``).
+
+**Collectives that carry gradients** (tensor and sequence parallelism,
+slice F2), each a ``torch.autograd.Function`` over a :class:`Group`
+whose forward and backward both count their bytes:
+
+* :func:`copy_to` — identity forward, all-reduce backward: a replicated
+  activation (or weight) entering a computation that each rank does on
+  its own block, whose gradients are per-rank partial sums;
+* :func:`reduce_from` — all-reduce forward, identity backward: the
+  partial results leaving such a computation;
+* :func:`gather_seq` — all-gather along a dim forward, reduce-scatter
+  backward (the sequence-parallel residual entering a block, or a
+  weight gathered over the group);
+* :func:`scatter_seq` — reduce-scatter forward, all-gather backward (the
+  block's partial results back onto the sequence shards);
+* :func:`pmean` — the group's mean forward, the mean of the cotangents
+  backward (the MoE aux values over the data axes, whose ranks weigh
+  their losses by their share of the batch).
+
+``torch.distributed.nn.functional.all_reduce`` is not used: its backward
+all-reduces again, which multiplies a gradient by the group's size when
+every rank computes the same loss.  These five run no point-to-point
+transfer, so nothing of them is staged through the host.
 
 **Host staging.**  On one card two ranks cannot share NCCL ("Duplicate
 GPU detected"), so they share gloo.  Gloo takes CUDA tensors in
@@ -39,18 +63,20 @@ import torch.distributed as dist
 
 from ..tree import tree_map
 
-__all__ = ["Group", "compressed_psum", "compressed_psum_tree"]
+__all__ = ["Group", "copy_to", "reduce_from", "gather_seq", "scatter_seq", "pmean",
+           "compressed_psum", "compressed_psum_tree"]
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 class Group:
     """One process group (``None``: the default group when one is
-    initialised, else a group of this rank alone)."""
+    initialised, else a group of this rank alone; ``alone=True``: this
+    rank alone in any case)."""
 
-    def __init__(self, pg: Optional[dist.ProcessGroup] = None) -> None:
+    def __init__(self, pg: Optional[dist.ProcessGroup] = None, *, alone: bool = False) -> None:
         self.pg = pg
-        active = dist.is_available() and dist.is_initialized()
+        active = not alone and dist.is_available() and dist.is_initialized()
         self.size = dist.get_world_size(pg) if active else 1
         self.rank = dist.get_rank(pg) if active else 0
         self.backend = dist.get_backend(pg) if active else None
@@ -128,6 +154,103 @@ class Group:
             return self._back(host, t)
         dist.recv(t, src=self._global(src), group=self.pg)
         return t
+
+
+def _split(t: torch.Tensor, n: int, dim: int) -> torch.Tensor:
+    """(n, ...): ``t`` cut into n equal blocks along ``dim``."""
+    if t.shape[dim] % n:
+        raise ValueError(f"a dim of {t.shape[dim]} does not split over {n} ranks")
+    return torch.stack(t.chunk(n, dim=dim))
+
+
+def _gather(t: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    return torch.cat(group.all_gather(t).unbind(0), dim=dim)
+
+
+def _scatter(t: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    return group.reduce_scatter(_split(t, group.size, dim))
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce(g.clone(memory_format=torch.contiguous_format)), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.all_reduce(x.clone(memory_format=torch.contiguous_format))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter(g, ctx.group, ctx.dim), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.group, ctx.dim), None, None
+
+
+class _PMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.all_reduce(x.clone(memory_format=torch.contiguous_format)) / group.size
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce(g.clone(memory_format=torch.contiguous_format)) / \
+            ctx.group.size, None
+
+
+def copy_to(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """``x``; its gradient summed over the group."""
+    return x if group.size == 1 else _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """``x`` summed over the group; its gradient passed through."""
+    return x if group.size == 1 else _ReduceFrom.apply(x, group)
+
+
+def gather_seq(x: torch.Tensor, group: Group, dim: int = 1) -> torch.Tensor:
+    """Every rank's ``x`` joined along ``dim`` in group-rank order; the
+    gradient summed over the group, this rank's block kept."""
+    return x if group.size == 1 else _GatherSeq.apply(x, group, dim)
+
+
+def scatter_seq(x: torch.Tensor, group: Group, dim: int = 1) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``x`` summed over the group; the
+    gradient gathered."""
+    return x if group.size == 1 else _ScatterSeq.apply(x, group, dim)
+
+
+def pmean(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """``x``'s mean over the group; the gradient the mean of the ranks'."""
+    return x if group.size == 1 else _PMean.apply(x, group)
 
 
 def compressed_psum(x: torch.Tensor, group: Group) -> torch.Tensor:

@@ -22,27 +22,43 @@ index of one rank's shard.  The mesh is a ``torch.distributed`` ``DeviceMesh`` o
 a :class:`MeshShape`, which needs no process group (rank-free tests, and
 the one-device (1, 1) mesh of ``run_training``).
 
-:func:`shard_hint` is the identity in this slice: a model axis larger
-than 1 (tensor and sequence parallelism) waits for slice F2, and on a
-mesh whose model axis is 1 every activation hint of the reference
-resolves to its data-parallel batch split, which the train step makes by
-hand (``launch/steps.py``).
+On a ``DeviceMesh`` the rules also hold one :class:`Group` per mesh axis
+the models and the train step run collectives over:
+:attr:`MeshRules.model_group` (the ``model`` axis) and
+:attr:`MeshRules.data_group` (``pod`` × ``data``), and this rank's
+``model`` coordinate (:attr:`MeshRules.model_rank`).
+
+:func:`shard_hint` is the identity.  The port's layouts are explicit: on
+a data-parallel mesh the train step gathers the weights and splits the
+batch by hand (``launch/steps.py``), and on a model axis larger than 1
+the models call named collectives (:mod:`.tensor_parallel`) where the
+reference's hints change an activation's layout: ``models/attention.py``
+for ``src/repro/models/attention.py:243, 256-257, 337, 341``,
+``models/ffn.py`` for ``ffn.py:26, 28, 42, 44``, ``models/moe.py`` for
+``moe.py:59-68, 94-105`` and ``core/moe_dispatch.py:195, 199``,
+``models/ssm.py`` for ``ssm.py:215``, ``models/rglru.py`` for
+``rglru.py:116, 157``, ``models/transformer.py`` for
+``transformer.py:321`` and ``models/encdec.py`` for ``encdec.py:90,
+162``.  A collective cannot hide inside an annotation there.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 from ..configs.base import ParallelConfig
+from .collectives import Group
 
-__all__ = ["MeshShape", "MeshRules", "Spec", "use_rules", "current_rules",
+__all__ = ["MeshShape", "MeshRules", "Spec", "DATA_AXES", "use_rules", "current_rules",
            "hints_disabled", "shard_hint", "is_axes", "axes_leaves"]
 
 Axes = Tuple[Optional[str], ...]
+DATA_AXES = ("pod", "data")
 Spec = Tuple[Union[None, str, Tuple[str, ...]], ...]
 
 # logical axis → candidate mesh axes (priority order).  A tuple value of
@@ -156,6 +172,57 @@ class MeshRules:
         """This rank's coordinate on each mesh axis."""
         return dict(zip(self.mesh.mesh_dim_names, self.mesh.get_coordinate()))
 
+    @property
+    def model_size(self) -> int:
+        return self.axis_sizes.get("model", 1)
+
+    @property
+    def model_rank(self) -> int:
+        """This rank's coordinate on the ``model`` axis."""
+        return self.coordinate().get("model", 0)
+
+    def _device_mesh(self, axes: Sequence[str]):
+        """The ``DeviceMesh`` that collectives over ``axes`` run on."""
+        if not hasattr(self.mesh, "mesh"):
+            raise ValueError(f"collectives over {tuple(axes)} need a DeviceMesh over a "
+                             "process group (launch.mesh.make_mesh)")
+        return self.mesh
+
+    @functools.cached_property
+    def model_group(self) -> Group:
+        """The ``model`` axis's group: the ranks that share this rank's data
+        coordinates."""
+        if self.model_size == 1:
+            return Group(alone=True)
+        return Group(self._device_mesh(["model"]).get_group("model"))
+
+    @functools.cached_property
+    def data_group(self) -> Group:
+        """The data axes' group (``pod`` × ``data``): the ranks that share this
+        rank's ``model`` coordinate.  It is the default group when the data
+        axes span the mesh."""
+        axes = [a for a in self.mesh.mesh_dim_names if a in DATA_AXES]
+        size = math.prod(self.axis_sizes[a] for a in axes)
+        if size == 1:
+            return Group(alone=True)
+        mesh = self._device_mesh(axes)
+        if size == math.prod(self.axis_sizes.values()):
+            return Group()
+        if len(axes) == 1:
+            return Group(mesh.get_group(axes[0]))
+        import torch.distributed as dist
+
+        # one group per coordinate of the other axes, made by every rank in order
+        names = list(mesh.mesh_dim_names)
+        order = [names.index(a) for a in names if a not in axes] + [names.index(a) for a in axes]
+        rows = mesh.mesh.permute(order).reshape(-1, size)
+        mine = None
+        for row in rows.tolist():
+            pg = dist.new_group(row)
+            if dist.get_rank() in row:
+                mine = pg
+        return Group(mine)
+
     def local_slice(self, spec: Spec, shape: Sequence[int],
                     coords: Optional[Dict[str, int]] = None) -> Tuple[slice, ...]:
         """The index of the shard that the rank at ``coords`` (mesh axis →
@@ -210,6 +277,6 @@ def current_rules() -> Optional[MeshRules]:
 
 
 def shard_hint(x, *axes: Optional[str]):
-    """Annotate an activation with logical axes: the identity in this slice
-    (a model axis larger than 1 waits for slice F2)."""
+    """Annotate an activation with logical axes: the identity (the port's
+    layouts are explicit; see the module docstring)."""
     return x

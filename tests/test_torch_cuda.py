@@ -23,6 +23,9 @@ greedy tokens through K4 as through its plain version.  K4's and K5's
 ``Function``s carry gradients: an output requires grad when an input
 does, the gradients match autograd of the plain versions, and a smoke
 train step through the kernels matches one through the plain versions.
+What a model axis of 2 hands the kernels is held too: K4 on a rank's
+heads equals those heads of the full call, and the loss's vocab-parallel
+cross-entropy on two halves of the vocabulary equals the plain loss.
 """
 
 import ctypes
@@ -835,3 +838,69 @@ def test_gloo_ranks_share_the_card(cuda, tmp_path):
         np.testing.assert_allclose(two["loss"], one["loss"], rtol=1e-5)
         np.testing.assert_allclose(two["grad_norm"], one["grad_norm"], rtol=1e-4)
         assert out["step_staged_bytes"] == 0
+
+
+@pytest.mark.parametrize("h,kvh,d", [(32, 4, 64), (32, 4, 128)])   # tinyllama, qwen3-moe
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_on_a_model_ranks_heads(cuda, h, kvh, d, dtype):
+    """What a model axis of 2 hands K4: each rank's 16 query heads with the
+    2 kv heads they read give those heads of the full call, bitwise (a
+    block computes one kv head's group of query heads)."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    b, s = 2, 512
+    q = torch.randn((b, s, h, d), generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn((b, s, kvh, d), generator=g, device="cuda").to(dtype) for _ in range(2))
+    full = fk.flash_attention(q, k, v, causal=True)
+    for rank in range(2):
+        qs, ks = slice(rank * h // 2, (rank + 1) * h // 2), slice(rank * kvh // 2,
+                                                                (rank + 1) * kvh // 2)
+        part = fk.flash_attention(q[:, :, qs].contiguous(), k[:, :, ks].contiguous(),
+                                  v[:, :, ks].contiguous(), causal=True)
+        assert torch.equal(part, full[:, :, qs])
+
+
+def test_vocab_parallel_cross_entropy_in_two_halves(cuda):
+    """The loss's vocab-parallel cross-entropy, each half of a vocabulary of
+    32000 on its own thread (a group of two ranks emulated in one
+    process), equals the plain loss; the hidden state's
+    gradient (the two halves' sum) and each half's head gradient equal
+    autograd's of the plain loss."""
+    import threading
+    import types
+
+    from test_torch_dist_train_tp import ThreadGroup
+
+    from repro_torch.models.layers import cross_entropy_loss
+    from repro_torch.models.model_factory import _vocab_parallel_loss
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    vocab, d = 32000, 256
+    hidden = torch.randn((2, 64, d), generator=g, device="cuda")
+    head = 0.05 * torch.randn((d, vocab), generator=g, device="cuda")
+    labels = torch.randint(0, vocab, (2, 64), generator=g, device="cuda")
+    mask = (torch.rand((2, 64), generator=g, device="cuda") > 0.2).float()
+    h, w = hidden.clone().requires_grad_(True), head.clone().requires_grad_(True)
+    want, _ = cross_entropy_loss(h @ w, labels, mask)
+    want.backward()
+    shared = ([None, None], threading.Barrier(2))
+    out = [None, None]
+
+    def rank(r):
+        group = ThreadGroup(r, 2, shared)
+        tp = types.SimpleNamespace(group=group, rank=r, size=2)
+        hr = hidden.clone().requires_grad_(True)
+        wr = head[:, r * vocab // 2:(r + 1) * vocab // 2].clone().requires_grad_(True)
+        loss = _vocab_parallel_loss(hr, wr, labels, mask, tp, chunk=32)
+        loss.backward()
+        out[r] = (loss.detach(), hr.grad, wr.grad)
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for r in range(2):
+        torch.testing.assert_close(out[r][0], want.detach(), rtol=1e-5, atol=0)
+        torch.testing.assert_close(out[r][2], w.grad[:, r * vocab // 2:(r + 1) * vocab // 2],
+                                   rtol=1e-4, atol=1e-7)
+    torch.testing.assert_close(out[0][1] + out[1][1], h.grad, rtol=1e-4, atol=1e-7)

@@ -19,7 +19,9 @@ writes it back from them (bitwise the same checkpoint), and resumes
 rank returns the same result, and one rank resumes from the checkpoint
 the two wrote.  In-process: the (1, 1) mesh's step is the one-card step
 written out, bitwise; ``elastic_restore_summary`` is the reference's; a
-model axis larger than 1 and the moe family on a mesh raise.
+mesh of several ranks without a process group, and a batch that does not
+split over the data ranks, raise (``test_torch_dist_train_tp*.py`` hold
+the model axis and the moe family on a mesh).
 """
 
 import os
@@ -320,14 +322,10 @@ def test_elastic_restore_summary_matches_reference():
 
 def test_unsupported_meshes_raise():
     shape = InputShape("t", S, ROWS, "train")
-    for arch, mesh, error in (("tinyllama-1.1b", MeshShape((2, 2), ("data", "model")),
-                               NotImplementedError),
-                              ("qwen3-moe-30b-a3b", MeshShape((2, 1), ("data", "model")),
-                               NotImplementedError),
-                              ("tinyllama-1.1b", MeshShape((2, 1), ("data", "model")),
-                               ValueError)):
+    for arch, mesh, error in (("tinyllama-1.1b", MeshShape((2, 1), ("data", "model")),
+                               ValueError),):
         cfg = get_config(arch).smoke()
-        with pytest.raises(error, match="F2|DeviceMesh"):
+        with pytest.raises(error, match="DeviceMesh"):
             make_train_step(make_model(cfg, device="cpu"), optim.AdamW(cfg=cfg),
                             MeshRules(mesh, cfg.parallel), shape)
     cfg = get_config("tinyllama-1.1b").smoke()
