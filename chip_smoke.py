@@ -45,12 +45,15 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    cross-attention (Sq 55, 448 and 1 over Sk 1500 frames);
    llama-3.2-vision-90b's self-attention (causal, S 891) and
    cross-attention (Sq 891 over Sk 1024 image tokens, H 64, KVH 8, D
-   128); and what phase 9 hands K4 on a rank of its (2, 2) mesh (B 2, S
+   128); what phase 9 hands K4 on a rank of its (2, 2) mesh (B 2, S
    2048, 16 query and 2 kv heads: tinyllama's at D 64, qwen3-moe's at
-   D 128).  K4's bound counts the (query, key) pairs its masks keep.  K5 at
-   mamba2-130m's prefill (B 1, S 2048, 1000 and the longest served
-   prompt's 891, H 24, P 64, N 128, chunk 256) with zero and nonzero h0 at
-   2e-4.
+   D 128); and what phase 10a/10c's prefill hands it, on a rank (B 2, S
+   512, 16 / 2 heads, D 64) and in the parent's one-rank run (B 4, S 512,
+   32 / 4 heads).  K4's bound counts the (query, key) pairs its masks
+   keep.  K5 at mamba2-130m's prefill (``K5_SHAPES``: B 1 at S 2048, 1000
+   and the longest served prompt's 891; phase 10b's B 2 a rank and B 4 in
+   the one-rank run at S 512; H 24, P 64, N 128, chunk 256) with zero and
+   nonzero h0 at 2e-4.
 5. Serving at full width, inline: tinyllama-1.1b (K4, D 64), mamba2-130m
    (K5), stablelm-12b (K4, D 160; 24 GB in bf16), qwen3-moe-30b-a3b (K4,
    D 128, 128 experts top-8 with capacity chunks and the dense fallback;
@@ -181,14 +184,38 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
       K4's plain version (per-shard routing differs from one rank's
       global routing by design): every token's experts equal, the aux
       losses within 1e-5, the same f32 measures.
+10. Prefill and decode on the (2, 2) mesh (slice F3a): the parent runs
+   each case's prompts through the one-rank ``Model.prefill`` /
+   ``decode_step``, then four ranks spawned on the one card share gloo
+   on a (2, 2) ``("data", "model")`` mesh and run ``make_prefill_step``
+   and 8 greedy ``make_decode_step`` calls on their blocks of the same
+   seeded weights (each call gathers the data-axis shards), batch 4 ×
+   512 prompt tokens from a seeded generator (2 rows a data shard),
+   caches of 1024 rows.
+   a. tinyllama-1.1b at full width, float32: the greedy tokens (the
+      argmax over the model group, ``models.greedy_tokens``) equal the
+      one-rank run's, each logits block within rtol/atol 1e-3 of its
+      rows and vocabulary block of the one-rank logits, at the prefill
+      and at each decode step; K4 22 launches a rank a prefill, on 16
+      query / 2 kv heads a call, none at decode.
+   b. mamba2-130m at full width, float32, the same checks; K5 24
+      launches a rank a prefill on all 24 heads (the gathered path).
+   c. tinyllama-1.1b in bf16, the same shapes, read and not checked: the
+      share of greedy tokens equal to the one-rank bf16 run's.
+   For each, a rank's prefill and decode ms (host clock, each call
+   ending in ``torch.cuda.synchronize()``), the part of them spent inside
+   the groups' collectives and the process's CPU time, the bytes a call
+   hands to the model group and to the data group, its peak GB and
+   launches; before the spawn, the host's load and the card memory the
+   parent still holds.
 
 Launch counts are set to 0 just before each main path (phases 2–3 for
 K1–K3, each model's serving run in phase 5 and in 6a, 6b for K3, each
-training run in phase 7, in each rank 8a's run and 8b's pipeline, and
-9a's and 9b's runs and 9c's steps) and read just after, so they count
-the main path's launches only; the JSON line's ``launches`` is phases
-2–3's, phase 5's, phase 7's, phase 8's and phase 9's (summed over the
-models and ranks), ``launches_by_path`` names
+training run in phase 7, in each rank 8a's run and 8b's pipeline,
+9a's and 9b's runs and 9c's steps, and 10's prefill steps) and read just
+after, so they count the main path's launches only; the JSON line's
+``launches`` is phases 2–3's, phase 5's, phase 7's, phase 8's, phase
+9's and phase 10's (summed over the models and ranks), ``launches_by_path`` names
 each model's (whisper's and the vision model's by form, recurrentgemma's
 past-the-window check apart) and adds phase 6's, K4's row lists every
 phase-4 shape under ``shapes``, and K4's and K5's rows carry phase 7's
@@ -291,7 +318,9 @@ GRAD_REL = 1e-4
 # decode step (Sq 1); the vision model's causal self-attention and its
 # cross-attention over 1024 image tokens at its 891-token prompt; and
 # what phase 9a and 9b hand K4 on each rank of the (2, 2) mesh: a data
-# shard's 2 rows of 2048 tokens on a model rank's half of the heads
+# shard's 2 rows of 2048 tokens on a model rank's half of the heads; and
+# what phase 10a/10c's prefill hands it, on a rank (2 rows of 512 tokens,
+# half of the heads) and in the parent's one-rank run (4 rows, every head)
 K4_SHAPES = (
     ("tinyllama-1.1b", 1, 32, 4, 64, True, 0, ((2048, 2048), (1000, 1000), (891, 891))),
     ("stablelm-12b", 1, 32, 8, 160, True, 0, ((2048, 2048), (891, 891))),
@@ -303,7 +332,13 @@ K4_SHAPES = (
     ("llama-3.2-vision-90b cross", 1, 64, 8, 128, False, 0, ((891, 1024),)),
     ("tinyllama-1.1b a model rank's heads (9a)", 2, 16, 2, 64, True, 0, ((2048, 2048),)),
     ("qwen3-moe-30b-a3b a model rank's heads (9b)", 2, 16, 2, 128, True, 0, ((2048, 2048),)),
+    ("tinyllama-1.1b a model rank's heads (10a/10c)", 2, 16, 2, 64, True, 0, ((512, 512),)),
+    ("tinyllama-1.1b one rank (10a/10c)", 4, 32, 4, 64, True, 0, ((512, 512),)),
 )
+# K5 in phase 4: (B, S) of mamba2-130m's prefills at full width: phase 5's
+# prompts, and phase 10b's on a rank (2 rows of 512 tokens, every head on
+# the gathered path) and in the parent's one-rank run (4 rows)
+K5_SHAPES = ((1, 2048), (1, 1000), (1, 891), (2, 512), (4, 512))
 
 
 def require(ok: bool, what: str) -> None:
@@ -759,12 +794,12 @@ def phase4_model_kernels():
     # -- K5 at mamba2-130m's prefill ------------------------------------------
     h, p, n, chunk = 24, 64, 128, 256
     rows = []
-    for s in (2048, 1000, 891):
-        x = normal(1, s, h, p)
-        log_a = torch.from_numpy(-0.2 * rng.random((1, s, h), np.float32)).cuda()
-        bm, cm = normal(1, s, n, scale=0.3), normal(1, s, n, scale=0.3)
-        for h0 in (None, normal(1, h, p, n, scale=0.5)):
-            label = f"K5 ssd_scan S={s} h0={'nonzero' if h0 is not None else 'none'}"
+    for nb, s in K5_SHAPES:
+        x = normal(nb, s, h, p)
+        log_a = torch.from_numpy(-0.2 * rng.random((nb, s, h), np.float32)).cuda()
+        bm, cm = normal(nb, s, n, scale=0.3), normal(nb, s, n, scale=0.3)
+        for h0 in (None, normal(nb, h, p, n, scale=0.5)):
+            label = f"K5 ssd_scan B={nb} S={s} h0={'nonzero' if h0 is not None else 'none'}"
             y, hf = ssd_scan(x, log_a, bm, cm, chunk=chunk, h0=h0)
             y_want, h_want = ssd_scan_plain(x, log_a, bm, cm, chunk=chunk, h0=h0)
             err = max(compare(label + " y", y, y_want, SSD_TOL),
@@ -772,12 +807,12 @@ def phase4_model_kernels():
             ms = time_ms(lambda: ssd_scan(x, log_a, bm, cm, chunk=chunk, h0=h0))
             dev = time_ms(lambda: ssd_scan(x, log_a, bm, cm, chunk=chunk, h0=h0), hold=True)
             plain = time_ms(lambda: ssd_scan_plain(x, log_a, bm, cm, chunk=chunk, h0=h0), reps=5)
-            b, by = bound_ms(sops.kernel_hbm_bytes(1, s, h, p, n, with_h0=h0 is not None),
-                             sops.kernel_flops(1, s, h, p, n))
+            b, by = bound_ms(sops.kernel_hbm_bytes(nb, s, h, p, n, with_h0=h0 is not None),
+                             sops.kernel_flops(nb, s, h, p, n))
             rows.append(dict(shape=label[len("K5 ssd_scan "):], max_abs_err=err, ms=ms,
                              device_ms=dev, plain_ms=plain, bound_ms=b, bound_by=by))
     print("K5 at full width " + json.dumps(rows))
-    main_row = rows[0]  # S 2048, no h0: a prompt's first prefill
+    main_row = rows[0]  # B 1 S 2048, no h0: a prompt's first prefill
     kernels["ssd_scan"] = dict(
         name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/ssd_scan.py:67", library_ms=None,
@@ -2479,6 +2514,293 @@ def phase9_tensor_parallel(card: str, *, device: str = "cuda", smoke: bool = Fal
     return launches
 
 
+# phase 10: prefill and decode on the (2, 2) mesh (slice F3a): four gloo
+# ranks on the one card, the serving steps of launch/steps.py against the
+# one-rank Model.prefill / decode_step the parent ran on the same prompts
+SERVE_TP = dict(batch=4, prompt=512, max_len=1024, steps=8)
+# (part, arch, dtype, whether the tokens and logits are checks (float32)
+# or readings (bf16))
+SERVE_TP_CASES = (("10a", "tinyllama-1.1b", "float32", True),
+                  ("10b", "mamba2-130m", "float32", True),
+                  ("10c", "tinyllama-1.1b", "bfloat16", False))
+
+
+def _serve_tp_config(arch: str, dtype: str, smoke: bool):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return (cfg.smoke() if smoke else cfg).replace(dtype=dtype, param_dtype=dtype)
+
+
+def _serve_tp_prompt(cfg, plan: dict, device: str):
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(10)
+    return torch.randint(0, cfg.vocab_size, (plan["batch"], plan["prompt"]), generator=gen,
+                         dtype=torch.int32).to(device)
+
+
+def _phase10_one_rank(part: str, arch: str, dtype: str, plan: dict, tmp: Path) -> dict:
+    """The parent's one-rank run of a case: prefill and greedy decode through
+    ``Model.prefill`` / ``decode_step``, its tokens and last-position
+    logits written to ``tmp`` for the ranks."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+    from repro_torch.models import make_model
+
+    device = plan["device"]
+    cfg = _serve_tp_config(arch, dtype, plan["smoke"])
+    model = make_model(cfg, device=device)
+    params = model.init(0)
+    tokens = _serve_tp_prompt(cfg, plan, device)
+    for w in (flash_attention, ssd_scan):
+        w.launches = 0
+    logits, caches = model.prefill(params, tokens, plan["max_len"])
+    launches = {"flash_attention": flash_attention.launches, "ssd_scan": ssd_scan.launches}
+    out = dict(logits=[logits.float().cpu()], tokens=[])
+    for i in range(plan["steps"]):
+        tok = logits.argmax(dim=-1)
+        out["tokens"].append(tok.cpu())
+        pos = torch.full((plan["batch"], 1), plan["prompt"] + i, dtype=torch.int32, device=device)
+        logits, caches = model.decode_step(params, tok[:, None].int(), pos, caches)
+        out["logits"].append(logits.float().cpu())
+    torch.save(out, tmp / f"one_rank_{part}.pt")
+    del params, caches, logits, model
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _phase10_case(mesh, plan: dict, part: str, arch: str, dtype: str, check: bool) -> dict:
+    """One case on this rank: the prefill step and ``steps`` greedy decode
+    steps on the mesh, against the parent's one-rank run."""
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import greedy_tokens, make_model
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.parallel import MeshRules
+
+    device, rows = plan["device"], plan["batch"]
+    cuda = device == "cuda"
+    cfg = _serve_tp_config(arch, dtype, plan["smoke"])
+    model = make_model(cfg, device=device)
+    rules = MeshRules(mesh, cfg.parallel)
+    prefill = make_prefill_step(model, rules, InputShape("p", plan["max_len"], rows, "prefill"))
+    decode = make_decode_step(model, rules, InputShape("d", plan["max_len"], rows, "decode"))
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    shards = prefill.shard(model.init(0))   # the whole tree from the seed, then this rank's blocks
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    tokens = _serve_tp_prompt(cfg, plan, device)
+    want = torch.load(Path(plan["tmp"]) / f"one_rank_{part}.pt")
+    tp, data = prefill.tp, prefill.group
+    d, m = mesh.get_coordinate()
+    local_rows = slice(d * rows // TP_MESH[0], (d + 1) * rows // TP_MESH[0])
+    heads = []      # (query, kv) heads of every K4 call of the prefill; K5's heads
+    wrappers = {"flash_attention": flash_attention, "ssd_scan": ssd_scan}
+    load_at_start = os.getloadavg()[0]
+
+    def call(fn, *args):
+        """fn(*args) timed by the host clock, with the bytes it hands to each
+        group, the launches it makes, the part of its time spent inside the
+        groups' collectives and the process's CPU time."""
+        for w in wrappers.values():
+            w.launches = 0
+        sent = (tp.group.sent_bytes, data.sent_bytes)
+        _sync(device)
+        in_collectives = _COLLECTIVE_S[0]
+        cpu0, t0 = time.process_time(), time.perf_counter()
+        out = fn(*args)
+        _sync(device)
+        return out, dict(ms=(time.perf_counter() - t0) * 1e3,
+                         collective_ms=(_COLLECTIVE_S[0] - in_collectives) * 1e3,
+                         cpu_ms=(time.process_time() - cpu0) * 1e3,
+                         model_group_bytes=tp.group.sent_bytes - sent[0],
+                         data_group_bytes=data.sent_bytes - sent[1],
+                         launches={k: w.launches for k, w in wrappers.items()})
+
+    def held(got, i):
+        """The logits block against the one-rank run's; (max |diff|, within)."""
+        ref = want["logits"][i][local_rows]
+        cols = ref.shape[1] // TP_MESH[1]
+        ref = ref[:, m * cols:(m + 1) * cols]
+        got = got.float().cpu()
+        return float((got - ref).abs().max()), within(got, ref, LOGITS_TOL)
+
+    observe = (_observing("models.ssm", "ssd_scan", lambda args, kw, r: heads.append(
+        (args[0].shape[2],))) if cfg.family == "ssm" else _observing(
+        "models.attention", "flash_attention",
+        lambda args, kw, r: heads.append((args[0].shape[2], args[1].shape[2]))))
+    with observe:
+        (logits, caches), prefill_reading = call(prefill, shards, {"tokens": tokens})
+    prefill_heads = sorted(set(heads))
+    diffs, equal, decode_readings = [held(logits, 0)], [], []
+    for i in range(plan["steps"]):
+        tok = torch.cat(data.all_gather(greedy_tokens(logits, tp)).unbind(0))   # every row
+        equal.append(int((tok.cpu() == want["tokens"][i]).sum()))
+        pos = torch.full((rows, 1), plan["prompt"] + i, dtype=torch.int32, device=device)
+        (logits, caches), reading = call(decode, shards, tok[:, None].int(), pos, caches)
+        decode_readings.append(reading)
+        diffs.append(held(logits, i + 1))
+    kinds = layer_kinds(cfg)
+    attn, ssd = sum(k in ("attn", "moe") for k in kinds), kinds.count("ssd")
+    # K4 on the rank's heads (the GQA ratio kept); K5 on every head (the
+    # gathered in_proj path)
+    want_heads = ([(cfg.ssm_heads,)] if ssd else
+                  [(cfg.num_heads // TP_MESH[1], cfg.num_kv_heads // TP_MESH[1])])
+    name = f"{part} {arch} {dtype}"
+    require(prefill_heads == want_heads, f"{name}: the kernels ran on heads {prefill_heads}, "
+            f"not {want_heads}")
+    if cuda:
+        got = prefill_reading["launches"]
+        require(got == {"flash_attention": attn, "ssd_scan": ssd},
+                f"{name}: a prefill launched {got}, not K4 {attn} and K5 {ssd} times")
+        require(all(r["launches"] == {"flash_attention": 0, "ssd_scan": 0}
+                    for r in decode_readings), f"{name}: a decode step launched a kernel")
+    total = rows * plan["steps"]
+    if check:
+        require(sum(equal) == total, f"{name}: greedy tokens {equal} a step of {rows} equal "
+                f"to the one-rank run's")
+        require(all(ok for _, ok in diffs), f"{name}: logits differ from the one-rank run's by "
+                f"{[round(x, 6) for x, _ in diffs]} (max |diff| a call; rtol/atol 1e-3)")
+    return dict(
+        arch=arch, dtype=dtype, layers=cfg.num_layers, mesh=list(TP_MESH),
+        batch=f"{rows} x {plan['prompt']}", max_len=plan["max_len"], decode_steps=plan["steps"],
+        greedy_tokens_equal_share=sum(equal) / total,
+        logits_max_abs_diff=[x for x, _ in diffs], prefill_heads=prefill_heads,
+        load_avg_1min_at_start=load_at_start,
+        prefill=prefill_reading, decode_ms=[r["ms"] for r in decode_readings],
+        decode_collective_ms=[r["collective_ms"] for r in decode_readings],
+        decode_cpu_ms=[r["cpu_ms"] for r in decode_readings],
+        decode_model_group_bytes=decode_readings[0]["model_group_bytes"],
+        decode_data_group_bytes=decode_readings[0]["data_group_bytes"],
+        decode_launches=decode_readings[0]["launches"],
+        peak_mem_GB=torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+        launches=prefill_reading["launches"])
+
+
+# seconds this process has spent inside ``Group``'s collectives (phase 10's
+# ranks time them: each waits for the card's queued work, gloo's host
+# copies and sums, and the other ranks)
+_COLLECTIVE_S = [0.0]
+
+
+def _timing_collectives() -> None:
+    """Make every ``Group`` collective add its wall time to ``_COLLECTIVE_S``."""
+    from repro_torch.parallel.collectives import Group
+
+    def timed(fn):
+        @functools.wraps(fn)
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                _COLLECTIVE_S[0] += time.perf_counter() - t0
+        return run
+
+    for name in ("all_reduce", "broadcast", "all_gather", "reduce_scatter", "send", "recv"):
+        setattr(Group, name, timed(getattr(Group, name)))
+
+
+def phase10_rank(rank: int, plan: dict) -> None:
+    """One of phase 10's ranks: 10a, 10b and 10c on the (2, 2) mesh of gloo
+    over ``plan["device"]``; writes its readings to ``rank<r>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    _timing_collectives()
+
+    tmp = Path(plan["tmp"])
+    if plan["device"] == "cuda":
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous", rank=rank,
+                            world_size=plan["world"], timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh(TP_MESH, ("data", "model"), device_type=plan["device"])
+        out = {"rank": rank, "coordinate": list(mesh.get_coordinate())}
+        for part, arch, dtype, check in SERVE_TP_CASES:
+            t0 = time.perf_counter()
+            out[part] = _phase10_case(mesh, plan, part, arch, dtype, check)
+            out[part]["wall_s"] = time.perf_counter() - t0
+            gc.collect()
+            if plan["device"] == "cuda":
+                torch.cuda.empty_cache()
+        (tmp / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def _host_memory_GB() -> dict:
+    """This process's resident memory and the host's available memory, GB."""
+    def kb(path: str, key: str) -> float:
+        for line in Path(path).read_text().splitlines():
+            if line.startswith(key + ":"):
+                return int(line.split()[1]) * 1024 / 1e9
+        return float("nan")
+
+    return dict(parent_rss_GB=kb("/proc/self/status", "VmRSS"),
+                host_available_GB=kb("/proc/meminfo", "MemAvailable"))
+
+
+def phase10_serving_tp(card: str, *, device: str = "cuda", smoke: bool = False) -> dict:
+    """Phase 10: the one-rank runs, then the four ranks (the kernels are
+    built: they only load them); returns {path: {kernel: launches}} of its
+    main paths (the ranks' steps)."""
+    import torch
+    import torch.multiprocessing as mp
+
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_tp_", dir=ROOT / "build"))
+    world = TP_MESH[0] * TP_MESH[1]
+    plan = dict(SERVE_TP, tmp=str(tmp), world=world, device=device, smoke=smoke)
+    if smoke:   # a rehearsal on the CPU at small sizes
+        plan.update(prompt=16, max_len=32, steps=4)
+    try:
+        t0 = time.perf_counter()
+        one_rank = {part: _phase10_one_rank(part, arch, dtype, plan, tmp)
+                    for part, arch, dtype, _ in SERVE_TP_CASES}
+        t1 = time.perf_counter()
+        # what the ranks share with the parent: the host's load and memory,
+        # and the card's memory the parent still holds
+        print("phase 10 before the spawn " + json.dumps(dict(
+            load_avg=os.getloadavg(), cpus=len(os.sched_getaffinity(0)),
+            **_host_memory_GB(),
+            parent_allocated_GB=torch.cuda.memory_allocated() / 1e9 if device == "cuda" else None,
+            parent_reserved_GB=torch.cuda.memory_reserved() / 1e9 if device == "cuda" else None,
+            parent_threads=threading.active_count())))
+        mp.spawn(phase10_rank, args=(plan,), nprocs=world, join=True)
+        wall = time.perf_counter() - t0
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(world)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for part, *_ in SERVE_TP_CASES:
+        print(f"phase {part} " + json.dumps({"card": card, "one_rank_launches": one_rank[part],
+                                             "ranks": [dict(r[part], rank=r["rank"],
+                                                            coordinate=r["coordinate"])
+                                                       for r in ranks]}))
+    print(f"phase 10 wall {wall:.1f} s (one-rank runs {t1 - t0:.1f} s, then spawn, 10a, 10b, "
+          "10c)")
+    return {f"phase {part} serve {arch} {dtype} rank {r['rank']}": r[part]["launches"]
+            for part, arch, dtype, _ in SERVE_TP_CASES for r in ranks}
+
+
 def main() -> int:
     import torch
 
@@ -2594,6 +2916,14 @@ def main() -> int:
                 kernels[name]["launches_by_path"][path] = n
     print(f"phase 9 done at {time.perf_counter() - t_start:.1f} s "
           f"({time.perf_counter() - t9:.1f} s)")
+    t10 = time.perf_counter()
+    for path, counts in phase10_serving_tp(card).items():
+        for name, n in counts.items():
+            if n:
+                kernels[name]["launches"] += n
+                kernels[name]["launches_by_path"][path] = n
+    print(f"phase 10 done at {time.perf_counter() - t_start:.1f} s "
+          f"({time.perf_counter() - t10:.1f} s)")
     print("launches on the main paths: " + ", ".join(
         f"{k}={v['launches_by_path']}" for k, v in kernels.items()))
 

@@ -138,6 +138,10 @@ class ModelConfig:
         return self.num_kv_heads * self.head_dim
 
     @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
     def sub_quadratic(self) -> bool:
         """Can this arch serve a 500k-token context?  SSM state is O(1);
         RG-LRU + windowed local attention is O(window).  Everything else

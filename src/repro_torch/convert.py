@@ -7,12 +7,15 @@ temperature and power grids, read by name, so the reference's dataclasses
 and the port's own copies both work), a model's parameter tree
 (:func:`model_params_from_jax`) and an AdamW state over it
 (:func:`adamw_state_from_jax`), so that both packages can start from the
-same mid-training state.
+same mid-training state, and a model's serving caches
+(:func:`caches_from_jax`), so that both can decode from the same state.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, List, Tuple, Union
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -20,11 +23,15 @@ import torch
 from .configs.base import ModelConfig
 from .kernels.spmm.ref import BlockEll
 from .kernels.spmm.spmm import BlockEllArrays
-from .models.transformer import pattern_of
+from .models.attention import KVCache
+from .models.rglru import RGLRUState
+from .models.ssm import SSMState
+from .models.transformer import layer_kinds, pattern_of
 from .optim.adamw import AdamWState
 
 __all__ = ["to_tensor", "spmm_problem_tensors", "block_ell_tensors",
-           "block_ell_numpy", "hotspot_grids", "model_params_from_jax", "adamw_state_from_jax"]
+           "block_ell_numpy", "hotspot_grids", "model_params_from_jax", "adamw_state_from_jax",
+           "caches_from_jax"]
 
 Device = Union[str, torch.device]
 
@@ -121,3 +128,35 @@ def adamw_state_from_jax(state, cfg: ModelConfig, device: Device = "cuda") -> Ad
         mu=model_params_from_jax(state.mu, cfg, device),
         nu=model_params_from_jax(state.nu, cfg, device),
     )
+
+
+_CACHE_TYPES = {"attn": KVCache, "moe": KVCache, "ssd": SSMState, "rglru": RGLRUState}
+
+
+def _cache(tree, kind: str, device: Device, index=None):
+    """One layer's cache of block ``kind`` from the reference's (a
+    NamedTuple, or a dict of its fields; ``index``: its layer of a stack)."""
+    if kind == "cross":
+        return {part: _cache(tree[part], "attn", device, index) for part in ("self", "cross")}
+    cls = _CACHE_TYPES[kind]
+
+    def field(name):
+        a = tree[name] if isinstance(tree, dict) else getattr(tree, name)
+        return _param_tensor(a if index is None else np.asarray(a)[index], device)
+
+    return cls(**{f.name: field(f.name) for f in dataclasses.fields(cls)})
+
+
+def caches_from_jax(tree, cfg: ModelConfig, device: Device = "cuda") -> List[Any]:
+    """The reference model's serving caches (leaves as numpy arrays, each
+    cache a NamedTuple or a dict of its fields) as the port's list of one
+    cache per layer, in layer order.  The reference stacks each pattern
+    position's caches (``{"blocks", "remainder"}``, as its parameters), and
+    an ``encdec`` model's ``{"self", "cross"}`` over its decoder layers."""
+    if cfg.family == "encdec":
+        return [_cache(tree, "cross", device, i) for i in range(cfg.num_layers)]
+    pat, repeats, rem = pattern_of(cfg)
+    kinds = layer_kinds(cfg)
+    caches = [_cache(tree["blocks"][i % len(pat)], kinds[i], device, i // len(pat))
+              for i in range(repeats * len(pat))]
+    return caches + [_cache(tree["remainder"][j], kind, device) for j, kind in enumerate(rem)]

@@ -5,7 +5,7 @@ builds a ``DeviceMesh`` over the initialised process group (the
 counterpart of ``make_test_mesh``); a one-device run needs no process
 group and uses ``parallel.mesh_rules.MeshShape((1, 1), ("data",
 "model"))`` instead.  ``make_production_mesh`` (16×16 and 2×16×16) waits
-for slice F3, the dry-run, its only user.
+for slice F3b, the dry-run, its only user.
 
 :class:`HardwareSpec` holds the published peaks of the target part;
 :data:`H100_SXM` is NVIDIA's data sheet for the H100 SXM (dense rates,

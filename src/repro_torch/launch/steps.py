@@ -1,7 +1,7 @@
-"""The training step: forward, backward, clip, AdamW, apply — on a mesh.
+"""The training and serving steps — on a mesh.
 
-The port's copy of ``repro.launch.steps``'s training half.
-:func:`make_train_step` returns a :class:`TrainStep`, a callable
+The port's copy of ``repro.launch.steps``.  :func:`make_train_step`
+returns a :class:`TrainStep`, a callable
 ``(params, opt_state, batch) -> (params, opt_state, metrics)`` that works
 as the reference's: the global batch is cut into ``microbatches``
 contiguous pieces (the ENEAC iteration space), each piece's gradient is
@@ -41,8 +41,24 @@ done by hand — the work GSPMD derives for the reference's shardings:
   data group hold the same values).
 
 With a mesh of one rank no collective runs, and the step is the one-card
-step unchanged.  ``make_decode_step`` and ``make_prefill_step``, which
-give the dry-run a function to lower, wait for slice F3.
+step unchanged.
+
+**Serving** (slice F3a): :func:`make_prefill_step` and
+:func:`make_decode_step` return the reference's serving steps,
+``prefill(shards, batch) -> (logits, caches)`` and ``decode(shards,
+tokens, positions, caches) -> (logits, caches)``.  They take the rank's
+parameter blocks, as :meth:`TrainStep.shard` gives them (a checkpoint of
+``run_training`` on a mesh serves unchanged), and each call gathers the
+data-axis shards (:meth:`forward_params`), as GSPMD does for the
+reference's shardings.  Each rank takes its data shard's rows of the
+global ``batch`` / ``tokens`` / ``positions`` and runs the models'
+tensor-parallel serving forms: its caches are its rows and what its
+model rank computes with, and its logits are its rows of its block of the
+vocabulary, the reference's ``("act_batch", "act_vocab")`` out-sharding
+(``models.greedy_tokens`` takes the argmax over the model group).  On
+one rank a step is ``Model.prefill`` / ``decode_step`` unchanged.  The
+layout half — the leaves' blocks, ``shard``, ``gather``,
+``forward_params``, ``local_batch`` — is one base the three steps share.
 """
 
 from __future__ import annotations
@@ -62,14 +78,15 @@ from ..parallel.mesh_rules import DATA_AXES, MeshRules, Spec, axes_leaves
 from ..parallel.tensor_parallel import TensorParallel
 from ..tree import tree_leaves, tree_leaves_with_path, tree_map, tree_map_with_path
 
-__all__ = ["GRAD_CLIP", "TrainStep", "batch_shardings", "data_parallel_size",
-           "default_microbatches", "make_train_step"]
+__all__ = ["GRAD_CLIP", "TrainStep", "ServeStep", "PrefillStep", "DecodeStep", "batch_shardings",
+           "data_parallel_size", "default_microbatches", "make_train_step", "make_prefill_step",
+           "make_decode_step"]
 
 GRAD_CLIP = 1.0
 # logical axes whose split over ``model`` the models compute on as blocks
 # (a parameter naming one must have that dim split there); the rest of the
-# split axes (kvheads, ssm_inner, conv_ch) are gathered where needed
-_SPLIT_AXES = ("qheads", "mlp", "vocab", "lru")
+# split axes (qheads, kvheads, ssm_inner, conv_ch) are gathered where needed
+_SPLIT_AXES = ("mlp", "vocab", "lru")
 
 
 def _batch_specs(cfg: ModelConfig, kind: str) -> Dict[str, tuple]:
@@ -79,6 +96,8 @@ def _batch_specs(cfg: ModelConfig, kind: str) -> Dict[str, tuple]:
                  "mask": ("act_batch", None)}
     elif kind == "prefill":
         specs = {"tokens": ("act_batch", None)}
+    elif kind == "decode":
+        specs = {"tokens": ("act_batch", None), "positions": ("act_batch", None)}
     if cfg.family == "encdec" and kind in ("train", "prefill"):
         specs["frames"] = ("act_batch", None, "act_embed")
     if cfg.family == "vlm" and kind in ("train", "prefill"):
@@ -88,12 +107,11 @@ def _batch_specs(cfg: ModelConfig, kind: str) -> Dict[str, tuple]:
 
 def batch_shardings(model: Model, shape: InputShape, rules: MeshRules) -> Dict[str, Spec]:
     """{batch key: spec} of an input batch of ``shape`` (the specs of the
-    reference's ``NamedSharding``s)."""
-    if shape.kind not in ("train", "prefill"):
-        raise ValueError("decode shardings wait for make_decode_step (slice F3)")
+    reference's ``NamedSharding``s; a decode step's ``tokens`` and
+    ``positions``, one column each)."""
     cfg = model.cfg
-    b, s = shape.global_batch, shape.seq_len
-    dims = {"tokens": (b, s), "labels": (b, s), "mask": (b, s),
+    b, s = shape.global_batch, shape.seq_len if shape.kind != "decode" else 1
+    dims = {"tokens": (b, s), "labels": (b, s), "mask": (b, s), "positions": (b, s),
             "frames": (b, cfg.encoder_seq, cfg.d_model),
             "image_embeds": (b, cfg.num_image_tokens, cfg.d_model)}
     return {k: rules.spec(axes, dims[k]) for k, axes in _batch_specs(cfg, shape.kind).items()}
@@ -169,18 +187,16 @@ def _coords(mesh, ranks) -> List[Dict[str, int]]:
             for k in ranks]
 
 
-class TrainStep:
-    """One training step of ``model`` with ``optimizer`` at a fixed ``lr``
-    on the mesh of ``rules``."""
+class _MeshStep:
+    """The layout half of a step of ``model`` on the mesh of ``rules``: each
+    leaf's blocks (``layout``), and the rows of a batch this rank takes."""
 
-    def __init__(self, model: Model, optimizer: AdamW, rules: MeshRules, *, lr: float,
-                 loss_chunk: int, microbatches: int) -> None:
+    kind = "train"          # the batch's kind (its keys and their specs)
+    microbatches = 1
+
+    def __init__(self, model: Model, rules: MeshRules) -> None:
         self.model = model
-        self.optimizer = optimizer
         self.rules = rules
-        self.lr = lr
-        self.loss_chunk = loss_chunk
-        self.microbatches = microbatches
         self.dp = data_parallel_size(rules)
         self.mp = rules.model_size
         self.tp = None
@@ -256,11 +272,24 @@ class TrainStep:
         microbatches in order (the same rows on every rank of a data group)."""
         rows, seq = batch["tokens"].shape
         per = rows // self.microbatches
-        specs = batch_shardings(self.model, InputShape("microbatch", seq, per, "train"),
+        specs = batch_shardings(self.model, InputShape("microbatch", seq, per, self.kind),
                                 self.rules)
         return {k: torch.cat([piece[self.rules.local_slice(specs[k], piece.shape)]
                               for piece in v.split(per)])
                 for k, v in batch.items()}
+
+
+class TrainStep(_MeshStep):
+    """One training step of ``model`` with ``optimizer`` at a fixed ``lr``
+    on the mesh of ``rules``."""
+
+    def __init__(self, model: Model, optimizer: AdamW, rules: MeshRules, *, lr: float,
+                 loss_chunk: int, microbatches: int) -> None:
+        self.optimizer = optimizer
+        self.lr = lr
+        self.loss_chunk = loss_chunk
+        self.microbatches = microbatches
+        super().__init__(model, rules)
 
     # -- the step -----------------------------------------------------------
     def _value_and_grad(self, params, batch, weight=None) -> Tuple[Any, Dict[str, torch.Tensor]]:
@@ -408,3 +437,59 @@ def make_train_step(model: Model, optimizer: AdamW, rules: MeshRules, shape: Inp
     while mb > 1 and (shape.global_batch % mb or (shape.global_batch // mb) % dp):
         mb -= 1
     return TrainStep(model, optimizer, rules, lr=lr, loss_chunk=loss_chunk, microbatches=mb)
+
+
+class ServeStep(_MeshStep):
+    """What the prefill and decode steps share: caches of ``max_len``
+    rows for global batches of ``batch`` rows."""
+
+    def __init__(self, model: Model, rules: MeshRules, shape: InputShape) -> None:
+        super().__init__(model, rules)
+        self.batch = shape.global_batch
+        self.max_len = shape.seq_len
+
+
+class PrefillStep(ServeStep):
+    """``prefill(shards, batch) -> (last-position logits, caches)``: the
+    reference's ``make_prefill_step``, with caches of ``max_len`` rows.
+    ``batch`` holds ``tokens`` (B, S), and ``frames`` / ``image_embeds``
+    where the family needs them."""
+
+    kind = "prefill"
+
+    def __call__(self, shards, batch: Dict[str, torch.Tensor]):
+        if self.tp is None:
+            return self.model.prefill(shards, batch["tokens"], self.max_len,
+                                      frames=batch.get("frames"),
+                                      image_embeds=batch.get("image_embeds"))
+        local = self.local_batch(batch)
+        return self.model.prefill(self.forward_params(shards), local["tokens"], self.max_len,
+                                  frames=local.get("frames"),
+                                  image_embeds=local.get("image_embeds"), tp=self.tp)
+
+
+class DecodeStep(ServeStep):
+    """``decode(shards, tokens, positions, caches) -> (logits, caches)``:
+    the reference's ``make_decode_step``, one token a row against caches
+    of ``max_len`` rows (this rank's, updated in place)."""
+
+    kind = "decode"
+
+    def __call__(self, shards, tokens: torch.Tensor, positions: torch.Tensor, caches):
+        if self.tp is None:
+            return self.model.decode_step(shards, tokens, positions, caches)
+        local = self.local_batch({"tokens": tokens, "positions": positions})
+        return self.model.decode_step(self.forward_params(shards), local["tokens"],
+                                      local["positions"], caches, tp=self.tp)
+
+
+def make_prefill_step(model: Model, rules: MeshRules, shape: InputShape) -> PrefillStep:
+    """The prefill step for global batches of ``shape.global_batch`` rows
+    into caches of ``shape.seq_len`` rows, on the mesh of ``rules``."""
+    return PrefillStep(model, rules, shape)
+
+
+def make_decode_step(model: Model, rules: MeshRules, shape: InputShape) -> DecodeStep:
+    """The decode step for global batches of ``shape.global_batch`` rows
+    against caches of ``shape.seq_len`` rows, on the mesh of ``rules``."""
+    return DecodeStep(model, rules, shape)

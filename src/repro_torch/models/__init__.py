@@ -1,5 +1,5 @@
 """Models: every family of ``repro.models`` (dense, moe, ssm, hybrid, encdec, vlm), ported."""
 
-from .model_factory import Model, make_model
+from .model_factory import Model, greedy_tokens, make_model
 
-__all__ = ["Model", "make_model"]
+__all__ = ["Model", "greedy_tokens", "make_model"]

@@ -15,7 +15,7 @@ each decoder layer's cache is ``{"self": KVCache, "cross": KVCache}``.
 A training forward with grad enabled checkpoints each encoder and each
 decoder block, the units the reference's ``jax.checkpoint`` wraps.
 
-On a mesh (``tp``, training) the blocks are tensor-parallel as the
+On a mesh (``tp``: training, prefill, decode) the blocks are tensor-parallel as the
 decoder family's (attention over this rank's heads, the GELU MLP over
 its block of ``mlp``), the token embedding is vocab-parallel, and under
 sequence parallelism the encoder's and decoder's residual streams hold
@@ -32,14 +32,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from .attention import attention, attention_params, init_kv_cache
+from .attention import attention, attention_params, init_kv_cache, kv_cache_specs
 from .ffn import gelu_ffn, gelu_ffn_params
 from ..parallel.tensor_parallel import TensorParallel
 from .layers import ParamBuilder, layer_norm, sinusoidal_positions
 from .transformer import embed_lookup, remat_enabled
 
 __all__ = ["MAX_DECODER_POS", "build_encdec_params", "encoder_forward", "init_encdec_caches",
-           "decoder_forward_encdec"]
+           "abstract_encdec_caches", "encdec_cache_specs", "decoder_forward_encdec"]
 
 MAX_DECODER_POS = 32768
 
@@ -114,11 +114,26 @@ def encoder_forward(params: Dict[str, Any], frames: torch.Tensor, cfg: ModelConf
 
 
 def init_encdec_caches(cfg: ModelConfig, batch: int, max_len: int, enc_len: int, *,
-                       device="cuda") -> List[Dict[str, Any]]:
+                       device="cuda", tp: Optional[TensorParallel] = None
+                       ) -> List[Dict[str, Any]]:
     """Per decoder layer: a self cache of ``max_len`` rows and a cross
-    cache of ``enc_len`` rows."""
-    return [{"self": init_kv_cache(cfg, batch, max_len, device=device),
-             "cross": init_kv_cache(cfg, batch, enc_len, device=device)}
+    cache of ``enc_len`` rows (with ``tp``, of this rank's kv heads)."""
+    return [{"self": init_kv_cache(cfg, batch, max_len, device=device, tp=tp),
+             "cross": init_kv_cache(cfg, batch, enc_len, device=device, tp=tp)}
+            for _ in range(cfg.num_layers)]
+
+
+def abstract_encdec_caches(cfg: ModelConfig, batch: int, max_len: int,
+                           enc_len: int) -> List[Dict[str, Any]]:
+    """:func:`init_encdec_caches`'s list as ``meta`` tensors."""
+    return init_encdec_caches(cfg, batch, max_len, enc_len, device="meta")
+
+
+def encdec_cache_specs(cfg: ModelConfig, batch: int = 0, max_len: int = 0,
+                       enc_len: int = 0) -> List[Dict[str, Any]]:
+    """Each decoder layer's caches with their leaves' logical axes in
+    their place: the reference's ``encdec_cache_specs`` unstacked."""
+    return [{"self": kv_cache_specs(cfg), "cross": kv_cache_specs(cfg)}
             for _ in range(cfg.num_layers)]
 
 
@@ -135,8 +150,9 @@ def decoder_forward_encdec(
     tp: Optional[TensorParallel] = None,
 ) -> Tuple[torch.Tensor, Optional[List[Dict[str, Any]]]]:
     """Returns (final hidden (B, S, d), caches updated in place).  With
-    ``tp``, ``enc_out`` and the hidden state are in the residual stream's
-    layout."""
+    ``tp``, ``enc_out`` is whole and replicated (the caller made it enter
+    the model group once) and the hidden state is in the residual
+    stream's layout."""
     b, s = tokens.shape
     x = embed_lookup(params["embed"], tokens, tp)
     if positions is None:
@@ -145,8 +161,6 @@ def decoder_forward_encdec(
         b if positions.shape[0] == b else 1, s, -1)
     x = x + _positions_block(pos_emb, tp).to(x.dtype)
     decode = mode == "decode"
-    if tp is not None and tp.size > 1:
-        enc_out = tp.enter(enc_out)        # whole and replicated, for every layer
 
     def block(x, p, cache):
         h, _ = attention(p["attn"], _ln(x, p["ln_attn"], cfg), cfg, positions=positions,

@@ -26,7 +26,7 @@ That equals the reference's ``xb[:, -(conv_width − 1):]`` whenever the
 prompt has at least ``conv_width − 1`` tokens; with a shorter prompt the
 reference's state has the wrong shape and its next decode fails.
 
-On a model axis larger than 1 (``tp``, training) the block is
+On a model axis larger than 1 (``tp``: training, prefill, decode) the block is
 column-parallel over this rank's block of ``lru``: ``w_x``, ``w_gate``,
 the conv (``conv_ch``), the gate biases and ``lam`` are its blocks, and
 the recurrence runs on its features alone.  The block-diagonal gates
@@ -37,6 +37,9 @@ blocks of ``gate_r_w`` / ``gate_i_w`` (entering through
 over ``model`` and the recurrence runs replicated.  ``w_out`` is
 row-parallel on the rank's features, its partial product leaving
 through ``reduce_from`` (``scatter_seq`` under sequence parallelism).
+The state (:class:`RGLRUState`) holds the features the rank's
+recurrence runs on: its block of ``lru``, or every feature where the
+leaves are gathered.
 """
 
 from __future__ import annotations
@@ -52,7 +55,8 @@ from ..parallel.tensor_parallel import TensorParallel
 from .layers import ParamBuilder, model_split
 from .ssm import _causal_conv
 
-__all__ = ["RGLRUState", "init_rglru_state", "rglru_params", "rglru_block"]
+__all__ = ["RGLRUState", "init_rglru_state", "abstract_rglru_state", "rglru_state_specs",
+           "state_features", "rglru_params", "rglru_block"]
 
 _C = 8.0          # the paper's fixed exponent scale
 _N_BLOCKS = 8     # block-diagonal gate blocks
@@ -68,13 +72,36 @@ def _lw(cfg: ModelConfig) -> int:
     return cfg.lru_width or cfg.d_model
 
 
-def init_rglru_state(cfg: ModelConfig, batch: int, *, device="cuda") -> RGLRUState:
+def state_features(cfg: ModelConfig, tp: Optional[TensorParallel] = None) -> slice:
+    """The features of the recurrence that this model rank runs and keeps
+    in its state."""
     lw = _lw(cfg)
+    if tp is None or tp.size == 1 or _N_BLOCKS % tp.size:
+        return slice(0, lw)
+    per = lw // tp.size
+    return slice(tp.rank * per, (tp.rank + 1) * per)
+
+
+def init_rglru_state(cfg: ModelConfig, batch: int, *, device="cuda",
+                     tp: Optional[TensorParallel] = None) -> RGLRUState:
+    """An empty state; with ``tp``, of this rank's features."""
+    sl = state_features(cfg, tp)
+    lw = sl.stop - sl.start
     dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     return RGLRUState(
         conv=torch.zeros((batch, cfg.conv_width - 1, lw), dtype=dt, device=device),
         h=torch.zeros((batch, lw), dtype=torch.float32, device=device),
     )
+
+
+def abstract_rglru_state(cfg: ModelConfig, batch: int) -> RGLRUState:
+    """:func:`init_rglru_state`'s state as ``meta`` tensors."""
+    return init_rglru_state(cfg, batch, device="meta")
+
+
+def rglru_state_specs(cfg: ModelConfig, batch: int = 0) -> RGLRUState:
+    """The state's logical axes, as the reference's."""
+    return RGLRUState(conv=("act_batch", None, "act_mlp"), h=("act_batch", "act_mlp"))
 
 
 def rglru_params(b: ParamBuilder, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
@@ -136,11 +163,9 @@ def rglru_block(
     """One RG-LRU block.  Prefill with a ``state`` continues from
     ``state.h`` and writes the state decode continues from; decode takes
     one token and updates the state in place.  ``tp``: see the module
-    docstring (no state)."""
+    docstring."""
     split = tp is not None and tp.size > 1
     if split:
-        if state is not None:
-            raise ValueError("tensor parallelism runs the training forward: no state")
         x = tp.enter(x)
         p, features = _local_params(p, cfg, tp)
     s = x.shape[1]
@@ -178,7 +203,7 @@ def rglru_block(
             state.h.copy_(y[:, -1, :])
 
     if split:
-        return tp.leave((gate * y)[..., features].to(x.dtype) @ p["w_out"]), None
+        return tp.leave((gate * y)[..., features].to(x.dtype) @ p["w_out"]), state
     out = (gate * y).to(x.dtype) @ p["w_out"]
     return out, state
 

@@ -7,7 +7,7 @@ the state ``h0`` in: the CUDA kernel for CUDA tensors, its plain version
 passes ``plain=True``.  Decode carries the recurrent state directly, O(1)
 per token, in torch ops.
 
-On a model axis larger than 1 (``tp``, training) ``in_proj``'s
+On a model axis larger than 1 (``tp``: training, prefill, decode) ``in_proj``'s
 ``ssm_inner`` columns are the concatenation z | x | B | C | dt, which a
 column split cuts across, and the depthwise conv and the gated norm
 read every column of their parts.  So ``in_proj``, ``conv_w``,
@@ -16,7 +16,13 @@ reduce-scattered back), ``A_log``, ``D`` and ``dt_bias`` (replicated)
 enter through ``TensorParallel.shared``, and the layer up to the norm
 runs replicated, K5 on every head.  ``out_proj`` is row-parallel on this
 rank's columns of y, and its partial product leaves through
-``reduce_from`` (``scatter_seq`` under sequence parallelism).
+``reduce_from`` (``scatter_seq`` under sequence parallelism).  So the
+state (:class:`SSMState`) is whole on every model rank, and every rank
+updates it alike.  The reference's spec splits ``conv`` over
+``act_mlp``; the port's whole state is a deliberate difference
+(ROADMAP.md queue 3): at mamba2-130m's width ``conv`` is 3 × 1792 =
+5376 values a row and layer (21 KiB in float32) on every rank, where
+the reference keeps half of them on each of 2 model ranks.
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ from ..kernels.ssd_scan.ssd_scan import ssd_scan, ssd_scan_plain
 from ..parallel.tensor_parallel import TensorParallel
 from .layers import ParamBuilder, model_split, rms_norm
 
-__all__ = ["ssd_params", "SSMState", "init_ssm_state", "ssd_block"]
+__all__ = ["ssd_params", "SSMState", "init_ssm_state", "abstract_ssm_state", "ssm_state_specs",
+           "ssd_block"]
 
 
 @dataclasses.dataclass
@@ -49,6 +56,16 @@ def init_ssm_state(cfg: ModelConfig, batch: int, *, device="cuda") -> SSMState:
         h=torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim, n), dtype=torch.float32,
                       device=device),
     )
+
+
+def abstract_ssm_state(cfg: ModelConfig, batch: int) -> SSMState:
+    """:func:`init_ssm_state`'s state as ``meta`` tensors."""
+    return init_ssm_state(cfg, batch, device="meta")
+
+
+def ssm_state_specs(cfg: ModelConfig, batch: int = 0) -> SSMState:
+    """The state's logical axes, as the reference's."""
+    return SSMState(conv=("act_batch", None, "act_mlp"), h=("act_batch", None, None, None))
 
 
 def ssd_params(b: ParamBuilder, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
@@ -89,12 +106,10 @@ def ssd_block(
     """One SSD block.  Prefill (``decode=False``) with a ``state`` starts
     from ``state.h`` and returns the state decode continues from; decode
     takes one token and updates the state in place.  ``tp``: see the
-    module docstring (no state)."""
+    module docstring."""
     di, n, nh, hd = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     split = tp is not None and tp.size > 1
     if split:
-        if state is not None:
-            raise ValueError("tensor parallelism runs the training forward: no state")
         x = tp.enter(x)
         out_proj, dims = p["out_proj"], model_split(tp, ssd_params, cfg)
         p = {k: tp.full(v, dims[k]) for k, v in p.items() if k != "out_proj"}
@@ -155,6 +170,6 @@ def ssd_block(
 
     y = rms_norm((y * F.silu(z.float())).to(x.dtype), p["norm"], cfg.norm_eps)
     if split:
-        return tp.leave(y[..., tp.block(di)] @ out_proj), None
+        return tp.leave(y[..., tp.block(di)] @ out_proj), new_state
     return y @ p["out_proj"], new_state
 

@@ -24,8 +24,8 @@ each repetition of the pattern (:func:`remat_enabled`), the unit the
 reference's ``jax.checkpoint`` wraps; the remainder's layers are not
 checkpointed, as in the reference.
 
-On a mesh (``tp``, training) every block runs its own tensor-parallel
-form (its module says which), and the embedding is vocab-parallel:
+On a mesh (``tp``: training, prefill, decode) every block runs its own
+tensor-parallel form (its module says which), and the embedding is vocab-parallel:
 ``embed`` holds this rank's rows of the vocabulary, each rank looks its
 tokens up there with the others' set to zero, and the sum leaves
 through ``reduce_from`` (``scatter_seq`` under sequence parallelism,
@@ -42,16 +42,17 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from .attention import attention, attention_params, init_kv_cache
+from .attention import attention, attention_params, init_kv_cache, kv_cache_specs
 from .ffn import ffn, ffn_params
 from ..parallel.tensor_parallel import TensorParallel
 from .layers import ParamBuilder, rms_norm
 from .moe import moe_ffn, moe_params
-from .rglru import init_rglru_state, rglru_block, rglru_params
-from .ssm import init_ssm_state, ssd_block, ssd_params
+from .rglru import init_rglru_state, rglru_block, rglru_params, rglru_state_specs
+from .ssm import init_ssm_state, ssd_block, ssd_params, ssm_state_specs
 
 __all__ = ["AUX_KEYS", "pattern_of", "layer_kinds", "build_decoder_params",
-           "init_caches", "remat_enabled", "embed_lookup", "decoder_forward", "lm_logits"]
+           "init_caches", "abstract_caches", "cache_specs", "remat_enabled", "embed_lookup",
+           "decoder_forward", "lm_logits"]
 
 AUX_KEYS = ("moe_aux_loss", "moe_z_loss", "moe_overflow_frac", "moe_load_max")
 
@@ -136,24 +137,49 @@ def _window(cfg: ModelConfig) -> int:
     return cfg.window if cfg.family == "hybrid" else 0
 
 
-def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> List[Any]:
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda",
+                tp: Optional[TensorParallel] = None) -> List[Any]:
     """One cache per layer: a KVCache for attention (``attn``, ``moe``;
     window-sized for the hybrid family), an SSMState for SSD, an
     RGLRUState for RG-LRU, and ``{"self", "cross"}`` KVCaches for
-    ``cross`` (the cross one holds ``num_image_tokens`` rows)."""
+    ``cross`` (the cross one holds ``num_image_tokens`` rows).  With
+    ``tp``, each holds what this model rank computes with (its kv heads,
+    its RG-LRU features; the SSD state whole)."""
     caches: List[Any] = []
     for kind in layer_kinds(cfg):
         if kind in ("attn", "moe"):
-            caches.append(init_kv_cache(cfg, batch, max_len, _window(cfg), device=device))
+            caches.append(init_kv_cache(cfg, batch, max_len, _window(cfg), device=device, tp=tp))
         elif kind == "ssd":
             caches.append(init_ssm_state(cfg, batch, device=device))
         elif kind == "rglru":
-            caches.append(init_rglru_state(cfg, batch, device=device))
+            caches.append(init_rglru_state(cfg, batch, device=device, tp=tp))
         else:
-            caches.append({"self": init_kv_cache(cfg, batch, max_len, device=device),
+            caches.append({"self": init_kv_cache(cfg, batch, max_len, device=device, tp=tp),
                            "cross": init_kv_cache(cfg, batch, cfg.num_image_tokens,
-                                                  device=device)})
+                                                  device=device, tp=tp)})
     return caches
+
+
+def abstract_caches(cfg: ModelConfig, batch: int, max_len: int) -> List[Any]:
+    """:func:`init_caches`'s list as ``meta`` tensors: the reference's
+    ``abstract_caches`` unstacked, one cache per layer in layer order."""
+    return init_caches(cfg, batch, max_len, device="meta")
+
+
+def cache_specs(cfg: ModelConfig, batch: int = 0, max_len: int = 0) -> List[Any]:
+    """Each layer's cache with its leaves' logical axes in their place:
+    the reference's ``cache_specs`` without the stacked layer dim."""
+    specs: List[Any] = []
+    for kind in layer_kinds(cfg):
+        if kind in ("attn", "moe"):
+            specs.append(kv_cache_specs(cfg))
+        elif kind == "ssd":
+            specs.append(ssm_state_specs(cfg))
+        elif kind == "rglru":
+            specs.append(rglru_state_specs(cfg))
+        else:
+            specs.append({"self": kv_cache_specs(cfg), "cross": kv_cache_specs(cfg)})
+    return specs
 
 
 def _apply_block(kind: str, p, x, cfg: ModelConfig, *, mode: str, positions, cache,

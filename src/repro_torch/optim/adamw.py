@@ -83,6 +83,19 @@ class AdamW:
         return AdamWState(step=torch.zeros((), dtype=torch.int32), mu=tree_map(zeros, params),
                           nu=tree_map(zeros, params))
 
+    def abstract_state(self, abstract_params) -> AdamWState:
+        """``init``'s state over a tree of ``meta`` tensors, as ``meta`` tensors."""
+        def meta(p):
+            return torch.empty(p.shape, dtype=self.state_dtype, device="meta")
+
+        return AdamWState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                          mu=tree_map(meta, abstract_params), nu=tree_map(meta, abstract_params))
+
+    @staticmethod
+    def state_specs(param_specs) -> AdamWState:
+        """The state's logical axes: the moments mirror the parameters'."""
+        return AdamWState(step=(), mu=param_specs, nu=param_specs)
+
     def decays(self, params) -> dict:
         """{path: whether the leaf at path is decayed}."""
         return {path: bool(self.decay_mask(path, p))

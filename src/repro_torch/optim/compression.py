@@ -17,7 +17,8 @@ import torch
 
 from ..tree import tree_leaves, tree_map
 
-__all__ = ["CompressionState", "init_state", "compress", "decompress", "ef_compress_tree"]
+__all__ = ["CompressionState", "init_state", "abstract_state", "compress", "decompress",
+           "ef_compress_tree"]
 
 
 class CompressionState(NamedTuple):
@@ -27,6 +28,12 @@ class CompressionState(NamedTuple):
 def init_state(params) -> CompressionState:
     return CompressionState(residual=tree_map(
         lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params))
+
+
+def abstract_state(abstract_params) -> CompressionState:
+    """``init_state``'s state over a tree of ``meta`` tensors, as ``meta`` tensors."""
+    return CompressionState(residual=tree_map(
+        lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta"), abstract_params))
 
 
 def compress(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -32,10 +32,16 @@ train step all-reduces every leaf the rules do not split over
 ``model``.  That is why :meth:`TensorParallel.shared` is the identity
 under sequence parallelism: the step's all-reduce sums those partials
 too.
+
+The serving forwards (prefill and decode, slice F3a) run the same
+regions without gradients.  A forward whose length the model size does
+not divide runs without sequence parallelism
+(:meth:`TensorParallel.at_length`).
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -103,10 +109,21 @@ class TensorParallel:
         k = n // self.size
         return slice(self.rank * k, (self.rank + 1) * k)
 
-    def heads(self, total: int, what: str) -> Tuple[int, int]:
-        """(first, count) of this rank's ``total`` heads."""
+    def heads(self, total: int) -> Tuple[int, int]:
+        """(first, count) of this rank's ``total`` heads: its block where
+        the group splits them by whole heads, else every head (0, total)."""
         if total % self.size:
-            raise NotImplementedError(f"{total} {what} heads do not split over {self.size} "
-                                      "model ranks: a split that cuts a head")
+            return 0, total
         count = total // self.size
         return self.rank * count, count
+
+    def at_length(self, seq: int) -> "TensorParallel":
+        """This group for a forward of ``seq`` positions: without sequence
+        parallelism where the model size does not divide ``seq`` (a decode
+        step's one token, an odd prompt), whose dim the reference's
+        divisibility rule replicates.  The view shares ``layouts``."""
+        if not self.sp or seq % self.size == 0:
+            return self
+        view = copy.copy(self)
+        view.sp = False
+        return view
