@@ -67,7 +67,10 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    of each model (its bf16 weights moved to the host first; qwen3-moe's
    first 4 layers, since its 123 GB do not fit) gives the same greedy
    tokens through the kernels as through their plain versions, with
-   last-position logits within rtol/atol 1e-3; the MoE check prints the
+   last-position logits within rtol/atol 1e-3 (since PR 22 at a depth
+   that leaves phase 11 room: the first 8 layers of tinyllama-1.1b,
+   mamba2-130m and stablelm-12b, recurrentgemma-9b's first 9, three whole
+   patterns); the MoE check prints the
    smallest top-k router margin it met; recurrentgemma's f32 copy also
    prefills a 3000-token prompt (max_len 4096: its KV caches roll at 2048
    rows) and decodes 16 tokens, equal between kernels and plain.  Prints
@@ -113,22 +116,22 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
 7. Training at full width (last, so the earlier host-clock numbers stay
    comparable): tinyllama-1.1b (K4; bf16 parameters, f32 AdamW moments)
    and mamba2-130m (K5), each through ``run_training`` (batch 8 × 2048,
-   2 microbatches, 10 steps, lr 3e-4, a checkpoint every 5 steps).  Every
+   2 microbatches, 6 steps, lr 3e-4, a checkpoint every 3 steps).  Every
    loss is finite; step 0's batch scores below its first loss with the
-   trained parameters (step 10's checkpoint), and for tinyllama the last
+   trained parameters (step 6's checkpoint), and for tinyllama the last
    step's loss is below the first's (``FRESH_BATCH_LOSS_FALLS``); for
-   mamba2 the same 10 steps run again with ``plain=True`` and their
+   mamba2 the same 6 steps run again with ``plain=True`` and their
    losses are printed beside the kernels' (a witness, not a check); the
    kernel launches equal 2 × the layers that hold it × 2 microbatches ×
-   10 steps (remat runs each unit's forward twice); a second run resumes
-   at step 5 from its checkpoint, runs exactly 5 steps and ends within
+   6 steps (remat runs each unit's forward twice); a second run resumes
+   at step 3 from its checkpoint, runs exactly 3 steps and ends within
    rtol 1e-2 of the first's final loss.  Then: the step's host-clock time
    (the resumed run's steps after its first two, median; each ends in
    ``torch.cuda.synchronize()``), tokens/s, the model-flops share (6 · ``active_param_count()`` · tokens
    over the step time and the 989 TFLOP/s bf16 peak, attention excluded),
    peak memory, and a profiler top-10 of one step with the shares in the
    kernel and in its ``Function``'s backward recomputation; a float32
-   copy at full width takes one step on a 4 × 2048 batch through the
+   copy at full width takes one step on a 2 × 2048 batch through the
    kernels and with ``plain=True``: loss within rtol 1e-5, ``grad_norm``
    within 1e-4, every gradient within 1e-4 of the tree's largest |g|
    (before the optimizer), and 2 microbatches against 1 at the same
@@ -137,25 +140,25 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    ``scaled_dot_product_attention``'s forward + backward; K5: B 4, S
    2048, H 24, P 64, N 128) against autograd of its plain version, with
   the bound of its forward + backward.  Phase 7 runs ``run_training`` on
-  its (1, 1) mesh and keeps mamba2's step-5 checkpoint for phase 8.
+  its (1, 1) mesh and keeps mamba2's step-3 checkpoint for phase 8.
 8. The distribution layer (slice F1): two ranks spawned on the one card
    share gloo (NCCL refuses two ranks on one device; ``Group`` stages
    gloo's send and recv of CUDA tensors through pinned host buffers and
    counts the bytes); the parent built the kernels, the ranks load them.
-   a. mamba2-130m at full width: phase 7's step-5 checkpoint restored
+   a. mamba2-130m at full width: phase 7's step-3 checkpoint restored
       onto a (2, 1) ``("data", "model")`` mesh with ``reshard_tree``
       (every shard bitwise its slice of the saved arrays), an
       ``ElasticMeshManager`` plan's ``elastic_restore_summary``, then
-      ``run_training`` on the mesh for steps 5–9 (batch 8 × 2048, 4 ×
+      ``run_training`` on the mesh for steps 3–5 (batch 8 × 2048, 4 ×
       2048 a rank, 1 microbatch from ``default_microbatches``): each
-      loss within 5e-3 of phase 7's resumed one-rank run, 2 × 24 × 5 K5
+      loss within 5e-3 of phase 7's resumed one-rank run, 2 × 24 × 3 K5
       launches a rank; one more step's time and the bytes its
       collectives move.
    b. tinyllama-1.1b's 22 layers in 2 GPipe stages (``stage_partition``,
       ``pipeline_apply``), 4 microbatches of 1 × 2048 in bf16, against
       the same blocks in order on rank 0 (the bf16 tolerance); 11 × 4 K4
       launches a stage.
-   c. tinyllama-1.1b at published widths cut to 4 layers, f32, batch 4 ×
+   c. tinyllama-1.1b at published widths cut to 2 layers, f32, batch 4 ×
       512: the two-rank step against the one-rank step with 2
       microbatches (loss 1e-5, ``grad_norm`` 1e-4, every gathered
       gradient 1e-4 of the largest |g|), and ``compressed_psum`` of each
@@ -166,21 +169,21 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    holds its block of every leaf, computes on its ``model`` block (its
    heads through K4, its experts) and reduces over the model group.
    a. ``run_training`` on the mesh, tinyllama-1.1b at full width, bf16,
-      global batch 4 × 2048, 1 microbatch, 3 steps from the seed: finite
-      losses, 2 × 22 × 3 K4 launches a rank (16 query and 2 kv heads a
+      global batch 4 × 2048, 1 microbatch, 2 steps from the seed: finite
+      losses, 2 × 22 × 2 K4 launches a rank (16 query and 2 kv heads a
       call); a rank's step ms (the steps after the first; each ends in
       ``torch.cuda.synchronize()``), the bytes it hands to the model
       group's and the data group's collectives a step, its peak memory.
-   b. The same for qwen3-moe-30b-a3b at published widths cut to 4 of 48
+   b. The same for qwen3-moe-30b-a3b at published widths cut to 2 of 48
       layers (``local`` dispatch: each model rank serves 64 of the 128
       experts), and each data shard's own ``moe_overflow_frac`` and
       ``moe_load_max`` in the first step's forward, read where the
       routing plan's statistics are computed (before their mean over the
       data shards).
-   c. float32, batch 4 × 512: tinyllama at 4 layers, sequence
-      parallelism off and on, and mamba2-130m at full width (K5 on the
+   c. float32, batch 4 × 512: tinyllama at 2 layers, sequence
+      parallelism off and on, and mamba2-130m at 4 layers (K5 on the
       gathered ``in_proj`` path), each held to the one-rank step on the
-      same card as 8c holds; qwen3-moe at 4 layers held to itself through
+      same card as 8c holds; qwen3-moe at 2 layers held to itself through
       K4's plain version (per-shard routing differs from one rank's
       global routing by design): every token's experts equal, the aux
       losses within 1e-5, the same f32 measures.
@@ -188,7 +191,7 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    each case's prompts through the one-rank ``Model.prefill`` /
    ``decode_step``, then four ranks spawned on the one card share gloo
    on a (2, 2) ``("data", "model")`` mesh and run ``make_prefill_step``
-   and 8 greedy ``make_decode_step`` calls on their blocks of the same
+   and 4 greedy ``make_decode_step`` calls on their blocks of the same
    seeded weights (each call gathers the data-axis shards), batch 4 ×
    512 prompt tokens from a seeded generator (2 rows a data shard),
    caches of 1024 rows.
@@ -208,14 +211,32 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    hands to the model group and to the data group, its peak GB and
    launches; before the spawn, the host's load and the card memory the
    parent still holds.
+11. The dry-run (slice F3b, ``launch/dryrun.py``): one rank's step on
+   ``meta`` tensors over shape-only groups, priced from the H100 SXM data
+   sheet, no card used.
+   a. The steps that phases 7 (both models, (1, 1)), 9a and 10a / 10b
+      ((2, 2): the prefill and a decode step) ran: each rank's
+      collective bytes to the model group and to the data group equal
+      what those phases just counted, to the byte; the parameter and
+      AdamW state bytes equal the blocks those ranks held (10: the
+      parameter blocks); the roofline bound of phase 7's tinyllama step
+      and of 9a's is at or under the measured step time.
+   b. Each predicted peak printed beside the measured
+      ``max_memory_allocated`` (a reading).
+   c. ``launch/perf.py``'s cells A, B and C on the 16×16 mesh, traced in
+      parallel processes: each variant's terms, dominant term, peak and
+      whether it fits, and cells A's and B's flash substitution.
+   d. ``examples/torch_hetero_spmm_demo.py`` on the card: the SPMM hybrid
+      split through K3, its launches counted on the main paths.
 
 Launch counts are set to 0 just before each main path (phases 2–3 for
 K1–K3, each model's serving run in phase 5 and in 6a, 6b for K3, each
 training run in phase 7, in each rank 8a's run and 8b's pipeline,
-9a's and 9b's runs and 9c's steps, and 10's prefill steps) and read just
-after, so they count the main path's launches only; the JSON line's
-``launches`` is phases 2–3's, phase 5's, phase 7's, phase 8's, phase
-9's and phase 10's (summed over the models and ranks), ``launches_by_path`` names
+9a's and 9b's runs and 9c's steps, 10's prefill steps, and 11d's example)
+and read just after, so they count the main path's launches only; the
+JSON line's ``launches`` is phases 2–3's, phase 5's, phase 7's, phase
+8's, phase 9's, phase 10's and 11d's (summed over the models and ranks),
+``launches_by_path`` names
 each model's (whisper's and the vision model's by form, recurrentgemma's
 past-the-window check apart) and adds phase 6's, K4's row lists every
 phase-4 shape under ``shapes``, and K4's and K5's rows carry phase 7's
@@ -272,8 +293,11 @@ SERVE_ARCHS = ("tinyllama-1.1b", "mamba2-130m")
 # leaves no room for a worker's second copy on the card
 INLINE_ARCHS = ("stablelm-12b", "qwen3-moe-30b-a3b", "recurrentgemma-9b")
 # qwen3-moe in float32 (123 GB) does not fit the card: its f32 check runs
-# this many of its layers
-F32_LAYERS = {"qwen3-moe-30b-a3b": 4}
+# this many of its layers; the other decoders run the same check at a cut
+# depth too (recurrentgemma: three whole patterns, 3 of its attention
+# layers), which leaves phase 11 room in the time limit
+F32_LAYERS = {"qwen3-moe-30b-a3b": 4, "stablelm-12b": 8, "recurrentgemma-9b": 9,
+              "tinyllama-1.1b": 8, "mamba2-130m": 8}
 # the block kinds that launch each model kernel, once per layer and prefill
 KERNEL_KINDS = {"flash_attention": ("attn", "moe"), "ssd_scan": ("ssd",)}
 # a windowed model's extra f32 check: (prompt tokens, max_len, decode steps)
@@ -292,11 +316,12 @@ CROSS_GATE = 0.5
 # run_training: 2 microbatches is default_microbatches' count at 8 x 2048
 # tokens and 8192 tokens per device
 TRAIN_ARCHS = ("tinyllama-1.1b", "mamba2-130m")
-TRAIN_RUN = dict(global_batch=8, seq_len=2048, microbatches=2, steps=10, lr=3e-4, ckpt_every=5)
+TRAIN_RUN = dict(global_batch=8, seq_len=2048, microbatches=2, steps=6, lr=3e-4, ckpt_every=3)
 # the models whose last step's loss, on its own fresh batch, must also fall
 # below the first step's.  mamba2-130m's per-step losses stay within the
 # spread between batches over 10 steps at lr 3e-4 (10.9788 -> 10.9794 on
-# the card).  For such a model the same 10 steps run again with
+# the card); the reference's own losses stay as flat at the smoke config
+# (tests/test_torch_train.py).  For such a model the same steps run again with
 # plain=True, no kernel on the path, and both runs' losses are printed
 # side by side: the witness that the flat losses are the model's and the
 # data's.  A gradient lost in a kernel's Function fails the float32
@@ -305,7 +330,7 @@ TRAIN_RUN = dict(global_batch=8, seq_len=2048, microbatches=2, steps=10, lr=3e-4
 # batch, which the trained parameters must score lower
 FRESH_BATCH_LOSS_FALLS = ("tinyllama-1.1b",)
 # the float32 parity step's batch (x 2048 tokens)
-PARITY_BATCH = 4
+PARITY_BATCH = 2
 # gradients: an atol of this share of the tree's largest |g|, not per leaf:
 # a true gradient of 0 (whisper's attention key biases) is rounding alone
 GRAD_REL = 1e-4
@@ -395,17 +420,6 @@ def time_ms(fn, *, reps: int = 10, warmup: int = 2, hold: bool = False) -> float
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-def attended_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
-    """(query, key) pairs that K4's masks keep: key j <= query i when
-    causal, and j > i - window when windowed."""
-    import numpy as np
-
-    i = np.arange(sq)
-    hi = np.minimum(i + 1, sk) if causal else np.full(sq, sk)
-    lo = np.maximum(i - window + 1, 0) if window else np.zeros(sq, np.int64)
-    return int(np.maximum(hi - lo, 0).sum())
 
 
 def attn_keep(sq: int, sk: int, causal: bool, window: int):
@@ -774,8 +788,8 @@ def phase4_model_kernels():
                 el = 2 if dtype == torch.bfloat16 else 4
                 # the work this mask leaves: kernel_flops scaled by the
                 # window's share of the causal pairs
-                flops = fops.kernel_flops(nb, sq, sk, h, d, causal=causal) * (
-                    attended_pairs(sq, sk, causal, window) / attended_pairs(sq, sk, causal, 0))
+                flops = fops.kernel_flops(nb, sq, sk, h, d, causal=causal) * \
+                    fops.window_share(sq, sk, causal, window)
                 b, by = bound_ms(fops.kernel_hbm_bytes(nb, sq, sk, h, kvh, d, bytes_per_el=el),
                                  flops, bf16=dtype == torch.bfloat16)
                 rows.append(dict(model=model_name, shape=f"B={nb} H={h} KVH={kvh} D={d} Sq={sq} "
@@ -1675,7 +1689,7 @@ def train_function_ms(kernel: str) -> dict:
 
 def plain_training_witness(arch: str, kernel_losses, kernel_refit: float, wrappers: dict,
                            batch_of) -> None:
-    """The run's 10 steps again with ``plain=True`` (no kernel on the path):
+    """The run's steps again with ``plain=True`` (no kernel on the path):
     the same initial parameters, batches, optimizer and step as
     ``run_training``'s; prints both runs' losses side by side, and step 0's
     batch scored after each run."""
@@ -1726,8 +1740,8 @@ def plain_training_witness(arch: str, kernel_losses, kernel_refit: float, wrappe
 def phase7_training(arch: str, wrappers: dict, card: str, keep=None):
     """Train one model at full width through ``run_training`` (on its (1, 1)
     mesh) and check it; returns (kernel name, launches in the run, the
-    Function's timings, the resumed run's losses).  ``keep``: a directory
-    that receives the run's step-5 checkpoint."""
+    Function's timings, the resumed run's losses, the run's readings).  ``keep``: a directory
+    that receives the run's checkpoint of step ``ckpt_every``."""
     import dataclasses
     import gc
     import math
@@ -1771,7 +1785,7 @@ def phase7_training(arch: str, wrappers: dict, card: str, keep=None):
     root.mkdir(exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_", dir=root))
     try:
-        # -- the run: 10 steps, checkpoints at steps 5 and 10 ------------------
+        # -- the run: 6 steps, checkpoints at steps 3 and 6 --------------------
         run = TrainLoopConfig(arch=arch, smoke=False, device="cuda", ckpt_dir=str(tmp / "run"),
                               log_every=1, **TRAIN_RUN)
         gc.collect()
@@ -1790,7 +1804,7 @@ def phase7_training(arch: str, wrappers: dict, card: str, keep=None):
         require(all(math.isfinite(loss) for loss in whole["losses"]),
                 f"{arch}: a loss is not finite")
         # the loss falls: step 0's batch scores lower with the trained
-        # parameters (step 10's checkpoint) than with the initial ones
+        # parameters (the last step's checkpoint) than with the initial ones
         trained = Checkpointer(tmp / "run").restore(steps, (model.init(run.seed),))[0][0]
         with torch.no_grad():
             refit_loss = float(model.loss_fn(
@@ -1813,8 +1827,8 @@ def phase7_training(arch: str, wrappers: dict, card: str, keep=None):
         others = {k: v for k, v in launches.items() if k != kernel and v}
         require(not others, f"{arch}: unexpected launches in training {others}")
 
-        # -- resume from step 5: steps 5-9 again ---------------------------------
-        # step 10's checkpoint goes, as if the run had stopped before writing
+        # -- resume from step ckpt_every: the steps after it again -------------
+        # the last checkpoint goes, as if the run had stopped before writing
         # it (tinyllama's take 11 GB each: bf16 parameters, f32 moments), and
         # the resumed run writes none
         shutil.rmtree(tmp / "run" / f"step_{steps:08d}")
@@ -1822,8 +1836,9 @@ def phase7_training(arch: str, wrappers: dict, card: str, keep=None):
         rest = run_training(dataclasses.replace(run, resume=True, ckpt_every=10 * steps))
         resume_wall = time.perf_counter() - t0
         rest_seconds = rest["step_seconds"]
-        require(rest["steps"] == len(rest["losses"]) == steps - 5,
-                f"{arch}: the resumed run took {rest['steps']} steps, not {steps - 5}")
+        start = TRAIN_RUN["ckpt_every"]
+        require(rest["steps"] == len(rest["losses"]) == steps - start,
+                f"{arch}: the resumed run took {rest['steps']} steps, not {steps - start}")
         resume_rel = abs(rest["final_loss"] - whole["final_loss"]) / abs(whole["final_loss"])
         require(resume_rel <= 1e-2, f"{arch}: the resumed run's final loss {rest['final_loss']} "
                 f"is not within 1e-2 of the uninterrupted run's {whole['final_loss']}")
@@ -1864,6 +1879,7 @@ def phase7_training(arch: str, wrappers: dict, card: str, keep=None):
         f"{kernel}_launches": launches[kernel], "run_wall_s": wall,
         "resumed_run_wall_s": resume_wall,
         "run_mean_tok_per_s": whole["mean_tok_per_s"], "peak_mem_GB": peak_gb,
+        "held_bytes": whole["held_bytes"],
         "resumed_step_ms_each": [t * 1e3 for t in rest_seconds],
         "step_ms_median_after_2": step_s * 1e3,
         "tokens_per_s": gb * seq / step_s,
@@ -1915,23 +1931,24 @@ def phase7_training(arch: str, wrappers: dict, card: str, keep=None):
     del params32, gk, g2, step2, batch
     gc.collect()
     torch.cuda.empty_cache()
-    return kernel, launches[kernel], train_function_ms(kernel), rest["losses"]
+    return kernel, launches[kernel], train_function_ms(kernel), rest["losses"], summary
 
 # phase 8: the distribution layer (slice F1) with two ranks on the one card.
 # NCCL refuses two ranks on one device, so they share gloo (its send and
 # recv of CUDA tensors, the pipeline's hand-offs, are staged through host
 # buffers in parallel/collectives.py, which counts the bytes)
 DIST_RANKS = 2
-# 8a: phase 7's mamba2 run resumed at step 5 on a (2, 1) mesh: steps 5-9
-DIST_TRAIN = dict(arch="mamba2-130m", from_step=5, loss_atol=5e-3)
+# 8a: phase 7's mamba2 run resumed at its checkpoint (step 3) on a (2, 1)
+# mesh: steps 3-5
+DIST_TRAIN = dict(arch="mamba2-130m", from_step=TRAIN_RUN["ckpt_every"], loss_atol=5e-3)
 # 8b: tinyllama's 22 layers in 2 GPipe stages, 4 microbatches of 1 x 2048, bf16
 PIPELINE = dict(arch="tinyllama-1.1b", microbatches=4, rows=1, seq=2048)
-# 8c: tinyllama at published widths cut to 4 layers, float32, batch 4 x 512
-DIST_PARITY = dict(arch="tinyllama-1.1b", layers=4, batch=4, seq=512, psum_rel=0.02)
+# 8c: tinyllama at published widths cut to 2 layers, float32, batch 4 x 512
+DIST_PARITY = dict(arch="tinyllama-1.1b", layers=2, batch=4, seq=512, psum_rel=0.02)
 
 
 def _phase8a(rank: int, mesh, plan: dict) -> dict:
-    """Restore phase 7's step-5 checkpoint onto the mesh and train steps 5-9."""
+    """Restore phase 7's checkpoint onto the mesh and train the steps after it."""
     import torch
 
     from repro_torch.checkpoint import Checkpointer, elastic_restore_summary, reshard_tree
@@ -2226,18 +2243,18 @@ def phase8_distributed(ckpt: Path, want_losses, card: str, *, device: str = "cud
 # phase 9: tensor and sequence parallelism (slice F2): four gloo ranks on
 # the one card, a (2, 2) ("data", "model") mesh
 TP_MESH = (2, 2)
-# 9a and 9b through run_training on the mesh, bf16, 1 microbatch, 3 steps
-# from the seed: tinyllama-1.1b at full width; qwen3-moe-30b-a3b at
-# published widths cut to 4 of its 48 layers (every rank builds the whole
-# tree before it keeps its block: 6.3 GB at 4 layers, 61.5 GB at 48)
-TP_TRAIN = (("9a", "tinyllama-1.1b", 0), ("9b", "qwen3-moe-30b-a3b", 4))
-TP_RUN = dict(global_batch=4, seq_len=2048, steps=3)
+# 9a and 9b through run_training on the mesh, bf16, 1 microbatch, 2 steps
+# from the seed (the second's time is the reading): tinyllama-1.1b at full
+# width; qwen3-moe-30b-a3b at published widths cut to 2 of its 48 layers
+# (every rank builds the whole tree before it keeps its block: 61.5 GB at 48)
+TP_TRAIN = (("9a", "tinyllama-1.1b", 0), ("9b", "qwen3-moe-30b-a3b", 2))
+TP_RUN = dict(global_batch=4, seq_len=2048, steps=2)
 # 9c: float32 at a batch of 4 x 512: (arch, layers kept (0: all), sequence
 # parallel) held to the one-rank step on the same card, and qwen3-moe at
-# 4 layers held to itself through K4's plain version (per-shard routing
+# 2 layers held to itself through K4's plain version (per-shard routing
 # differs from one rank's global routing by design)
-TP_PARITY = (("tinyllama-1.1b", 4, False), ("tinyllama-1.1b", 4, True), ("mamba2-130m", 0, False))
-TP_PARITY_MOE = ("qwen3-moe-30b-a3b", 4)
+TP_PARITY = (("tinyllama-1.1b", 2, False), ("tinyllama-1.1b", 2, True), ("mamba2-130m", 4, False))
+TP_PARITY_MOE = ("qwen3-moe-30b-a3b", 2)
 TP_PARITY_BATCH = dict(batch=4, seq=512)
 
 
@@ -2292,7 +2309,8 @@ def _phase9_train(mesh, plan: dict, part: str, arch: str, layers: int) -> dict:
                   batch=f"{run_cfg['global_batch']} x {run_cfg['seq_len']}", losses=run["losses"],
                   step_ms=[t * 1e3 for t in run["step_seconds"]],
                   step_ms_after_first=[t * 1e3 for t in run["step_seconds"][1:]],
-                  bytes_per_step=run["collective_bytes"][-1], peak_mem_GB=peak_gb,
+                  bytes_per_step=run["collective_bytes"][-1], held_bytes=run["held_bytes"],
+                  peak_mem_GB=peak_gb,
                   peak_reserved_GB=reserved_gb, launches=launches)
     if cfg.family == "moe":     # the first step's forward: its first num_layers calls
         first = stats[:cfg.num_layers]
@@ -2475,7 +2493,8 @@ def phase9_rank(rank: int, plan: dict) -> None:
 
 def phase9_tensor_parallel(card: str, *, device: str = "cuda", smoke: bool = False) -> dict:
     """Spawn phase 9's ranks (the kernels are built: they only load them);
-    returns {path: {kernel: launches}} of its main paths."""
+    returns ({path: {kernel: launches}} of its main paths, each rank's
+    readings)."""
     import torch
     import torch.multiprocessing as mp
 
@@ -2511,13 +2530,13 @@ def phase9_tensor_parallel(card: str, *, device: str = "cuda", smoke: bool = Fal
             launches[f"phase {part} train {arch} rank {r['rank']}"] = r[part]["launches"]
         for name, counts in r["9c"]["launches"].items():
             launches[f"phase 9c {name} rank {r['rank']}"] = counts
-    return launches
+    return launches, ranks
 
 
 # phase 10: prefill and decode on the (2, 2) mesh (slice F3a): four gloo
 # ranks on the one card, the serving steps of launch/steps.py against the
 # one-rank Model.prefill / decode_step the parent ran on the same prompts
-SERVE_TP = dict(batch=4, prompt=512, max_len=1024, steps=8)
+SERVE_TP = dict(batch=4, prompt=512, max_len=1024, steps=4)
 # (part, arch, dtype, whether the tokens and logits are checks (float32)
 # or readings (bf16))
 SERVE_TP_CASES = (("10a", "tinyllama-1.1b", "float32", True),
@@ -2684,6 +2703,7 @@ def _phase10_case(mesh, plan: dict, part: str, arch: str, dtype: str, check: boo
         decode_model_group_bytes=decode_readings[0]["model_group_bytes"],
         decode_data_group_bytes=decode_readings[0]["data_group_bytes"],
         decode_launches=decode_readings[0]["launches"],
+        shard_bytes=sum(t.numel() * t.element_size() for t in _leaves(shards)),
         peak_mem_GB=torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
         launches=prefill_reading["launches"])
 
@@ -2759,8 +2779,8 @@ def _host_memory_GB() -> dict:
 
 def phase10_serving_tp(card: str, *, device: str = "cuda", smoke: bool = False) -> dict:
     """Phase 10: the one-rank runs, then the four ranks (the kernels are
-    built: they only load them); returns {path: {kernel: launches}} of its
-    main paths (the ranks' steps)."""
+    built: they only load them); returns ({path: {kernel: launches}} of its
+    main paths (the ranks' steps), each rank's readings)."""
     import torch
     import torch.multiprocessing as mp
 
@@ -2798,7 +2818,130 @@ def phase10_serving_tp(card: str, *, device: str = "cuda", smoke: bool = False) 
     print(f"phase 10 wall {wall:.1f} s (one-rank runs {t1 - t0:.1f} s, then spawn, 10a, 10b, "
           "10c)")
     return {f"phase {part} serve {arch} {dtype} rank {r['rank']}": r[part]["launches"]
-            for part, arch, dtype, _ in SERVE_TP_CASES for r in ranks}
+            for part, arch, dtype, _ in SERVE_TP_CASES for r in ranks}, ranks
+
+
+# phase 11: the dry-run (slice F3b): one rank's step on meta tensors over
+# shape-only groups, priced from the H100 SXM data sheet.  11a holds the
+# steps phases 7, 9a and 10a / 10b ran to what they counted; 11c traces
+# perf.py's cells in worker processes beside it
+DRY_RUN_WORKERS = 7
+
+
+def _dry_run_cases(smoke: bool):
+    """(name, config, shape, keywords of dry_run, mesh) of each step of
+    phases 7, 9a and 10a / 10b that phase 11a dry-runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.mesh import make_test_mesh
+
+    one, mesh = make_test_mesh((1, 1)), make_test_mesh(TP_MESH)
+    cases = []
+    if not smoke:       # phase 7 runs on the card only
+        for arch in TRAIN_ARCHS:
+            cases.append((f"7 {arch}", get_config(arch),
+                          InputShape("train", TRAIN_RUN["seq_len"], TRAIN_RUN["global_batch"],
+                                     "train"),
+                          dict(microbatches=TRAIN_RUN["microbatches"], loss_chunk=0), one))
+    run = dict(TP_RUN, seq_len=32) if smoke else TP_RUN
+    cfg = get_config(TP_TRAIN[0][1])
+    cases.append(("9a", cfg.smoke() if smoke else cfg,
+                  InputShape("train", run["seq_len"], run["global_batch"], "train"),
+                  dict(microbatches=1, loss_chunk=0), mesh))
+    serve = dict(SERVE_TP, prompt=16, max_len=32) if smoke else SERVE_TP
+    for part, arch, dtype, _ in SERVE_TP_CASES[:2]:
+        cfg = _serve_tp_config(arch, dtype, smoke)
+        cases.append((f"{part} prefill", cfg,
+                      InputShape("p", serve["max_len"], serve["batch"], "prefill"),
+                      dict(prompt=serve["prompt"]), mesh))
+        cases.append((f"{part} decode", cfg,
+                      InputShape("d", serve["max_len"], serve["batch"], "decode"), {}, mesh))
+    return cases
+
+
+def phase11_dry_run(card: str, trained: dict, ranks9, ranks10, *, device: str = "cuda",
+                    smoke: bool = False) -> dict:
+    """Phase 11; ``trained``: phase 7's readings by arch, ``ranks9`` /
+    ``ranks10``: phases 9 and 10's ranks' readings.  Returns 11d's K3
+    launches."""
+    from repro_torch.kernels.spmm.spmm import spmm_block_ell
+    from repro_torch.launch.dryrun import dry_run
+
+    out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_", dir=ROOT / "build"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    perf = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.perf", "--out",
+                             str(out_dir), "--workers", str(DRY_RUN_WORKERS)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+    try:
+        # -- 11a / 11b: the steps the earlier phases ran ----------------------
+        t0 = time.perf_counter()
+        held = {}
+        for name, cfg, shape, kw, mesh in _dry_run_cases(smoke):
+            rec = dry_run(cfg, shape, mesh, **kw)
+            groups, mem, roof = rec["collective_bytes_by_group"], rec["memory"], rec["roofline"]
+            predicted = dict(model=groups["model"], data=groups["data"],
+                             params_and_state=mem["param_bytes"] + mem.get("opt_state_bytes", 0),
+                             bound_ms=roof["bound_s"] * 1e3, dominant=roof["dominant"],
+                             peak_GB=mem["peak_est_bytes"] / 1e9)
+            if name.startswith("7"):
+                got = trained[name.split()[1]]
+                measured = [dict(model=0, data=0, params_and_state=sum(got["held_bytes"].values()),
+                                 step_ms=got["step_ms_median_after_2"],
+                                 peak_GB=got["peak_mem_GB"])]
+            elif name == "9a":
+                measured = [dict(model=r["9a"]["bytes_per_step"]["model"],
+                                 data=r["9a"]["bytes_per_step"]["data"],
+                                 params_and_state=sum(r["9a"]["held_bytes"].values()),
+                                 step_ms=min(r["9a"]["step_ms_after_first"]),
+                                 peak_GB=r["9a"]["peak_mem_GB"]) for r in ranks9]
+            else:
+                part, kind = name.split()
+                measured = []
+                for r in ranks10:
+                    case = r[part]
+                    reading = case["prefill"] if kind == "prefill" else dict(
+                        model_group_bytes=case["decode_model_group_bytes"],
+                        data_group_bytes=case["decode_data_group_bytes"])
+                    measured.append(dict(model=reading["model_group_bytes"],
+                                         data=reading["data_group_bytes"],
+                                         params_and_state=case["shard_bytes"],
+                                         peak_GB=case["peak_mem_GB"]))
+            for i, m in enumerate(measured):
+                for key in ("model", "data", "params_and_state"):
+                    require(m[key] == predicted[key], f"11a {name} rank {i}: {key} bytes "
+                            f"{m[key]} measured, {predicted[key]} dry-run")
+                if "step_ms" in m and name in ("7 tinyllama-1.1b", "9a") and not smoke:
+                    require(predicted["bound_ms"] <= m["step_ms"], f"11a {name} rank {i}: a "
+                            f"bound of {predicted['bound_ms']} ms over the measured step "
+                            f"{m['step_ms']} ms")
+            held[name] = dict(predicted=predicted, measured=measured, trace_s=rec["trace_s"],
+                              terms_s={k: roof[k] for k in ("compute_s", "memory_s",
+                                                           "collective_s")})
+            print(f"phase 11a {name} " + json.dumps(held[name]))
+            print(f"phase 11b {name} peak GB: predicted {predicted['peak_GB']:.4f}, measured "
+                  + ", ".join("none" if m["peak_GB"] is None else f"{m['peak_GB']:.4f}"
+                              for m in measured))
+        print(f"phase 11a-b {time.perf_counter() - t0:.1f} s")
+        # -- 11c: perf.py's cells, traced beside 11a ---------------------------
+        text, _ = perf.communicate(timeout=600)
+        print("phase 11c (predicted: NVIDIA H100 SXM data sheet)\n" + text.rstrip())
+        require(perf.returncode == 0, f"11c: launch.perf exited {perf.returncode}")
+    finally:
+        if perf.poll() is None:
+            perf.kill()
+            perf.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    # -- 11d: the SPMM example on the card, K3 counted --------------------------
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_hetero_spmm_demo
+
+    spmm_block_ell.launches = 0
+    demo = torch_hetero_spmm_demo.run(device)
+    launches = spmm_block_ell.launches
+    if device == "cuda":
+        require(launches > 0, "11d: the SPMM example did not launch K3")
+    print("phase 11d " + json.dumps(dict(demo, spmm_block_ell_launches=launches, card=card)))
+    return {"phase 11d example": {"spmm_block_ell": launches}}
 
 
 def main() -> int:
@@ -2886,13 +3029,14 @@ def main() -> int:
         for kind, n in by_kind.items():
             kernels["flash_attention"]["launches_by_path"][f"phase 5 {arch} {kind}"] = n
         print(f"phase 5 {arch} done at {time.perf_counter() - t_start:.1f} s")
-    # phase 7 keeps mamba2's step-5 checkpoint and resumed losses for phase 8a
+    # phase 7 keeps mamba2's checkpoint and resumed losses for phase 8a
     kept = Path(tempfile.mkdtemp(prefix="chip_smoke_kept_", dir=ROOT / "build"))
     try:
-        resumed = {}
+        resumed, trained = {}, {}
         for arch in TRAIN_ARCHS:
             keep = kept / arch if arch == DIST_TRAIN["arch"] else None
-            name, launches, train_ms, resumed[arch] = phase7_training(arch, wrappers, card, keep)
+            name, launches, train_ms, resumed[arch], trained[arch] = phase7_training(
+                arch, wrappers, card, keep)
             kernels[name]["launches"] += launches
             kernels[name]["launches_by_path"][f"phase 7 train {arch}"] = launches
             kernels[name]["train_fwd_bwd"] = train_ms
@@ -2909,7 +3053,8 @@ def main() -> int:
     finally:
         shutil.rmtree(kept, ignore_errors=True)
     t9 = time.perf_counter()
-    for path, counts in phase9_tensor_parallel(card).items():
+    paths, ranks9 = phase9_tensor_parallel(card)
+    for path, counts in paths.items():
         for name, n in counts.items():
             if n:
                 kernels[name]["launches"] += n
@@ -2917,13 +3062,21 @@ def main() -> int:
     print(f"phase 9 done at {time.perf_counter() - t_start:.1f} s "
           f"({time.perf_counter() - t9:.1f} s)")
     t10 = time.perf_counter()
-    for path, counts in phase10_serving_tp(card).items():
+    paths, ranks10 = phase10_serving_tp(card)
+    for path, counts in paths.items():
         for name, n in counts.items():
             if n:
                 kernels[name]["launches"] += n
                 kernels[name]["launches_by_path"][path] = n
     print(f"phase 10 done at {time.perf_counter() - t_start:.1f} s "
           f"({time.perf_counter() - t10:.1f} s)")
+    t11 = time.perf_counter()
+    for path, counts in phase11_dry_run(card, trained, ranks9, ranks10).items():
+        for name, n in counts.items():
+            kernels[name]["launches"] += n
+            kernels[name]["launches_by_path"][path] = n
+    print(f"phase 11 done at {time.perf_counter() - t_start:.1f} s "
+          f"({time.perf_counter() - t11:.1f} s)")
     print("launches on the main paths: " + ", ".join(
         f"{k}={v['launches_by_path']}" for k, v in kernels.items()))
 

@@ -29,8 +29,12 @@ deliberate difference from the reference, which takes any D).
 
 The wrapper takes the plain version for tensors on the CPU, launches the
 kernel for CUDA tensors (made contiguous first where they are not), and
-counts its launches in ``flash_attention.launches``.  The bf16 kernel
-loads whole 8-column chunks of 16-byte aligned rows, so for it the wrapper
+counts its launches in ``flash_attention.launches``.  On ``meta`` tensors
+(the dry-run) it checks what the CUDA route checks, returns a meta output
+and charges ``ops.kernel_flops`` / ``kernel_hbm_bytes`` to the active
+cost report (``repro_torch/costs.py``): priced, not launched, not
+counted.  The bf16 kernel loads whole 8-column chunks of 16-byte aligned
+rows, so for it the wrapper
 pads D to a multiple of 8 with zero columns (and slices the output back),
 and copies an unaligned tensor to a fresh buffer.
 
@@ -58,7 +62,7 @@ from typing import Optional
 
 import torch
 
-from ... import _build
+from ... import _build, costs
 
 __all__ = ["MASK_VALUE", "MAX_HEAD_DIM", "BACKWARD_LABEL", "flash_attention",
            "flash_attention_plain"]
@@ -90,12 +94,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("K4's inputs lie on several devices")
     if d < 1:
         raise ValueError(f"K4 needs a head dim of at least 1, got {d}")
-    if q.device.type == "cuda":
+    if q.device.type in ("cuda", "meta"):
         if d > MAX_HEAD_DIM:
             raise ValueError(f"the CUDA K4 kernel takes head_dim up to {MAX_HEAD_DIM}, got {d} "
                              "(ROADMAP.md queue 3: a deliberate difference from the reference)")
     elif q.device.type != "cpu":
-        raise ValueError(f"K4 runs on cpu or cuda, got {q.device}")
+        raise ValueError(f"K4 runs on cpu, cuda or meta, got {q.device}")
 
 
 def _bf16_operand(x: torch.Tensor, d8: int) -> torch.Tensor:
@@ -155,10 +159,23 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, win
     return out if dk == d else out[..., :d].contiguous()
 
 
+def _priced(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int) -> torch.Tensor:
+    """The meta route: K4's forward cost charged to the active cost report
+    (``repro_torch/costs.py``), a meta output, no launch."""
+    from .ops import kernel_flops, kernel_hbm_bytes, window_share
+
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    flops = kernel_flops(b, sq, sk, h, d, causal=causal) * window_share(sq, sk, causal, window)
+    costs.charge("flash_attention", flops,
+                 kernel_hbm_bytes(b, sq, sk, h, kvh, d, bytes_per_el=q.element_size()))
+    return torch.empty_like(q)
+
+
 class _FlashAttention(torch.autograd.Function):
     """K4 with a gradient: the forward is the kernel (the plain version on
-    the CPU), the backward autograd of the plain version recomputed from
-    the saved q, k, v."""
+    the CPU, the priced meta route on ``meta``), the backward autograd of
+    the plain version recomputed from the saved q, k, v."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, scale: float):
@@ -166,6 +183,8 @@ class _FlashAttention(torch.autograd.Function):
         ctx.mask = dict(causal=causal, window=window, scale=scale)
         if q.device.type == "cpu":
             return flash_attention_plain(q, k, v, **ctx.mask)
+        if q.device.type == "meta":
+            return _priced(q, k, causal, window)
         return _launch(q, k, v, causal, window, scale)
 
     @staticmethod

@@ -10,11 +10,13 @@ larger of the two over the card's peak rates.
 
 from __future__ import annotations
 
+import functools
+
 from .flash_attention import flash_attention, flash_attention_plain
 from .ref import mha_ref
 
 __all__ = ["flash_attention", "flash_attention_plain", "mha_ref", "kernel_hbm_bytes",
-           "kernel_flops"]
+           "kernel_flops", "attended_pairs", "window_share"]
 
 
 def kernel_hbm_bytes(
@@ -43,3 +45,23 @@ def kernel_flops(
     if causal and sq == sk:
         full *= 0.5
     return full * (3.5 if backward else 1.0)
+
+
+@functools.lru_cache(maxsize=None)
+def attended_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs K4's masks keep: key j <= query i when causal,
+    and j > i - window when windowed."""
+    total = 0
+    for i in range(sq):
+        hi = min(i + 1, sk) if causal else sk
+        lo = max(i - window + 1, 0) if window else 0
+        total += max(hi - lo, 0)
+    return total
+
+
+def window_share(sq: int, sk: int, causal: bool, window: int) -> float:
+    """The share of the causal pairs a window keeps (1 without one): what
+    scales ``kernel_flops`` for a windowed call."""
+    if not window:
+        return 1.0
+    return attended_pairs(sq, sk, causal, window) / max(attended_pairs(sq, sk, causal, 0), 1)

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 from .ssd_scan import ssd_scan, ssd_scan_plain
 
 __all__ = ["ssd_scan", "ssd_scan_plain", "kernel_hbm_bytes", "kernel_flops"]
@@ -17,6 +19,7 @@ def kernel_hbm_bytes(batch: int, seq: int, heads: int, head_dim: int, state: int
     return 2 * x_b + la_b + bc_b + h_b * (2 if with_h0 else 1)
 
 
+@functools.lru_cache(maxsize=None)
 def kernel_flops(batch: int, seq: int, heads: int, head_dim: int, state: int) -> float:
     """Least operations (multiply-adds ×2) of the function on this sequence.
 

@@ -20,7 +20,10 @@ recurrence over the sub-chunks in order, then y from the states passed in
 :func:`~repro_torch.kernels.ssd_scan.ref.ssd_chunked`, at the caller's
 chunk.  The wrapper takes it for tensors on the CPU, launches the kernels
 for CUDA tensors, and counts each call in ``ssd_scan.launches`` (one call
-runs three kernels on the stream).
+runs three kernels on the stream).  On ``meta`` tensors (the dry-run) it
+checks what the CUDA route checks, returns meta outputs and charges
+``ops.kernel_flops`` / ``kernel_hbm_bytes`` to the active cost report
+(``repro_torch/costs.py``): priced, not launched, not counted.
 
 **Gradients.**  :func:`ssd_scan` is a ``torch.autograd.Function``: ``y``
 and the final state require grad whenever an input does, on either
@@ -44,7 +47,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ... import _build
+from ... import _build, costs
 from .ref import ssd_chunked
 
 __all__ = ["ssd_scan", "ssd_scan_plain", "SUB", "MAX_STATE", "BACKWARD_LABEL"]
@@ -77,7 +80,7 @@ def _check(x, log_a, Bm, Cm, chunk: int, h0: Optional[torch.Tensor]) -> None:
     tensors = [x, log_a, Bm, Cm] + ([h0] if h0 is not None else [])
     if len({t.device for t in tensors}) != 1:
         raise ValueError("K5's inputs lie on several devices")
-    if x.device.type == "cuda":
+    if x.device.type in ("cuda", "meta"):
         if any(t.dtype != torch.float32 for t in tensors):
             raise TypeError("the CUDA K5 kernel takes float32 inputs")
         if not all(t.is_contiguous() for t in tensors):
@@ -85,7 +88,7 @@ def _check(x, log_a, Bm, Cm, chunk: int, h0: Optional[torch.Tensor]) -> None:
         if n > MAX_STATE:
             raise ValueError(f"the CUDA K5 kernel takes N <= {MAX_STATE}, got {n}")
     elif x.device.type != "cpu":
-        raise ValueError(f"K5 runs on cpu or cuda, got {x.device}")
+        raise ValueError(f"K5 runs on cpu, cuda or meta, got {x.device}")
 
 
 def ssd_scan_plain(x, log_a, Bm, Cm, *, chunk: int = 64,
@@ -118,10 +121,22 @@ def _launch(x, log_a, Bm, Cm, h0: Optional[torch.Tensor]) -> Tuple[torch.Tensor,
     return y, h_out
 
 
+def _priced(x, Bm, h0: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The meta route: K5's forward cost charged to the active cost report
+    (``repro_torch/costs.py``), meta outputs, no launch."""
+    from .ops import kernel_flops, kernel_hbm_bytes
+
+    b, s, h, p = x.shape
+    n = Bm.shape[2]
+    costs.charge("ssd_scan", kernel_flops(b, s, h, p, n),
+                 kernel_hbm_bytes(b, s, h, p, n, with_h0=h0 is not None))
+    return torch.empty_like(x), torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+
+
 class _SsdScan(torch.autograd.Function):
     """K5 with a gradient: the forward is the kernels (the plain version on
-    the CPU), the backward autograd of the plain version recomputed from
-    the saved x, log_a, B, C and h0."""
+    the CPU, the priced meta route on ``meta``), the backward autograd of
+    the plain version recomputed from the saved x, log_a, B, C and h0."""
 
     @staticmethod
     def forward(ctx, x, log_a, Bm, Cm, h0, chunk: int):
@@ -130,6 +145,8 @@ class _SsdScan(torch.autograd.Function):
         ctx.set_materialize_grads(False)  # an output that reaches no loss: None
         if x.device.type == "cpu":
             return ssd_scan_plain(x, log_a, Bm, Cm, chunk=chunk, h0=h0)
+        if x.device.type == "meta":
+            return _priced(x, Bm, h0)
         return _launch(x, log_a, Bm, Cm, h0)
 
     @staticmethod

@@ -181,12 +181,6 @@ def _check_split(path, axes, spec: Spec, mp: int) -> None:
                                   f"split over {mp} model ranks")
 
 
-def _coords(mesh, ranks) -> List[Dict[str, int]]:
-    """Each global rank's coordinate on ``mesh``."""
-    return [dict(zip(mesh.mesh_dim_names, (mesh.mesh == k).nonzero()[0].tolist()))
-            for k in ranks]
-
-
 class _MeshStep:
     """The layout half of a step of ``model`` on the mesh of ``rules``: each
     leaf's blocks (``layout``), and the rows of a batch this rank takes."""
@@ -202,19 +196,29 @@ class _MeshStep:
         self.tp = None
         if self.dp * self.mp == 1:
             return
-        mesh = rules.mesh
-        self.world = Group()
-        if not hasattr(mesh, "mesh") or self.world.size != self.dp * self.mp:
-            raise ValueError(f"a mesh of {self.dp * self.mp} ranks is a DeviceMesh over a "
-                             f"process group of as many (launch.mesh.make_mesh)")
+        n = self.dp * self.mp
+        where = f"a mesh of {n} ranks is a DeviceMesh over a process group of as many " \
+                f"(launch.mesh.make_mesh)"
+        if rules.shape_only:     # the dry-run: rank 0 of shape-only groups
+            if torch.device(model.device).type != "meta":
+                raise ValueError(f"{where}, or a MeshShape for a model on meta tensors")
+        elif not hasattr(rules.mesh, "mesh") or Group().size != n:
+            raise ValueError(where)
+        self.world = rules.world_group
         self.group = rules.data_group            # the data axes
         self.tp = TensorParallel(rules)
-        data_ranks = ([self.world.rank] if self.group.size == 1
-                      else list(range(self.world.size)) if self.group.pg is None
-                      else dist.get_process_group_ranks(self.group.pg))
+        if rules.shape_only:
+            data_ranks = [k for k, c in enumerate(rules.rank_coordinates(range(n)))
+                          if c.get("model", 0) == rules.model_rank]
+        elif self.group.size == 1:
+            data_ranks = [self.world.rank]
+        elif self.group.pg is None:
+            data_ranks = list(range(n))
+        else:
+            data_ranks = dist.get_process_group_ranks(self.group.pg)
         self.param_axes = model.param_specs()
-        data_coords = _coords(mesh, data_ranks)
-        mesh_coords = _coords(mesh, range(self.world.size))
+        data_coords = rules.rank_coordinates(data_ranks)
+        mesh_coords = rules.rank_coordinates(range(n))
         self.layout = {}
         for axes, (path, a) in zip(axes_leaves(self.param_axes),
                                    tree_leaves_with_path(model.abstract_params())):
@@ -292,6 +296,11 @@ class TrainStep(_MeshStep):
         super().__init__(model, rules)
 
     # -- the step -----------------------------------------------------------
+    def pieces(self):
+        """The microbatches the accumulation runs, in order: their indices
+        (the dry-run counts the second for every one after the first)."""
+        return range(self.microbatches)
+
     def _value_and_grad(self, params, batch, weight=None) -> Tuple[Any, Dict[str, torch.Tensor]]:
         """(gradients of the loss, or of ``weight`` × the loss, metrics)."""
         live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
@@ -325,7 +334,7 @@ class TrainStep(_MeshStep):
                      else torch.float32)
         gacc = macc = None
         size = next(iter(batch.values())).shape[0] // mb
-        for i in range(mb):
+        for i in self.pieces():
             piece = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
             weigh = (lambda x: x / mb) if weights is None else (lambda x, w=weights[i]: x * w)
             grads, metrics = self._value_and_grad(params, piece,

@@ -46,7 +46,7 @@ from ..data import Prefetcher, SyntheticTokens
 from ..models import make_model
 from ..optim import AdamW, AdamWState
 from ..parallel.mesh_rules import MeshRules, MeshShape
-from ..tree import tree_map
+from ..tree import tree_leaves, tree_map
 from .steps import make_train_step
 
 __all__ = ["TrainLoopConfig", "run_training", "main"]
@@ -77,7 +77,8 @@ def run_training(cfg: TrainLoopConfig, *, mesh=None) -> Dict[str, Any]:
     (``losses``, ``step_seconds``) of the steps this call ran, with the
     bytes this rank handed to the collectives of each of its groups in
     each of them (``collective_bytes``: ``model``, ``data`` and ``mesh``;
-    empty dicts on one rank)."""
+    empty dicts on one rank), and the bytes of the parameter and AdamW
+    state blocks this rank held at the end (``held_bytes``)."""
     model_cfg = get_config(cfg.arch)
     if cfg.smoke:
         model_cfg = model_cfg.smoke()
@@ -178,6 +179,8 @@ def run_training(cfg: TrainLoopConfig, *, mesh=None) -> Dict[str, Any]:
     wall = time.perf_counter() - t_start
     if spread:
         wall = step_fn.world.all_reduce_float(wall, "max")
+    held = {"params": sum(t.numel() * t.element_size() for t in tree_leaves(params)),
+            "opt_state": sum(t.numel() * t.element_size() for t in tree_leaves(tuple(opt_state)))}
     return {
         "first_loss": losses[0],
         "final_loss": losses[-1],
@@ -186,6 +189,7 @@ def run_training(cfg: TrainLoopConfig, *, mesh=None) -> Dict[str, Any]:
         "losses": losses,
         "step_seconds": step_seconds,
         "collective_bytes": step_bytes,
+        "held_bytes": held,
     }
 
 

@@ -6,7 +6,8 @@ group of one rank, where every collective is the identity) with the
 collectives the port's distributed paths run: all-reduce, broadcast,
 all-gather and reduce-scatter of flat tensors, and point-to-point
 send / recv.  It counts the bytes this rank hands to them
-(``sent_bytes``).
+(``sent_bytes``).  :class:`ShapeGroup` is its shape-only stand-in for the
+dry-run: the same interface and counts on ``meta`` tensors, nothing moved.
 
 **Collectives that carry gradients** (tensor and sequence parallelism,
 slice F2), each a ``torch.autograd.Function`` over a :class:`Group`
@@ -61,10 +62,11 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from .. import costs
 from ..tree import tree_map
 
-__all__ = ["Group", "copy_to", "reduce_from", "gather_seq", "scatter_seq", "pmean",
-           "compressed_psum", "compressed_psum_tree"]
+__all__ = ["Group", "ShapeGroup", "COLLECTIVE_KINDS", "copy_to", "reduce_from", "gather_seq",
+           "scatter_seq", "pmean", "compressed_psum", "compressed_psum_tree"]
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
@@ -154,6 +156,84 @@ class Group:
             return self._back(host, t)
         dist.recv(t, src=self._global(src), group=self.pg)
         return t
+
+
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "broadcast", "send")
+
+
+class ShapeGroup:
+    """A group of ``size`` ranks that exists only as a shape: the dry-run's
+    stand-in for a :class:`Group` of a production mesh, which no host can
+    spawn.  It has :class:`Group`'s interface and adds to ``sent_bytes``
+    exactly where :class:`Group` does, but moves nothing: it takes and
+    returns ``meta`` tensors of the shapes :class:`Group` returns, and
+    raises on any tensor that is not on ``meta``.  ``by_kind`` splits the
+    bytes by collective (:data:`COLLECTIVE_KINDS`), and each collective is
+    charged to the active cost report (``repro_torch.costs``), scaled as
+    the report runs it.
+
+    :meth:`all_reduce_float` has no value to reduce: every rank stands for
+    ``rank`` (the dry-run's rank 0), so the stand-in of a sum is ``size``
+    times the rank's number and of a max the number itself."""
+
+    backend = "shape"
+    pg = None
+
+    def __init__(self, size: int, rank: int = 0, name: str = "") -> None:
+        self.size = size
+        self.rank = rank
+        self.name = name
+        self.sent_bytes = 0
+        self.staged_bytes = 0
+        self.by_kind = {kind: 0 for kind in COLLECTIVE_KINDS}
+
+    def _count(self, kind: str, t: torch.Tensor) -> None:
+        n = t.numel() * t.element_size() * costs.scale()
+        self.sent_bytes += n
+        self.by_kind[kind] += n
+        costs.charge_collective(self.name, kind, tuple(t.shape), t.dtype, n)
+
+    @staticmethod
+    def _meta(t: torch.Tensor) -> torch.Tensor:
+        if t.device.type != "meta":
+            raise ValueError(f"a shape-only group moves no data: it takes meta tensors, got one "
+                             f"on {t.device}")
+        return t
+
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        if op not in _OPS:
+            raise KeyError(op)
+        if self.size > 1:
+            self._count("all-reduce", self._meta(t))
+        return self._meta(t)
+
+    def all_reduce_float(self, x: float, op: str = "sum") -> float:
+        if self.size > 1:
+            self._count("all-reduce", torch.empty(1, dtype=torch.float64, device="meta"))
+        return float(x) * (self.size if op == "sum" else 1)
+
+    def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        if self.size > 1 and self.rank == src:
+            self._count("broadcast", self._meta(t))
+        return self._meta(t)
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        t = self._meta(t).contiguous()
+        if self.size > 1:
+            self._count("all-gather", t)
+        return torch.empty((self.size, *t.shape), dtype=t.dtype, device="meta")
+
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        t = self._meta(t).contiguous()
+        if self.size > 1:
+            self._count("reduce-scatter", t)
+        return torch.empty(t.shape[1:], dtype=t.dtype, device="meta")
+
+    def send(self, t: torch.Tensor, dst: int) -> None:
+        self._count("send", self._meta(t).contiguous())
+
+    def recv(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        return self._meta(t)
 
 
 def _split(t: torch.Tensor, n: int, dim: int) -> torch.Tensor:

@@ -26,7 +26,11 @@ On a ``DeviceMesh`` the rules also hold one :class:`Group` per mesh axis
 the models and the train step run collectives over:
 :attr:`MeshRules.model_group` (the ``model`` axis) and
 :attr:`MeshRules.data_group` (``pod`` × ``data``), and this rank's
-``model`` coordinate (:attr:`MeshRules.model_rank`).
+``model`` coordinate (:attr:`MeshRules.model_rank`).  On a
+:class:`MeshShape` of several ranks those groups are shape-only
+(:class:`~.collectives.ShapeGroup` of the axes' sizes): the dry-run's
+one-rank step on ``meta`` tensors, where rank 0's coordinate stands for
+every rank (a production mesh's ranks hand equal bytes).
 
 :func:`shard_hint` is the identity.  The port's layouts are explicit: on
 a data-parallel mesh the train step gathers the weights and splits the
@@ -49,10 +53,10 @@ import contextvars
 import functools
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 from ..configs.base import ParallelConfig
-from .collectives import Group
+from .collectives import Group, ShapeGroup
 
 __all__ = ["MeshShape", "MeshRules", "Spec", "DATA_AXES", "use_rules", "current_rules",
            "hints_disabled", "shard_hint", "is_axes", "axes_leaves"]
@@ -181,6 +185,12 @@ class MeshRules:
         """This rank's coordinate on the ``model`` axis."""
         return self.coordinate().get("model", 0)
 
+    @property
+    def shape_only(self) -> bool:
+        """Whether the mesh is a :class:`MeshShape`: its groups are
+        shape-only (:class:`ShapeGroup`), for a step on ``meta`` tensors."""
+        return isinstance(self.mesh, MeshShape)
+
     def _device_mesh(self, axes: Sequence[str]):
         """The ``DeviceMesh`` that collectives over ``axes`` run on."""
         if not hasattr(self.mesh, "mesh"):
@@ -189,22 +199,34 @@ class MeshRules:
         return self.mesh
 
     @functools.cached_property
+    def world_group(self) -> Group:
+        """Every rank of the mesh (the default group)."""
+        size = math.prod(self.axis_sizes.values())
+        if self.shape_only:
+            return ShapeGroup(size, name="world") if size > 1 else Group(alone=True)
+        return Group()
+
+    @functools.cached_property
     def model_group(self) -> Group:
         """The ``model`` axis's group: the ranks that share this rank's data
-        coordinates."""
+        coordinates (shape-only on a :class:`MeshShape`)."""
         if self.model_size == 1:
             return Group(alone=True)
+        if self.shape_only:
+            return ShapeGroup(self.model_size, self.model_rank, name="model")
         return Group(self._device_mesh(["model"]).get_group("model"))
 
     @functools.cached_property
     def data_group(self) -> Group:
         """The data axes' group (``pod`` × ``data``): the ranks that share this
-        rank's ``model`` coordinate.  It is the default group when the data
-        axes span the mesh."""
+        rank's ``model`` coordinate (shape-only on a :class:`MeshShape`).  It
+        is the default group when the data axes span the mesh."""
         axes = [a for a in self.mesh.mesh_dim_names if a in DATA_AXES]
         size = math.prod(self.axis_sizes[a] for a in axes)
         if size == 1:
             return Group(alone=True)
+        if self.shape_only:
+            return ShapeGroup(size, name="data")
         mesh = self._device_mesh(axes)
         if size == math.prod(self.axis_sizes.values()):
             return Group()
@@ -222,6 +244,20 @@ class MeshRules:
             if dist.get_rank() in row:
                 mine = pg
         return Group(mine)
+
+    def rank_coordinates(self, ranks: Sequence[int]) -> List[Dict[str, int]]:
+        """Each global rank's coordinate on the mesh (row-major ranks)."""
+        if not self.shape_only:
+            mesh = self.mesh
+            return [dict(zip(mesh.mesh_dim_names, (mesh.mesh == k).nonzero()[0].tolist()))
+                    for k in ranks]
+        out = []
+        for k in ranks:
+            coord = {}
+            for name, n in reversed(list(self.axis_sizes.items())):
+                k, coord[name] = divmod(k, n)
+            out.append({name: coord[name] for name in self.mesh.mesh_dim_names})
+        return out
 
     def local_slice(self, spec: Spec, shape: Sequence[int],
                     coords: Optional[Dict[str, int]] = None) -> Tuple[slice, ...]:

@@ -184,7 +184,14 @@ def served(ref, mesh, name) -> dict:
         decode = make_decode_step(model, rules, InputShape("d", MAX_LEN, ROWS, "decode"))
         shards = prefill.shard(convert.model_params_from_jax(ref[name]["params0"], cfg, "cpu"))
         batch = {k: torch.from_numpy(v) for k, v in numpy_inputs(cfg, prompt).items()}
+        groups = (prefill.tp.group, prefill.group)
+
+        def sent():
+            return [g.sent_bytes for g in groups]
+
+        before = sent()
         logits, caches = prefill(shards, batch)
+        sent_bytes = [[b - a for a, b in zip(before, sent())]]     # (model, data) a call
         tp, hd = prefill.tp, cfg.head_dim
         lru = state_features(cfg, tp)
         # the decode step updates the caches in place: keep the prefill's
@@ -198,10 +205,13 @@ def served(ref, mesh, name) -> dict:
             tok = torch.cat(prefill.group.all_gather(mine).unbind(0))   # every row
             out["tokens"].append(tok)
             pos = torch.full((ROWS, 1), prompt + i, dtype=torch.int32)
+            before = sent()
             logits, caches = decode(shards, tok[:, None].int(), pos, caches)
+            sent_bytes.append([b - a for a, b in zip(before, sent())])
             out["logits"].append(logits)
             out["calls"].append(list(calls))
         out["caches"].append(caches)
+        out["sent_bytes"] = sent_bytes
         return out
     finally:
         attention.flash_attention, ssm.ssd_scan = k4, k5
@@ -350,3 +360,25 @@ def test_kernel_calls_a_rank(runs, name):
             assert len(k4) == (k4_prefill if i == 0 else k4_decode), (name, i)
             assert len(k5) == (k5_prefill if i == 0 else 0), (name, i)
             assert set(k4) <= {k4_heads(cfg)}, (name, i, set(k4))
+
+
+@pytest.mark.parametrize("name", list(SERVE_CASES))
+def test_shape_groups_count_what_the_ranks_sent(runs, name):
+    """The dry-run's one rank on meta tensors over shape-only groups hands
+    each group, a prefill and a decode step, the bytes that each gloo rank's
+    groups counted in the same calls (``Group.sent_bytes``), to the byte."""
+    from repro_torch.launch.dryrun import dry_run
+    from repro_torch.launch.mesh import make_test_mesh
+
+    _, ranks = runs
+    cfg = serve_config(name)
+    prompt = SERVE_CASES[name][2]
+    mesh = make_test_mesh(MESH, ("data", "model"))
+    want = [r["cases"][name]["sent_bytes"] for r in ranks]
+    prefill = dry_run(cfg, InputShape("p", MAX_LEN, ROWS, "prefill"), mesh, prompt=prompt)
+    decode = dry_run(cfg, InputShape("d", MAX_LEN, ROWS, "decode"), mesh)
+    got = [[prefill["collective_bytes_by_group"][g] for g in ("model", "data")],
+           [decode["collective_bytes_by_group"][g] for g in ("model", "data")]]
+    for each in want:
+        assert each[:2] == got, (name, each[:2], got)
+        assert all(step == each[1] for step in each[1:]), name   # every decode step alike

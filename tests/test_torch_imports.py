@@ -6,9 +6,13 @@ entry string for ``python -c``, a module path), docstrings aside, the
 training slice's modules (``data``, ``optim``, ``launch/steps.py``,
 ``launch/train.py``) and the distribution layer's (``parallel/``,
 ``optim/compression.py``, ``checkpoint/elastic_restore.py``,
-``launch/mesh.py``) among them; a subprocess in which ``import jax``
+``launch/mesh.py``) and the dry-run's (``launch/dryrun.py``,
+``launch/op_analysis.py``, ``launch/perf.py``, ``costs.py``) among them,
+and the port's examples (``examples/torch_*.py``); a subprocess in which ``import jax``
 fails imports every module of the port and runs its CPU entry points
-(serving and training), a worker process and a checkpoint among them; ``chip_smoke.py`` refuses to run, and prints no result, on a host
+(serving, training and a dry-run cell), a worker process, a checkpoint
+and the examples' modules among them; ``chip_smoke.py`` refuses to run,
+and prints no result, on a host
 without a card.
 """
 
@@ -25,7 +29,8 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
 
 
 def absolute_imports(path):
@@ -68,7 +73,11 @@ def test_no_jax_or_reference_import():
             "optim/schedule.py", "launch/steps.py", "launch/train.py", "tree.py",
             "parallel/__init__.py", "parallel/mesh_rules.py", "parallel/collectives.py",
             "parallel/pipeline.py", "optim/compression.py", "checkpoint/elastic_restore.py",
-            "launch/mesh.py"} <= scanned
+            "launch/mesh.py", "launch/dryrun.py", "launch/op_analysis.py", "launch/perf.py",
+            "costs.py"} <= scanned
+    assert {p.name for p in EXAMPLES} == {
+        "torch_hetero_spmm_demo.py", "torch_quickstart.py", "torch_serve_batched.py",
+        "torch_train_small.py", "torch_elastic_sharded_demo.py"}
     offenders = [f"{path.relative_to(ROOT)} imports {name}"
                  for path in FILES for name in absolute_imports(path)
                  if name.split(".")[0] in FORBIDDEN]
@@ -132,6 +141,12 @@ rt = HeteroRuntime()
 with FleetManager(rt, remote_backend="thread", spawn=lambda: spawn_worker(startup_timeout=120)) as fm:
     fm.scale_to(1)
     assert rt.parallel_for(SleepWork(0.0), num_items=32, acc_chunk=8).items == 32
+from repro_torch.launch import dryrun, perf
+with tempfile.TemporaryDirectory() as d:
+    assert dryrun.main(["--arch", "mamba2-130m", "--shape", "decode_32k", "--out", d]) == 0
+sys.path.insert(0, "examples")
+for name in {[p.stem for p in EXAMPLES]!r}:
+    importlib.import_module(name)
 assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m] is not None]
 print("PORT_OK")
 """
