@@ -53,7 +53,16 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    keep.  K5 at mamba2-130m's prefill (``K5_SHAPES``: B 1 at S 2048, 1000
    and the longest served prompt's 891; phase 10b's B 2 a rank and B 4 in
    the one-rank run at S 512; H 24, P 64, N 128, chunk 256) with zero and
-   nonzero h0 at 2e-4.
+   nonzero h0 at 2e-4.  Then the backward kernels at what training hands
+   them, each against its plain backward (``flash_attention_backward_plain``,
+   ``ssd_scan_backward_plain``) on the forward kernel's row statistics,
+   two calls bitwise equal, timed beside the plain backward: K4's in both
+   dtypes at ``K4_BACKWARD_SHAPES`` (phase 7's tinyllama microbatch B 4 ×
+   2048, a phase-9 rank's 16 / 2 heads at D 64 and 128, stablelm's D 160,
+   recurrentgemma's D 256 with its window masking at S 4096, whisper's
+   non-causal cross-attention 448 × 1500), K5's at mamba2's B 4 × 2048
+   (dy alone) and B 1 × 1000 with h0 (dy and the final state's gradient).
+   A backward's bound is its least work: 2.5× the forward's operations.
 5. Serving at full width, inline: tinyllama-1.1b (K4, D 64), mamba2-130m
    (K5), stablelm-12b (K4, D 160; 24 GB in bf16), qwen3-moe-30b-a3b (K4,
    D 128, 128 experts top-8 with capacity chunks and the dense fallback;
@@ -130,7 +139,11 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    ``torch.cuda.synchronize()``), tokens/s, the model-flops share (6 · ``active_param_count()`` · tokens
    over the step time and the 989 TFLOP/s bf16 peak, attention excluded),
    peak memory, and a profiler top-10 of one step with the shares in the
-   kernel and in its ``Function``'s backward recomputation; a float32
+   kernel's forward and backward kernels; the backward kernel's launches
+   equal the layers that hold it × 2 microbatches × 6 steps, and an
+   observer of ``flash_attention_plain``, ``ssd_scan_plain`` and
+   ``ssd_chunked`` (every module that binds them) counts 0 calls during the
+   run and the resumed run: no plain version runs in a step; a float32
    copy at full width takes one step on a 2 × 2048 batch through the
    kernels and with ``plain=True``: loss within rtol 1e-5, ``grad_norm``
    within 1e-4, every gradient within 1e-4 of the tree's largest |g|
@@ -240,7 +253,11 @@ JSON line's ``launches`` is phases 2–3's, phase 5's, phase 7's, phase
 each model's (whisper's and the vision model's by form, recurrentgemma's
 past-the-window check apart) and adds phase 6's, K4's row lists every
 phase-4 shape under ``shapes``, and K4's and K5's rows carry phase 7's
-forward + backward times and bound under ``train_fwd_bwd``.
+forward + backward times and bound under ``train_fwd_bwd``.  The backward
+kernels have rows of their own (``flash_attention_backward``,
+``ssd_scan_backward``, counted in the wrappers' ``backward_launches``),
+with their launches on the training paths (phases 7, 8a, 8c and 9), each
+of which must launch them.
 Profiler totals sum the CUDA kernels' rows only.  Each phase prints
 its wall time.  The last lines are a JSON line of the kernels' numbers
 and the JSON result line.
@@ -364,11 +381,89 @@ K4_SHAPES = (
 # prompts, and phase 10b's on a rank (2 rows of 512 tokens, every head on
 # the gathered path) and in the parent's one-rank run (4 rows)
 K5_SHAPES = ((1, 2048), (1, 1000), (1, 891), (2, 512), (4, 512))
+# K4's backward kernel in phase 4, at what training hands it: (use, B, H,
+# KVH, D, causal, window, Sq, Sk): phase 7's tinyllama microbatch, a phase-9
+# rank's 16 / 2 heads at tinyllama's D 64 and qwen3-moe's D 128, stablelm's
+# D 160, recurrentgemma's D 256 with its window masking at S 4096, and
+# whisper's non-causal cross-attention
+K4_BACKWARD_SHAPES = (
+    ("tinyllama-1.1b training microbatch (7)", 4, 32, 4, 64, True, 0, 2048, 2048),
+    ("tinyllama-1.1b a model rank's heads (9a)", 2, 16, 2, 64, True, 0, 2048, 2048),
+    ("qwen3-moe-30b-a3b a model rank's heads (9b)", 2, 16, 2, 128, True, 0, 2048, 2048),
+    ("stablelm-12b", 1, 32, 8, 160, True, 0, 2048, 2048),
+    ("recurrentgemma-9b window", 1, 16, 1, 256, True, 2048, 4096, 4096),
+    ("whisper-large-v3 cross", 1, 20, 20, 64, False, 0, 448, 1500),
+)
+# K5's backward kernels in phase 4: (B, S, h0, gradients of): mamba2-130m's
+# training microbatch (y alone reaches the loss), and a partial sub-chunk
+# with a carried state, through y and the final state
+K5_BACKWARD_SHAPES = ((4, 2048, False, "y"), (1, 1000, True, "both"))
 
 
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+class BackwardCount:
+    """A kernel wrapper's backward launches (``wrapper.backward_launches``),
+    read and set to 0 as a wrapper's ``launches``."""
+
+    def __init__(self, wrapper):
+        self.wrapper = wrapper
+
+    @property
+    def launches(self) -> int:
+        return self.wrapper.backward_launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.wrapper.backward_launches = n
+
+
+def model_wrappers() -> dict:
+    """K4 and K5 and their backward kernels, by the names of the JSON line."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+
+    return {"flash_attention": flash_attention, "ssd_scan": ssd_scan,
+            "flash_attention_backward": BackwardCount(flash_attention),
+            "ssd_scan_backward": BackwardCount(ssd_scan)}
+
+
+# the plain versions that no training step on the card may call: the
+# kernels' plain forwards (K5's is ssd_scan_plain over ssd_chunked)
+PLAIN_VERSIONS = (("kernels.flash_attention.flash_attention", "flash_attention_plain"),
+                  ("kernels.ssd_scan.ssd_scan", "ssd_scan_plain"),
+                  ("kernels.ssd_scan.ref", "ssd_chunked"))
+
+
+@contextlib.contextmanager
+def counting_plain_calls(calls: dict):
+    """Counts into ``calls[name]`` every call of each of ``PLAIN_VERSIONS``
+    made inside the block, wherever the function is bound: every loaded
+    ``repro_torch`` module that holds it by name gets a counting wrapper."""
+    import importlib
+
+    patched = []
+    for module, name in PLAIN_VERSIONS:
+        fn = getattr(importlib.import_module(f"repro_torch.{module}"), name)
+        calls.setdefault(name, 0)
+
+        def counted(*args, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*args, **kw)
+
+        for mod in list(sys.modules.values()):
+            if getattr(mod, "__name__", "").startswith("repro_torch") and \
+                    getattr(mod, name, None) is fn:
+                setattr(mod, name, counted)
+                patched.append((mod, name, fn))
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
 
 
 @functools.lru_cache(maxsize=None)
@@ -830,6 +925,103 @@ def phase4_model_kernels():
     kernels["ssd_scan"] = dict(
         name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/ssd_scan.py:67", library_ms=None,
+        **{k: main_row[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                    "bound_by")})
+    return kernels
+
+
+def phase4_backward_kernels() -> dict:
+    """K4's and K5's backward kernels against their plain versions at the
+    shapes training hands them, bitwise equal on two calls, and timed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        _launch, flash_attention_backward, flash_attention_backward_plain,
+    )
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_backward, ssd_scan_backward_plain
+
+    kernels = {}
+    rng = np.random.default_rng(1)
+
+    def normal(*shape, scale=1.0):
+        return torch.from_numpy(scale * rng.standard_normal(shape, dtype=np.float32)).cuda()
+
+    def same_bits(a, b):
+        return all(x is None and y is None or torch.equal(x, y) for x, y in zip(a, b))
+
+    rows = []
+    for use, nb, h, kvh, d, causal, window, sq, sk in K4_BACKWARD_SHAPES:
+        q32, k32, v32, g32 = (normal(nb, sq, h, d), normal(nb, sk, kvh, d),
+                              normal(nb, sk, kvh, d), normal(nb, sq, h, d))
+        mask = dict(causal=causal, window=window, scale=d**-0.5)
+        for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            q, k, v, gy = (x.to(dtype) for x in (q32, k32, v32, g32))
+            _, stats = _launch(q, k, v, causal, window, mask["scale"], stats=True)
+            label = f"K4 backward {use} D={d} Sq={sq} Sk={sk} {name}"
+            run = functools.partial(flash_attention_backward, q, k, v, stats, gy, **mask)
+            got = run()
+            want = flash_attention_backward_plain(q, k, v, stats[0], stats[1], gy, **mask)
+            err = max(compare(f"{label} d{x}", g.float(), w.float(), attn_tol(name, w))
+                      for x, g, w in zip("qkv", got, want))
+            require(same_bits(got, run()), f"{label}: two calls differ")
+            del want
+            ms = time_ms(run)
+            dev = time_ms(run, hold=True)
+            plain = time_ms(lambda: flash_attention_backward_plain(q, k, v, stats[0], stats[1], gy,
+                                                                   **mask), reps=3)
+            el = 2 if dtype == torch.bfloat16 else 4
+            # the least work: the backward's five products, 2.5 x the forward's
+            flops = 2.5 * fops.kernel_flops(nb, sq, sk, h, d, causal=causal) * \
+                fops.window_share(sq, sk, causal, window)
+            b, by = bound_ms(fops.backward_hbm_bytes(nb, sq, sk, h, kvh, d, bytes_per_el=el),
+                             flops, bf16=dtype == torch.bfloat16)
+            rows.append(dict(use=use, shape=f"B={nb} H={h} KVH={kvh} D={d} Sq={sq} Sk={sk} "
+                             f"causal={causal} window={window} {name}", max_abs_err=err, ms=ms,
+                             device_ms=dev, plain_ms=plain, bound_ms=b, bound_by=by,
+                             library_ms=None, bitwise_repeatable=True))
+            del got, stats
+    print("K4 backward at training shapes " + json.dumps(rows))
+    main_row = rows[0]  # tinyllama's training microbatch in bf16, phase 7's
+    kernels["flash_attention_backward"] = dict(
+        name="flash_attention_backward", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:85", shapes=rows,
+        **{k: main_row[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")})
+
+    hh, p, n = 24, 64, 128
+    rows = []
+    for nb, s, with_h0, through in K5_BACKWARD_SHAPES:
+        x = normal(nb, s, hh, p)
+        log_a = torch.from_numpy(-0.2 * rng.random((nb, s, hh), np.float32)).cuda()
+        bm, cm = normal(nb, s, n, scale=0.3), normal(nb, s, n, scale=0.3)
+        h0 = normal(nb, hh, p, n, scale=0.5) if with_h0 else None
+        gy = normal(nb, s, hh, p)
+        gh = normal(nb, hh, p, n) if through == "both" else None
+        label = f"K5 backward B={nb} S={s} h0={'nonzero' if with_h0 else 'none'} d{through}"
+        run = functools.partial(ssd_scan_backward, x, log_a, bm, cm, h0, gy, gh)
+        got = run()
+        want = ssd_scan_backward_plain(x, log_a, bm, cm, h0, gy, gh)
+        err = max(compare(f"{label} d{name}", g, w, SSD_TOL)
+                  for name, g, w in zip(("x", "log_a", "B", "C", "h0"), got, want)
+                  if w is not None)
+        require(same_bits(got, run()), f"{label}: two calls differ")
+        ms = time_ms(run)
+        dev = time_ms(run, hold=True)
+        plain = time_ms(lambda: ssd_scan_backward_plain(x, log_a, bm, cm, h0, gy, gh), reps=3)
+        b, by = bound_ms(sops.backward_hbm_bytes(nb, s, hh, p, n, with_h0=with_h0),
+                         2.5 * sops.kernel_flops(nb, s, hh, p, n))
+        rows.append(dict(shape=label[len("K5 backward "):], max_abs_err=err, ms=ms,
+                         device_ms=dev, plain_ms=plain, bound_ms=b, bound_by=by,
+                         bitwise_repeatable=True))
+    print("K5 backward at training shapes " + json.dumps(rows))
+    main_row = rows[0]  # mamba2's training microbatch
+    kernels["ssd_scan_backward"] = dict(
+        name="ssd_scan_backward", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/ssd_scan.py:67", library_ms=None, shapes=rows,
         **{k: main_row[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                                     "bound_by")})
     return kernels
@@ -1573,14 +1765,14 @@ def _top_k_margin(args, _routing):
     return (top[:, k - 1] - top[:, k]).min()
 
 
-def profile_train_step(fn, kernel_names, backward_label: str) -> dict:
+def profile_train_step(fn, kernel_names, backward_names) -> dict:
     """Device time of one call of ``fn`` (a train step): the CUDA kernels'
-    total and top 10, the share in the kernel's own launches (kernels whose
-    names hold one of ``kernel_names``) and the share in the kernels its
-    backward's ``record_function`` range launched (the plain
-    recomputation), beside that range's span on the device."""
+    total and top 10, the share in the kernel's forward launches (kernels
+    whose names hold one of ``kernel_names``) and the share in its backward
+    kernels (names holding one of ``backward_names``; K5's backward also
+    reruns the forward's state and pass kernels, which count under the
+    forward's names)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1589,19 +1781,11 @@ def profile_train_step(fn, kernel_names, backward_label: str) -> dict:
     rows = _kernel_rows(prof)
     total = sum(r[0] for r in rows)
     kernel_us = sum(us for us, key, _ in rows if any(n in key for n in kernel_names))
-    backward_us = span_us = 0.0
-    for evt in prof.key_averages():
-        if evt.key == backward_label:
-            if evt.device_type == DeviceType.CPU:  # the kernels launched inside the range
-                backward_us += evt.device_time_total
-            else:                                 # the range's span on the device
-                span_us += evt.self_device_time_total
+    backward_us = sum(us for us, key, _ in rows if any(n in key for n in backward_names))
     share = (lambda us: us / total) if total else (lambda us: None)  # no device time traced
     return {"device_ms_total": total / 1e3,
             "kernel_ms": kernel_us / 1e3, "kernel_share": share(kernel_us),
-            "backward_recompute_ms": backward_us / 1e3,
-            "backward_recompute_share": share(backward_us),
-            "backward_recompute_span_ms": span_us / 1e3,
+            "backward_kernel_ms": backward_us / 1e3, "backward_kernel_share": share(backward_us),
             "top10": [{"name": k[:80], "calls": c, "device_ms": us / 1e3}
                       for us, k, c in rows[:10]]}
 
@@ -1739,9 +1923,10 @@ def plain_training_witness(arch: str, kernel_losses, kernel_refit: float, wrappe
 
 def phase7_training(arch: str, wrappers: dict, card: str, keep=None):
     """Train one model at full width through ``run_training`` (on its (1, 1)
-    mesh) and check it; returns (kernel name, launches in the run, the
-    Function's timings, the resumed run's losses, the run's readings).  ``keep``: a directory
-    that receives the run's checkpoint of step ``ckpt_every``."""
+    mesh) and check it; returns (launches in the run, {kernel: n, backward
+    kernel: n}; the Function's timings; the resumed run's losses; the run's
+    readings).  ``keep``: a directory that receives the run's checkpoint of
+    step ``ckpt_every``."""
     import dataclasses
     import gc
     import math
@@ -1752,8 +1937,6 @@ def phase7_training(arch: str, wrappers: dict, card: str, keep=None):
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
     from repro_torch.data import SyntheticTokens
-    from repro_torch.kernels.flash_attention import flash_attention as fa_module
-    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_module
     from repro_torch.launch.mesh import H100_SXM
     from repro_torch.launch.steps import default_microbatches, make_train_step
     from repro_torch.launch.train import TrainLoopConfig, run_training
@@ -1764,9 +1947,11 @@ def phase7_training(arch: str, wrappers: dict, card: str, keep=None):
 
     cfg = get_config(arch)
     kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
-    module = ssd_module if kernel == "ssd_scan" else fa_module
     kernel_names = ("ssd_state_kernel", "ssd_pass_kernel", "ssd_output_kernel") \
         if kernel == "ssd_scan" else ("flash_fwd",)
+    backward_names = ("ssd_dpass_kernel", "ssd_bwd_kernel", "ssd_bwd_reduce_kernel") \
+        if kernel == "ssd_scan" else ("flash_bwd",)
+    backward = f"{kernel}_backward"
     kernel_layers = sum(kind in KERNEL_KINDS[kernel] for kind in layer_kinds(cfg))
     gb, seq, mb, steps = (TRAIN_RUN[k] for k in ("global_batch", "seq_len", "microbatches",
                                                    "steps"))
@@ -1793,9 +1978,11 @@ def phase7_training(arch: str, wrappers: dict, card: str, keep=None):
         torch.cuda.reset_peak_memory_stats()
         for w in wrappers.values():
             w.launches = 0
+        plain_calls = {}
         t0 = time.perf_counter()
-        whole = run_training(run)
-        torch.cuda.synchronize()
+        with counting_plain_calls(plain_calls):
+            whole = run_training(run)
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: w.launches for name, w in wrappers.items()}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1817,14 +2004,16 @@ def phase7_training(arch: str, wrappers: dict, card: str, keep=None):
                     f"fall ({whole['first_loss']} -> {whole['final_loss']})")
         # each layer that holds the kernel launches it twice per microbatch
         # and step: in the forward, and again when remat recomputes its unit
-        # (one layer) in the backward; the Function's backward recomputes
-        # with torch ops and launches nothing.  tinyllama: 2 x 22 x 2 x 10 =
-        # 880; mamba2: 2 x 24 x 2 x 10 = 960
+        # (one layer) in the backward; its backward kernel once.  tinyllama:
+        # 2 x 22 x 2 x 6 = 528 and 264; mamba2: 2 x 24 x 2 x 6 = 576 and 288
         want = 2 * kernel_layers * mb * steps
         require(launches[kernel] == want,
                 f"{arch}: {kernel} launched {launches[kernel]} times in training, not 2 x "
                 f"{kernel_layers} layers x {mb} microbatches x {steps} steps = {want}")
-        others = {k: v for k, v in launches.items() if k != kernel and v}
+        require(launches[backward] == want // 2,
+                f"{arch}: {backward} launched {launches[backward]} times in training, not "
+                f"{kernel_layers} layers x {mb} microbatches x {steps} steps = {want // 2}")
+        others = {k: v for k, v in launches.items() if k not in (kernel, backward) and v}
         require(not others, f"{arch}: unexpected launches in training {others}")
 
         # -- resume from step ckpt_every: the steps after it again -------------
@@ -1833,8 +2022,13 @@ def phase7_training(arch: str, wrappers: dict, card: str, keep=None):
         # the resumed run writes none
         shutil.rmtree(tmp / "run" / f"step_{steps:08d}")
         t0 = time.perf_counter()
-        rest = run_training(dataclasses.replace(run, resume=True, ckpt_every=10 * steps))
+        with counting_plain_calls(plain_calls):
+            rest = run_training(dataclasses.replace(run, resume=True, ckpt_every=10 * steps))
         resume_wall = time.perf_counter() - t0
+        # no plain version ran in a training step of either run: the backward
+        # is the kernels'
+        require(not any(plain_calls.values()),
+                f"{arch}: plain versions called in training on the card: {plain_calls}")
         rest_seconds = rest["step_seconds"]
         start = TRAIN_RUN["ckpt_every"]
         require(rest["steps"] == len(rest["losses"]) == steps - start,
@@ -1866,7 +2060,7 @@ def phase7_training(arch: str, wrappers: dict, card: str, keep=None):
     def one_step():
         prof_holder["out"] = step_fn(params, state, batch)
 
-    prof = profile_train_step(one_step, kernel_names, module.BACKWARD_LABEL)
+    prof = profile_train_step(one_step, kernel_names, backward_names)
     del prof_holder
     summary = {
         "arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model,
@@ -1876,7 +2070,8 @@ def phase7_training(arch: str, wrappers: dict, card: str, keep=None):
         "first_loss": whole["first_loss"], "final_loss": whole["final_loss"],
         "step0_batch_loss_after_run": refit_loss,
         "resumed_final_loss": rest["final_loss"], "resume_rel_diff": resume_rel,
-        f"{kernel}_launches": launches[kernel], "run_wall_s": wall,
+        f"{kernel}_launches": launches[kernel], f"{backward}_launches": launches[backward],
+        "plain_version_calls": plain_calls, "run_wall_s": wall,
         "resumed_run_wall_s": resume_wall,
         "run_mean_tok_per_s": whole["mean_tok_per_s"], "peak_mem_GB": peak_gb,
         "held_bytes": whole["held_bytes"],
@@ -1931,7 +2126,8 @@ def phase7_training(arch: str, wrappers: dict, card: str, keep=None):
     del params32, gk, g2, step2, batch
     gc.collect()
     torch.cuda.empty_cache()
-    return kernel, launches[kernel], train_function_ms(kernel), rest["losses"], summary
+    return ({kernel: launches[kernel], backward: launches[backward]}, train_function_ms(kernel),
+            rest["losses"], summary)
 
 # phase 8: the distribution layer (slice F1) with two ranks on the one card.
 # NCCL refuses two ranks on one device, so they share gloo (its send and
@@ -1956,8 +2152,6 @@ def _phase8a(rank: int, mesh, plan: dict) -> dict:
     from repro_torch.configs.base import InputShape
     from repro_torch.core.elastic import ElasticMeshManager
     from repro_torch.data import SyntheticTokens
-    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
-    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
     from repro_torch.launch.steps import default_microbatches, make_train_step
     from repro_torch.launch.train import TrainLoopConfig, run_training
     from repro_torch.models import make_model
@@ -1995,7 +2189,7 @@ def _phase8a(rank: int, mesh, plan: dict) -> dict:
     manager.mark_failed(DIST_RANKS - 1)
     summary = elastic_restore_summary(manager.plan(), old_lr=lr)
 
-    wrappers = {"flash_attention": flash_attention, "ssd_scan": ssd_scan}
+    wrappers = model_wrappers()
     for w in wrappers.values():
         w.launches = 0
     torch.cuda.reset_peak_memory_stats() if device == "cuda" else None
@@ -2015,8 +2209,10 @@ def _phase8a(rank: int, mesh, plan: dict) -> dict:
     kernel_layers = sum(kind == "ssd" for kind in layer_kinds(cfg))
     want = 2 * kernel_layers * mb * (steps - start)   # forward and remat, a layer and step
     if device == "cuda":
-        require(launches["ssd_scan"] == want and not launches["flash_attention"],
-                f"8a rank {rank}: launches {launches}, not ssd_scan {want}")
+        require(launches == dict(ssd_scan=want, ssd_scan_backward=want // 2, flash_attention=0,
+                                 flash_attention_backward=0),
+                f"8a rank {rank}: launches {launches}, not ssd_scan {want} and its backward "
+                f"{want // 2}")
 
     # one step outside the run: its time and the bytes its collectives move
     step_fn = make_train_step(model, opt, rules, shape, lr=lr, loss_chunk=0, microbatches=mb)
@@ -2128,12 +2324,20 @@ def _phase8c(rank: int, mesh, plan: dict) -> dict:
     two = make_train_step(model, opt, MeshRules(mesh, cfg.parallel), shape, lr=lr,
                           loss_chunk=0, microbatches=1)
     shards = two.shard(params)
+    wrappers = model_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
     grads, metrics = two.grads(shards, batch)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    if device == "cuda":   # the forward, remat's replay and the backward, a layer
+        require(launches["flash_attention"] == 2 * cfg.num_layers and
+                launches["flash_attention_backward"] == cfg.num_layers,
+                f"8c rank {rank}: launches {launches}")
     metrics = {k: float(v) for k, v in dict(metrics, grad_norm=two.global_norm(grads)).items()}
     grads = two.gather(grads)
     one_rules = MeshRules(MeshShape((1, 1), ("data", "model")), cfg.parallel)
     result = dict(arch=cfg.name, layers=cfg.num_layers, batch=f"{rows} x {seq}",
-                  two_ranks=metrics)
+                  two_ranks=metrics, launches=launches)
     if rank == 0:       # the one-rank step with 2 microbatches: the same rows in 2 pieces
         one = make_train_step(model, opt, one_rules, shape, lr=lr, loss_chunk=0, microbatches=2)
         g1, m1 = one.grads(params, batch)
@@ -2237,6 +2441,7 @@ def phase8_distributed(ckpt: Path, want_losses, card: str, *, device: str = "cud
         launches[f"phase 8a train {DIST_TRAIN['arch']} rank {r['rank']}"] = r["8a"]["launches"]
         launches[f"phase 8b pipeline {PIPELINE['arch']} stage {r['rank']}"] = {
             "flash_attention": r["8b"]["k4_launches"]}
+        launches[f"phase 8c parity {DIST_PARITY['arch']} rank {r['rank']}"] = r["8c"]["launches"]
     return launches
 
 
@@ -2267,8 +2472,6 @@ def _phase9_train(mesh, plan: dict, part: str, arch: str, layers: int) -> dict:
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
-    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
     from repro_torch.launch.train import TrainLoopConfig, run_training
     from repro_torch.models.transformer import layer_kinds
 
@@ -2278,7 +2481,7 @@ def _phase9_train(mesh, plan: dict, part: str, arch: str, layers: int) -> dict:
     cfg = get_config(arch)
     cfg = cfg.smoke() if plan["smoke"] else cfg
     cfg = cfg.replace(num_layers=layers) if layers else cfg
-    wrappers = {"flash_attention": flash_attention, "ssd_scan": ssd_scan}
+    wrappers = model_wrappers()
     for w in wrappers.values():
         w.launches = 0
     if device == "cuda":
@@ -2303,8 +2506,10 @@ def _phase9_train(mesh, plan: dict, part: str, arch: str, layers: int) -> dict:
     attn = sum(kind in ("attn", "moe") for kind in layer_kinds(cfg))
     want = 2 * attn * run_cfg["steps"]      # forward and remat, a layer and step
     if device == "cuda":
-        require(launches["flash_attention"] == want and not launches["ssd_scan"],
-                f"{part}: launches {launches}, not flash_attention {want}")
+        require(launches == dict(flash_attention=want, flash_attention_backward=want // 2,
+                                 ssd_scan=0, ssd_scan_backward=0),
+                f"{part}: launches {launches}, not flash_attention {want} and its backward "
+                f"{want // 2}")
     result = dict(arch=arch, layers=cfg.num_layers, mesh=list(TP_MESH),
                   batch=f"{run_cfg['global_batch']} x {run_cfg['seq_len']}", losses=run["losses"],
                   step_ms=[t * 1e3 for t in run["step_seconds"]],
@@ -2332,8 +2537,6 @@ def _phase9c(rank: int, mesh, plan: dict) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
     from repro_torch.data import SyntheticTokens
-    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
-    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import make_model
     from repro_torch.optim import AdamW, global_norm
@@ -2343,7 +2546,7 @@ def _phase9c(rank: int, mesh, plan: dict) -> dict:
     rows, seq = TP_PARITY_BATCH["batch"], plan["tp_parity_seq"]
     shape = InputShape("parity", seq, rows, "train")
     world = Group()
-    wrappers = {"flash_attention": flash_attention, "ssd_scan": ssd_scan}
+    wrappers = model_wrappers()
 
     def config(arch, layers, sp=False, dtype="float32"):
         cfg = get_config(arch)
@@ -2952,10 +3155,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from repro_torch.configs.paper_eneac import HOTSPOT, SPMM
-    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
     from repro_torch.kernels.hotspot.hotspot import hotspot_hp_step, hotspot_hpc
     from repro_torch.kernels.spmm.spmm import spmm_block_ell
-    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
 
     t_start = time.perf_counter()
     card = subprocess.run(
@@ -2985,10 +3186,11 @@ def main() -> int:
         require(w.launches > 0, f"{name} was not launched on the main path")
 
     kernels.update(phase4_model_kernels())
+    kernels.update(phase4_backward_kernels())
     print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
-    wrappers.update(flash_attention=flash_attention, ssd_scan=ssd_scan)
+    wrappers.update(model_wrappers())
     inline_tokens = {}
-    for name in ("flash_attention", "ssd_scan"):
+    for name in ("flash_attention", "ssd_scan", "flash_attention_backward", "ssd_scan_backward"):
         kernels[name]["launches"] = 0
         kernels[name]["launches_by_path"] = {}
 
@@ -3035,11 +3237,12 @@ def main() -> int:
         resumed, trained = {}, {}
         for arch in TRAIN_ARCHS:
             keep = kept / arch if arch == DIST_TRAIN["arch"] else None
-            name, launches, train_ms, resumed[arch], trained[arch] = phase7_training(
+            counts, train_ms, resumed[arch], trained[arch] = phase7_training(
                 arch, wrappers, card, keep)
-            kernels[name]["launches"] += launches
-            kernels[name]["launches_by_path"][f"phase 7 train {arch}"] = launches
-            kernels[name]["train_fwd_bwd"] = train_ms
+            for name, launches in counts.items():
+                kernels[name]["launches"] += launches
+                kernels[name]["launches_by_path"][f"phase 7 train {arch}"] = launches
+            kernels[next(iter(counts))]["train_fwd_bwd"] = train_ms
             print(f"phase 7 {arch} done at {time.perf_counter() - t_start:.1f} s")
         t8 = time.perf_counter()
         for path, counts in phase8_distributed(kept / DIST_TRAIN["arch"],
@@ -3079,6 +3282,12 @@ def main() -> int:
           f"({time.perf_counter() - t11:.1f} s)")
     print("launches on the main paths: " + ", ".join(
         f"{k}={v['launches_by_path']}" for k, v in kernels.items()))
+    # the backward kernels ran in every training phase's steps
+    for name in ("flash_attention_backward", "ssd_scan_backward"):
+        for phase in ("phase 7", "phase 8", "phase 9"):
+            n = sum(c for path, c in kernels[name]["launches_by_path"].items()
+                    if path.startswith(phase))
+            require(n > 0, f"{name} was not launched in {phase}'s training")
 
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

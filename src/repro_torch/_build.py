@@ -30,7 +30,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "function", "check", "count_launch"]
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
-SOURCES = ("hotspot", "spmm", "flash_attention", "ssd_scan")
+SOURCES = ("hotspot", "spmm", "flash_attention", "flash_attention_bwd", "ssd_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
@@ -142,7 +142,8 @@ def check(library: str, err: int, what: str) -> None:
 _count_lock = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``; wrappers call it where they launch."""
+def count_launch(wrapper, attr: str = "launches") -> None:
+    """Add one to ``wrapper.launches`` (or another count of it, such as
+    ``backward_launches``); wrappers call it where they launch."""
     with _count_lock:
-        wrapper.launches += 1
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)

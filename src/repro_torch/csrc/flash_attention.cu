@@ -23,6 +23,10 @@
 // the G heads of a position are adjacent in memory and share the CTA's
 // keys.  A causal CTA stops at the tile that holds its last row's
 // diagonal, as the TPU kernel does.  The dtype alone selects the kernel.
+// Where a training step will take the gradient, the caller passes a
+// (2, B, H, Sq) f32 buffer and each row's final max m and denominator l
+// are written there for the backward (csrc/flash_attention_bwd.cu); with
+// null (serving) nothing else changes.
 //
 // bf16 (flash_fwd_bf16_kernel): the tensor cores.  Bound: operations,
 // kernel_flops = 4 * B * H * Sq * Sk * D (halved when causal): 17.2 GFLOP
@@ -119,7 +123,7 @@ template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, int seq_q, int seq_k, int heads, int kv_heads, int head_dim,
-                 int causal, int window, float scale) {
+                 int causal, int window, float scale, float* __restrict__ stats) {
   constexpr int kCols = DP / 16;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                      // [DP][kQStride]   q rows, transposed
@@ -260,6 +264,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     if (rho >= total_rows) continue;
     const int i = rho / groups, g = rho % groups;
     const float denom = fmaxf(l_run[r], 1e-30f);
+    if (stats != nullptr && tc == 0) {  // m and l, (2, B, H, Sq), for the backward
+      const long idx = (static_cast<long>(b) * heads + kvh * groups + g) * seq_q + i;
+      stats[idx] = m_run[r];
+      stats[static_cast<long>(gridDim.z) * heads * seq_q + idx] = l_run[r];
+    }
     T* dst = o + ((static_cast<long>(b) * seq_q + i) * heads + kvh * groups + g) * D;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
@@ -271,7 +280,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int batch, int seq_q,
                    int seq_k, int heads, int kv_heads, int head_dim, int causal, int window,
-                   float scale, cudaStream_t stream) {
+                   float scale, float* stats, cudaStream_t stream) {
   constexpr int smem = smem_floats<DP>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -280,16 +289,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bat
   const dim3 grid(static_cast<unsigned>(row_blocks), kv_heads, batch);
   flash_fwd_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), seq_q, seq_k, heads, kv_heads, head_dim, causal, window, scale);
+      static_cast<T*>(o), seq_q, seq_k, heads, kv_heads, head_dim, causal, window, scale, stats);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_dim(int head_dim, const void* q, const void* k, const void* v, void* o,
                        int batch, int seq_q, int seq_k, int heads, int kv_heads, int causal,
-                       int window, float scale, cudaStream_t stream) {
-#define K4_F32(DP) \
-  launch<T, DP>(q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, head_dim, causal, window, scale, stream)
+                       int window, float scale, float* stats, cudaStream_t stream) {
+#define K4_F32(DP)                                                                          \
+  launch<T, DP>(q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, head_dim, causal, window, \
+                scale, stats, stream)
   if (head_dim <= 16) return K4_F32(16);
   if (head_dim <= 32) return K4_F32(32);
   if (head_dim <= 64) return K4_F32(64);
@@ -419,7 +429,7 @@ __global__ void __launch_bounds__(kWarpgroup)
 flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                       int seq_q, int seq_k, int heads, int kv_heads, int head_dim, int causal,
-                      int window, float scale) {
+                      int window, float scale, float* __restrict__ stats) {
   constexpr int kTileBytes = DP * 128;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = sm90::smem_u32(smem_raw);
@@ -543,6 +553,11 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     if (rho >= total_rows) continue;
     const float denom = fmaxf(l, 1e-30f);
     const int i = rho / groups, g = rho % groups;
+    if (stats != nullptr && tid % 4 == 0) {  // m and l, (2, B, H, Sq), for the backward
+      const int64_t idx = (static_cast<int64_t>(b) * heads + kvh * groups + g) * seq_q + i;
+      stats[idx] = m_run[h];
+      stats[static_cast<int64_t>(gridDim.z) * heads * seq_q + idx] = l;
+    }
     __nv_bfloat16* dst = o + ((static_cast<int64_t>(b) * seq_q + i) * heads + kvh * groups + g) * D;
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j) {
@@ -601,7 +616,7 @@ wgmma_probe_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
 template <int DP, bool kFull>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int batch,
                         int seq_q, int seq_k, int heads, int kv_heads, int head_dim, int causal,
-                        int window, float scale, cudaStream_t stream) {
+                        int window, float scale, float* stats, cudaStream_t stream) {
   constexpr int smem = bf16_smem_bytes(DP);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<DP, kFull>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -612,17 +627,17 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
   flash_fwd_bf16_kernel<DP, kFull><<<grid, kWarpgroup, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), seq_q, seq_k, heads,
-      kv_heads, head_dim, causal, window, scale);
+      kv_heads, head_dim, causal, window, scale, stats);
   return cudaGetLastError();
 }
 
 template <int DP>
 cudaError_t launch_bf16_dp(int head_dim, const void* q, const void* k, const void* v, void* o,
                            int batch, int seq_q, int seq_k, int heads, int kv_heads, int causal,
-                           int window, float scale, cudaStream_t stream) {
+                           int window, float scale, float* stats, cudaStream_t stream) {
 #define K4_BF16(FULL)                                                                     \
   launch_bf16<DP, FULL>(q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, head_dim, causal, \
-                        window, scale, stream)
+                        window, scale, stats, stream)
   if (head_dim == DP) return K4_BF16(true);
   return K4_BF16(false);
 #undef K4_BF16
@@ -630,10 +645,11 @@ cudaError_t launch_bf16_dp(int head_dim, const void* q, const void* k, const voi
 
 cudaError_t launch_bf16_width(int head_dim, const void* q, const void* k, const void* v,
                               void* o, int batch, int seq_q, int seq_k, int heads, int kv_heads,
-                              int causal, int window, float scale, cudaStream_t stream) {
+                              int causal, int window, float scale, float* stats,
+                              cudaStream_t stream) {
 #define K4_BF16(DP)                                                                        \
   launch_bf16_dp<DP>(head_dim, q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, causal,   \
-                     window, scale, stream)
+                     window, scale, stats, stream)
   if (head_dim <= 64) return K4_BF16(64);
   if (head_dim <= 128) return K4_BF16(128);
   if (head_dim <= 192) return K4_BF16(192);
@@ -666,10 +682,13 @@ const char* flash_attention_error_string(int err) {
 
 // dtype: 0 float32, 1 bfloat16.  q, o (B, Sq, H, D) and k, v (B, Sk, KVH, D),
 // contiguous, on the card, 1 <= D <= 256; bfloat16 also needs D % 8 == 0
-// and 16-byte aligned tensors.
+// and 16-byte aligned tensors.  stats, null or (2, B, H, Sq) f32, receives
+// each row's final max m and denominator l for the backward
+// (csrc/flash_attention_bwd.cu); null leaves the forward as it is.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int batch,
                            int seq_q, int seq_k, int heads, int kv_heads, int head_dim,
-                           int dtype, int causal, int window, float scale, void* stream) {
+                           int dtype, int causal, int window, float scale, float* stats,
+                           void* stream) {
   if (batch <= 0 || seq_q <= 0 || seq_k <= 0 || kv_heads <= 0 || heads % kv_heads ||
       head_dim < 1 || head_dim > kMaxHeadDim)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -677,13 +696,13 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
   cudaError_t err;
   if (dtype == 0) {
     err = launch_dim<float>(head_dim, q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, causal,
-                            window, scale, s);
+                            window, scale, stats, s);
   } else if (dtype == 1) {
     // 16-byte copies need whole 8-column chunks on 16-byte aligned rows
     if (head_dim % 8 || !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
       return static_cast<int>(cudaErrorInvalidValue);
     err = launch_bf16_width(head_dim, q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, causal,
-                            window, scale, s);
+                            window, scale, stats, s);
   } else {
     err = cudaErrorInvalidValue;
   }

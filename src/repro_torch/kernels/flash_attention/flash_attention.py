@@ -40,42 +40,48 @@ and copies an unaligned tensor to a fresh buffer.
 
 **Gradients.**  :func:`flash_attention` is a ``torch.autograd.Function``:
 its output requires grad whenever ``q``, ``k`` or ``v`` does, on either
-device.  The forward is the kernel above (the plain version for CPU
-tensors), and it saves ``q``, ``k`` and ``v``.  The backward is the
-gradient of the same function, taken by autograd through the plain
-version recomputed from the saved inputs (with the causal flag, window
-and scale).  This is no fallback: the value the model uses always comes
-from the kernel on the card, and a failed launch still raises.  The JAX
-package has no backward kernel either (its model never calls K4, and its
-training takes XLA's autodiff of plain ``jnp`` code), so autodiff of the
-plain version is the port's equivalent.  The recomputation holds float32
-scores of shape (B, KVH, G, Sq, Sk): 2.1 GB at a microbatch of 4 × 2048
-with 32 heads, several such tensors at once, one layer at a time under
-remat.  A backward kernel written by hand is later speed work (ROADMAP.md
-queue 2), not a kernel still to port.
+device.  On the card the forward kernel then also writes each row's final
+max ``m`` and denominator ``l`` (two f32 arrays of (B, H, Sq), not one
+logsumexp: a fully masked row has ``m = MASK_VALUE``, where ``m + log l``
+rounds back to ``m``), and the Function saves q, k, v and those
+statistics.  The backward is a kernel of its own
+(``csrc/flash_attention_bwd.cu``): per 64 rows the row sum L of exp(S −
+m) and Δ = rowsum(P ∘ dP) with P = exp(S − m) / L, then dK and dV per key
+tile and dQ per 64 rows, each recomputing S from q and k in the forward's
+arithmetic, with no atomics (two calls give the same bits); in bf16 P and
+dS enter the products as two bf16 operands each (the value and its
+rounding's remainder).  It is counted in
+``flash_attention.backward_launches``, apart from the forward's
+``launches``.  :func:`flash_attention_backward_plain` computes
+the same gradient densely from the same statistics, for the tests and
+``chip_smoke.py``.  The JAX package has no backward kernel (its model
+never calls K4, and its training takes XLA's autodiff of plain ``jnp``
+code), so on the CPU the Function's backward is autograd of the plain
+version recomputed from the saved inputs, and on ``meta`` it charges the
+backward kernel's own operations and bytes to the cost report
+(``flash_attention_backward``) and returns meta gradients.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from ... import _build, costs
 
-__all__ = ["MASK_VALUE", "MAX_HEAD_DIM", "BACKWARD_LABEL", "flash_attention",
-           "flash_attention_plain"]
+__all__ = ["MASK_VALUE", "MAX_HEAD_DIM", "flash_attention", "flash_attention_plain",
+           "flash_attention_backward", "flash_attention_backward_plain"]
 
-# the profiler's name for the backward's recomputation
-BACKWARD_LABEL = "flash_attention backward (plain recomputation)"
 MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
 MAX_HEAD_DIM = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P)
+_ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P, _P)
+_BWD_ARGS = (_P,) * 9 + (_I,) * 9 + (ctypes.c_float, _P)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -110,53 +116,156 @@ def _bf16_operand(x: torch.Tensor, d8: int) -> torch.Tensor:
     return x.clone() if x.data_ptr() % 16 else x
 
 
+def _keep(sq: int, sk: int, causal: bool, window: int, device) -> Optional[torch.Tensor]:
+    """The (Sq, Sk) pairs K4's masks keep, or None without a mask."""
+    if not (causal or window):
+        return None
+    qp = torch.arange(sq, device=device)[:, None]
+    kp = torch.arange(sk, device=device)[None, :]
+    keep = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        keep &= kp <= qp
+    if window:
+        keep &= kp > qp - window
+    return keep
+
+
+def _scores(q, k, causal, window, scale):
+    """S in f32 as the kernels form it: q scaled before the product, masked
+    scores at MASK_VALUE; (B, KVH, G, Sq, Sk), with the mask."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, sq, kvh, h // kvh, d) * scale
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+    keep = _keep(sq, sk, causal, window, q.device)
+    return (s if keep is None else s.masked_fill(~keep, MASK_VALUE)), keep
+
+
 def flash_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, window: int = 0, scale: Optional[float] = None,
-) -> torch.Tensor:
-    """K4's plain PyTorch version: one softmax over all keys at once."""
+    stats: bool = False,
+):
+    """K4's plain PyTorch version: one softmax over all keys at once.  With
+    ``stats`` it returns ``(o, m, l)``, each row's max and denominator in
+    f32 (B, H, Sq), as the kernel writes them for the backward."""
     b, sq, h, d = q.shape
-    sk, kvh = k.shape[1], k.shape[2]
-    g = h // kvh
     scale = d**-0.5 if scale is None else scale
-    qg = q.float().reshape(b, sq, kvh, g, d) * scale
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())        # (B,KVH,G,Sq,Sk)
-    if causal or window:
-        qp = torch.arange(sq, device=q.device)[:, None]
-        kp = torch.arange(sk, device=q.device)[None, :]
-        keep = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-        if causal:
-            keep &= kp <= qp
-        if window:
-            keep &= kp > qp - window
-        s = s.masked_fill(~keep, MASK_VALUE)
+    s, _ = _scores(q, k, causal, window, scale)                 # (B,KVH,G,Sq,Sk)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bkgqs,bskd->bkgqd", p, v.float()) / torch.clamp(l, min=1e-30)
-    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+    if not stats:
+        return o
+    return o, m.reshape(b, h, sq), l.reshape(b, h, sq)
+
+
+def flash_attention_backward_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+    grad_out: torch.Tensor, *, causal: bool = True, window: int = 0,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' plain PyTorch version: (dq, dk, dv) in the
+    inputs' dtype, from the forward's statistics ``m``, ``l`` (B, H, Sq), in
+    the kernels' arithmetic: E = exp(S − m), L = rowsum(E) (``l`` where the
+    row sees no key, m = MASK_VALUE), P = E / L, dV = Pᵀ·dO, dP = dO·Vᵀ,
+    Δ = rowsum(P ∘ dP) over the kept keys, dS = P ∘ (dP − Δ) (0 where
+    masked), dQ = scale · dS·K, dK = dSᵀ·(scale · q).  P is normalised by
+    the row sum of the E it is made of and Δ is formed from P and dP (not
+    from the forward's l and the output rounded to the inputs' dtype), so a
+    row that sees one key has P = 1 and dS = 0 exactly, as autograd gives,
+    whatever the last bit of S.  Used by the tests and ``chip_smoke.py``,
+    never on the main path."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = d**-0.5 if scale is None else scale
+    s, keep = _scores(q, k, causal, window, scale)
+    rows = (b, kvh, g, sq, 1)
+    m = m.float().reshape(rows)
+    e = torch.exp(s - m)
+    norm = torch.where(m == MASK_VALUE, l.float().reshape(rows), e.sum(-1, keepdim=True))
+    p = e / torch.clamp(norm, min=1e-30)
+    do = grad_out.float().reshape(b, sq, kvh, g, d)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, do)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", do, v.float())
+    pdp = p * dp if keep is None else (p * dp).masked_fill(~keep, 0.0)
+    ds = p * (dp - pdp.sum(-1, keepdim=True))
+    if keep is not None:
+        ds = ds.masked_fill(~keep, 0.0)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, q.float().reshape(b, sq, kvh, g, d) * scale)
+    return dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _width(q: torch.Tensor) -> int:
+    """The head dim the kernels take: D, padded to a multiple of 8 for bf16."""
+    d = q.shape[-1]
+    return -(-d // 8) * 8 if q.dtype == torch.bfloat16 else d
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int,
-            scale: float) -> torch.Tensor:
-    """One launch of the CUDA kernel on CUDA tensors, counted."""
+            scale: float, stats: bool = False):
+    """One launch of the CUDA kernel on CUDA tensors, counted: the output and,
+    with ``stats``, the (2, B, H, Sq) f32 statistics (m, then l), else None."""
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
-    dk = d
+    dk = _width(q)
     if q.dtype == torch.bfloat16:
-        dk = -(-d // 8) * 8
         q, k, v = (_bf16_operand(x, dk) for x in (q, k, v))
     out = torch.empty_like(q)
+    st = torch.empty((2, b, h, sq), dtype=torch.float32, device=q.device) if stats else None
     launch = _build.function("flash_attention", "flash_attention_launch", _ARGS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      b, sq, sk, h, kvh, dk, _DTYPE_CODE[q.dtype], int(causal), int(window),
-                     float(scale), stream)
+                     float(scale), st.data_ptr() if st is not None else None, stream)
     _build.check("flash_attention", err, "flash_attention launch")
     _build.count_launch(flash_attention)
-    return out if dk == d else out[..., :d].contiguous()
+    return (out if dk == d else out[..., :d].contiguous()), st
+
+
+def flash_attention_backward(q, k, v, stats, grad_out, *, causal: bool, window: int,
+                             scale: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One call of the backward kernels on CUDA tensors (L and Δ, dK/dV, dQ:
+    three launches on the stream), counted once in
+    ``flash_attention.backward_launches``: (dq, dk, dv) in q's dtype, from
+    the forward's statistics ``stats`` (2, B, H, Sq)."""
+    _check(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"the K4 backward kernel runs on cuda, got {q.device}")
+    if stats is None or stats.shape != (2, q.shape[0], q.shape[2], q.shape[1]) \
+            or stats.dtype != torch.float32 or stats.device != q.device:
+        raise ValueError("the K4 backward needs the forward's (2, B, H, Sq) f32 statistics")
+    if grad_out.shape != q.shape or grad_out.device != q.device:
+        raise ValueError(f"dO must be {tuple(q.shape)} on {q.device}, got "
+                         f"{tuple(grad_out.shape)} on {grad_out.device}")
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    dk = _width(q)
+    q, k, v = (x.contiguous() for x in (q, k, v))
+    g = grad_out.to(q.dtype).contiguous()
+    if q.dtype == torch.bfloat16:
+        q, k, v, g = (_bf16_operand(x, dk) for x in (q, k, v, g))
+    dq, dkey, dval = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    aux = torch.empty((2, b, h, sq), dtype=torch.float32, device=q.device)  # L, then Δ
+    stats = stats.contiguous()
+    launch = _build.function("flash_attention_bwd", "flash_attention_backward_launch", _BWD_ARGS)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), stats.data_ptr(),
+                     aux.data_ptr(), dq.data_ptr(), dkey.data_ptr(), dval.data_ptr(),
+                     b, sq, sk, h, kvh, dk, _DTYPE_CODE[q.dtype], int(causal), int(window),
+                     float(scale), stream)
+    _build.check("flash_attention_bwd", err, "flash_attention backward launch")
+    _build.count_launch(flash_attention, "backward_launches")
+    if dk != d:
+        dq, dkey, dval = (x[..., :d].contiguous() for x in (dq, dkey, dval))
+    return dq, dkey, dval
 
 
 def _priced(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int) -> torch.Tensor:
@@ -172,30 +281,56 @@ def _priced(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int) -> torc
     return torch.empty_like(q)
 
 
+def _priced_backward(q, k, v, causal: bool, window: int):
+    """The meta route of the backward: the backward kernels' own cost
+    charged to the active cost report, meta gradients, no launch."""
+    from .ops import backward_flops, backward_hbm_bytes, window_share
+
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    flops = backward_flops(b, sq, sk, h, d, causal=causal, bf16=q.dtype == torch.bfloat16) * \
+        window_share(sq, sk, causal, window)
+    costs.charge("flash_attention_backward", flops,
+                 backward_hbm_bytes(b, sq, sk, h, kvh, d, bytes_per_el=q.element_size()))
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
 class _FlashAttention(torch.autograd.Function):
-    """K4 with a gradient: the forward is the kernel (the plain version on
-    the CPU, the priced meta route on ``meta``), the backward autograd of
-    the plain version recomputed from the saved q, k, v."""
+    """K4 with a gradient.  On the card: the forward kernel (with its
+    statistics when a gradient is wanted) and the backward kernel.  On the
+    CPU: the plain version, and autograd of it recomputed from the saved
+    q, k, v.  On ``meta``: both priced."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int, scale: float):
-        ctx.save_for_backward(q, k, v)
+    def forward(ctx, q, k, v, causal: bool, window: int, scale: float, stats: bool):
         ctx.mask = dict(causal=causal, window=window, scale=scale)
         if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v)
             return flash_attention_plain(q, k, v, **ctx.mask)
         if q.device.type == "meta":
+            ctx.save_for_backward(q, k, v)
             return _priced(q, k, causal, window)
-        return _launch(q, k, v, causal, window, scale)
+        out, st = _launch(q, k, v, causal, window, scale, stats=stats)
+        ctx.save_for_backward(q, k, v, st)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
         need = ctx.needs_input_grad[:3]
-        with torch.profiler.record_function(BACKWARD_LABEL), torch.enable_grad():
-            leaves = [x.detach().requires_grad_(n) for x, n in zip(ctx.saved_tensors, need)]
-            out = flash_attention_plain(*leaves, **ctx.mask)
-            grads = iter(torch.autograd.grad(out, [x for x in leaves if x.requires_grad],
-                                             grad_out))
-        return tuple(next(grads) if n else None for n in need) + (None, None, None)
+        saved = ctx.saved_tensors  # once: remat's checkpoint unpacks each tensor once
+        q, k, v = saved[:3]
+        if q.device.type == "cuda":
+            grads = flash_attention_backward(q, k, v, saved[3], grad_out, **ctx.mask)
+        elif q.device.type == "meta":
+            grads = _priced_backward(q, k, v, ctx.mask["causal"], ctx.mask["window"])
+        else:
+            with torch.enable_grad():
+                leaves = [x.detach().requires_grad_(n) for x, n in zip((q, k, v), need)]
+                out = flash_attention_plain(*leaves, **ctx.mask)
+                grads = iter(torch.autograd.grad(out, [x for x in leaves if x.requires_grad],
+                                                 grad_out))
+            grads = [next(grads) if n else None for n in need]
+        return tuple(gr if n else None for gr, n in zip(grads, need)) + (None,) * 4
 
 
 def flash_attention(
@@ -206,7 +341,10 @@ def flash_attention(
     differentiable in q, k and v."""
     _check(q, k, v)
     scale = q.shape[-1]**-0.5 if scale is None else scale
-    return _FlashAttention.apply(q, k, v, causal, window, scale)
+    # the statistics only where a backward can follow: serving writes none
+    stats = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+    return _FlashAttention.apply(q, k, v, causal, window, scale, stats)
 
 
 flash_attention.launches = 0
+flash_attention.backward_launches = 0

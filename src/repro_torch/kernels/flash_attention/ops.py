@@ -12,11 +12,15 @@ from __future__ import annotations
 
 import functools
 
-from .flash_attention import flash_attention, flash_attention_plain
+from .flash_attention import (
+    flash_attention, flash_attention_backward, flash_attention_backward_plain,
+    flash_attention_plain,
+)
 from .ref import mha_ref
 
-__all__ = ["flash_attention", "flash_attention_plain", "mha_ref", "kernel_hbm_bytes",
-           "kernel_flops", "attended_pairs", "window_share"]
+__all__ = ["flash_attention", "flash_attention_plain", "flash_attention_backward",
+           "flash_attention_backward_plain", "mha_ref", "kernel_hbm_bytes", "kernel_flops",
+           "backward_flops", "backward_hbm_bytes", "attended_pairs", "window_share"]
 
 
 def kernel_hbm_bytes(
@@ -45,6 +49,28 @@ def kernel_flops(
     if causal and sq == sk:
         full *= 0.5
     return full * (3.5 if backward else 1.0)
+
+
+def backward_flops(batch: int, sq: int, sk: int, heads: int, head_dim: int, *,
+                   causal: bool = True, bf16: bool = False) -> float:
+    """The backward kernels' own multiply-adds (×2), in tile products of the
+    forward's size: the L and Δ pass forms S, then S and dP; the dK/dV pass
+    S, dP, Pᵀ·dO and dSᵀ·Q; the dQ pass S, dP and dS·K: 10 where the
+    forward has 2, 5 × ``kernel_flops``.  In bf16 P and dS enter their three
+    products as two operands each (value and remainder): 13, 6.5 ×.
+    (``kernel_flops(backward=True)`` counts the 2.5 × of a backward that
+    forms S and dP once: the least work, which bounds it.)"""
+    return (6.5 if bf16 else 5.0) * kernel_flops(batch, sq, sk, heads, head_dim, causal=causal)
+
+
+def backward_hbm_bytes(batch: int, sq: int, sk: int, heads: int, kv_heads: int, head_dim: int,
+                       *, bytes_per_el: int = 2) -> float:
+    """The backward's traffic by construction: Q, K, V and dO read once, dQ,
+    dK and dV written once, and the f32 row statistics (m and l read; L and
+    Δ written and read)."""
+    q_b = batch * sq * heads * head_dim * bytes_per_el
+    kv_b = 2 * batch * sk * kv_heads * head_dim * bytes_per_el
+    return 2 * (2 * q_b + kv_b) + 6 * 4 * batch * heads * sq
 
 
 @functools.lru_cache(maxsize=None)

@@ -4,9 +4,10 @@ from __future__ import annotations
 
 import functools
 
-from .ssd_scan import ssd_scan, ssd_scan_plain
+from .ssd_scan import SUB, ssd_scan, ssd_scan_backward, ssd_scan_backward_plain, ssd_scan_plain
 
-__all__ = ["ssd_scan", "ssd_scan_plain", "kernel_hbm_bytes", "kernel_flops"]
+__all__ = ["ssd_scan", "ssd_scan_plain", "ssd_scan_backward", "ssd_scan_backward_plain",
+           "kernel_hbm_bytes", "kernel_flops", "backward_flops", "backward_hbm_bytes"]
 
 
 def kernel_hbm_bytes(batch: int, seq: int, heads: int, head_dim: int, state: int, *,
@@ -43,3 +44,27 @@ def kernel_flops(batch: int, seq: int, heads: int, head_dim: int, state: int) ->
         return full * chunk_flops(q) + (chunk_flops(rest) if rest else 0.0)
 
     return batch * min(total(q) for q in range(1, max(seq, 1) + 1))
+
+
+def backward_hbm_bytes(batch: int, seq: int, heads: int, head_dim: int, state: int, *,
+                       with_h0: bool = False) -> float:
+    """The backward's traffic by construction (f32): x, log_a, B, C, dy, the
+    final state's gradient (and h0) read once; dx, dlog_a, dB, dC (and dh0)
+    written once."""
+    x_b = batch * seq * heads * head_dim * 4
+    la_b = batch * seq * heads * 4
+    bc_b = 2 * batch * seq * state * 4
+    h_b = batch * heads * head_dim * state * 4
+    return 2 * (x_b + la_b + bc_b) + x_b + h_b * (3 if with_h0 else 1)
+
+
+def backward_flops(batch: int, seq: int, heads: int, head_dim: int, state: int) -> float:
+    """The backward kernels' own multiply-adds (×2), per sub-chunk of
+    ``SUB`` steps (the last one padded) and head: the forward's state
+    contributions and their pass again (2·Q·P·N + 2·P·N), the same for
+    dy·Cᵀ and the gradient's pass, then dy·xᵀ and (G ⊙ L)ᵀ·dy (2·Q²·P
+    each), B·dh_outᵀ, C·h_inᵀ, M·B, dy·h_in, Mᵀ·C and x·dh_out (2·Q·P·N
+    each); and C·Bᵀ once a sub-chunk (2·Q²·N)."""
+    q, p, n = SUB, head_dim, state
+    per_head = 2 * (2 * q * p * n + 2 * p * n) + 2 * (2 * q * q * p) + 6 * (2 * q * p * n)
+    return float(batch * -(-seq // q) * (heads * per_head + 2 * q * q * n))

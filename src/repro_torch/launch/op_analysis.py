@@ -9,8 +9,9 @@ would do:
 * **dot FLOPs** — ``torch.utils.flop_counter.FlopCounterMode``'s count of
   every op it counts (matrix products, forward and backward: its
   ``flop_registry``, applied here so one dispatch mode does all the
-  counting), plus the forward of each kernel's meta route (K4, K5), priced
-  by its ``kernel_flops``;
+  counting), plus each kernel's meta route (K4, K5): the forward priced by
+  its ``kernel_flops``, the backward by its backward kernels'
+  ``backward_flops``;
 * **HBM traffic** — a ``TorchDispatchMode`` that adds each op's operand
   and output bytes (views and allocations move none), plus each kernel's
   ``kernel_hbm_bytes``.  Eager mode fuses nothing, so this is an upper
@@ -57,7 +58,8 @@ NOTES = (
     "dot FLOPs: FlopCounterMode's count of every op, plus the kernels' meta routes priced by "
     "kernel_flops",
     "K4 and K5 forward: priced by kernel_flops / kernel_hbm_bytes, not launched; their "
-    "backward: autograd of the plain version, what the card runs, counted op by op",
+    "backward: priced by their backward kernels' backward_flops / backward_hbm_bytes, "
+    "what the card runs",
     "peak: the step's arguments plus the high-water mark of the storages it makes",
     "trip_counts: empty, eager mode has no loops to correct",
 )

@@ -17,9 +17,10 @@ Cells:
 
 :func:`flash_substitution` is the difference between a ``plain=True``
 dry-run of a cell as configured, which prices the attention interior op
-by op, and the default one, which prices K4's forward by its
-``kernel_hbm_bytes`` (the backward is autograd of the plain version in
-both, what the card runs).
+by op (forward, and autograd's backward in a training cell), and the
+default one, which prices K4's forward by its ``kernel_hbm_bytes`` and
+its backward by its backward kernels' ``backward_hbm_bytes``, what the
+card runs.
 
 The variants are independent one-rank traces, so :func:`run_cells` runs
 them in ``workers`` processes at once.
@@ -66,16 +67,19 @@ CELLS = {
 
 
 def flash_substitution(rec: dict, plain: dict) -> dict:
-    """What K4's forward saves over its plain version in one cell: the two
-    dry-runs' HBM bytes and memory terms (``rec`` the default run,
-    ``plain`` the ``plain=True`` one)."""
+    """What K4 (its forward, and its backward in a training cell) saves over
+    its plain version in one cell: the two dry-runs' HBM bytes and memory
+    terms (``rec`` the default run, ``plain`` the ``plain=True`` one)."""
     kernel = rec["ops"]["kernels"].get("flash_attention", {})
+    backward = rec["ops"]["kernels"].get("flash_attention_backward", {})
     return {
         "plain_hbm_bytes": plain["ops"]["hbm_bytes"],
         "kernel_hbm_bytes": rec["ops"]["hbm_bytes"],
         "attention_interior_bytes": plain["ops"]["hbm_bytes"] - rec["ops"]["hbm_bytes"],
         "k4_forward_bytes": kernel.get("hbm_bytes", 0.0),
         "k4_calls": kernel.get("calls", 0),
+        "k4_backward_bytes": backward.get("hbm_bytes", 0.0),
+        "k4_backward_calls": backward.get("calls", 0),
         "memory_s_plain": plain["roofline"]["memory_s"],
         "memory_s_kernel": rec["roofline"]["memory_s"],
         "hbm_bw": H100_SXM.hbm_bw,

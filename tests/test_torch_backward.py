@@ -1,0 +1,337 @@
+"""The backward kernels' plain versions (K4's and K5's) on the CPU.
+
+``flash_attention_backward_plain`` and ``ssd_scan_backward_plain`` are the
+explicit forms of the gradients that ``csrc/flash_attention_bwd.cu`` and
+``csrc/ssd_scan.cu``'s backward kernels evaluate; ``chip_smoke.py`` and
+``tests/test_torch_cuda.py`` hold the kernels to them on the card.  Here
+each is held, on the same numpy-seeded inputs, to autograd of the port's
+plain forward and to ``jax.grad`` of the JAX package's own functions
+(``mha_ref`` for K4, the model's ``_ssd_chunked`` for K5; the JAX package
+has no backward kernel): K4 f32 at rtol 2e-4 / atol 2e-5, bf16 inputs at
+rtol 2e-2 with an atol of 2e-2 of each (row, head) RMS of the expected
+gradient, K5 at 2e-4.  The tile walks of K4's backward kernels are
+emulated too: every (query, key) pair that adds to a gradient lies in a
+tile pair that the kernels visit.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention.ref import mha_ref as jax_mha_ref  # noqa: E402
+from repro.models.ssm import _ssd_chunked  # noqa: E402
+from repro_torch import costs  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention as fk  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as sops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan as ssk  # noqa: E402
+
+F32_TOL = dict(rtol=2e-4, atol=2e-5)
+SSD_TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def normal(rng, *shape, scale=1.0):
+    return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+
+def assert_rows_close(got, want, rtol=2e-2, rel_atol=2e-2):
+    """bf16's tolerance: rtol, with an atol of ``rel_atol`` × the RMS of each
+    expected row (the last dim)."""
+    got, want = got.float(), want.float()
+    atol = rel_atol * want.pow(2).mean(-1, keepdim=True).sqrt()
+    bad = (got - want).abs() > atol + rtol * want.abs()
+    assert not bool(bad.any()), f"{int(bad.sum())} elements beyond the bf16 row tolerance"
+
+
+# -- K4 -----------------------------------------------------------------------
+K4_CASES = [  # b, sq, sk, h, kvh, d, causal, window
+    (2, 40, 40, 4, 2, 16, True, 0),       # causal
+    (1, 70, 70, 4, 1, 8, True, 9),        # windowed, MQA
+    (2, 23, 37, 6, 3, 12, False, 0),      # non-causal, Sq != Sk, G 2
+    (2, 1, 50, 8, 1, 16, False, 0),       # a decode step: Sq 1, G 8
+    (1, 33, 33, 2, 2, 1, True, 0),        # D 1, G 1
+    (1, 20, 20, 4, 2, 160, True, 0),      # D 160
+    (1, 30, 30, 16, 2, 8, True, 0),       # G 8
+    (1, 50, 30, 4, 2, 8, False, 7),       # non-causal window past every key: masked rows
+]
+# causal with a window and Sq > Sk + window - 1: rows 33.. see no key
+MASKED_ROWS = (2, 40, 28, 4, 2, 8, True, 6)
+
+
+def k4_inputs(b, sq, sk, h, kvh, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return [normal(rng, *s) for s in ((b, sq, h, d), (b, sk, kvh, d), (b, sk, kvh, d),
+                                      (b, sq, h, d))]
+
+
+def plain_backward(q, k, v, gy, mask):
+    o, m, l = fk.flash_attention_plain(q, k, v, stats=True, **mask)
+    return fk.flash_attention_backward_plain(q, k, v, m, l, gy, **mask)
+
+
+def autograd_of_plain(q, k, v, gy, mask):
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = fk.flash_attention_plain(*leaves, **mask)
+    return torch.autograd.grad(out, leaves, gy)
+
+
+def jax_grads(qn, kn, vn, gn, mask):
+    def loss(q, k, v):
+        return jnp.sum(jax_mha_ref(q, k, v, **mask).astype(jnp.float32) * gn)
+    return jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (qn, kn, vn)))
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,window", K4_CASES)
+def test_k4_plain_backward_matches_autograd_and_jax(b, sq, sk, h, kvh, d, causal, window):
+    qn, kn, vn, gn = k4_inputs(b, sq, sk, h, kvh, d, seed=sq + d)
+    q, k, v, gy = map(torch.from_numpy, (qn, kn, vn, gn))
+    mask = dict(causal=causal, window=window, scale=d**-0.5)
+    got = plain_backward(q, k, v, gy, mask)
+    want = autograd_of_plain(q, k, v, gy, mask)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.float32 and bool(torch.isfinite(g).all()), name
+        torch.testing.assert_close(g, w, **F32_TOL, msg=name)
+    if window and sq > sk + window - 1:
+        return  # mha_ref's -inf gives a fully masked row NaN; the next test holds it
+    for name, g, w in zip("qkv", got, jax_grads(qn, kn, vn, gn, mask)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **F32_TOL, err_msg=name)
+
+
+def test_k4_fully_masked_rows_take_the_statistics_as_the_forward():
+    """A row that sees no key: m = MASK_VALUE and l = Sk, where m + log l
+    rounds back to m in f32; its P is 1 / Sk on every key (its output the
+    mean of V), which reaches dV and nothing else, as autograd of the
+    masked plain forward gives."""
+    b, sq, sk, h, kvh, d, causal, window = MASKED_ROWS
+    qn, kn, vn, gn = k4_inputs(b, sq, sk, h, kvh, d, seed=3)
+    q, k, v, gy = map(torch.from_numpy, (qn, kn, vn, gn))
+    mask = dict(causal=causal, window=window, scale=d**-0.5)
+    o, m, l = fk.flash_attention_plain(q, k, v, stats=True, **mask)
+    masked = slice(sk + window - 1, sq)
+    assert bool((m[:, :, masked] == fk.MASK_VALUE).all()) and bool((l[:, :, masked] == sk).all())
+    lse = m[:, :, masked] + torch.log(l[:, :, masked])    # a single logsumexp would lose l
+    assert bool((lse == m[:, :, masked]).all())
+    torch.testing.assert_close(o[:, masked].float(),
+                               v.repeat_interleave(h // kvh, dim=2).mean(1, keepdim=True)
+                               .expand_as(o[:, masked]), rtol=1e-5, atol=1e-6)
+    dq, dk, dv = fk.flash_attention_backward_plain(q, k, v, m, l, gy, **mask)
+    assert bool((dq[:, masked] == 0).all())
+    want = autograd_of_plain(q, k, v, gy, mask)
+    for name, g, w in zip("qkv", (dq, dk, dv), want):
+        torch.testing.assert_close(g, w, **F32_TOL, msg=name)
+    # only the masked rows' dO: dV is their uniform share, dK nothing
+    gm = torch.zeros_like(gy)
+    gm[:, masked] = gy[:, masked]
+    _, dk_m, dv_m = fk.flash_attention_backward_plain(q, k, v, m, l, gm, **mask)
+    assert bool((dk_m == 0).all())
+    share = gm.reshape(b, sq, kvh, h // kvh, d).sum((1, 3)) / sk
+    torch.testing.assert_close(dv_m, share[:, None].expand_as(dv_m), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,window", [
+    (2, 40, 40, 4, 2, 16, True, 0),
+    (1, 70, 70, 4, 1, 8, True, 9),
+    (2, 23, 37, 6, 3, 12, False, 0),
+    (1, 20, 20, 4, 2, 160, True, 0),
+])
+def test_k4_plain_backward_bf16_inputs(b, sq, sk, h, kvh, d, causal, window):
+    """bf16 inputs: gradients in bf16 within the row tolerance of autograd
+    of the plain forward and of ``jax.grad`` of ``mha_ref`` in f32 on the
+    same rounded inputs."""
+    qn, kn, vn, gn = k4_inputs(b, sq, sk, h, kvh, d, seed=sq + 1)
+    q, k, v, gy = (torch.from_numpy(x).to(torch.bfloat16) for x in (qn, kn, vn, gn))
+    mask = dict(causal=causal, window=window, scale=d**-0.5)
+    got = plain_backward(q, k, v, gy, mask)
+    want = autograd_of_plain(q, k, v, gy, mask)
+    jw = jax_grads(*(x.float().numpy() for x in (q, k, v, gy)), mask)
+    for name, g, w, j in zip("qkv", got, want, jw):
+        assert g.dtype == torch.bfloat16, name
+        assert_rows_close(g, w)
+        assert_rows_close(g, torch.from_numpy(np.array(j)))
+
+
+def k4_backward_walks(sq, sk, g, causal, window, d):
+    """The (row tile, key tile) pairs K4's backward kernels visit, as
+    ``csrc/flash_attention_bwd.cu`` computes them: the dK/dV kernel's row
+    tiles per key tile, and the dQ kernel's key tiles per row tile."""
+    rows, kt = 64, 64 if d <= 128 else 32
+    total = sq * g
+    dkdv, dq = set(), set()
+    for kb in range(-(-sk // kt)):
+        k0 = kb * kt
+        k_last = min(k0 + kt, sk) - 1
+        lo = k0 if causal else 0
+        hi = min(sq, k_last + window) if window else sq
+        t_lo = lo * g // rows
+        t_hi = (hi * g + rows - 1) // rows if hi > lo else t_lo
+        fm = sk + window - 1 if window else sq
+        f_lo = max(t_hi, fm * g // rows)
+        f_hi = max(f_lo, (sq * g + rows - 1) // rows) if fm < sq else f_lo
+        dkdv |= {(t, kb) for t in list(range(t_lo, t_hi)) + list(range(f_lo, f_hi))}
+    for t in range(-(-total // rows)):
+        first, last = t * rows // g, (min(t * rows + rows, total) - 1) // g
+        k_lo = max(0, first - window + 1) if window else 0
+        k_hi = min(sk, last + 1) if causal else sk
+        t_lo = k_lo // kt
+        t_hi = (k_hi + kt - 1) // kt if k_hi > k_lo else t_lo
+        dq |= {(t, kb) for kb in range(t_lo, t_hi)}
+    return dkdv, dq, rows, kt
+
+
+@pytest.mark.parametrize("sq,sk,g,causal,window,d", [
+    (200, 200, 1, True, 0, 64), (200, 200, 8, True, 0, 64), (300, 300, 2, True, 70, 128),
+    (130, 90, 4, True, 20, 256), (55, 300, 5, False, 0, 64), (1, 300, 8, False, 0, 192),
+    (150, 100, 3, False, 30, 64), (90, 300, 2, True, 0, 160), (300, 300, 1, True, 1, 32),
+])
+def test_k4_backward_tile_walks_cover_every_contribution(sq, sk, g, causal, window, d):
+    """Every pair with P != 0 (dV) lies in a tile pair the dK/dV kernel walks,
+    and every pair the masks keep (dS, hence dQ and dK) in one that both
+    kernels walk; pairs outside add nothing."""
+    dkdv, dq, rows, kt = k4_backward_walks(sq, sk, g, causal, window, d)
+    i = np.arange(sq)[:, None]
+    j = np.arange(sk)[None, :]
+    keep = np.ones((sq, sk), bool)
+    if causal:
+        keep &= j <= i
+    if window:
+        keep &= j > i - window
+    masked_row = ~keep.any(1)
+    gives_p = keep | masked_row[:, None]          # a fully masked row: 1 / Sk everywhere
+    for rho in range(sq * g):
+        t = rho // rows
+        for key in np.flatnonzero(gives_p[rho // g]):
+            assert (t, key // kt) in dkdv, (rho, key)
+        for key in np.flatnonzero(keep[rho // g]):
+            assert (t, key // kt) in dq, (rho, key)
+
+
+def test_k4_function_on_the_cpu_launches_nothing():
+    qn, kn, vn, gn = k4_inputs(1, 20, 20, 4, 2, 8)
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in (qn, kn, vn))
+    before = (fk.flash_attention.launches, fk.flash_attention.backward_launches)
+    out = fk.flash_attention(q, k, v)
+    out.backward(torch.from_numpy(gn))
+    assert (fk.flash_attention.launches, fk.flash_attention.backward_launches) == before
+    with pytest.raises(ValueError):
+        fk.flash_attention_backward(q.detach(), k.detach(), v.detach(), None,
+                                    torch.from_numpy(gn), causal=True, window=0, scale=1.0)
+
+
+class _Report:
+    scale = 1
+
+    def __init__(self):
+        self.kernels = {}
+
+    def charge_kernel(self, name, flops, hbm_bytes):
+        self.kernels[name] = (flops, hbm_bytes)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_meta_backward_charges_its_kernels(dtype):
+    b, sq, h, kvh, d, window = 2, 96, 8, 2, 64, 40
+    q, k, v = (torch.empty(s, device="meta", dtype=dtype).requires_grad_()
+               for s in ((b, sq, h, d), (b, sq, kvh, d), (b, sq, kvh, d)))
+    with costs.pricing(_Report()) as report:
+        out = fk.flash_attention(q, k, v, causal=True, window=window)
+        grads = torch.autograd.grad(out, (q, k, v), torch.empty_like(out))
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    el = 2 if dtype == torch.bfloat16 else 4
+    share = fops.window_share(sq, sq, True, window)
+    assert report.kernels["flash_attention_backward"] == (
+        (6.5 if dtype == torch.bfloat16 else 5.0) * fops.kernel_flops(b, sq, sq, h, d) * share,
+        fops.backward_hbm_bytes(b, sq, sq, h, kvh, d, bytes_per_el=el))
+    assert report.kernels["flash_attention"][0] == fops.kernel_flops(b, sq, sq, h, d) * share
+
+
+# -- K5 -----------------------------------------------------------------------
+def ssd_inputs(b, s, h, p, n, seed=0, with_h0=False):
+    rng = np.random.default_rng(seed)
+    x = normal(rng, b, s, h, p)
+    log_a = (-0.2 * rng.random((b, s, h))).astype(np.float32)   # moderate: jax's grad is finite
+    bm, cm = normal(rng, b, s, n, scale=0.3), normal(rng, b, s, n, scale=0.3)
+    h0 = normal(rng, b, h, p, n, scale=0.5) if with_h0 else None
+    gy, gh = normal(rng, b, s, h, p), normal(rng, b, h, p, n)
+    return x, log_a, bm, cm, h0, gy, gh
+
+
+def ssd_autograd_of_plain(args, h0, gy, gh, chunk):
+    leaves = [t.clone().requires_grad_() for t in args]
+    h0l = None if h0 is None else h0.clone().requires_grad_()
+    y, hf = ssk.ssd_scan_plain(*leaves, chunk=chunk, h0=h0l)
+    pairs = [(o, g) for o, g in ((y, gy), (hf, gh)) if g is not None]
+    wrt = leaves + ([h0l] if h0l is not None else [])
+    grads = torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                allow_unused=True)
+    return list(grads[:4]) + [grads[4] if h0l is not None else None]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 100, 3, 8, 16, 32),        # a partial last sub-chunk
+    (1, 64, 2, 16, 8, 16),         # exactly one sub-chunk
+    (1, 150, 2, 80, 12, 64),       # P > 64: two P tiles in the kernels
+    (2, 130, 1, 4, 70, 256),       # N past one slab of 64, a chunk past the length
+])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("through", ["y", "state", "both"])
+def test_k5_plain_backward_matches_autograd_and_jax(b, s, h, p, n, chunk, with_h0, through):
+    xn, lan, bn, cn, h0n, gyn, ghn = ssd_inputs(b, s, h, p, n, seed=s + p, with_h0=with_h0)
+    gyn = gyn if through != "state" else None
+    ghn = ghn if through != "y" else None
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    args, h0, gy, gh = [t(a) for a in (xn, lan, bn, cn)], t(h0n), t(gyn), t(ghn)
+    got = ssk.ssd_scan_backward_plain(*args, h0, gy, gh)
+    want = ssd_autograd_of_plain(args, h0, gy, gh, chunk)
+    names = ("x", "log_a", "B", "C", "h0")
+    for name, g, w in zip(names, got, want):
+        if name == "h0" and not with_h0:
+            assert g is None
+            continue
+        if name == "C" and through == "state":  # C reaches y only
+            assert w is None
+            assert bool((g == 0).all())
+            continue
+        torch.testing.assert_close(g, w, **SSD_TOL, msg=name)
+
+    def loss(x, la, bm, cm, h0):
+        y, hf = _ssd_chunked(x, la, bm, cm, chunk, h0)
+        total = jnp.sum(y * gyn) if gyn is not None else 0.0
+        return total + (jnp.sum(hf * ghn) if ghn is not None else 0.0)
+
+    jargs = [jnp.asarray(a) for a in (xn, lan, bn, cn)] + [
+        jnp.asarray(h0n) if with_h0 else jnp.zeros((b, h, p, n), jnp.float32)]
+    jw = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(*jargs)
+    for name, g, w in zip(names, got, jw):
+        if g is not None:
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), **SSD_TOL, err_msg=name)
+
+
+def test_k5_function_on_the_cpu_launches_nothing():
+    xn, lan, bn, cn, _, gyn, ghn = ssd_inputs(1, 70, 2, 4, 8)
+    args = [torch.from_numpy(a).requires_grad_() for a in (xn, lan, bn, cn)]
+    before = (ssk.ssd_scan.launches, ssk.ssd_scan.backward_launches)
+    y, hf = ssk.ssd_scan(*args, chunk=32)
+    torch.autograd.grad((y, hf), args, (torch.from_numpy(gyn), torch.from_numpy(ghn)))
+    assert (ssk.ssd_scan.launches, ssk.ssd_scan.backward_launches) == before
+    with pytest.raises(ValueError):
+        ssk.ssd_scan_backward(*(a.detach() for a in args), None, torch.from_numpy(gyn), None)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_k5_meta_backward_charges_its_kernels(with_h0):
+    b, s, h, p, n = 2, 300, 4, 64, 32
+    args = [torch.empty(sh, device="meta").requires_grad_()
+            for sh in ((b, s, h, p), (b, s, h), (b, s, n), (b, s, n))]
+    h0 = torch.empty((b, h, p, n), device="meta").requires_grad_() if with_h0 else None
+    with costs.pricing(_Report()) as report:
+        y, _ = ssk.ssd_scan(*args, chunk=64, h0=h0)
+        wrt = args + ([h0] if with_h0 else [])
+        grads = torch.autograd.grad(y, wrt, torch.empty_like(y))
+    assert [g.shape for g in grads] == [t.shape for t in wrt]
+    assert report.kernels["ssd_scan_backward"] == (
+        sops.backward_flops(b, s, h, p, n), sops.backward_hbm_bytes(b, s, h, p, n,
+                                                                    with_h0=with_h0))

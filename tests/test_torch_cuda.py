@@ -23,6 +23,9 @@ greedy tokens through K4 as through its plain version.  K4's and K5's
 ``Function``s carry gradients: an output requires grad when an input
 does, the gradients match autograd of the plain versions, and a smoke
 train step through the kernels matches one through the plain versions.
+The backward kernels (K4's and K5's) are held to their plain versions in
+both of K4's dtypes and at the training shapes, give the same bits on two
+calls, and count in ``backward_launches`` apart from the forwards.
 What a model axis of 2 hands the kernels is held too: K4 on a rank's
 heads equals those heads of the full call, and the loss's vocab-parallel
 cross-entropy on two halves of the vocabulary equals the plain loss.
@@ -488,9 +491,10 @@ def test_k4_function_gradients_match_autograd_of_plain(cuda, b, sq, sk, h, kvh, 
     w = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (b, sq, h, d), dtype=np.float32)).to(cuda)
     mask = dict(causal=causal, window=window)
-    n = fk.flash_attention.launches
+    n, nb = fk.flash_attention.launches, fk.flash_attention.backward_launches
     out, grads = grads_through(lambda *x: fk.flash_attention(*x, **mask), (q, k, v), [w])
-    assert fk.flash_attention.launches == n + 1   # the backward launches nothing
+    assert fk.flash_attention.launches == n + 1
+    assert fk.flash_attention.backward_launches == nb + 1
     want_out, want = grads_through(lambda *x: fk.flash_attention_plain(*x, **mask),
                                    (q, k, v), [w])
     assert within_tol(out[0], want_out[0], dtype)
@@ -510,10 +514,11 @@ def test_k5_function_gradients_match_autograd_of_plain(cuda, b, s, h, p, n, chun
     rng = np.random.default_rng(2)
     w = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(cuda)
          for shape in ((b, s, h, p), (b, h, p, n))]
-    before = ssk.ssd_scan.launches
+    before, nb = ssk.ssd_scan.launches, ssk.ssd_scan.backward_launches
     outs, grads = grads_through(lambda *a: ssk.ssd_scan(*a[:4], chunk=chunk, h0=a[4]),
                                 (x, log_a, bm, cm, h0), w)
     assert ssk.ssd_scan.launches == before + 1
+    assert ssk.ssd_scan.backward_launches == nb + 1
     want_outs, want = grads_through(lambda *a: ssk.ssd_scan_plain(*a[:4], chunk=chunk, h0=a[4]),
                                     (x, log_a, bm, cm, h0), w)
     for o, wo in zip(outs, want_outs):
@@ -523,6 +528,89 @@ def test_k5_function_gradients_match_autograd_of_plain(cuda, b, s, h, p, n, chun
             assert g is None and not with_h0 and name == "h0"
             continue
         torch.testing.assert_close(g, gw, rtol=2e-4, atol=2e-4, msg=name)
+
+
+# -- the backward kernels against their plain versions -------------------------
+K4_BACKWARD_SHAPES = [  # b, sq, sk, h, kvh, d, causal, window
+    (2, 128, 128, 4, 2, 64, True, 0),
+    (1, 300, 300, 4, 1, 128, True, 64),
+    (1, 55, 150, 4, 4, 64, False, 0),       # cross: no mask, Sq != Sk
+    (2, 1, 300, 8, 1, 64, False, 0),        # a decode step: Sq 1, G 8
+    (1, 200, 200, 4, 2, 160, True, 0),
+    (1, 130, 130, 4, 1, 256, True, 33),
+    (1, 129, 129, 4, 2, 256, False, 50),
+    (1, 70, 70, 2, 1, 1, True, 0),          # D 1
+    (2, 65, 65, 4, 2, 5, True, 0),          # D 5: the bf16 wrapper pads to 8
+    (1, 100, 100, 4, 4, 100, False, 0),
+    (1, 77, 77, 6, 3, 16, True, 9),         # ragged, odd group count
+    (2, 120, 70, 4, 2, 32, True, 20),       # causal window past every key: masked rows
+    (1, 90, 90, 16, 2, 24, True, 0),        # G 8
+    (1, 2048, 2048, 32, 4, 64, True, 0),    # tinyllama's training rows, at B 1
+    (2, 2048, 2048, 16, 2, 128, True, 0),   # a phase-9 rank's heads at D 128
+]
+
+
+def k4_backward_case(b, sq, sk, h, kvh, d, causal, window, dtype, device, seed=0):
+    """Inputs, the forward kernel's statistics and dO for one backward."""
+    q, k, v = attention_inputs(b, sq, sk, h, kvh, d, dtype, device, seed=seed)
+    gy = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (b, sq, h, d), dtype=np.float32)).to(device, dtype)
+    out, stats = fk._launch(q, k, v, causal, window, d**-0.5, stats=True)
+    return q, k, v, out, stats, gy
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,window", K4_BACKWARD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_backward_kernel_matches_plain(cuda, b, sq, sk, h, kvh, d, causal, window, dtype):
+    mask = dict(causal=causal, window=window, scale=d**-0.5)
+    q, k, v, out, stats, gy = k4_backward_case(b, sq, sk, h, kvh, d, causal, window, dtype, cuda,
+                                               seed=sq + d)
+    _, m, l = fk.flash_attention_plain(q, k, v, stats=True, **mask)
+    torch.testing.assert_close(stats[0], m, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(stats[1], l, rtol=2e-4, atol=1e-5)
+    n, nb = fk.flash_attention.launches, fk.flash_attention.backward_launches
+    got = fk.flash_attention_backward(q, k, v, stats, gy, **mask)
+    torch.cuda.synchronize()
+    assert (fk.flash_attention.launches, fk.flash_attention.backward_launches) == (n, nb + 1)
+    want = fk.flash_attention_backward_plain(q, k, v, stats[0], stats[1], gy, **mask)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == dtype and g.shape == w.shape and bool(torch.isfinite(g).all()), name
+        assert within_tol(g, w, dtype), name
+    # two calls give the same bits (no atomics)
+    again = fk.flash_attention_backward(q, k, v, stats, gy, **mask)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("b,s,h,p,n", [
+    (2, 100, 3, 8, 16),        # a partial last sub-chunk
+    (1, 64, 2, 16, 8),
+    (1, 300, 2, 80, 200),      # two P tiles, four N slabs, a partial sub-chunk
+    (2, 1, 4, 64, 128),
+    (1, 891, 24, 64, 128),     # mamba2's longest served prompt
+    (4, 2048, 24, 64, 128),    # mamba2-130m's training microbatch
+])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("through", ["y", "state", "both"])
+def test_k5_backward_kernel_matches_plain(cuda, b, s, h, p, n, with_h0, through):
+    x, log_a, bm, cm, h0 = ssd_inputs(b, s, h, p, n, cuda, seed=s + p, with_h0=with_h0)
+    rng = np.random.default_rng(5)
+    gy = torch.from_numpy(rng.standard_normal((b, s, h, p), dtype=np.float32)).to(cuda) \
+        if through != "state" else None
+    gh = torch.from_numpy(rng.standard_normal((b, h, p, n), dtype=np.float32)).to(cuda) \
+        if through != "y" else None
+    n0, nb = ssk.ssd_scan.launches, ssk.ssd_scan.backward_launches
+    got = ssk.ssd_scan_backward(x, log_a, bm, cm, h0, gy, gh)
+    torch.cuda.synchronize()
+    assert (ssk.ssd_scan.launches, ssk.ssd_scan.backward_launches) == (n0, nb + 1)
+    want = ssk.ssd_scan_backward_plain(x, log_a, bm, cm, h0, gy, gh)
+    for name, g, w in zip(("x", "log_a", "B", "C", "h0"), got, want):
+        if w is None:
+            assert g is None and name == "h0" and not with_h0
+            continue
+        assert bool(torch.isfinite(g).all()), name
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4, msg=name)
+    again = ssk.ssd_scan_backward(x, log_a, bm, cm, h0, gy, gh)
+    assert all(torch.equal(a, g) for a, g in zip(again, got) if g is not None)
 
 
 def test_smoke_train_step_through_kernels_matches_plain(cuda):

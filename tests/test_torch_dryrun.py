@@ -180,6 +180,18 @@ def _plain_call_dots(fn, *shapes, **kw) -> float:
     return counter.get_total_flops()
 
 
+def _plain_grad_dots(fn, *shapes) -> float:
+    """Dot FLOPs of ``fn`` on meta leaves that require grad, forward and
+    autograd's backward of the sum of its output."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.enable_grad():
+        leaves = [torch.empty(s, device="meta", requires_grad=True) for s in shapes]
+        with FlopCounterMode(display=False) as counter:
+            fn(*leaves).sum().backward()
+    return counter.get_total_flops()
+
+
 @pytest.mark.parametrize("arch,kind", SMOKE)
 def test_dot_flops_beside_the_reference_s(reference, arch, kind):
     """``OpReport.dot_flops`` (1, 1) against ``analyze_hlo``'s, each
@@ -193,13 +205,21 @@ def test_dot_flops_beside_the_reference_s(reference, arch, kind):
       plain version does;
     * K4's causal halving: the port prices each K4 forward (the forward and
       its replay) by ``kernel_flops``, which halves the causal S × S
-      product, and its backward recomputes the plain forward (full) before
-      autograd's: 2 · ½ + 1 = 2 full forwards, the reference's 2, so the
-      kernel path's dots equal the plain path's;
+      product, and its backward by its kernels' own ``backward_flops``,
+      f × ``kernel_flops`` (S formed four times and dP three times across
+      its passes, with dV, dK and dQ: f = 5; in bf16 P and dS enter their
+      products as two operands each, f = 6.5; halved too); the plain path
+      forms the full products in the forward and its replay (2 full
+      forwards) and autograd's backward of its two einsums (four products:
+      2 full forwards, counted here op by op).  So the kernel path's dots
+      are attention layers × (2 · ½ + f · ½ − 2 − 2) full forwards from the
+      plain path's;
     * K5: each forward and replay is priced by ``kernel_flops`` (K), the
-      least operations of the scan, where the plain chunked scan's dots are
-      P; the backward recomputes P: the kernel path differs from the plain
-      one by layers × (2K − P);
+      least operations of the scan, and each backward by its kernels'
+      ``backward_flops`` (Kb), where the plain chunked scan's dots are P
+      forward and PF forward and backward (counted here op by op): the
+      kernel path differs from the plain one by layers × (2K + Kb − P −
+      PF);
     * mamba2's plain path against the reference: torch's autograd of the
       chunked scan's three-operand einsums contracts otherwise than XLA's
       (the scan alone, forward and backward, each side's own count), and
@@ -207,7 +227,10 @@ def test_dot_flops_beside_the_reference_s(reference, arch, kind):
       over rows and positions) into a dot of 2 · B · S · C · W per layer,
       which torch leaves elementwise.
     """
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_plain
+    from repro_torch.kernels.flash_attention.ops import backward_flops as k4_bwd_flops
     from repro_torch.kernels.flash_attention.ops import kernel_flops as k4_flops
+    from repro_torch.kernels.ssd_scan.ops import backward_flops as k5_bwd_flops
     from repro_torch.kernels.ssd_scan.ops import kernel_flops as k5_flops
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
@@ -225,27 +248,28 @@ def test_dot_flops_beside_the_reference_s(reference, arch, kind):
         B, S, H, P, N, Q = SSD_CALL
         assert (B, S, H, P, N, Q) == (b, s, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
                                       cfg.ssm_chunk)
-        assert kinds == {"ssd_scan": 2 * cfg.num_layers}
-        p_dots = _plain_call_dots(lambda *a: ssd_chunked(*a, Q), (B, S, H, P), (B, S, H),
-                                  (B, S, N), (B, S, N))
-        assert got - got_plain == cfg.num_layers * (2 * k5_flops(B, S, H, P, N) - p_dots)
-        with torch.enable_grad():
-            from torch.utils.flop_counter import FlopCounterMode
-
-            leaves = [torch.empty(x, device="meta", requires_grad=True)
-                      for x in ((B, S, H, P), (B, S, H), (B, S, N), (B, S, N))]
-            with FlopCounterMode(display=False) as counter:
-                ssd_chunked(*leaves, Q)[0].sum().backward()
-        scan_delta = counter.get_total_flops() - reference["ssd fwd+bwd"]
+        assert kinds == {"ssd_scan": 2 * cfg.num_layers, "ssd_scan_backward": cfg.num_layers}
+        shapes = ((B, S, H, P), (B, S, H), (B, S, N), (B, S, N))
+        p_dots = _plain_call_dots(lambda *a: ssd_chunked(*a, Q), *shapes)
+        pf_dots = _plain_grad_dots(lambda *a: ssd_chunked(*a, Q)[0], *shapes)
+        assert got - got_plain == cfg.num_layers * (
+            2 * k5_flops(B, S, H, P, N) + k5_bwd_flops(B, S, H, P, N) - p_dots - pf_dots)
+        scan_delta = pf_dots - reference["ssd fwd+bwd"]
         conv = 2 * b * s * (cfg.ssm_d_inner + 2 * cfg.ssm_state) * cfg.conv_width
         assert got_plain - want == cfg.num_layers * (scan_delta - conv)
         assert scan_delta > 0
         return
     attn = cfg.attn_layer_count()
-    assert kinds == {"flash_attention": 2 * attn}
-    full = 4.0 * b * cfg.num_heads * s * s * cfg.head_dim
-    assert k4_flops(b, s, s, cfg.num_heads, cfg.head_dim) == full / 2
-    assert got - got_plain == attn * (2 * full / 2 + full - 2 * full) == 0
+    assert kinds == {"flash_attention": 2 * attn, "flash_attention_backward": attn}
+    h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    full = 4.0 * b * h * s * s * d
+    assert k4_flops(b, s, s, h, d) == full / 2
+    f = 6.5 if cfg.dtype == "bfloat16" else 5.0
+    assert k4_bwd_flops(b, s, s, h, d, bf16=cfg.dtype == "bfloat16") == f * full / 2
+    shapes = ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d))
+    assert _plain_call_dots(flash_attention_plain, *shapes) == full
+    assert _plain_grad_dots(flash_attention_plain, *shapes) == full + 2 * full
+    assert got - got_plain == attn * (2 * full / 2 + f * full / 2 - 2 * full - 2 * full)
     assert got_plain == want
 
 
