@@ -63,6 +63,12 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    non-causal cross-attention 448 × 1500), K5's at mamba2's B 4 × 2048
    (dy alone) and B 1 × 1000 with h0 (dy and the final state's gradient).
    A backward's bound is its least work: 2.5× the forward's operations.
+   Each backward row carries the device time of every kernel it launches
+   (``launch_device_ms``, from ``torch.profiler``), and K4's causal and
+   unmasked bf16 rows the time of PyTorch's flash-attention backward on
+   the same inputs (``library_ms``: ``_scaled_dot_product_flash_attention_
+   backward`` on the output and logsumexp of its forward, K and V expanded
+   to H heads before the timed call).
 5. Serving at full width, inline: tinyllama-1.1b (K4, D 64), mamba2-130m
    (K5), stablelm-12b (K4, D 160; 24 GB in bf16), qwen3-moe-30b-a3b (K4,
    D 128, 128 experts top-8 with capacity chunks and the dense fallback;
@@ -930,6 +936,42 @@ def phase4_model_kernels():
     return kernels
 
 
+def launch_device_ms(fn) -> dict:
+    """Device milliseconds of each CUDA kernel one call of ``fn`` launches,
+    by kernel name (``torch.profiler``), after a warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {key[:90]: us / 1e3 for us, key, _ in _kernel_rows(prof)}
+
+
+def flash_backward_library_ms(q, k, v, gy, causal: bool, window: int, scale: float):
+    """Milliseconds of PyTorch's flash-attention backward on K4's backward
+    inputs (``_scaled_dot_product_flash_attention_backward`` on the output
+    and logsumexp of ``_scaled_dot_product_flash_attention``), K and V
+    expanded to the H query heads before the timed call (the group sum
+    stays outside it): a yardstick the port never calls.  None where it
+    computes another function (a window) or takes no such dtype (f32)."""
+    import torch
+
+    if window or q.dtype != torch.bfloat16:
+        return None
+    g = q.shape[2] // k.shape[2]
+    qt, gt = (x.transpose(1, 2).contiguous() for x in (q, gy))
+    kt, vt = (x.repeat_interleave(g, dim=2).transpose(1, 2).contiguous() for x in (k, v))
+    aten = torch.ops.aten
+    fwd = aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, causal, False, scale=scale)
+    out, lse, cum_q, cum_k, max_q, max_k, seed, offset = fwd[:8]
+    return time_ms(lambda: aten._scaled_dot_product_flash_attention_backward(
+        gt, qt, kt, vt, out, lse, cum_q, cum_k, max_q, max_k, 0.0, causal, seed, offset,
+        scale=scale))
+
+
 def phase4_backward_kernels() -> dict:
     """K4's and K5's backward kernels against their plain versions at the
     shapes training hands them, bitwise equal on two calls, and timed."""
@@ -978,10 +1020,12 @@ def phase4_backward_kernels() -> dict:
                 fops.window_share(sq, sk, causal, window)
             b, by = bound_ms(fops.backward_hbm_bytes(nb, sq, sk, h, kvh, d, bytes_per_el=el),
                              flops, bf16=dtype == torch.bfloat16)
+            library = flash_backward_library_ms(q, k, v, gy, causal, window, mask["scale"])
             rows.append(dict(use=use, shape=f"B={nb} H={h} KVH={kvh} D={d} Sq={sq} Sk={sk} "
                              f"causal={causal} window={window} {name}", max_abs_err=err, ms=ms,
                              device_ms=dev, plain_ms=plain, bound_ms=b, bound_by=by,
-                             library_ms=None, bitwise_repeatable=True))
+                             library_ms=library, launch_device_ms=launch_device_ms(run),
+                             bitwise_repeatable=True))
             del got, stats
     print("K4 backward at training shapes " + json.dumps(rows))
     main_row = rows[0]  # tinyllama's training microbatch in bf16, phase 7's
@@ -1016,7 +1060,7 @@ def phase4_backward_kernels() -> dict:
                          2.5 * sops.kernel_flops(nb, s, hh, p, n))
         rows.append(dict(shape=label[len("K5 backward "):], max_abs_err=err, ms=ms,
                          device_ms=dev, plain_ms=plain, bound_ms=b, bound_by=by,
-                         bitwise_repeatable=True))
+                         launch_device_ms=launch_device_ms(run), bitwise_repeatable=True))
     print("K5 backward at training shapes " + json.dumps(rows))
     main_row = rows[0]  # mamba2's training microbatch
     kernels["ssd_scan_backward"] = dict(
@@ -1949,7 +1993,7 @@ def phase7_training(arch: str, wrappers: dict, card: str, keep=None):
     kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
     kernel_names = ("ssd_state_kernel", "ssd_pass_kernel", "ssd_output_kernel") \
         if kernel == "ssd_scan" else ("flash_fwd",)
-    backward_names = ("ssd_dpass_kernel", "ssd_bwd_kernel", "ssd_bwd_reduce_kernel") \
+    backward_names = ("ssd_dpass_kernel", "ssd_bwd_kernel", "ssd_bwd_bc_kernel") \
         if kernel == "ssd_scan" else ("flash_bwd",)
     backward = f"{kernel}_backward"
     kernel_layers = sum(kind in KERNEL_KINDS[kernel] for kind in layer_kinds(cfg))

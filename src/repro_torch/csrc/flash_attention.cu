@@ -78,6 +78,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "flash_tiles.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -313,109 +314,12 @@ cudaError_t launch_dim(int head_dim, const void* q, const void* k, const void* v
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (wgmma), K/V tiles loaded asynchronously.
 
-constexpr int kWarpgroup = 128;
-constexpr int kTileRows = 64;                   // query rows per CTA = keys per tile = wgmma's M
-constexpr int kRegionBytes = kTileRows * 128;   // 64 rows of 64 bf16
-constexpr int kAtomBytes = 8 * 128;             // one 128-byte swizzle atom: 8 rows
-
-// Byte offset of the 16-byte chunk c (columns 8c .. 8c + 7) of row r in a
-// tile of 64 rows: columns in regions of 64 (one 128-byte row each), each
-// region 128-byte swizzled.
-__device__ __forceinline__ uint32_t tile_offset(int r, int c) {
-  return (c / 8) * kRegionBytes + r * 128 + (((c % 8) ^ (r % 8)) << 4);
-}
-
-// Fills a tile of 64 rows of DP bf16 in shared memory by 16-byte cp.async
-// copies of the d / 8 chunks (d % 8 == 0) of row r from row_ptr(r), or
-// zeros where row_ptr(r) is null; the columns past d were zeroed once by
-// zero_padding.
-template <int DP, typename RowPtr>
-__device__ __forceinline__ void load_tile(uint32_t tile, const __nv_bfloat16* any, int d,
-                                          RowPtr row_ptr) {
-  constexpr int kSlots = DP / 8;
-  for (int e = threadIdx.x; e < kTileRows * kSlots; e += kWarpgroup) {
-    const int r = e / kSlots, c = e % kSlots;
-    if (8 * c >= d) continue;
-    const __nv_bfloat16* src = row_ptr(r);
-    sm90::cp_async16(tile + tile_offset(r, c), src ? src + 8 * c : any, src != nullptr);
-  }
-}
-
-// Zeroes the columns d .. DP - 1 (d % 8 == 0) of `n_tiles` consecutive
-// tiles: the products read them, and no copy writes them.
-template <int DP>
-__device__ __forceinline__ void zero_padding(unsigned char* tiles, int n_tiles, int d) {
-  constexpr int kTileBytes = DP * 128;
-  const int pad_chunks = (DP - d) / 8;
-  if (pad_chunks == 0) return;
-  for (int e = threadIdx.x; e < n_tiles * kTileRows * pad_chunks; e += kWarpgroup) {
-    const int t = e / (kTileRows * pad_chunks);
-    const int r = e / pad_chunks % kTileRows;
-    const int c = d / 8 + e % pad_chunks;
-    *reinterpret_cast<uint4*>(tiles + t * kTileBytes + tile_offset(r, c)) = make_uint4(0, 0, 0, 0);
-  }
-}
-
-// S (64 x 64 f32) = Q (64 x DP) K^T, both tiles K-major in shared memory.
-template <int DP>
-__device__ __forceinline__ void qk_product(float (&s)[32], uint32_t q_tile, uint32_t k_tile) {
-  sm90::fence_regs(s);
-  sm90::wgmma_fence();
-#pragma unroll
-  for (int ks = 0; ks < DP / 16; ++ks) {
-    // 16 columns are 32 bytes of a row; every 4 steps the next region
-    const uint32_t off = ks / 4 * kRegionBytes + ks % 4 * 32;
-    sm90::wgmma_ss_m64n64k16(s, sm90::wgmma_desc_sw128(q_tile + off, 16, kAtomBytes),
-                             sm90::wgmma_desc_sw128(k_tile + off, 16, kAtomBytes), ks);
-  }
-  sm90::wgmma_commit();
-  sm90::wgmma_wait_all();
-  sm90::fence_regs(s);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// O (64 x DP f32) += bf16(P) V, P in the S fragment's registers (RS form),
-// the V tile (keys x DP, DP contiguous) MN-major in shared memory.  The DP
-// columns go as n128 pieces (two 64-column regions each), then one n64 for
-// a last odd region; a piece's accumulators are the fragment's next 64 (or
-// 32) registers, the layout of one wide product.
-template <int DP>
-__device__ __forceinline__ void pv_product(float (&o)[DP / 2], const float (&p)[32],
-                                           uint32_t v_tile) {
-  uint32_t a[4][4];
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {  // keys 16 ks .. 16 ks + 15: S's 8-column blocks 2ks, 2ks + 1
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[ks][i] = pack_bf16(p[8 * ks + 2 * i], p[8 * ks + 2 * i + 1]);
-    sm90::fence_regs(a[ks]);
-  }
-  sm90::fence_regs(o);
-  sm90::wgmma_fence();
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    // 16 keys are two 8-row groups; the 64-column regions are kRegionBytes apart
-    const uint32_t rows = v_tile + ks * 2 * kAtomBytes;
-#pragma unroll
-    for (int n = 0; n < DP / 128; ++n) {
-      sm90::wgmma_rs_m64n128k16(
-          *reinterpret_cast<float(*)[64]>(o + 64 * n), a[ks],
-          sm90::wgmma_desc_sw128(rows + 2 * n * kRegionBytes, kRegionBytes, kAtomBytes), 1);
-    }
-    if constexpr (DP % 128 != 0) {
-      constexpr int kLast = DP / 64 - 1;
-      sm90::wgmma_rs_m64n64k16(
-          *reinterpret_cast<float(*)[32]>(o + 32 * kLast), a[ks],
-          sm90::wgmma_desc_sw128(rows + kLast * kRegionBytes, kRegionBytes, kAtomBytes), 1);
-    }
-  }
-  sm90::wgmma_commit();
-  sm90::wgmma_wait_all();
-  sm90::fence_regs(o);
-}
+using flash::kTileRows;
+using flash::kWarpgroup;
+using flash::load_tile;
+using flash::pv_product;
+using flash::qk_product;
+using flash::zero_padding;
 
 constexpr int bf16_smem_bytes(int dp) {
   return 5 * dp * 128 + 2 * 8 + 1024;  // Q, two K and two V tiles, two barriers, alignment

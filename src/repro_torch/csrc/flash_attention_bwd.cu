@@ -8,7 +8,9 @@
 //    gradient.  Inputs q, dO (B, Sq, H, D), k, v (B, Sk, KVH, D) and the
 //    forward's row statistics (m, l) (2, B, H, Sq) in f32; outputs dq, dk, dv
 //    in the inputs' dtype.  With S = scale q k^T masked to -0.7 * FLT_MAX
-//    (the forward's masks and arithmetic) and P = exp(S - m) / max(l, 1e-30):
+//    (the forward's masks and arithmetic) and P = exp(S - m) / L, L the row
+//    sum of exp(S - m) recomputed here (the forward's l where the row sees
+//    no key, m = MASK):
 //        dV = P^T dO,  dP = dO V^T,  Delta = rowsum(P * dP) over the kept keys,
 //        dS = P * (dP - Delta) (0 where masked),  dQ = scale dS K,  dK = scale dS^T Q.
 //    The statistics are m and l, not one logsumexp: a fully masked row has
@@ -18,46 +20,73 @@
 //    does.  Delta is formed from the same f32 P and dP that dS takes, not as
 //    rowsum(dO * O) from the output rounded to bf16: a row that sees one key
 //    (P = 1) then has dS = 0 exactly, as autograd gives, where O's rounding
-//    would leave dQ a remainder past the bf16 row tolerance.
+//    would leave dQ a remainder past the bf16 row tolerance.  No atomics:
+//    two calls give the same bits.
 //
-// Three kernels on one stream, no atomics, so two calls give the same bits:
+// bf16 at padded widths DP 64 and 128 (every D <= 128; tinyllama, qwen3-moe
+// and every phase-9 rank) runs on wgmma (csrc/flash_tiles.cuh), one
+// warpgroup a CTA, in two launches:
+//  1. flash_bwd_rows_wgmma, a CTA per (batch, kv head, 64 rows; rows
+//     numbered i * G + g as in the forward): three walks over the key tiles
+//     its rows see, the tiles by cp.async into a ring of two or three
+//     stages on mbarriers (the next tiles load while one is multiplied):
+//     S = Q K^T (SS form) and L, two key tiles a step; then S, dP = dO V^T
+//     and Delta; then S, dP, dS and dQ += dS K, dS from registers (RS form,
+//     K MN-major).  It writes dq and each row's m log2(e), 1 / L and Delta
+//     (aux, 3 planes of (B, H, Sq)).
+//  2. flash_bwd_dkdv_wgmma, a CTA per (batch, kv head, 64 keys), K and V
+//     held in shared memory: walks the 64-row tiles that its masks let see
+//     the keys (causal: from its first key on; windowed: up to its last
+//     key + window - 1) and the tiles of fully masked rows past
+//     Sk + window - 1, Q and dO tiles (and the rows' statistics) by cp.async
+//     into a ring of four stages; S^T = K Q^T and dP^T = V dO^T
+//     (SS form), whose
+//     accumulators already have the layout of wgmma's A operand, so P^T and
+//     dS^T stay in registers for dV += P^T dO and dK += dS^T Q (RS form, Q
+//     and dO MN-major).  The G heads of the kv head are summed inside it.
+//  Both grids are launched longest walk first: causal dK/dV CTAs from the
+//  first key tile on, causal row CTAs from the last row tile back, and a
+//  window without causality the other way round.  exp is the MUFU's 2^x of
+//  scores scaled by scale * log2(e).  P and dS enter their products as two bf16
+//  operands each (the value and its rounding's remainder): D 1 under
+//  cancellation needs them, and D 1 .. 64 share the DP 64 kernel.  P is
+//  e / L with L the row's own sum, so a row that sees one key has e == L and
+//  P = 1 exactly (the rows kernel tests e == L; elsewhere it multiplies by
+//  1 / L, within one rounding of the quotient).
+//
+// bf16 at DP 192 and 256 (stablelm's D 160, recurrentgemma's 256) and f32
+// at every width keep the first kernels (PR 23), three launches:
 //  1. flash_bwd_rows_kernel<kDelta = true>, a CTA per (batch, kv head, 64
 //     rows): walks the key tiles the forward walks (and from the window's
 //     first key on), recomputes S and dP, and sums P * dP per row: Delta.
 //  2. flash_bwd_dkdv_kernel, a CTA per (batch, kv head, tile of KT keys):
-//     walks the 64-row tiles (rows numbered i * G + g, as in the forward,
-//     so the G heads of the kv head are summed inside the CTA) that its
-//     masks let see the tile (causal: from its first key on; windowed: up
-//     to its last key + window - 1) and the fully masked rows past
-//     Sk + window - 1; recomputes S and dP, forms P and dS, and accumulates
-//     dV += P^T dO and dK += dS^T Q in registers.
+//     the walk of the wgmma kernel above; recomputes S and dP, forms P and
+//     dS, and accumulates dV += P^T dO and dK += dS^T Q in registers.
 //  3. flash_bwd_rows_kernel<kDelta = false>: as kernel 1, accumulating
 //     dQ += dS K.
-// Recomputing S and dP in each kernel costs 9 tile products where the
-// forward has 2: 4.5x the forward's operations (kernel_flops assumes 2.5x
-// for a backward that forms S and dP once and shares them through atomics).
-//
-// Products: bf16 runs mma.sync m16n8k16 on the tensor cores with f32
-// accumulators; P and dS are rounded to bf16 only as operands, as the
-// forward rounds P.  f32 runs the same fragment layout on the CUDA cores in
-// IEEE f32 FMA (no TF32), q scaled before the product as in the forward.
-// Each CTA is 8 warps.  Tiles live in shared memory, padded by 16 bytes a
-// row so that the fragment loads meet no bank conflicts; the operands that
-// are read along their rows (dO, Q and K as the B operand of dV, dK and dQ)
-// go through ldmatrix.trans in bf16.
+// There, bf16 runs mma.sync m16n8k16 on the tensor cores with f32
+// accumulators (one warpgroup cannot hold 2 x 64 x DP f32 accumulators of
+// dK and dV past DP 128); f32 runs the same fragment layout on the CUDA
+// cores in IEEE f32 FMA (no TF32), q scaled before the product as in the
+// forward: it is the path of the parity checks.  Each CTA is 8 warps.
+// Tiles live in shared memory, padded by 16 bytes a row so that the
+// fragment loads meet no bank conflicts; the operands that are read along
+// their rows (dO, Q and K as the B operand of dV, dK and dQ) go through
+// ldmatrix.trans in bf16.  Key tiles are 64 keys up to DP 128 and 32 past
+// it, which keeps the f32 kernels within the 232,448 bytes of shared
+// memory a block may use (217,856 at DP 256).
 //
 // Head dims: any D from 1 to 256, at padded widths DP of 16, 32, 64, 128,
-// 192, 256 whose extra columns are zero in shared memory.  Key tiles are
-// 64 keys up to DP 128 and 32 past it, which keeps the f32 kernels within
-// the 232,448 bytes of shared memory a block may use (217,856 at DP 256).
-// bf16 needs D % 8 == 0 and 16-byte aligned tensors (the wrapper pads).
+// 192, 256 (bf16: 64, 128, 192, 256) whose extra columns are zero in shared
+// memory.  bf16 needs D % 8 == 0 and 16-byte aligned tensors (the wrapper
+// pads).
 //
 // Bound: operations, at the bf16 tensor-core rate (989 TFLOP/s) for bf16
 // and the 67 TFLOP/s f32 rate otherwise; the least work is 2.5x the
 // forward's kernel_flops, against reads of q, k, v, dO and writes of dq,
-// dk, dv.  A simple tiled kernel: loads are not overlapped with the
-// products, and kernel 2's causal CTAs are unbalanced (the first key tile
-// walks every row, the last one few).
+// dk, dv.  The wgmma kernels form S three times and dP twice a (row tile,
+// key tile) pair, and with the remainders run 13 tile products where the
+// forward runs 2 (backward_flops in kernels/flash_attention/ops.py).
 //
 // The entry point returns cudaGetLastError() so the wrapper can raise on a
 // refused launch.
@@ -67,6 +96,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "flash_tiles.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -201,7 +233,7 @@ __device__ __forceinline__ void load_rows(bf16* dst, int ld, int n_rows, int d, 
 
 // What a CTA knows of its problem.
 struct Problem {
-  int seq_q, seq_k, heads, kv_heads, head_dim, groups, total_rows, causal, window;
+  int batch, seq_q, seq_k, heads, kv_heads, head_dim, groups, total_rows, causal, window;
   float scale;
 };
 
@@ -220,8 +252,31 @@ __device__ __forceinline__ int64_t stat_index(const Problem& pb, int b, int kvh,
   return (static_cast<int64_t>(b) * pb.heads + kvh * pb.groups + g) * pb.seq_q + i;
 }
 
+// The 64-row tiles a dK/dV CTA walks for its kt keys from k0: those whose
+// masks let a row see one of the keys (causal: from the first key on;
+// windowed: up to the last key + window - 1), then those holding fully
+// masked rows (a window past every key), which give dV their uniform P.
+struct RowWalk {
+  int t_lo, t_hi, f_lo, n;
+  __device__ RowWalk(const Problem& pb, int k0, int kt) {
+    const int G = pb.groups;
+    const int k_last = min(k0 + kt, pb.seq_k) - 1;
+    const int lo = pb.causal ? k0 : 0;
+    const int hi = pb.window ? min(pb.seq_q, k_last + pb.window) : pb.seq_q;
+    t_lo = lo * G / kRows;
+    t_hi = hi > lo ? (hi * G + kRows - 1) / kRows : t_lo;
+    const int fm = pb.window ? pb.seq_k + pb.window - 1 : pb.seq_q;  // first fully masked position
+    f_lo = max(t_hi, fm * G / kRows);
+    const int f_hi = fm < pb.seq_q ? max(f_lo, (pb.seq_q * G + kRows - 1) / kRows) : f_lo;
+    n = (t_hi - t_lo) + (f_hi - f_lo);
+  }
+  __device__ int tile(int it) const {
+    return it < t_hi - t_lo ? t_lo + it : f_lo + (it - (t_hi - t_lo));
+  }
+};
+
 __device__ __forceinline__ int64_t plane(const Problem& pb) {
-  return static_cast<int64_t>(gridDim.z) * pb.heads * pb.seq_q;
+  return static_cast<int64_t>(pb.batch) * pb.heads * pb.seq_q;
 }
 
 // The tile's rows' m and, where aux holds them, L and Delta (aux (2, B, H,
@@ -376,7 +431,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   float* d_row = n_row + kRows;
 
   const int b = blockIdx.z, kvh = blockIdx.y, k0 = blockIdx.x * KT;
-  const int G = pb.groups, D = pb.head_dim;
+  const int D = pb.head_dim;
   auto kv_row = [&](const T* x) {
     return [&, x](int r) -> const T* {
       if (k0 + r >= pb.seq_k) return nullptr;
@@ -386,18 +441,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   load_rows<DP>(ks, ld, KT, D, 1.0f, kv_row(k));
   load_rows<DP>(vs, ld, KT, D, 1.0f, kv_row(v));
 
-  // the row tiles whose masks let a row see a key of this tile, then those
-  // holding fully masked rows (a window past every key), which give dV
-  // their uniform P
-  const int k_last = min(k0 + KT, pb.seq_k) - 1;
-  const int lo = pb.causal ? k0 : 0;
-  const int hi = pb.window ? min(pb.seq_q, k_last + pb.window) : pb.seq_q;
-  const int t_lo = lo * G / kRows;
-  const int t_hi = hi > lo ? (hi * G + kRows - 1) / kRows : t_lo;
-  const int fm = pb.window ? pb.seq_k + pb.window - 1 : pb.seq_q;  // first fully masked position
-  const int f_lo = max(t_hi, fm * G / kRows);
-  const int f_hi = fm < pb.seq_q ? max(f_lo, (pb.seq_q * G + kRows - 1) / kRows) : f_lo;
-  const int n_iter = (t_hi - t_lo) + (f_hi - f_lo);
+  const RowWalk walk(pb, k0, KT);
 
   const int warp = threadIdx.x / 32, wk = warp % WK, wd = warp / WK;
   float dk_acc[NT][4], dv_acc[NT][4];
@@ -406,9 +450,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[nt][e] = dv_acc[nt][e] = 0.0f;
 
-  for (int it = 0; it < n_iter; ++it) {
-    const int t = it < t_hi - t_lo ? t_lo + it : f_lo + (it - (t_hi - t_lo));
-    const int rho0 = t * kRows;
+  for (int it = 0; it < walk.n; ++it) {
+    const int rho0 = walk.tile(it) * kRows;
     __syncthreads();  // the previous tile's rows, P and dS are no longer read
     load_rows<DP>(qs, ld, kRows, D, kF32 ? pb.scale : 1.0f,
                   [&](int r) { return row_of(q, pb, b, kvh, rho0 + r); });
@@ -578,10 +621,581 @@ flash_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at DP 64 and 128: wgmma, one warpgroup a CTA (csrc/flash_tiles.cuh).
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kSmPerSmBytes = 233472;  // shared memory of one SM, 1 KB of it reserved a CTA
+
+// Stages of the ring of streamed tiles: loads run kStages - 1 steps ahead.
+// The rows kernels keep three CTAs a SM at DP 64 and two at DP 128; the
+// dK/dV kernels, whose registers allow two CTAs a SM at DP 64 and one at
+// DP 128, take four.
+template <int DP, bool kDkdv>
+__host__ __device__ constexpr int ring_stages() {
+  return kDkdv ? 4 : (DP == 64 ? 3 : 2);
+}
+
+// Two held tiles, kStages stages of two streamed tiles and of the streamed
+// rows' statistics (3 x 64 f32), a barrier a stage, alignment.
+template <int DP, bool kDkdv>
+__host__ __device__ constexpr int wg_smem_bytes() {
+  return (2 + 2 * ring_stages<DP, kDkdv>()) * DP * 128 +
+         ring_stages<DP, kDkdv>() * (3 * kRows * 4 + 8) + 1024;
+}
+static_assert(3 * (wg_smem_bytes<64, false>() + 1024) <= kSmPerSmBytes, "3 rows CTAs a SM, DP 64");
+static_assert(2 * (wg_smem_bytes<128, false>() + 1024) <= kSmPerSmBytes, "2 rows CTAs a SM, DP 128");
+static_assert(2 * (wg_smem_bytes<64, true>() + 1024) <= kSmPerSmBytes, "2 dK/dV CTAs a SM, DP 64");
+static_assert(wg_smem_bytes<128, true>() <= kMaxSmemBytes, "dK/dV ring at DP 128");
+
+// The CTAs a SM the registers must allow: at DP 64 three rows CTAs (168
+// registers a thread) and two dK/dV CTAs (up to 255: capped at 168 it
+// spills, and ran slower on an H100).
+template <int DP, bool kDkdv>
+__host__ __device__ constexpr int min_ctas() {
+  return DP == 64 ? (kDkdv ? 2 : 3) : 1;
+}
+
+// 2^x on the MUFU unit (subnormal results flush to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The tile index of the CTA launched o-th of n: longest walks first.
+__device__ __forceinline__ int longest_first(int o, int n, bool reverse) {
+  return reverse ? n - 1 - o : o;
+}
+
+// v as an RS product's A operand: the bf16 value and its rounding's
+// remainder, so that the products of P and dS stay near f32 where a row's
+// terms cancel.
+__device__ __forceinline__ void split_operand(const float (&v)[32], uint32_t (&hi)[4][4],
+                                              uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float a = v[8 * ks + 2 * i], c = v[8 * ks + 2 * i + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(a, c);
+      hi[ks][i] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[ks][i] = flash::pack_bf16(a - __low2float(h), c - __high2float(h));
+    }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.0f;
+}
+
+__device__ __forceinline__ void fence_operand(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) sm90::fence_regs(a[ks]);
+}
+
+// Sum over the 4 lanes that hold one accumulator row; every lane gets the
+// same bits.
+__device__ __forceinline__ float row_total(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The key tiles the rows of a 64-row tile see (dS is 0 elsewhere).
+struct KeyWalk {
+  int t_lo, n;
+  __device__ KeyWalk(const Problem& pb, int first_pos, int last_pos) {
+    const int k_lo = pb.window ? max(0, first_pos - pb.window + 1) : 0;
+    const int k_hi = pb.causal ? min(pb.seq_k, last_pos + 1) : pb.seq_k;
+    t_lo = k_lo / kRows;
+    n = k_hi > k_lo ? (k_hi + kRows - 1) / kRows - t_lo : 0;
+  }
+};
+
+// Whether a (64 rows from rho0, 64 keys from k0) tile pair holds a pair the
+// masks drop, a row past the end or a key past Sk.
+__device__ __forceinline__ bool tile_masked(const Problem& pb, int rho0, int k0) {
+  const int first_pos = rho0 / pb.groups;
+  const int last_pos = (min(rho0 + kRows, pb.total_rows) - 1) / pb.groups;
+  return k0 + kRows > pb.seq_k || rho0 + kRows > pb.total_rows ||
+         (pb.causal && k0 + kRows - 1 > first_pos) || (pb.window && k0 <= last_pos - pb.window);
+}
+
+// The swizzled tile of 64 keys from k0 of x (B, Sk, KVH, D) by cp.async,
+// zero past Sk.
+template <int DP>
+__device__ __forceinline__ void load_keys(uint32_t tile, const bf16* x, const Problem& pb, int b,
+                                          int kvh, int k0, int d) {
+  flash::load_tile<DP>(tile, x, d, [&](int r) -> const bf16* {
+    if (k0 + r >= pb.seq_k) return nullptr;
+    return x + ((static_cast<int64_t>(b) * pb.seq_k + k0 + r) * pb.kv_heads + kvh) * d;
+  });
+}
+
+// The swizzled tiles of rows rho0 .. rho0 + 63 of q and of dO by cp.async
+// (zero past the last row): one division a row.
+template <int DP>
+__device__ __forceinline__ void load_row_tiles(uint32_t q_tile, uint32_t do_tile, const bf16* q,
+                                               const bf16* dout, const Problem& pb, int b,
+                                               int kvh, int rho0, int d) {
+  constexpr int kSlots = DP / 8;
+  const int c = threadIdx.x % kSlots;
+  if (8 * c >= d) return;  // padding, zeroed once
+  for (int r = threadIdx.x / kSlots; r < kRows; r += flash::kWarpgroup / kSlots) {
+    const int rho = rho0 + r;
+    const bool ok = rho < pb.total_rows;
+    int64_t off = 0;
+    if (ok) {
+      const int i = rho / pb.groups, g = rho - i * pb.groups;
+      off = ((static_cast<int64_t>(b) * pb.seq_q + i) * pb.heads + kvh * pb.groups + g) * d +
+            8 * c;
+    }
+    const uint32_t at = flash::tile_offset(r, c);
+    sm90::cp_async16(q_tile + at, q + off, ok);
+    sm90::cp_async16(do_tile + at, dout + off, ok);
+  }
+}
+
+// kFull: D == DP, a compile-time head dim.
+template <int DP, bool kFull>
+__global__ void __launch_bounds__(flash::kWarpgroup, min_ctas<DP, false>())
+flash_bwd_rows_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ stats, float* __restrict__ aux,
+                     bf16* __restrict__ dq, Problem pb) {
+  constexpr int T = DP * 128;  // bytes of a tile
+  constexpr int kStages = ring_stages<DP, false>();
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms are 1024-aligned
+  unsigned char* const tiles = smem_raw + (base - raw);
+  const uint32_t q_tile = base, do_tile = base + T;  // stage s: K at (2 + 2s) T, V at (3 + 2s) T
+  const uint32_t full = base + (2 + 2 * kStages) * T;  // stage s's barrier at full + 8 s
+
+  const int nbh = pb.batch * pb.kv_heads;
+  const int bh = blockIdx.x % nbh, b = bh / pb.kv_heads, kvh = bh % pb.kv_heads;
+  const int n_row_tiles = (pb.total_rows + kRows - 1) / kRows;
+  const int rho0 = longest_first(blockIdx.x / nbh, n_row_tiles, pb.causal) * kRows;
+  const int D = kFull ? DP : pb.head_dim, G = pb.groups;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) sm90::mbar_init(full + 8 * s, flash::kWarpgroup);
+    sm90::fence_mbar_init();
+  }
+  if constexpr (!kFull) flash::zero_padding<DP>(tiles, 2 + 2 * kStages, D);
+  __syncthreads();
+
+  const int first_pos = rho0 / G, last_pos = (min(rho0 + kRows, pb.total_rows) - 1) / G;
+  const KeyWalk walk(pb, first_pos, last_pos);
+  // the walk for L takes two key tiles a step (S of the second in dP's
+  // registers); then the walks for Delta and for dQ, a tile a step
+  const int n0 = (walk.n + 1) / 2;
+  const int n_steps = walk.n ? n0 + 2 * walk.n : 0;
+
+  load_row_tiles<DP>(q_tile, do_tile, q, dout, pb, b, kvh, rho0, D);
+  // step's tiles into its stage: K, and the next K (the walk for L) or V;
+  // the first stage's phase also covers Q and dO
+  auto load_step = [&](int step) {
+    const bool first_walk = step < n0;
+    const int t = first_walk ? 2 * step : (step - n0) % walk.n;
+    const int st = step % kStages, k0 = (walk.t_lo + t) * kRows;
+    const uint32_t kt = base + (2 + 2 * st) * T;
+    load_keys<DP>(kt, k, pb, b, kvh, k0, D);
+    if (!first_walk) {
+      load_keys<DP>(kt + T, v, pb, b, kvh, k0, D);
+    } else if (t + 1 < walk.n) {
+      load_keys<DP>(kt + T, k, pb, b, kvh, k0 + kRows, D);
+    }
+    sm90::cp_async_arrive(full + 8 * st);
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s)
+    if (s < n_steps) load_step(s);
+  if (n_steps == 0) {  // rows that see no key: nothing is multiplied
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<0>();
+  }
+
+  // this thread's two rows (h = 0, 1) and its first key in each 8-key block
+  const int ra = tid / 32 * 16 + tid % 32 / 4;
+  const int col = 2 * (tid % 4);
+  bool row_ok[2], masked_row[2];
+  int pos[2];
+  float m2[2], l_fwd[2];  // m log2(e) (MASK where the row sees no key), the forward's l
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rho = rho0 + ra + 8 * h;
+    row_ok[h] = rho < pb.total_rows;
+    pos[h] = rho / G;
+    float m = 0.0f;
+    l_fwd[h] = 1.0f;
+    if (row_ok[h]) {
+      const int64_t idx = stat_index(pb, b, kvh, rho);
+      m = stats[idx];
+      l_fwd[h] = stats[plane(pb) + idx];
+    }
+    masked_row[h] = m == kMaskValue;
+    m2[h] = masked_row[h] ? kMaskValue : m * kLog2e;
+  }
+  const float scale2 = pb.scale * kLog2e;
+  // e = exp(S - m) of accumulator element i of the tile at key k0 (0 where
+  // the key or the row is not there); keep: the masks keep the pair.
+  // kMasked (a std::bool_constant): the tile holds a pair the masks drop,
+  // a row past the end or a key past Sk; without, no mask is computed.
+  auto exp_score = [&](float s, int i, int k0, auto kMasked, bool& keep) -> float {
+    const int h = i % 4 / 2;
+    keep = true;
+    if constexpr (!decltype(kMasked)::value) {
+      return ex2(s * scale2 - m2[h]);
+    } else {
+      const int key = k0 + i / 4 * 8 + col + i % 2;
+      const bool present = row_ok[h] && key < pb.seq_k;  // keys past Sk are not there at all
+      keep = present;
+      if (pb.causal) keep = keep && key <= pos[h];
+      if (pb.window) keep = keep && key > pos[h] - pb.window;
+      return present ? ex2((keep ? s * scale2 : kMaskValue) - m2[h]) : 0.0f;
+    }
+  };
+
+  // step's stage once its tiles have landed, after starting the load of
+  // step + kStages - 1 (into the stage that step - 1 used: the caller has
+  // synchronised since that step's last read of it)
+  auto ready = [&](int step, bool load) -> uint32_t {
+    if (load && step + kStages - 1 < n_steps) load_step(step + kStages - 1);
+    const int st = step % kStages;
+    sm90::mbar_wait(full + 8 * st, (step / kStages) & 1);
+    sm90::fence_proxy_async();  // the copies' writes, before wgmma reads them
+    return base + (2 + 2 * st) * T;
+  };
+  float s[32], dp[32];
+  int step = 0;
+
+  // L: the sums of e, two key tiles a step (S of the second in dP's registers)
+  float part[2] = {0.0f, 0.0f};
+  auto sum_l = [&](const float (&acc)[32], int key0, auto kMasked) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      bool keep;
+      part[i % 4 / 2] += exp_score(acc[i], i, key0, kMasked, keep);
+    }
+  };
+  for (int t = 0; t < walk.n; t += 2, ++step) {
+    const uint32_t kt = ready(step, true);
+    const int k0 = (walk.t_lo + t) * kRows;
+    const bool pair = t + 1 < walk.n;  // the second key tile in the V slot
+    sm90::wgmma_fence();  // s and dp are the products' outputs only
+    flash::ss_issue<DP, true>(s, q_tile, kt);
+    if (pair) flash::ss_issue<DP, true>(dp, q_tile, kt + T);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+    if (tile_masked(pb, rho0, k0)) {
+      sum_l(s, k0, std::true_type{});
+    } else {
+      sum_l(s, k0, std::false_type{});
+    }
+    if (pair && tile_masked(pb, rho0, k0 + kRows)) {
+      sum_l(dp, k0 + kRows, std::true_type{});
+    } else if (pair) {
+      sum_l(dp, k0 + kRows, std::false_type{});
+    }
+    __syncthreads();  // every warp is done with this stage before it is loaded again
+  }
+  float norm[2], inv_norm[2], delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float sum = row_total(part[h]);  // every lane of the warp shuffles
+    norm[h] = fmaxf(masked_row[h] ? l_fwd[h] : sum, 1e-30f);
+    inv_norm[h] = 1.0f / norm[h];
+    part[h] = 0.0f;
+  }
+
+  // S and dP of a step's key tile, then P = e / L (e == L: the row's one
+  // key, P = 1 exactly; such a row lies in masked tiles only, the others
+  // keep all 64 keys of a row) into s; fn(i, p, keep) takes each element
+  auto gradient_step = [&](uint32_t kt, int k0, auto fn) {
+    sm90::wgmma_fence();
+    flash::ss_issue<DP, true>(s, q_tile, kt);         // S = Q K^T
+    flash::ss_issue<DP, true>(dp, do_tile, kt + T);   // dP = dO V^T
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+    auto body = [&](auto kMasked) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        bool keep;
+        const float e = exp_score(s[i], i, k0, kMasked, keep);
+        float p = e * inv_norm[i % 4 / 2];
+        if constexpr (decltype(kMasked)::value) p = e == norm[i % 4 / 2] ? 1.0f : p;
+        fn(i, p, keep);
+      }
+    };
+    if (tile_masked(pb, rho0, k0)) {
+      body(std::true_type{});
+    } else {
+      body(std::false_type{});
+    }
+  };
+  // Delta: the sums of P dP where kept
+  for (int t = 0; t < walk.n; ++t, ++step) {
+    const uint32_t kt = ready(step, true);
+    gradient_step(kt, (walk.t_lo + t) * kRows, [&](int i, float p, bool keep) {
+      if (keep) part[i % 4 / 2] = fmaf(p, dp[i], part[i % 4 / 2]);
+    });
+    __syncthreads();
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) delta[h] = row_total(part[h]);
+
+  // dQ += dS K, dS = P (dP - Delta) where kept, as value + remainder.  A
+  // step's product runs on while the next step's S and dP are issued: the
+  // wait for those completes it, and only then (all warps past it) is its
+  // stage loaded again and its operand's registers free.
+  float dq_acc[DP / 2];
+  zero(dq_acc);
+  uint32_t hi[4][4] = {}, lo[4][4] = {};
+  for (int t = 0; t < walk.n; ++t, ++step) {
+    const uint32_t kt = ready(step, t == 0);
+    gradient_step(kt, (walk.t_lo + t) * kRows, [&](int i, float p, bool keep) {
+      dp[i] = keep ? p * (dp[i] - delta[i % 4 / 2]) : 0.0f;
+    });
+    fence_operand(hi);  // the previous step's product has completed
+    fence_operand(lo);
+    __syncthreads();
+    if (t > 0 && step + kStages - 1 < n_steps) load_step(step + kStages - 1);
+    split_operand(dp, hi, lo);
+    fence_operand(hi);
+    fence_operand(lo);
+    sm90::fence_regs(dq_acc);
+    sm90::wgmma_fence();
+    flash::rs_issue<DP>(dq_acc, hi, kt);
+    flash::rs_issue<DP>(dq_acc, lo, kt);
+    sm90::wgmma_commit();
+  }
+  sm90::wgmma_wait_all();
+  sm90::fence_regs(dq_acc);
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!row_ok[h]) continue;
+    const int rho = rho0 + ra + 8 * h;
+    if (tid % 4 == 0) {  // for the dK/dV kernel: m log2(e), 1 / L, Delta
+      const int64_t idx = stat_index(pb, b, kvh, rho);
+      aux[idx] = m2[h];
+      aux[plane(pb) + idx] = inv_norm[h];
+      aux[2 * plane(pb) + idx] = delta[h];
+    }
+    const int i = rho / G, g = rho % G;
+    bf16* dst = dq + ((static_cast<int64_t>(b) * pb.seq_q + i) * pb.heads + kvh * G + g) * D;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      if (8 * j < D)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + col) = __floats2bfloat162_rn(
+            dq_acc[4 * j + 2 * h] * pb.scale, dq_acc[4 * j + 2 * h + 1] * pb.scale);
+    }
+  }
+}
+
+template <int DP, bool kFull>
+__global__ void __launch_bounds__(flash::kWarpgroup, min_ctas<DP, true>())
+flash_bwd_dkdv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ aux, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                     Problem pb) {
+  constexpr int T = DP * 128;
+  constexpr int kStages = ring_stages<DP, true>();
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const tiles = smem_raw + (base - raw);
+  const uint32_t k_tile = base, v_tile = base + T;  // stage s: Q at (2 + 2s) T, dO at (3 + 2s) T
+  // stage s: the streamed rows' m log2(e), 1 / L and Delta, 64 each
+  float* const row_stats = reinterpret_cast<float*>(tiles + (2 + 2 * kStages) * T);
+  const uint32_t full = base + (2 + 2 * kStages) * T + kStages * 3 * kRows * 4;
+
+  const int nbh = pb.batch * pb.kv_heads;
+  const int bh = blockIdx.x % nbh, b = bh / pb.kv_heads, kvh = bh % pb.kv_heads;
+  const int n_key_tiles = (pb.seq_k + kRows - 1) / kRows;
+  const int k0 = longest_first(blockIdx.x / nbh, n_key_tiles, !pb.causal && pb.window) * kRows;
+  const int D = kFull ? DP : pb.head_dim;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) sm90::mbar_init(full + 8 * s, flash::kWarpgroup);
+    sm90::fence_mbar_init();
+  }
+  if constexpr (!kFull) flash::zero_padding<DP>(tiles, 2 + 2 * kStages, D);
+  __syncthreads();
+
+  load_keys<DP>(k_tile, k, pb, b, kvh, k0, D);
+  load_keys<DP>(v_tile, v, pb, b, kvh, k0, D);
+  const RowWalk walk(pb, k0, kRows);
+  // iteration it's rows into stage it % kStages (the first stage's phase
+  // also covers K and V); this thread copies the statistics of row
+  // tid % 64: m log2(e) and Delta (tid < 64), or 1 / L
+  auto load_step = [&](int it) {
+    const int st = it % kStages, rho0 = walk.tile(it) * kRows;
+    const uint32_t qt = base + (2 + 2 * st) * T;
+    load_row_tiles<DP>(qt, qt + T, q, dout, pb, b, kvh, rho0, D);
+    float* rs = row_stats + st * 3 * kRows;
+    const int r = tid % kRows, rho = rho0 + r;
+    const bool ok = rho < pb.total_rows;
+    const int64_t idx = ok ? stat_index(pb, b, kvh, rho) : 0;
+    for (int p = tid / kRows; p < 3; p += flash::kWarpgroup / kRows)
+      sm90::cp_async4(sm90::smem_u32(rs + p * kRows + r), aux + p * plane(pb) + idx, ok);
+    sm90::cp_async_arrive(full + 8 * st);
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s)
+    if (s < walk.n) load_step(s);
+  if (walk.n == 0) {  // keys no row sees: dK = dV = 0
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<0>();
+  }
+
+  // this thread's two keys (h = 0, 1) and its first row in each 8-row block
+  const int ra = tid / 32 * 16 + tid % 32 / 4;
+  const int col = 2 * (tid % 4);
+  const float scale2 = pb.scale * kLog2e;
+  float dk_acc[DP / 2], dv_acc[DP / 2];
+  zero(dk_acc);
+  zero(dv_acc);
+  float s[32], dp[32];
+
+  for (int it = 0; it < walk.n; ++it) {
+    if (it + kStages - 1 < walk.n) load_step(it + kStages - 1);
+    const int st = it % kStages, rho0 = walk.tile(it) * kRows;
+    const uint32_t qt = base + (2 + 2 * st) * T;
+    sm90::mbar_wait(full + 8 * st, (it / kStages) & 1);
+    sm90::fence_proxy_async();
+    sm90::wgmma_fence();  // s and dp are the products' outputs only
+    flash::ss_issue<DP, true>(s, k_tile, qt);       // S^T = K Q^T
+    flash::ss_issue<DP, true>(dp, v_tile, qt + T);  // dP^T = V dO^T
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+
+    // P^T and dS^T in place of S^T and dP^T; kMasked as in the rows kernel
+    const float* rs = row_stats + st * 3 * kRows;
+    auto gradient = [&](auto kMasked) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {  // rows 8 j + col, + 1 of the tile
+        const float2 m2 = *reinterpret_cast<const float2*>(rs + 8 * j + col);
+        const float2 il = *reinterpret_cast<const float2*>(rs + kRows + 8 * j + col);
+        const float2 dl = *reinterpret_cast<const float2*>(rs + 2 * kRows + 8 * j + col);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          int pos = 0;
+          bool row_ok = true;
+          if constexpr (decltype(kMasked)::value) {
+            const int rho = rho0 + 8 * j + col + u;
+            row_ok = rho < pb.total_rows;
+            pos = rho / pb.groups;
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * j + 2 * h + u;
+            bool present = true, keep = true;
+            if constexpr (decltype(kMasked)::value) {
+              const int key = k0 + ra + 8 * h;
+              present = row_ok && key < pb.seq_k;
+              keep = present;
+              if (pb.causal) keep = keep && key <= pos;
+              if (pb.window) keep = keep && key > pos - pb.window;
+            }
+            const float e =
+                present ? ex2((keep ? s[i] * scale2 : kMaskValue) - (u ? m2.y : m2.x)) : 0.0f;
+            const float p = e * (u ? il.y : il.x);
+            dp[i] = keep ? p * (dp[i] - (u ? dl.y : dl.x)) : 0.0f;
+            s[i] = p;
+          }
+        }
+      }
+    };
+    if (tile_masked(pb, rho0, k0)) {
+      gradient(std::true_type{});
+    } else {
+      gradient(std::false_type{});
+    }
+    // dV += P^T dO, dK += dS^T Q, P and dS as value + remainder
+    uint32_t p_hi[4][4], p_lo[4][4], ds_hi[4][4], ds_lo[4][4];
+    split_operand(s, p_hi, p_lo);
+    split_operand(dp, ds_hi, ds_lo);
+    fence_operand(p_hi);
+    fence_operand(p_lo);
+    fence_operand(ds_hi);
+    fence_operand(ds_lo);
+    sm90::fence_regs(dv_acc);
+    sm90::fence_regs(dk_acc);
+    sm90::wgmma_fence();
+    flash::rs_issue<DP>(dv_acc, p_hi, qt + T);
+    flash::rs_issue<DP>(dv_acc, p_lo, qt + T);
+    flash::rs_issue<DP>(dk_acc, ds_hi, qt);
+    flash::rs_issue<DP>(dk_acc, ds_lo, qt);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(dv_acc);
+    sm90::fence_regs(dk_acc);
+    __syncthreads();  // every warp is done with this stage before it is loaded again
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = k0 + ra + 8 * h;
+    if (key >= pb.seq_k) continue;
+    const int64_t at = ((static_cast<int64_t>(b) * pb.seq_k + key) * pb.kv_heads + kvh) * D;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      if (8 * j >= D) continue;
+      *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j + col) = __floats2bfloat162_rn(
+          dk_acc[4 * j + 2 * h] * pb.scale, dk_acc[4 * j + 2 * h + 1] * pb.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j + col) =
+          __floats2bfloat162_rn(dv_acc[4 * j + 2 * h], dv_acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+template <int DP, bool kFull>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                         const float* stats, float* aux, void* dq, void* dk, void* dv,
+                         const Problem& pb, cudaStream_t stream) {
+  constexpr int rows_smem = wg_smem_bytes<DP, false>(), kv_smem = wg_smem_bytes<DP, true>();
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_rows_wgmma<DP, kFull>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, rows_smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma<DP, kFull>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem);
+  if (err != cudaSuccess) return err;
+  const int64_t nbh = static_cast<int64_t>(pb.batch) * pb.kv_heads;
+  const int64_t row_ctas = nbh * ((pb.total_rows + kRows - 1) / kRows);
+  const int64_t key_ctas = nbh * ((pb.seq_k + kRows - 1) / kRows);
+  if (row_ctas > INT32_MAX || key_ctas > INT32_MAX) return cudaErrorInvalidValue;
+  const bf16* tq = static_cast<const bf16*>(q);
+  const bf16* tk = static_cast<const bf16*>(k);
+  const bf16* tv = static_cast<const bf16*>(v);
+  const bf16* tdo = static_cast<const bf16*>(dout);
+  flash_bwd_rows_wgmma<DP, kFull><<<static_cast<unsigned>(row_ctas), flash::kWarpgroup,
+                                    rows_smem, stream>>>(tq, tk, tv, tdo, stats, aux,
+                                                         static_cast<bf16*>(dq), pb);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_wgmma<DP, kFull><<<static_cast<unsigned>(key_ctas), flash::kWarpgroup, kv_smem,
+                                    stream>>>(tq, tk, tv, tdo, aux, static_cast<bf16*>(dk),
+                                              static_cast<bf16*>(dv), pb);
+  return cudaGetLastError();
+}
+
 template <typename T, int DP>
 cudaError_t launch_width(const void* q, const void* k, const void* v, const void* dout,
                          const float* stats, float* aux, void* dq, void* dk, void* dv,
-                         int batch, const Problem& pb, cudaStream_t stream) {
+                         const Problem& pb, cudaStream_t stream) {
   constexpr int kv_smem = dkdv_smem_bytes<T, DP>();
   constexpr int rows_smem = rows_smem_bytes<T, DP>();
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, DP>,
@@ -597,13 +1211,13 @@ cudaError_t launch_width(const void* q, const void* k, const void* v, const void
   const T* tk = static_cast<const T*>(k);
   const T* tv = static_cast<const T*>(v);
   const T* tdo = static_cast<const T*>(dout);
-  const dim3 rows_grid((pb.total_rows + kRows - 1) / kRows, pb.kv_heads, batch);
+  const dim3 rows_grid((pb.total_rows + kRows - 1) / kRows, pb.kv_heads, pb.batch);
   flash_bwd_rows_kernel<T, DP, true><<<rows_grid, kThreads, rows_smem, stream>>>(
       tq, tk, tv, tdo, stats, aux, nullptr, pb);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   constexpr int KT = key_tile<DP>();
-  const dim3 kv_grid((pb.seq_k + KT - 1) / KT, pb.kv_heads, batch);
+  const dim3 kv_grid((pb.seq_k + KT - 1) / KT, pb.kv_heads, pb.batch);
   flash_bwd_dkdv_kernel<T, DP><<<kv_grid, kThreads, kv_smem, stream>>>(
       tq, tk, tv, tdo, stats, aux, static_cast<T*>(dk), static_cast<T*>(dv), pb);
   err = cudaGetLastError();
@@ -616,13 +1230,20 @@ cudaError_t launch_width(const void* q, const void* k, const void* v, const void
 template <typename T>
 cudaError_t launch_dtype(const void* q, const void* k, const void* v, const void* dout,
                          const float* stats, float* aux, void* dq, void* dk, void* dv,
-                         int batch, const Problem& pb, cudaStream_t stream) {
-#define K4_BWD(DP) launch_width<T, DP>(q, k, v, dout, stats, aux, dq, dk, dv, batch, pb, stream)
+                         const Problem& pb, cudaStream_t stream) {
+#define K4_BWD(DP) launch_width<T, DP>(q, k, v, dout, stats, aux, dq, dk, dv, pb, stream)
   const int d = pb.head_dim;
-  if (d <= 16) return K4_BWD(16);
-  if (d <= 32) return K4_BWD(32);
-  if (d <= 64) return K4_BWD(64);
-  if (d <= 128) return K4_BWD(128);
+  if constexpr (sizeof(T) == 2) {  // bf16: wgmma up to DP 128
+#define K4_WGMMA(DP, FULL) launch_wgmma<DP, FULL>(q, k, v, dout, stats, aux, dq, dk, dv, pb, stream)
+    if (d <= 64) return d == 64 ? K4_WGMMA(64, true) : K4_WGMMA(64, false);
+    if (d <= 128) return d == 128 ? K4_WGMMA(128, true) : K4_WGMMA(128, false);
+#undef K4_WGMMA
+  } else {
+    if (d <= 16) return K4_BWD(16);
+    if (d <= 32) return K4_BWD(32);
+    if (d <= 64) return K4_BWD(64);
+    if (d <= 128) return K4_BWD(128);
+  }
   if (d <= 192) return K4_BWD(192);
   return K4_BWD(256);
 #undef K4_BWD
@@ -640,9 +1261,9 @@ const char* flash_attention_bwd_error_string(int err) {
 
 // dtype: 0 float32, 1 bfloat16.  q, dout, dq (B, Sq, H, D); k, v, dk, dv
 // (B, Sk, KVH, D), contiguous, on the card, 1 <= D <= 256; stats (2, B, H,
-// Sq) f32: the forward's m, then l; aux (2, B, H, Sq) f32 scratch (L, then
-// Delta).  bfloat16
-// also needs D % 8 == 0 and 16-byte aligned q, k, v, dout.
+// Sq) f32: the forward's m, then l; aux (3, B, H, Sq) f32 scratch (the
+// rows' statistics for the dK/dV kernel).  bfloat16 also needs D % 8 == 0
+// and 16-byte aligned q, k, v, dout.
 int flash_attention_backward_launch(const void* q, const void* k, const void* v,
                                     const void* dout, const float* stats, float* aux, void* dq,
                                     void* dk, void* dv, int batch, int seq_q, int seq_k, int heads,
@@ -652,18 +1273,16 @@ int flash_attention_backward_launch(const void* q, const void* k, const void* v,
       head_dim < 1 || head_dim > kMaxHeadDim || batch > 65535 || kv_heads > 65535 ||
       static_cast<int64_t>(seq_q) * (heads / kv_heads) > (int64_t{1} << 30))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Problem pb{seq_q, seq_k, heads, kv_heads, head_dim, heads / kv_heads,
+  const Problem pb{batch, seq_q, seq_k, heads, kv_heads, head_dim, heads / kv_heads,
                    seq_q * (heads / kv_heads), causal, window, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return static_cast<int>(launch_dtype<float>(q, k, v, dout, stats, aux, dq, dk, dv, batch,
-                                                pb, s));
+    return static_cast<int>(launch_dtype<float>(q, k, v, dout, stats, aux, dq, dk, dv, pb, s));
   if (dtype == 1) {
     // 16-byte copies need whole 8-column chunks on 16-byte aligned rows
     if (head_dim % 8 || !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout))
       return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(launch_dtype<bf16>(q, k, v, dout, stats, aux, dq, dk, dv, batch,
-                                               pb, s));
+    return static_cast<int>(launch_dtype<bf16>(q, k, v, dout, stats, aux, dq, dk, dv, pb, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

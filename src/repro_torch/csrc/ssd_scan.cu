@@ -437,16 +437,26 @@ ssd_output_kernel(const float* __restrict__ x, const float* __restrict__ log_a,
 //       dh recurrence from the last sub-chunk to the first, leaving dh_out
 //       of each sub-chunk in place of its sum and writing dh0.
 //  5.   ssd_bwd_kernel, a CTA per (sub-chunk, head, batch x 64 columns of
-//       P): dx, and this head's (and P tile's) shares of dB, dC and dcs
+//       P): dx, and this head's (and P tile's) share of dcs (64 floats)
 //       into scratch, from 64 x 64 register-tiled products (4 x 4 outputs
-//       a thread) in shared memory, N in slabs of 64.  exp(cs_i - cs_j)
+//       a thread) in shared memory, N in steps of 32 staged by cp.async
+//       into two buffers (106,496 bytes: two CTAs a SM).  exp(cs_i - cs_j)
 //       only on or below the diagonal, as the forward.
-//  6.   ssd_bwd_reduce_kernel, a CTA per (sub-chunk, batch, slab of B x N):
-//       dB and dC summed over the shares (heads x P tiles) in order, and
-//       dlog_a as the reverse cumsum of dcs summed over the P tiles.
+//  6.   ssd_bwd_bc_kernel, a CTA per (sub-chunk, batch, 64 columns of N):
+//       dB and dC, walking the heads (and their P tiles) in order and
+//       summing in registers: per head it stages dy, x and its columns of
+//       h_in and dh_out by cp.async into two buffers, and recomputes
+//       M = L * (dy x^T), 64 x 64.  Its CTAs of the first 64 columns also
+//       form dlog_a: dcs summed over the P tiles, then cumulated from the
+//       sub-chunk's end.  No scratch grows as H x N.  Where these CTAs
+//       would not fill one wave of the card (short sequences, batch 1),
+//       the wrapper splits the heads into groups walked by CTAs of their
+//       own, and ssd_bwd_groups_kernel (a seventh launch) adds the groups'
+//       sums in order: scratch of groups x B x S x N, groups < H.
 // Bound: operations (f32, about 12 Q P N + 4 Q^2 (P + N) multiply-adds a
-// sub-chunk and head), against reads of x, log_a, B, C, dy, dh and writes
-// of dx, dlog_a, dB, dC, dh0.
+// sub-chunk and head; kernel 6 forms dy x^T again for each 64 columns of
+// N), against reads of x, log_a, B, C, dy, dh and writes of dx, dlog_a,
+// dB, dC, dh0.
 
 // The dh recurrence backwards: dstates holds sum_i exp(cs_i) dy_i C_i^T of
 // each sub-chunk and receives dh_out; 8 sub-chunks' loads before they are
@@ -482,23 +492,32 @@ ssd_dpass_kernel(const float* __restrict__ dh_final, const float* __restrict__ d
   if (dh0 != nullptr) dh0[hp] = dh;
 }
 
-constexpr int kLd = kSub + 4;           // padded row of a 64-wide slab
+constexpr int kLd = kSub + 4;    // padded row of a 64-wide slab
 constexpr int kSlab = kSub * kLd;
-constexpr int kBwdSlabs = 11;
-constexpr int kBwdSmem = kBwdSlabs * kSlab * sizeof(float);
+constexpr int kNStep = 32;       // columns of N a step of ssd_bwd_kernel takes
+constexpr int kLdN = kNStep + 4; // padded row of a 32-wide slab
+// a stage of ssd_bwd_kernel: B and C [64][kLdN], h_in^T and dh_out^T [32][kLd]
+constexpr int kBwdStage = 2 * kSub * kLdN + 2 * kNStep * kLd;
+constexpr int kBwdSmem = (2 * kSlab + 2 * kBwdStage) * sizeof(float);
+static_assert(2 * kSlab <= kBwdStage, "G and t fit in the second stage");
+// two CTAs a SM: 233,472 bytes of shared memory, 1 KB of it reserved a CTA
+static_assert(2 * (kBwdSmem + 2048 + 1024) <= 233472, "two ssd_bwd_kernel CTAs a SM");
+// ssd_bwd_bc_kernel: B, C and M [64][kLd], two stages of dy, x^T, h_in, dh_out
+constexpr int kBcSmem = (3 + 2 * 4) * kSlab * sizeof(float);
 
-// acc[r][q] += sum_k A(4 ty + r, k) B(k, 4 tx + q) over k < 64, B stored
-// [k][kLd] with its columns contiguous; A stored [row][kLd] (kATrans false)
-// or [k][kLd] (kATrans true).  Sums in k order.
-template <bool kATrans>
+// acc[r][q] += sum_k A(4 ty + r, k) B(k, 4 tx + q) over k < K, B stored
+// [k][ldb] with its columns contiguous; A stored [row][lda] (kATrans false)
+// or [k][lda] (kATrans true).  Sums in k order.
+template <bool kATrans, int K = kSub>
 __device__ __forceinline__ void tile_mm(float (&acc)[4][4], const float* __restrict__ a,
-                                        const float* __restrict__ b) {
+                                        const float* __restrict__ b, int lda = kLd,
+                                        int ldb = kLd) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   if constexpr (kATrans) {
 #pragma unroll 4
-    for (int k = 0; k < kSub; ++k) {
-      const float4 av = *reinterpret_cast<const float4*>(&a[k * kLd + 4 * ty]);
-      const float4 bv = *reinterpret_cast<const float4*>(&b[k * kLd + 4 * tx]);
+    for (int k = 0; k < K; ++k) {
+      const float4 av = *reinterpret_cast<const float4*>(&a[k * lda + 4 * ty]);
+      const float4 bv = *reinterpret_cast<const float4*>(&b[k * ldb + 4 * tx]);
       const float ar[4] = {av.x, av.y, av.z, av.w};
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
@@ -510,14 +529,14 @@ __device__ __forceinline__ void tile_mm(float (&acc)[4][4], const float* __restr
     }
   } else {
 #pragma unroll 2
-    for (int k = 0; k < kSub; k += 4) {
+    for (int k = 0; k < K; k += 4) {
       float4 av[4], bv[4];
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        av[r] = *reinterpret_cast<const float4*>(&a[(4 * ty + r) * kLd + k]);
+        av[r] = *reinterpret_cast<const float4*>(&a[(4 * ty + r) * lda + k]);
 #pragma unroll
       for (int u = 0; u < 4; ++u)
-        bv[u] = *reinterpret_cast<const float4*>(&b[(k + u) * kLd + 4 * tx]);
+        bv[u] = *reinterpret_cast<const float4*>(&b[(k + u) * ldb + 4 * tx]);
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const float ar[4] = {av[r].x, av[r].y, av[r].z, av[r].w};
@@ -547,25 +566,37 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// 64 x 64 floats from a row-major source (row r at src + r * ld, its first
+// `cols` columns; rows past `rows` and columns past `cols` zero) into
+// shared memory by 4-byte cp.async, as dst[r * kLd + c] or, with kTrans,
+// dst[c * kLd + r]: read along the rows, land transposed.
+template <bool kTrans>
+__device__ __forceinline__ void stage_slab(float* dst, const float* __restrict__ src, long ld,
+                                           int rows, int cols) {
+#pragma unroll 4
+  for (int it = 0; it < kSub * kSub / kThreads; ++it) {
+    const int e = threadIdx.x + it * kThreads, r = e / kSub, c = e % kSub;
+    const bool ok = r < rows && c < cols;
+    sm90::cp_async4(sm90::smem_u32(&dst[kTrans ? c * kLd + r : r * kLd + c]),
+                    ok ? src + r * ld + c : src, ok);
+  }
+}
+
+// dx and this P tile's share of dcs for one (sub-chunk, head, batch x 64
+// columns of P); N in steps of 32, double-buffered.
+__global__ void __launch_bounds__(kThreads, 2)
 ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ log_a,
                const float* __restrict__ bm, const float* __restrict__ cm,
                const float* __restrict__ dy, const float* __restrict__ states,
                const float* __restrict__ dstates, const float* __restrict__ gram,
-               float* __restrict__ dx, float* __restrict__ part_bc, float* __restrict__ part_cs,
-               int seq, int heads, int head_dim, int n_state, int p_tiles) {
+               float* __restrict__ dx, float* __restrict__ part_cs, int seq, int heads,
+               int head_dim, int n_state, int p_tiles) {
   extern __shared__ __align__(16) float smem[];
   float* xt = smem;                 // [p][j] x, transposed
   float* dys = xt + kSlab;          // [i][p] dy
-  float* gl = dys + kSlab;          // [i][j] G, then G * L
-  float* ms = gl + kSlab;           // [i][j] M = L * (dy . x)
-  float* ts = ms + kSlab;           // [i][j] t = G * M
-  float* bs = ts + kSlab;           // [j][n] B slab
-  float* cs_ = bs + kSlab;          // [i][n] C slab
-  float* hin = cs_ + kSlab;         // [p][n] h_in slab
-  float* hint = hin + kSlab;        // [n][p] h_in slab, transposed
-  float* dho = hint + kSlab;        // [p][n] dh_out slab
-  float* dhot = dho + kSlab;        // [n][p] dh_out slab, transposed
+  float* stage0 = dys + kSlab;      // N steps: [j][n] B, [i][n] C, [n][p] h_in^T, dh_out^T
+  float* gl = stage0 + kBwdStage;   // [i][j] G, then G * L (in the second stage's room)
+  float* ts = gl + kSlab;           // [i][j] t = G * L * (dy . x)
   __shared__ float cs[kSub], ecs[kSub], w[kSub], dcs[kSub], e1[kSub], e2[kSub], red[kThreads / 32];
 
   const int c = blockIdx.x, h = blockIdx.y;
@@ -574,26 +605,50 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ log_a,
   const int t0 = c * kSub, valid = min(kSub, seq - t0);
   const long row0 = static_cast<long>(b) * seq + t0;
   const long bc = static_cast<long>(b) * n_sub + c;
-  const int p0 = pt * kPTile;
+  const int p0 = pt * kPTile, p_valid = min(kPTile, head_dim - p0);
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const long state_base = (bc * heads + h) * static_cast<long>(head_dim) * n_state;
+  const long xrow = static_cast<long>(heads) * head_dim;  // one step further in x and dy
 
-  for (int e = tid; e < kSub * kSub; e += kThreads) {
-    const int j = e / kSub, p = e % kSub;
-    const bool ok = j < valid && p0 + p < head_dim;
-    const long at = ((row0 + j) * heads + h) * head_dim + p0 + p;
-    xt[p * kLd + j] = ok ? x[at] : 0.0f;
-    dys[j * kLd + p] = ok ? dy[at] : 0.0f;
-    gl[j * kLd + p] = gram[bc * kSub * kSub + e];  // G[j][p]: rows past the sequence are 0
-  }
+  // step sl's 32 columns of N into stage st by cp.async, zero past the
+  // sequence, N and P
+  auto issue = [&](int sl, int st) {
+    float* bs = stage0 + st * kBwdStage;
+    float* cs_ = bs + kSub * kLdN;
+    float* hint = cs_ + kSub * kLdN;
+    float* dhot = hint + kNStep * kLd;
+    const int n0 = sl * kNStep;
+#pragma unroll 4
+    for (int it = 0; it < kSub * kNStep / kThreads; ++it) {
+      const int e = tid + it * kThreads, r = e / kNStep, n = e % kNStep;
+      const bool ok = r < valid && n0 + n < n_state;
+      const long at = (row0 + r) * n_state + n0 + n;
+      sm90::cp_async4(sm90::smem_u32(&bs[r * kLdN + n]), ok ? bm + at : bm, ok);
+      sm90::cp_async4(sm90::smem_u32(&cs_[r * kLdN + n]), ok ? cm + at : cm, ok);
+      const bool in_p = r < p_valid && n0 + n < n_state;  // r is p here
+      const long hp = state_base + static_cast<long>(p0 + r) * n_state + n0 + n;
+      sm90::cp_async4(sm90::smem_u32(&hint[n * kLd + r]), in_p ? states + hp : states, in_p);
+      sm90::cp_async4(sm90::smem_u32(&dhot[n * kLd + r]), in_p ? dstates + hp : dstates, in_p);
+    }
+    sm90::cp_async_commit();
+  };
+
+  const long at = (row0 * heads + h) * head_dim + p0;  // row 0 of x and dy
+  stage_slab<true>(xt, x + at, xrow, valid, p_valid);
+  stage_slab<false>(dys, dy + at, xrow, valid, p_valid);
+  stage_slab<false>(gl, gram + bc * kSub * kSub, kSub, kSub, kSub);  // rows past the sequence are 0
+  sm90::cp_async_commit();
+  const int n_steps = (n_state + kNStep - 1) / kNStep;
+  issue(0, 0);
   chunk_cumsum(log_a, row0, heads, h, valid, cs);
+  sm90::cp_async_wait<1>();  // x, dy and G have landed
   __syncthreads();
   if (tid < kSub) {
     ecs[tid] = expf(cs[tid]);
     w[tid] = expf(cs[kSub - 1] - cs[tid]);
   }
 
-  // D = dy x^T; M = L * D, t = G * M, G * L in place, each thread its own elements
+  // D = dy x^T; t = G * L * D, G * L in place, each thread its own elements
   float acc[4][4];
   zero(acc);
   tile_mm<false>(acc, dys, xt);
@@ -604,9 +659,8 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ log_a,
     for (int q = 0; q < 4; ++q) {
       const int j = 4 * tx + q;
       const float l = j <= i ? expf(cs[i] - cs[j]) : 0.0f;
-      const float m = l * acc[r][q], g = gl[i * kLd + j];
-      ms[i * kLd + j] = m;
-      ts[i * kLd + j] = g * m;
+      const float g = gl[i * kLd + j];
+      ts[i * kLd + j] = g * (l * acc[r][q]);
       gl[i * kLd + j] = g * l;
     }
   }
@@ -625,55 +679,26 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ log_a,
   zero(u);
   zero(v);
   tile_mm<true>(dxa, gl, dys);
+  __syncthreads();  // G * L and t are no longer read: the second stage is free
+  if (n_steps > 1) issue(1, 1);
   float hd = 0.0f;  // this thread's share of <dh_out, h_in> over the P tile
-  for (int n0 = 0; n0 < n_state; n0 += kSub) {
-    __syncthreads();  // the previous slabs are no longer read
-    for (int e = tid; e < kSub * kSub; e += kThreads) {
-      const int r = e / kSub, n = e % kSub;
-      const bool in_n = n0 + n < n_state;
-      const bool ok = r < valid && in_n;
-      bs[r * kLd + n] = ok ? bm[(row0 + r) * n_state + n0 + n] : 0.0f;
-      cs_[r * kLd + n] = ok ? cm[(row0 + r) * n_state + n0 + n] : 0.0f;
-      const bool in_p = in_n && p0 + r < head_dim;
-      const long at = state_base + static_cast<long>(p0 + r) * n_state + n0 + n;
-      const float hv = in_p ? states[at] : 0.0f, dv = in_p ? dstates[at] : 0.0f;
-      hin[r * kLd + n] = hv;
-      hint[n * kLd + r] = hv;
-      dho[r * kLd + n] = dv;
-      dhot[n * kLd + r] = dv;
-      hd = fmaf(hv, dv, hd);
+  for (int sl = 0; sl < n_steps; ++sl) {
+    const int st = sl & 1;
+    if (sl + 1 < n_steps) sm90::cp_async_wait<1>(); else sm90::cp_async_wait<0>();
+    __syncthreads();  // step sl has landed for every thread
+    const float* bs = stage0 + st * kBwdStage;
+    const float* cs_ = bs + kSub * kLdN;
+    const float* hint = cs_ + kSub * kLdN;
+    const float* dhot = hint + kNStep * kLd;
+    tile_mm<false, kNStep>(u, bs, dhot, kLdN, kLd);
+    tile_mm<false, kNStep>(v, cs_, hint, kLdN, kLd);
+#pragma unroll
+    for (int it = 0; it < kNStep * kSub / kThreads; ++it) {
+      const int e = tid + it * kThreads, at = e / kSub * kLd + e % kSub;
+      hd = fmaf(hint[at], dhot[at], hd);
     }
-    __syncthreads();
-    tile_mm<false>(u, bs, dhot);
-    tile_mm<false>(v, cs_, hint);
-    // dC_i (this head's share) = M B + exp(cs_i) dy h_in
-    float a1[4][4], a2[4][4];
-    zero(a1);
-    zero(a2);
-    tile_mm<false>(a1, ms, bs);
-    tile_mm<false>(a2, dys, hin);
-    float* out_c = part_bc + (static_cast<long>(gridDim.z / p_tiles) * n_sub * heads * p_tiles +
-                              bc * heads * p_tiles + h * p_tiles + pt) * kSub * n_state;
-    float* out_b = part_bc + (bc * heads * p_tiles + h * p_tiles + pt) * kSub * n_state;
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int n = n0 + 4 * tx + q;
-        if (n < n_state) out_c[(4 * ty + r) * n_state + n] = a1[r][q] + ecs[4 * ty + r] * a2[r][q];
-      }
-    // dB_j (this head's share) = M^T C + w_j x dh_out
-    zero(a1);
-    zero(a2);
-    tile_mm<true>(a1, ms, cs_);
-    tile_mm<true>(a2, xt, dho);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int n = n0 + 4 * tx + q;
-        if (n < n_state) out_b[(4 * ty + r) * n_state + n] = a1[r][q] + w[4 * ty + r] * a2[r][q];
-      }
+    __syncthreads();  // every thread is done with stage st
+    if (sl + 2 < n_steps) issue(sl + 2, st);
   }
 
   // dx, and the inter-chunk terms of dcs: e1_i = dy_i . V_i, e2_j = x_j . U_j
@@ -686,7 +711,7 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ log_a,
       const int p = 4 * tx + q;
       s1 = fmaf(dys[j * kLd + p], v[r][q], s1);
       s2 = fmaf(xt[p * kLd + j], u[r][q], s2);
-      if (j < valid && p0 + p < head_dim)
+      if (j < valid && p < p_valid)
         dx[((row0 + j) * heads + h) * head_dim + p0 + p] = dxa[r][q] + w[j] * u[r][q];
     }
     s1 = half_warp_sum(s1);
@@ -712,41 +737,141 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ log_a,
   }
 }
 
-// dB, dC: the shares summed in order (heads, then P tiles); dlog_a: dcs
-// summed over the P tiles, then cumulated from the sub-chunk's end.
+// dB and dC of one (sub-chunk, batch x group of heads, 64 columns of N):
+// the group's heads walked in order, each head's P tiles in order, the sums
+// kept in registers; and, in the first group's CTAs of the first 64
+// columns, dlog_a: dcs summed over the P tiles, then cumulated from the
+// sub-chunk's end.  Per head it stages dy, x, and the columns of h_in and
+// dh_out (64 x 64 each a P tile), double-buffered, and recomputes
+// M = L * (dy x^T) (64 x 64).  With one group (a grid of a wave or more)
+// it writes dB and dC; with several, the group's sums go to part (groups,
+// 2, B, S, N) and ssd_bwd_groups_kernel adds them in order.
 __global__ void __launch_bounds__(kThreads)
-ssd_bwd_reduce_kernel(const float* __restrict__ part_bc, const float* __restrict__ part_cs,
-                      float* __restrict__ dbm, float* __restrict__ dcm,
-                      float* __restrict__ dlog_a, int seq, int heads, int n_state, int p_tiles) {
-  const int c = blockIdx.x, b = blockIdx.y;
-  const int n_sub = gridDim.x;
+ssd_bwd_bc_kernel(const float* __restrict__ x, const float* __restrict__ log_a,
+                  const float* __restrict__ bm, const float* __restrict__ cm,
+                  const float* __restrict__ dy, const float* __restrict__ states,
+                  const float* __restrict__ dstates, const float* __restrict__ part_cs,
+                  float* __restrict__ dbm, float* __restrict__ dcm, float* __restrict__ dlog_a,
+                  float* __restrict__ part, int seq, int heads, int head_dim, int n_state,
+                  int p_tiles, int groups) {
+  extern __shared__ __align__(16) float smem[];
+  float* bs = smem;               // [j][n] B slab
+  float* cs_ = bs + kSlab;        // [i][n] C slab
+  float* ms = cs_ + kSlab;        // [i][j] M of the head
+  float* stages = ms + kSlab;     // stage s: [i][p] dy, [p][j] x^T, [p][n] h_in, [p][n] dh_out
+  __shared__ float cs[kSub];
+
+  const int c = blockIdx.x, b = blockIdx.y / groups, grp = blockIdx.y % groups;
+  const int n0 = blockIdx.z * kSub;
+  const int n_sub = gridDim.x, batch = gridDim.y / groups;
+  const int h0 = grp * heads / groups, h1 = (grp + 1) * heads / groups;  // the group's heads
   const int t0 = c * kSub, valid = min(kSub, seq - t0);
-  const int shares = heads * p_tiles;
-  const long slab = static_cast<long>(kSub) * n_state;
-  const long plane = static_cast<long>(gridDim.y) * n_sub * shares * slab;  // dB's, then dC's
+  const long row0 = static_cast<long>(b) * seq + t0;
   const long bc = static_cast<long>(b) * n_sub + c;
-  const float* pb = part_bc + bc * shares * slab;
-  const long out0 = (static_cast<long>(b) * seq + t0) * n_state;
-  for (int e = blockIdx.z * kThreads + threadIdx.x; e < valid * n_state;
-       e += gridDim.z * kThreads) {
-    float sb = 0.0f, sc = 0.0f;
-    for (int k = 0; k < shares; ++k) {
-      sb += pb[k * slab + e];
-      sc += pb[plane + k * slab + e];
+  const int n_valid = min(kSub, n_state - n0);
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const long xrow = static_cast<long>(heads) * head_dim;
+
+  // step s = (head h0 + s / p_tiles, P tile s % p_tiles) into stage s % 2
+  auto issue = [&](int s) {
+    float* st = stages + (s & 1) * 4 * kSlab;
+    const int h = h0 + s / p_tiles, p0 = (s % p_tiles) * kPTile;
+    const int p_valid = min(kPTile, head_dim - p0);
+    const long at = (row0 * heads + h) * head_dim + p0;
+    const long hp = ((bc * heads + h) * head_dim + p0) * static_cast<long>(n_state) + n0;
+    stage_slab<false>(st, dy + at, xrow, valid, p_valid);
+    stage_slab<true>(st + kSlab, x + at, xrow, valid, p_valid);
+    stage_slab<false>(st + 2 * kSlab, states + hp, n_state, p_valid, n_valid);
+    stage_slab<false>(st + 3 * kSlab, dstates + hp, n_state, p_valid, n_valid);
+    sm90::cp_async_commit();
+  };
+  stage_slab<false>(bs, bm + row0 * n_state + n0, n_state, valid, n_valid);
+  stage_slab<false>(cs_, cm + row0 * n_state + n0, n_state, valid, n_valid);
+  const int n_steps = (h1 - h0) * p_tiles;
+  issue(0);  // B and C join its group
+  if (n_steps > 1) issue(1);
+
+  float dc[4][4], db[4][4], d[4][4], tc[4][4], tb[4][4];
+  zero(dc);
+  zero(db);
+  zero(d);
+  zero(tc);
+  zero(tb);
+  for (int s = 0; s < n_steps; ++s) {
+    const int h = h0 + s / p_tiles, pt = s % p_tiles;
+    if (s + 1 < n_steps) sm90::cp_async_wait<1>(); else sm90::cp_async_wait<0>();
+    __syncthreads();  // step s has landed; the previous head's M and cs are read
+    if (pt == 0) chunk_cumsum(log_a, row0, heads, h, valid, cs);
+    const float* st = stages + (s & 1) * 4 * kSlab;
+    tile_mm<false>(d, st, st + kSlab);                // dy x^T
+    tile_mm<false>(tc, st, st + 2 * kSlab);           // dy h_in
+    tile_mm<true>(tb, st + kSlab, st + 3 * kSlab);    // x dh_out
+    __syncthreads();  // stage s % 2 is free; cs is set
+    if (s + 2 < n_steps) issue(s + 2);
+    if (pt + 1 < p_tiles) continue;
+    // the head's M = L * D; dC += diag(exp cs) tc + M B, dB += diag(w) tb + M^T C
+    const float last = cs[kSub - 1];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = 4 * ty + r;
+      const float ecs = expf(cs[i]), wr = expf(last - cs[i]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int j = 4 * tx + q;
+        ms[i * kLd + j] = j <= i ? expf(cs[i] - cs[j]) * d[r][q] : 0.0f;
+        dc[r][q] = fmaf(ecs, tc[r][q], dc[r][q]);
+        db[r][q] = fmaf(wr, tb[r][q], db[r][q]);
+      }
     }
-    dbm[out0 + e] = sb;
-    dcm[out0 + e] = sc;
+    zero(d);
+    zero(tc);
+    zero(tb);
+    __syncthreads();
+    tile_mm<false>(dc, ms, bs);
+    tile_mm<true>(db, ms, cs_);
   }
-  if (blockIdx.z != 0) return;
-  for (int h = threadIdx.x; h < heads; h += kThreads) {
+  // one group: dB and dC; several: this group's sums, (groups, 2, B, S, N)
+  const long plane = static_cast<long>(batch) * seq * n_state;
+  float* out_b = groups == 1 ? dbm : part + 2 * grp * plane;
+  float* out_c = groups == 1 ? dcm : part + (2 * grp + 1) * plane;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = 4 * ty + r;
+    if (i >= valid) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int n = 4 * tx + q;
+      if (n >= n_valid) continue;
+      out_c[(row0 + i) * n_state + n0 + n] = dc[r][q];
+      out_b[(row0 + i) * n_state + n0 + n] = db[r][q];
+    }
+  }
+  if (blockIdx.z != 0 || grp != 0) return;
+  for (int h = tid; h < heads; h += kThreads) {
     const float* pc = part_cs + (bc * heads + h) * p_tiles * kSub;
     float run = 0.0f;
     for (int i = kSub - 1; i >= 0; --i) {
-      float d = 0.0f;
-      for (int pt = 0; pt < p_tiles; ++pt) d += pc[pt * kSub + i];
-      run += d;
-      if (i < valid) dlog_a[(static_cast<long>(b) * seq + t0 + i) * heads + h] = run;
+      float dsum = 0.0f;
+      for (int pt = 0; pt < p_tiles; ++pt) dsum += pc[pt * kSub + i];
+      run += dsum;
+      if (i < valid) dlog_a[(row0 + i) * heads + h] = run;
     }
+  }
+}
+
+// dB and dC: the head groups' sums of ssd_bwd_bc_kernel added in order.
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_groups_kernel(const float* __restrict__ part, float* __restrict__ dbm,
+                      float* __restrict__ dcm, long plane, int groups) {
+  for (long e = static_cast<long>(blockIdx.x) * kThreads + threadIdx.x; e < plane;
+       e += static_cast<long>(gridDim.x) * kThreads) {
+    float sb = 0.0f, sc = 0.0f;
+    for (int g = 0; g < groups; ++g) {
+      sb += part[2 * g * plane + e];
+      sc += part[(2 * g + 1) * plane + e];
+    }
+    dbm[e] = sb;
+    dcm[e] = sc;
   }
 }
 
@@ -764,6 +889,9 @@ cudaError_t opt_in(int device) {
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(ssd_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kBwdSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_bc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kBcSmem);
   if (err == cudaSuccess) ready[device] = true;
   return err;
 }
@@ -814,23 +942,26 @@ int ssd_scan_launch(const float* x, const float* log_a, const float* bm, const f
 // dbm, dcm (B, S, N); h0, dh (the final state's gradient) and dh0 (B, H,
 // P, N), each nullable (dh0 is written when non-null); scratch: states and
 // dstates (B, S/sub, H, P, N), decay (B, S/sub, H), gram (B, S/sub, sub,
-// sub), h_last (B, H, P, N), part_bc (2, B, S/sub, H * ceil(P/64), sub, N)
-// and part_cs (B, S/sub, H, ceil(P/64), sub), with S/sub rounded up.  f32,
-// contiguous.  `sub` must be 64; `device` is the pointers' CUDA device.
+// sub), h_last (B, H, P, N), part_cs (B, S/sub, H, ceil(P/64), sub) and,
+// with `groups` > 1 head groups for dB and dC, part_groups (groups, 2, B,
+// S, N) (null with one group), with S/sub rounded up.  f32, contiguous.
+// `sub` must be 64; `device` is the pointers' CUDA device.
 int ssd_scan_backward_launch(const float* x, const float* log_a, const float* bm,
                              const float* cm, const float* h0, const float* dy, const float* dh,
                              float* dx, float* dlog_a, float* dbm, float* dcm, float* dh0,
                              float* states, float* dstates, float* decay, float* gram,
-                             float* h_last, float* part_bc, float* part_cs, int batch, int seq,
-                             int heads, int head_dim, int n_state, int sub, int device,
-                             void* stream) {
+                             float* h_last, float* part_cs, float* part_groups, int batch,
+                             int seq, int heads, int head_dim, int n_state, int sub,
+                             int groups, int device, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0 || head_dim <= 0 || n_state <= 0 ||
-      n_state > kMaxState || sub != kSub || device < 0 || device >= kMaxDevices)
+      n_state > kMaxState || sub != kSub || device < 0 || device >= kMaxDevices ||
+      groups < 1 || groups > heads || (groups > 1) != (part_groups != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_sub = (seq + kSub - 1) / kSub;
   const int p_tiles = (head_dim + kPTile - 1) / kPTile;
   const long per_head = static_cast<long>(n_state) * head_dim;
-  if (static_cast<long>(batch) * p_tiles > 65535 || heads >= 65535 || batch > 65535)
+  if (static_cast<long>(batch) * p_tiles > 65535 || heads >= 65535 ||
+      static_cast<long>(batch) * groups > 65535)
     return static_cast<int>(cudaErrorInvalidValue);  // grid y and z limits
   cudaError_t err = opt_in(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -854,15 +985,22 @@ int ssd_scan_backward_launch(const float* x, const float* log_a, const float* bm
       dh, decay, dstates, dh0, n_sub, heads, head_dim, n_state);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  // 5-6: dx and the shares, then their sums and dlog_a
+  // 5-6: dx and dcs's shares, then dB, dC and dlog_a
   ssd_bwd_kernel<<<dim3(n_sub, heads, batch * p_tiles), kThreads, kBwdSmem, s>>>(
-      x, log_a, bm, cm, dy, states, dstates, gram, dx, part_bc, part_cs, seq, heads, head_dim,
-      n_state, p_tiles);
+      x, log_a, bm, cm, dy, states, dstates, gram, dx, part_cs, seq, heads, head_dim, n_state,
+      p_tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int slabs = (kSub * n_state + 4 * kThreads - 1) / (4 * kThreads);
-  ssd_bwd_reduce_kernel<<<dim3(n_sub, batch, slabs), kThreads, 0, s>>>(
-      part_bc, part_cs, dbm, dcm, dlog_a, seq, heads, n_state, p_tiles);
+  ssd_bwd_bc_kernel<<<dim3(n_sub, batch * groups, (n_state + kSub - 1) / kSub), kThreads,
+                      kBcSmem, s>>>(x, log_a, bm, cm, dy, states, dstates, part_cs, dbm, dcm,
+                                    dlog_a, part_groups, seq, heads, head_dim, n_state, p_tiles,
+                                    groups);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || groups == 1) return static_cast<int>(err);
+  const long plane = static_cast<long>(batch) * seq * n_state;
+  const long blocks = (plane + kThreads - 1) / kThreads;
+  const unsigned sum_blocks = static_cast<unsigned>(blocks < 4096 ? blocks : 4096);
+  ssd_bwd_groups_kernel<<<sum_blocks, kThreads, 0, s>>>(part_groups, dbm, dcm, plane, groups);
   return static_cast<int>(cudaGetLastError());
 }
 

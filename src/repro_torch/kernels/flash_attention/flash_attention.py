@@ -45,12 +45,16 @@ max ``m`` and denominator ``l`` (two f32 arrays of (B, H, Sq), not one
 logsumexp: a fully masked row has ``m = MASK_VALUE``, where ``m + log l``
 rounds back to ``m``), and the Function saves q, k, v and those
 statistics.  The backward is a kernel of its own
-(``csrc/flash_attention_bwd.cu``): per 64 rows the row sum L of exp(S −
-m) and Δ = rowsum(P ∘ dP) with P = exp(S − m) / L, then dK and dV per key
-tile and dQ per 64 rows, each recomputing S from q and k in the forward's
-arithmetic, with no atomics (two calls give the same bits); in bf16 P and
-dS enter the products as two bf16 operands each (the value and its
-rounding's remainder).  It is counted in
+(``csrc/flash_attention_bwd.cu``), recomputing S from q and k in the
+forward's arithmetic, with no atomics (two calls give the same bits).  In
+bf16 up to D 128 it is two launches on ``wgmma``: per 64 rows the row sum L
+of exp(S − m), Δ = rowsum(P ∘ dP) with P = exp(S − m) / L, and dQ; then dK
+and dV per 64 keys, with P and dS kept in registers as the A operand of
+their products; tiles arrive by asynchronous copies into a two-stage ring,
+and the CTAs with the longest causal walks start first.  f32, and bf16 past
+D 128, keep three launches on ``mma.sync`` / the CUDA cores (L and Δ, dK
+and dV, dQ).  In bf16 P and dS enter the products as two bf16 operands each
+(the value and its rounding's remainder).  It is counted in
 ``flash_attention.backward_launches``, apart from the forward's
 ``launches``.  :func:`flash_attention_backward_plain` computes
 the same gradient densely from the same statistics, for the tests and
@@ -231,8 +235,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, win
 
 def flash_attention_backward(q, k, v, stats, grad_out, *, causal: bool, window: int,
                              scale: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One call of the backward kernels on CUDA tensors (L and Δ, dK/dV, dQ:
-    three launches on the stream), counted once in
+    """One call of the backward kernels on CUDA tensors (two or three
+    launches on the stream), counted once in
     ``flash_attention.backward_launches``: (dq, dk, dv) in q's dtype, from
     the forward's statistics ``stats`` (2, B, H, Sq)."""
     _check(q, k, v)
@@ -252,7 +256,7 @@ def flash_attention_backward(q, k, v, stats, grad_out, *, causal: bool, window: 
     if q.dtype == torch.bfloat16:
         q, k, v, g = (_bf16_operand(x, dk) for x in (q, k, v, g))
     dq, dkey, dval = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    aux = torch.empty((2, b, h, sq), dtype=torch.float32, device=q.device)  # L, then Δ
+    aux = torch.empty((3, b, h, sq), dtype=torch.float32, device=q.device)  # rows' statistics
     stats = stats.contiguous()
     launch = _build.function("flash_attention_bwd", "flash_attention_backward_launch", _BWD_ARGS)
     with torch.cuda.device(q.device):

@@ -54,23 +54,28 @@ def kernel_flops(
 def backward_flops(batch: int, sq: int, sk: int, heads: int, head_dim: int, *,
                    causal: bool = True, bf16: bool = False) -> float:
     """The backward kernels' own multiply-adds (×2), in tile products of the
-    forward's size: the L and Δ pass forms S, then S and dP; the dK/dV pass
-    S, dP, Pᵀ·dO and dSᵀ·Q; the dQ pass S, dP and dS·K: 10 where the
-    forward has 2, 5 × ``kernel_flops``.  In bf16 P and dS enter their three
-    products as two operands each (value and remainder): 13, 6.5 ×.
-    (``kernel_flops(backward=True)`` counts the 2.5 × of a backward that
-    forms S and dP once: the least work, which bounds it.)"""
+    forward's size, for each (64-row tile, key tile) pair the walks visit:
+    three walks of the rows forming S; S and dP; S, dP and dS·K; and the
+    dK/dV walk forming Sᵀ, dPᵀ, Pᵀ·dO and dSᵀ·Q: 10 where the forward has
+    2, 5 × ``kernel_flops``.  In bf16 P and dS enter their three products
+    as two operands each (value and remainder): 13, 6.5 ×.  (The f32
+    kernels and bf16's past D 128 form the same products in three launches.)
+    ``kernel_flops(backward=True)`` counts the 2.5 × of a backward that
+    forms S and dP once: the least work, which bounds it."""
     return (6.5 if bf16 else 5.0) * kernel_flops(batch, sq, sk, heads, head_dim, causal=causal)
 
 
 def backward_hbm_bytes(batch: int, sq: int, sk: int, heads: int, kv_heads: int, head_dim: int,
                        *, bytes_per_el: int = 2) -> float:
     """The backward's traffic by construction: Q, K, V and dO read once, dQ,
-    dK and dV written once, and the f32 row statistics (m and l read; L and
-    Δ written and read)."""
+    dK and dV written once, and the f32 row statistics: the forward's m and
+    l read, then the rows' statistics for the dK/dV kernel written and read
+    (bf16 up to D 128, the ``wgmma`` kernels: m·log₂e, 1 / L and Δ, 8 planes
+    of (B, H, Sq) in all; otherwise L and Δ, 6)."""
     q_b = batch * sq * heads * head_dim * bytes_per_el
     kv_b = 2 * batch * sk * kv_heads * head_dim * bytes_per_el
-    return 2 * (2 * q_b + kv_b) + 6 * 4 * batch * heads * sq
+    planes = 8 if bytes_per_el == 2 and head_dim <= 128 else 6
+    return 2 * (2 * q_b + kv_b) + planes * 4 * batch * heads * sq
 
 
 @functools.lru_cache(maxsize=None)

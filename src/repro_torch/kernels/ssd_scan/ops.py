@@ -62,9 +62,13 @@ def backward_flops(batch: int, seq: int, heads: int, head_dim: int, state: int) 
     """The backward kernels' own multiply-adds (×2), per sub-chunk of
     ``SUB`` steps (the last one padded) and head: the forward's state
     contributions and their pass again (2·Q·P·N + 2·P·N), the same for
-    dy·Cᵀ and the gradient's pass, then dy·xᵀ and (G ⊙ L)ᵀ·dy (2·Q²·P
-    each), B·dh_outᵀ, C·h_inᵀ, M·B, dy·h_in, Mᵀ·C and x·dh_out (2·Q·P·N
+    dy·Cᵀ and the gradient's pass; ``ssd_bwd_kernel``'s dy·xᵀ and
+    (G ⊙ L)ᵀ·dy (2·Q²·P each), B·dh_outᵀ and C·h_inᵀ (2·Q·P·N each);
+    ``ssd_bwd_bc_kernel``'s dy·xᵀ again for each 64 columns of N (2·Q²·P
+    each), M·B and Mᵀ·C (2·Q²·N each), dy·h_in and x·dh_out (2·Q·P·N
     each); and C·Bᵀ once a sub-chunk (2·Q²·N)."""
     q, p, n = SUB, head_dim, state
-    per_head = 2 * (2 * q * p * n + 2 * p * n) + 2 * (2 * q * q * p) + 6 * (2 * q * p * n)
+    slabs = -(-n // q)
+    per_head = (2 * (2 * q * p * n + 2 * p * n) + 2 * (2 * q * q * p) + 4 * (2 * q * p * n)
+                + slabs * (2 * q * q * p) + 2 * (2 * q * q * n))
     return float(batch * -(-seq // q) * (heads * per_head + 2 * q * q * n))

@@ -33,9 +33,10 @@ card the backward is a kernel of its own (``csrc/ssd_scan.cu``, at the
 same sub-chunk of :data:`SUB` steps): it recomputes the state entering
 each sub-chunk with the forward's first two kernels (no scratch is held
 between the forward and the backward), runs the state's gradient from the
-last sub-chunk to the first, then forms dx, dB, dC and dlog_a per
-sub-chunk and head and sums the heads' shares in order, with no atomics
-(two calls give the same bits); it is counted in
+last sub-chunk to the first, then forms dx and dlog_a's shares per
+sub-chunk and head, and dB and dC per sub-chunk and 64 columns of N,
+walking the heads in order, with no atomics (two calls give the same
+bits); it is counted in
 ``ssd_scan.backward_launches``, apart from the forward's ``launches``.
 :func:`ssd_scan_backward_plain` computes the same gradient in tensor ops
 from the same formulas, for the tests and ``chip_smoke.py``.  The JAX
@@ -67,7 +68,7 @@ MAX_STATE = 256
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGS = (_P,) * 10 + (_I,) * 7 + (_P,)
-_BWD_ARGS = (_P,) * 19 + (_I,) * 7 + (_P,)
+_BWD_ARGS = (_P,) * 19 + (_I,) * 8 + (_P,)
 
 
 def _check(x, log_a, Bm, Cm, chunk: int, h0: Optional[torch.Tensor]) -> None:
@@ -203,12 +204,36 @@ def _priced(x, Bm, h0: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tens
     return torch.empty_like(x), torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
 
 
+def head_groups(b: int, s: int, h: int, n: int, sms: int) -> int:
+    """The groups of heads the dB and dC kernel splits its walk into: one
+    where its CTAs (a sub-chunk, a batch row, 64 columns of N each) fill a
+    wave of the card's ``sms`` SMs (one CTA an SM), else as many as still
+    fit in one wave, at most H."""
+    ctas = -(-s // SUB) * b * -(-n // SUB)
+    return max(1, min(h, sms // ctas))
+
+
+def backward_scratch(b: int, s: int, h: int, p: int, n: int, device, groups: int = 1) -> dict:
+    """The backward kernels' scratch, in the order the C entry point takes
+    it: the state entering each sub-chunk and the gradient of the state
+    leaving it, exp(cs_Q), C·Bᵀ, the final state (unused), the heads' and P
+    tiles' shares of dcs, and with several head ``groups`` their sums of dB
+    and dC (None with one).  Within a group dB and dC are summed over the
+    heads in registers: no scratch holds a head's share of them."""
+    n_sub, p_tiles = -(-s // SUB), -(-p // SUB)
+    new = functools.partial(torch.empty, dtype=torch.float32, device=device)
+    return {"states": new((b, n_sub, h, p, n)), "dstates": new((b, n_sub, h, p, n)),
+            "decay": new((b, n_sub, h)), "gram": new((b, n_sub, SUB, SUB)),
+            "h_last": new((b, h, p, n)), "part_cs": new((b, n_sub, h, p_tiles, SUB)),
+            "part_groups": new((groups, 2, b, s, n)) if groups > 1 else None}
+
+
 def ssd_scan_backward(x, log_a, Bm, Cm, h0: Optional[torch.Tensor],
                       grad_y: Optional[torch.Tensor], grad_h: Optional[torch.Tensor]):
     """One call of the backward kernels on CUDA tensors (six launches on the
-    stream), counted once in ``ssd_scan.backward_launches``: (dx, dlog_a,
-    dB, dC, dh0 or None) for the gradients of y and of the final state
-    (either may be None: 0)."""
+    stream, seven where dB and dC walk the heads in groups), counted once in
+    ``ssd_scan.backward_launches``: (dx, dlog_a, dB, dC, dh0 or None) for
+    the gradients of y and of the final state (either may be None: 0)."""
     _check(x, log_a, Bm, Cm, 1, h0)
     if x.device.type != "cuda":
         raise ValueError(f"the K5 backward kernels run on cuda, got {x.device}")
@@ -218,26 +243,20 @@ def ssd_scan_backward(x, log_a, Bm, Cm, h0: Optional[torch.Tensor],
         if g is not None and (g.shape != shape or g.device != x.device):
             raise ValueError(f"the gradient of {name} must be {tuple(shape)} on {x.device}, got "
                              f"{tuple(g.shape)} on {g.device}")
-    n_sub, p_tiles = -(-s // SUB), -(-p // SUB)
     dy = torch.zeros_like(x) if grad_y is None else grad_y.float().contiguous()
     dh = None if grad_h is None else grad_h.float().contiguous()
     dx, dla, dbm, dcm = (torch.empty_like(t) for t in (x, log_a, Bm, Cm))
     dh0 = None if h0 is None else torch.empty_like(h0)
-    new = functools.partial(torch.empty, dtype=torch.float32, device=x.device)
-    # scratch: the state entering each sub-chunk and the gradient of the
-    # state leaving it, exp(cs_Q), C·Bᵀ, the final state (unused), the
-    # heads' and P tiles' shares of dB and dC, and of dcs
-    states, dstates = new((b, n_sub, h, p, n)), new((b, n_sub, h, p, n))
-    decay, gram, h_last = new((b, n_sub, h)), new((b, n_sub, SUB, SUB)), new((b, h, p, n))
-    part_bc = new((2, b, n_sub, h * p_tiles, SUB, n))
-    part_cs = new((b, n_sub, h, p_tiles, SUB))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    groups = head_groups(b, s, h, n, torch.cuda.get_device_properties(x.device)
+                         .multi_processor_count)
+    scratch = backward_scratch(b, s, h, p, n, x.device, groups)
     launch = _build.function("ssd_scan", "ssd_scan_backward_launch", _BWD_ARGS)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = launch(*(ptr(t) for t in (x, log_a, Bm, Cm, h0, dy, dh, dx, dla, dbm, dcm, dh0,
-                                        states, dstates, decay, gram, h_last, part_bc, part_cs)),
-                     b, s, h, p, n, SUB, x.device.index, stream)
+        err = launch(*(ptr(t) for t in (x, log_a, Bm, Cm, h0, dy, dh, dx, dla, dbm, dcm, dh0)),
+                     *(ptr(t) for t in scratch.values()), b, s, h, p, n, SUB, groups,
+                     x.device.index, stream)
     _build.check("ssd_scan", err, "ssd_scan backward launch")
     _build.count_launch(ssd_scan, "backward_launches")
     return dx, dla, dbm, dcm, dh0

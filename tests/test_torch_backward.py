@@ -157,10 +157,13 @@ def test_k4_plain_backward_bf16_inputs(b, sq, sk, h, kvh, d, causal, window):
 def k4_backward_walks(sq, sk, g, causal, window, d):
     """The (row tile, key tile) pairs K4's backward kernels visit, as
     ``csrc/flash_attention_bwd.cu`` computes them: the dK/dV kernel's row
-    tiles per key tile, and the dQ kernel's key tiles per row tile."""
+    tiles per key tile, and the row kernels' key tiles per row tile (the
+    walks for L, Δ and dQ share them); and each grid's tiles in launch
+    order with the length of each walk."""
     rows, kt = 64, 64 if d <= 128 else 32
     total = sq * g
     dkdv, dq = set(), set()
+    dkdv_len, dq_len = {}, {}
     for kb in range(-(-sk // kt)):
         k0 = kb * kt
         k_last = min(k0 + kt, sk) - 1
@@ -171,15 +174,27 @@ def k4_backward_walks(sq, sk, g, causal, window, d):
         fm = sk + window - 1 if window else sq
         f_lo = max(t_hi, fm * g // rows)
         f_hi = max(f_lo, (sq * g + rows - 1) // rows) if fm < sq else f_lo
-        dkdv |= {(t, kb) for t in list(range(t_lo, t_hi)) + list(range(f_lo, f_hi))}
-    for t in range(-(-total // rows)):
+        walk = list(range(t_lo, t_hi)) + list(range(f_lo, f_hi))
+        dkdv |= {(t, kb) for t in walk}
+        dkdv_len[kb] = len(walk)
+    n_row_tiles = -(-total // rows)
+    for t in range(n_row_tiles):
         first, last = t * rows // g, (min(t * rows + rows, total) - 1) // g
         k_lo = max(0, first - window + 1) if window else 0
         k_hi = min(sk, last + 1) if causal else sk
         t_lo = k_lo // kt
         t_hi = (k_hi + kt - 1) // kt if k_hi > k_lo else t_lo
         dq |= {(t, kb) for kb in range(t_lo, t_hi)}
-    return dkdv, dq, rows, kt
+        dq_len[t] = t_hi - t_lo
+
+    # longest walks first: the o-th CTA launched takes tile o, or n - 1 - o
+    def order(n, reverse):
+        return [n - 1 - o if reverse else o for o in range(n)]
+
+    launches = {"dkdv": [(kb, dkdv_len[kb]) for kb in order(len(dkdv_len),
+                                                           not causal and bool(window))],
+                "rows": [(t, dq_len[t]) for t in order(n_row_tiles, causal)]}
+    return dkdv, dq, rows, kt, launches
 
 
 @pytest.mark.parametrize("sq,sk,g,causal,window,d", [
@@ -191,7 +206,7 @@ def test_k4_backward_tile_walks_cover_every_contribution(sq, sk, g, causal, wind
     """Every pair with P != 0 (dV) lies in a tile pair the dK/dV kernel walks,
     and every pair the masks keep (dS, hence dQ and dK) in one that both
     kernels walk; pairs outside add nothing."""
-    dkdv, dq, rows, kt = k4_backward_walks(sq, sk, g, causal, window, d)
+    dkdv, dq, rows, kt, _ = k4_backward_walks(sq, sk, g, causal, window, d)
     i = np.arange(sq)[:, None]
     j = np.arange(sk)[None, :]
     keep = np.ones((sq, sk), bool)
@@ -207,6 +222,31 @@ def test_k4_backward_tile_walks_cover_every_contribution(sq, sk, g, causal, wind
             assert (t, key // kt) in dkdv, (rho, key)
         for key in np.flatnonzero(keep[rho // g]):
             assert (t, key // kt) in dq, (rho, key)
+
+
+@pytest.mark.parametrize("sq,sk,g,causal,window,d", [
+    (2048, 2048, 8, True, 0, 64),      # tinyllama's training rows
+    (2048, 2048, 8, True, 0, 128),     # qwen3-moe's
+    (300, 300, 2, True, 0, 64),
+    (150, 100, 3, False, 30, 64),      # a window without causality: the other way round
+    (55, 300, 5, False, 0, 64),        # no mask: every walk as long
+    (300, 300, 1, True, 70, 128),
+])
+def test_k4_backward_grids_launch_the_longest_walks_first(sq, sk, g, causal, window, d):
+    """Each grid launches every tile once; the causal grids (and a window's
+    dK/dV grid) launch their walks from the longest to the shortest, so the
+    short walks fill the card's last wave."""
+    _, _, rows, kt, launches = k4_backward_walks(sq, sk, g, causal, window, d)
+    assert sorted(t for t, _ in launches["dkdv"]) == list(range(-(-sk // kt)))
+    assert sorted(t for t, _ in launches["rows"]) == list(range(-(-sq * g // rows)))
+    grids = ("dkdv", "rows") if causal and not window else \
+        ("dkdv",) if window and not causal else ()
+    for grid in grids:
+        lengths = [n for _, n in launches[grid]]
+        assert lengths == sorted(lengths, reverse=True), grid
+    if causal and not window:  # the first CTA launched walks every tile it can
+        assert launches["dkdv"][0] == (0, -(-sq * g // rows))
+        assert launches["rows"][0][1] == -(-sk // kt)
 
 
 def test_k4_function_on_the_cpu_launches_nothing():
@@ -242,6 +282,12 @@ def test_k4_meta_backward_charges_its_kernels(dtype):
     assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
     el = 2 if dtype == torch.bfloat16 else 4
     share = fops.window_share(sq, sq, True, window)
+    # bf16 at D 64: the wgmma kernels' 13 tile products and 8 planes of row
+    # statistics; f32: 10 products and 6 planes
+    planes = 8 if dtype == torch.bfloat16 else 6
+    io = 2 * (2 * b * sq * h * d + 2 * b * sq * kvh * d) * el
+    assert fops.backward_hbm_bytes(b, sq, sq, h, kvh, d, bytes_per_el=el) == \
+        io + planes * 4 * b * h * sq
     assert report.kernels["flash_attention_backward"] == (
         (6.5 if dtype == torch.bfloat16 else 5.0) * fops.kernel_flops(b, sq, sq, h, d) * share,
         fops.backward_hbm_bytes(b, sq, sq, h, kvh, d, bytes_per_el=el))
@@ -335,3 +381,45 @@ def test_k5_meta_backward_charges_its_kernels(with_h0):
     assert report.kernels["ssd_scan_backward"] == (
         sops.backward_flops(b, s, h, p, n), sops.backward_hbm_bytes(b, s, h, p, n,
                                                                     with_h0=with_h0))
+    # per sub-chunk and head: the states twice (2QPN + 2PN each), dy·xᵀ and
+    # (G ⊙ L)ᵀ·dy, B·dh_outᵀ and C·h_inᵀ, dy·xᵀ again for each 64 columns
+    # of N, M·B and Mᵀ·C, dy·h_in and x·dh_out; C·Bᵀ once a sub-chunk
+    q, n_sub = ssk.SUB, -(-s // ssk.SUB)
+    per_head = (2 * (2 * q * p * n + 2 * p * n) + 2 * 2 * q * q * p + 4 * 2 * q * p * n
+                + 1 * 2 * q * q * p + 2 * 2 * q * q * n)
+    assert sops.backward_flops(b, s, h, p, n) == b * n_sub * (h * per_head + 2 * q * q * n)
+
+
+def test_k5_backward_scratch_holds_no_heads_shares_of_dB_and_dC():
+    """At mamba2-130m's training microbatch (B 4 × 2048, H 24, P 64, N 128)
+    on an H100 (132 SMs) the dB and dC kernel walks every head in one group,
+    and the backward's scratch is the recomputed states and their gradients
+    (B, S/64, H, P, N) and what is per sub-chunk and head at most 64
+    floats, or per sub-chunk 64 × 64: nothing holds the heads' shares of dB
+    and dC (B, S/64, H, 64, N) as PR 23's 201 MB ``part_bc`` did.  A grid
+    under one wave (B 1 × 1000) splits the heads into groups whose sums
+    (groups × B × S × N, groups < H) are the only added scratch."""
+    b, s, h, p, n = 4, 2048, 24, 64, 128
+    groups = ssk.head_groups(b, s, h, n, 132)
+    assert groups == 1
+    scratch = ssk.backward_scratch(b, s, h, p, n, "meta", groups)
+    assert scratch.pop("part_groups") is None
+    n_sub = s // ssk.SUB
+    states = b * n_sub * h * p * n
+    assert [tuple(t.shape) for t in scratch.values()] == [
+        (b, n_sub, h, p, n), (b, n_sub, h, p, n), (b, n_sub, h), (b, n_sub, 64, 64),
+        (b, h, p, n), (b, n_sub, h, 1, 64)]
+    assert all(t.dtype == torch.float32 for t in scratch.values())
+    rest = {k: t.numel() for k, t in scratch.items() if k not in ("states", "dstates")}
+    heads_shares = b * n_sub * h * ssk.SUB * n          # one of dB's or dC's share planes
+    assert sum(rest.values()) < heads_shares / 4, rest
+    for name, numel in rest.items():                    # per sub-chunk: no H × N term
+        per_sub = numel / (b * n_sub) if name != "h_last" else 0
+        assert per_sub <= max(h * 64, 64 * 64), name
+    total_mb = sum(t.numel() for t in scratch.values()) * 4 / 1e6
+    assert total_mb < 2 * states * 4 / 1e6 + 10, total_mb
+    # 16 sub-chunks x 2 column blocks = 32 CTAs: 4 groups of 6 heads fill 128 of 132 SMs
+    assert ssk.head_groups(1, 1000, h, n, 132) == 4
+    part = ssk.backward_scratch(1, 1000, h, p, n, "meta", 4)["part_groups"]
+    assert tuple(part.shape) == (4, 2, 1, 1000, n)
+    assert ssk.head_groups(1, 1, h, n, 132) == h  # never more groups than heads

@@ -547,6 +547,14 @@ K4_BACKWARD_SHAPES = [  # b, sq, sk, h, kvh, d, causal, window
     (1, 90, 90, 16, 2, 24, True, 0),        # G 8
     (1, 2048, 2048, 32, 4, 64, True, 0),    # tinyllama's training rows, at B 1
     (2, 2048, 2048, 16, 2, 128, True, 0),   # a phase-9 rank's heads at D 128
+    # the wgmma kernels' edges: padded widths D 8 and 80, ragged Sq != Sk
+    # both ways (causal: top-left), G 1 and 8, masked rows at D 128
+    (2, 77, 77, 4, 2, 8, True, 0),
+    (1, 200, 130, 4, 2, 80, False, 0),
+    (2, 100, 150, 4, 4, 64, True, 0),
+    (1, 150, 100, 8, 1, 128, True, 0),
+    (1, 200, 100, 8, 2, 128, True, 30),     # causal window past every key: masked rows
+    (1, 129, 129, 8, 1, 64, False, 40),     # a window without causality
 ]
 
 
@@ -581,12 +589,35 @@ def test_k4_backward_kernel_matches_plain(cuda, b, sq, sk, h, kvh, d, causal, wi
     assert all(torch.equal(a, g) for a, g in zip(again, got))
 
 
+@pytest.mark.parametrize("d", [8, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_backward_one_key_rows_give_dq_exactly_zero(cuda, d, dtype):
+    """A window of 1: every row sees its own key alone, so P = 1 and dS = 0
+    exactly and dQ is 0 to the bit; each key's dV is its position's dO
+    summed over the group.  A causal call's first row sees key 0 alone."""
+    b, s, h, kvh = 2, 130, 4, 2
+    for window in (1, 0):
+        mask = dict(causal=True, window=window, scale=d**-0.5)
+        q, k, v, _, stats, gy = k4_backward_case(b, s, s, h, kvh, d, True, window, dtype, cuda,
+                                                 seed=d + window)
+        dq, dk, dv = fk.flash_attention_backward(q, k, v, stats, gy, **mask)
+        torch.cuda.synchronize()
+        rows = dq if window else dq[:, :1]
+        assert bool((rows == 0).all()), float(rows.float().abs().max())
+        if window:
+            want = gy.float().reshape(b, s, kvh, h // kvh, d).sum(3)
+            assert within_tol(dv, want, dtype)
+        again = fk.flash_attention_backward(q, k, v, stats, gy, **mask)
+        assert all(torch.equal(a, g) for a, g in zip(again, (dq, dk, dv)))
+
+
 @pytest.mark.parametrize("b,s,h,p,n", [
     (2, 100, 3, 8, 16),        # a partial last sub-chunk
     (1, 64, 2, 16, 8),
     (1, 300, 2, 80, 200),      # two P tiles, four N slabs, a partial sub-chunk
     (2, 1, 4, 64, 128),
     (1, 891, 24, 64, 128),     # mamba2's longest served prompt
+    (1, 1000, 24, 64, 128),    # a partial sub-chunk at mamba2's widths
     (4, 2048, 24, 64, 128),    # mamba2-130m's training microbatch
 ])
 @pytest.mark.parametrize("with_h0", [False, True])
