@@ -59,16 +59,23 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    two calls bitwise equal, timed beside the plain backward: K4's in both
    dtypes at ``K4_BACKWARD_SHAPES`` (phase 7's tinyllama microbatch B 4 ×
    2048, a phase-9 rank's 16 / 2 heads at D 64 and 128, stablelm's D 160,
-   recurrentgemma's D 256 with its window masking at S 4096, whisper's
-   non-causal cross-attention 448 × 1500), K5's at mamba2's B 4 × 2048
-   (dy alone) and B 1 × 1000 with h0 (dy and the final state's gradient).
-   A backward's bound is its least work: 2.5× the forward's operations.
+   recurrentgemma's D 256 at S 2048, where its window drops no pair, and
+   at S 4096, where it masks and its one kv head leaves the dK/dV grid
+   short of a wave (its walk split: the row prints ``walk_splits`` and
+   ``dkdv_ctas``, at least the card's SMs), whisper's non-causal
+   cross-attention 448 × 1500), K5's at mamba2's B 4 × 2048 (dy alone)
+   and B 1 × 1000 with h0 (dy and the final state's gradient).  A
+   backward's bound is its least work: 2.5× the forward's operations.
    Each backward row carries the device time of every kernel it launches
-   (``launch_device_ms``, from ``torch.profiler``), and K4's causal and
-   unmasked bf16 rows the time of PyTorch's flash-attention backward on
-   the same inputs (``library_ms``: ``_scaled_dot_product_flash_attention_
-   backward`` on the output and logsumexp of its forward, K and V expanded
-   to H heads before the timed call).
+   (``launch_device_ms``, from ``torch.profiler``), and K4's rows the
+   time of one PyTorch call on the same inputs (``library_ms``, with
+   ``library_call``), K and V expanded to H heads before the timed call:
+   in bf16 ``_scaled_dot_product_flash_attention_backward`` on the output
+   and logsumexp of its forward where no window drops a pair; in f32, and
+   in bf16 where one does, ``_scaled_dot_product_efficient_attention_
+   backward`` on those of its forward, the window an additive 0 / -inf
+   bias; a shape PyTorch refuses prints the error under
+   ``library_error``, with no time.
 5. Serving at full width, inline: tinyllama-1.1b (K4, D 64), mamba2-130m
    (K5), stablelm-12b (K4, D 160; 24 GB in bf16), qwen3-moe-30b-a3b (K4,
    D 128, 128 experts top-8 with capacity chunks and the dense fallback;
@@ -159,7 +166,14 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    ``scaled_dot_product_attention``'s forward + backward; K5: B 4, S
    2048, H 24, P 64, N 128) against autograd of its plain version, with
   the bound of its forward + backward.  Phase 7 runs ``run_training`` on
-  its (1, 1) mesh and keeps mamba2's step-3 checkpoint for phase 8.
+  its (1, 1) mesh and keeps mamba2's step-3 checkpoint for phase 8.  A
+  third run puts K4's backward past D 128 in a training step
+  (``WIDE_TRAIN``): stablelm-12b at full width (D 160) cut to 4 of its 40
+  layers (``reduced``), 4 steps of the same batch and microbatches, no
+  checkpoint: finite losses, no plain version called, 2 × 4 × 2 × 4 K4
+  and 4 × 2 × 4 backward launches, the median step, one profiled step's
+  backward kernels by name with their share of its kernel time, and the
+  float32 parity step at those 4 layers at the measures above.
 8. The distribution layer (slice F1): two ranks spawned on the one card
    share gloo (NCCL refuses two ranks on one device; ``Group`` stages
    gloo's send and recv of CUDA tensors through pinned host buffers and
@@ -340,6 +354,11 @@ CROSS_GATE = 0.5
 # tokens and 8192 tokens per device
 TRAIN_ARCHS = ("tinyllama-1.1b", "mamba2-130m")
 TRAIN_RUN = dict(global_batch=8, seq_len=2048, microbatches=2, steps=6, lr=3e-4, ckpt_every=3)
+# phase 7's third run: K4's backward past D 128 in a training step, on
+# stablelm-12b (D 160) at full width cut to 4 of its 40 layers (all 40 with
+# AdamW's moments and the f32 parity step would not fit the card), TRAIN_RUN's
+# batch and microbatches, fewer steps and no checkpoint
+WIDE_TRAIN = dict(arch="stablelm-12b", layers=4, steps=4)
 # the models whose last step's loss, on its own fresh batch, must also fall
 # below the first step's.  mamba2-130m's per-step losses stay within the
 # spread between batches over 10 steps at lr 3e-4 (10.9788 -> 10.9794 on
@@ -390,13 +409,16 @@ K5_SHAPES = ((1, 2048), (1, 1000), (1, 891), (2, 512), (4, 512))
 # K4's backward kernel in phase 4, at what training hands it: (use, B, H,
 # KVH, D, causal, window, Sq, Sk): phase 7's tinyllama microbatch, a phase-9
 # rank's 16 / 2 heads at tinyllama's D 64 and qwen3-moe's D 128, stablelm's
-# D 160, recurrentgemma's D 256 with its window masking at S 4096, and
-# whisper's non-causal cross-attention
+# D 160 (phase 7's third run), recurrentgemma's D 256 at S 2048 (its window
+# drops no pair there) and with its window masking at S 4096 (one kv head:
+# the dK/dV grid short of a wave walks split ranges), and whisper's
+# non-causal cross-attention
 K4_BACKWARD_SHAPES = (
     ("tinyllama-1.1b training microbatch (7)", 4, 32, 4, 64, True, 0, 2048, 2048),
     ("tinyllama-1.1b a model rank's heads (9a)", 2, 16, 2, 64, True, 0, 2048, 2048),
     ("qwen3-moe-30b-a3b a model rank's heads (9b)", 2, 16, 2, 128, True, 0, 2048, 2048),
     ("stablelm-12b", 1, 32, 8, 160, True, 0, 2048, 2048),
+    ("recurrentgemma-9b", 1, 16, 1, 256, True, 2048, 2048, 2048),
     ("recurrentgemma-9b window", 1, 16, 1, 256, True, 2048, 4096, 4096),
     ("whisper-large-v3 cross", 1, 20, 20, 64, False, 0, 448, 1500),
 )
@@ -950,26 +972,52 @@ def launch_device_ms(fn) -> dict:
     return {key[:90]: us / 1e3 for us, key, _ in _kernel_rows(prof)}
 
 
-def flash_backward_library_ms(q, k, v, gy, causal: bool, window: int, scale: float):
-    """Milliseconds of PyTorch's flash-attention backward on K4's backward
-    inputs (``_scaled_dot_product_flash_attention_backward`` on the output
-    and logsumexp of ``_scaled_dot_product_flash_attention``), K and V
-    expanded to the H query heads before the timed call (the group sum
-    stays outside it): a yardstick the port never calls.  None where it
-    computes another function (a window) or takes no such dtype (f32)."""
+def backward_library_ms(q, k, v, gy, causal: bool, window: int, scale: float):
+    """(ms, the call timed, PyTorch's error or None) of one PyTorch call that
+    computes K4's backward on the same inputs, K and V expanded to the H
+    query heads before the timed call (the group sum stays outside it): a
+    yardstick the port never calls.  bf16 without a window that drops a
+    pair (none, or one of at least Sq): ``_scaled_dot_product_flash_
+    attention_backward`` on the output and logsumexp of its forward.  f32
+    (which the flash kernels do not take), and bf16 with such a window:
+    ``_scaled_dot_product_efficient_attention_backward`` on those of its
+    forward, the window (where it drops a pair) an additive 0 / -inf bias,
+    the causal mask the kernel's own.  A shape PyTorch refuses gives no
+    time and the error, printed; no other call stands in."""
     import torch
 
-    if window or q.dtype != torch.bfloat16:
-        return None
-    g = q.shape[2] // k.shape[2]
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    g = h // k.shape[2]
     qt, gt = (x.transpose(1, 2).contiguous() for x in (q, gy))
     kt, vt = (x.repeat_interleave(g, dim=2).transpose(1, 2).contiguous() for x in (k, v))
     aten = torch.ops.aten
-    fwd = aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, causal, False, scale=scale)
-    out, lse, cum_q, cum_k, max_q, max_k, seed, offset = fwd[:8]
-    return time_ms(lambda: aten._scaled_dot_product_flash_attention_backward(
-        gt, qt, kt, vt, out, lse, cum_q, cum_k, max_q, max_k, 0.0, causal, seed, offset,
-        scale=scale))
+    windowed = bool(window) and window < sq
+    flash = q.dtype == torch.bfloat16 and not windowed
+    call = ("_scaled_dot_product_flash_attention_backward" if flash else
+            "_scaled_dot_product_efficient_attention_backward")
+    try:
+        if flash:
+            fwd = aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, causal, False,
+                                                           scale=scale)
+            out, lse, cum_q, cum_k, max_q, max_k, seed, offset = fwd[:8]
+            ms = time_ms(lambda: aten._scaled_dot_product_flash_attention_backward(
+                gt, qt, kt, vt, out, lse, cum_q, cum_k, max_q, max_k, 0.0, causal, seed, offset,
+                scale=scale))
+        else:
+            bias = torch.zeros((sq, sk), dtype=q.dtype, device=q.device).masked_fill(
+                ~attn_keep(sq, sk, False, window), float("-inf")).expand(b, h, sq, sk) \
+                if windowed else None
+            out, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
+                qt, kt, vt, bias, True, 0.0, causal, scale=scale)
+            ms = time_ms(lambda: aten._scaled_dot_product_efficient_attention_backward(
+                gt, qt, kt, vt, bias, out, lse, seed, offset, 0.0,
+                [True, True, True, False], causal, scale=scale))
+        return ms, call, None
+    except RuntimeError as e:
+        print(f"{call} refused B={b} H={h} D={q.shape[3]} Sq={sq} Sk={sk} causal={causal} "
+              f"window={window} {q.dtype}: {e}")
+        return None, call, str(e)[:400]
 
 
 def phase4_backward_kernels() -> dict:
@@ -980,7 +1028,7 @@ def phase4_backward_kernels() -> dict:
 
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.flash_attention import (
-        _launch, flash_attention_backward, flash_attention_backward_plain,
+        KEY_TILE, _launch, flash_attention_backward, flash_attention_backward_plain, walk_splits,
     )
     from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_backward, ssd_scan_backward_plain
@@ -1018,14 +1066,24 @@ def phase4_backward_kernels() -> dict:
             # the least work: the backward's five products, 2.5 x the forward's
             flops = 2.5 * fops.kernel_flops(nb, sq, sk, h, d, causal=causal) * \
                 fops.window_share(sq, sk, causal, window)
-            b, by = bound_ms(fops.backward_hbm_bytes(nb, sq, sk, h, kvh, d, bytes_per_el=el),
+            b, by = bound_ms(fops.backward_hbm_bytes(nb, sq, sk, h, kvh, d, bytes_per_el=el,
+                                                     scratch=False),
                              flops, bf16=dtype == torch.bfloat16)
-            library = flash_backward_library_ms(q, k, v, gy, causal, window, mask["scale"])
+            library, call, refused = backward_library_ms(q, k, v, gy, causal, window,
+                                                         mask["scale"])
+            # bf16's dK/dV grid: its key tiles' CTAs, times the ranges of a split walk
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            splits = walk_splits(nb, sq, sk, h, kvh, d, dtype == torch.bfloat16, sms)
+            dkdv_ctas = nb * kvh * -(-sk // KEY_TILE) * splits \
+                if dtype == torch.bfloat16 else None
+            require(splits == 1 or dkdv_ctas >= sms, f"{label}: a split dK/dV grid of "
+                    f"{dkdv_ctas} CTAs, short of {sms}")
             rows.append(dict(use=use, shape=f"B={nb} H={h} KVH={kvh} D={d} Sq={sq} Sk={sk} "
                              f"causal={causal} window={window} {name}", max_abs_err=err, ms=ms,
+                             walk_splits=splits, dkdv_ctas=dkdv_ctas,
                              device_ms=dev, plain_ms=plain, bound_ms=b, bound_by=by,
-                             library_ms=library, launch_device_ms=launch_device_ms(run),
-                             bitwise_repeatable=True))
+                             library_ms=library, library_call=call, library_error=refused,
+                             launch_device_ms=launch_device_ms(run), bitwise_repeatable=True))
             del got, stats
     print("K4 backward at training shapes " + json.dumps(rows))
     main_row = rows[0]  # tinyllama's training microbatch in bf16, phase 7's
@@ -1825,11 +1883,14 @@ def profile_train_step(fn, kernel_names, backward_names) -> dict:
     rows = _kernel_rows(prof)
     total = sum(r[0] for r in rows)
     kernel_us = sum(us for us, key, _ in rows if any(n in key for n in kernel_names))
-    backward_us = sum(us for us, key, _ in rows if any(n in key for n in backward_names))
+    backward = [(us, key, c) for us, key, c in rows if any(n in key for n in backward_names)]
+    backward_us = sum(us for us, _, _ in backward)
     share = (lambda us: us / total) if total else (lambda us: None)  # no device time traced
     return {"device_ms_total": total / 1e3,
             "kernel_ms": kernel_us / 1e3, "kernel_share": share(kernel_us),
             "backward_kernel_ms": backward_us / 1e3, "backward_kernel_share": share(backward_us),
+            "backward_kernels": [{"name": k[:90], "calls": c, "device_ms": us / 1e3,
+                                  "share": share(us)} for us, k, c in backward],
             "top10": [{"name": k[:80], "calls": c, "device_ms": us / 1e3}
                       for us, k, c in rows[:10]]}
 
@@ -1965,172 +2026,23 @@ def plain_training_witness(arch: str, kernel_losses, kernel_refit: float, wrappe
     del model, params, state, step_fn
 
 
-def phase7_training(arch: str, wrappers: dict, card: str, keep=None):
-    """Train one model at full width through ``run_training`` (on its (1, 1)
-    mesh) and check it; returns (launches in the run, {kernel: n, backward
-    kernel: n}; the Function's timings; the resumed run's losses; the run's
-    readings).  ``keep``: a directory that receives the run's checkpoint of
-    step ``ckpt_every``."""
-    import dataclasses
+def f32_parity_step(arch: str, cfg, params32, rules, batch_of) -> dict:
+    """Phase 7's float32 step at full width from ``params32`` (the model's
+    parameters in f32; released here): through the kernels and with
+    ``plain=True`` on a PARITY_BATCH x 2048 batch, loss within 1e-5,
+    ``grad_norm`` within 1e-4, every gradient within GRAD_REL of the tree's
+    largest |g|, and 2 microbatches against 1 at the same measures.
+    Prints and returns the readings."""
     import gc
-    import math
 
     import torch
 
-    from repro_torch.checkpoint import Checkpointer
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
-    from repro_torch.data import SyntheticTokens
-    from repro_torch.launch.mesh import H100_SXM
-    from repro_torch.launch.steps import default_microbatches, make_train_step
-    from repro_torch.launch.train import TrainLoopConfig, run_training
+    from repro_torch.launch.steps import make_train_step
     from repro_torch.models import make_model
-    from repro_torch.models.transformer import layer_kinds
     from repro_torch.optim import AdamW, global_norm
-    from repro_torch.parallel.mesh_rules import MeshRules, MeshShape
 
-    cfg = get_config(arch)
-    kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
-    kernel_names = ("ssd_state_kernel", "ssd_pass_kernel", "ssd_output_kernel") \
-        if kernel == "ssd_scan" else ("flash_fwd",)
-    backward_names = ("ssd_dpass_kernel", "ssd_bwd_kernel", "ssd_bwd_bc_kernel") \
-        if kernel == "ssd_scan" else ("flash_bwd",)
-    backward = f"{kernel}_backward"
-    kernel_layers = sum(kind in KERNEL_KINDS[kernel] for kind in layer_kinds(cfg))
-    gb, seq, mb, steps = (TRAIN_RUN[k] for k in ("global_batch", "seq_len", "microbatches",
-                                                   "steps"))
-    shape = InputShape("train", seq, gb, "train")
-    rules = MeshRules(MeshShape((1, 1), ("data", "model")), cfg.parallel)
-    require(default_microbatches(cfg, shape, rules) == mb, f"{arch}: default_microbatches "
-            f"gives {default_microbatches(cfg, shape, rules)}, not {mb}")
-    model = make_model(cfg, device="cuda")
-    source = SyntheticTokens(cfg.padded_vocab, seq, seed=0)   # run_training's, at seed 0
-
-    def batch_of(step: int, rows: int):
-        b = source.batch(step, shard=0, num_shards=1, per_shard=rows)
-        return {k: torch.from_numpy(getattr(b, k)).cuda() for k in ("tokens", "labels", "mask")}
-
-    root = ROOT / "build"
-    root.mkdir(exist_ok=True)
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_", dir=root))
-    try:
-        # -- the run: 6 steps, checkpoints at steps 3 and 6 --------------------
-        run = TrainLoopConfig(arch=arch, smoke=False, device="cuda", ckpt_dir=str(tmp / "run"),
-                              log_every=1, **TRAIN_RUN)
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        for w in wrappers.values():
-            w.launches = 0
-        plain_calls = {}
-        t0 = time.perf_counter()
-        with counting_plain_calls(plain_calls):
-            whole = run_training(run)
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {name: w.launches for name, w in wrappers.items()}
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        require(whole["steps"] == len(whole["losses"]) == steps,
-                f"{arch}: the run took {whole['steps']} steps, not {steps}")
-        require(all(math.isfinite(loss) for loss in whole["losses"]),
-                f"{arch}: a loss is not finite")
-        # the loss falls: step 0's batch scores lower with the trained
-        # parameters (the last step's checkpoint) than with the initial ones
-        trained = Checkpointer(tmp / "run").restore(steps, (model.init(run.seed),))[0][0]
-        with torch.no_grad():
-            refit_loss = float(model.loss_fn(
-                _map_leaves(trained, lambda t: t.cuda()), batch_of(0, gb), loss_chunk=0)[0])
-        del trained
-        require(refit_loss < whole["first_loss"], f"{arch}: step 0's batch scores "
-                f"{refit_loss} after the run, not below its first loss {whole['first_loss']}")
-        if arch in FRESH_BATCH_LOSS_FALLS:
-            require(whole["final_loss"] < whole["first_loss"], f"{arch}: the loss did not "
-                    f"fall ({whole['first_loss']} -> {whole['final_loss']})")
-        # each layer that holds the kernel launches it twice per microbatch
-        # and step: in the forward, and again when remat recomputes its unit
-        # (one layer) in the backward; its backward kernel once.  tinyllama:
-        # 2 x 22 x 2 x 6 = 528 and 264; mamba2: 2 x 24 x 2 x 6 = 576 and 288
-        want = 2 * kernel_layers * mb * steps
-        require(launches[kernel] == want,
-                f"{arch}: {kernel} launched {launches[kernel]} times in training, not 2 x "
-                f"{kernel_layers} layers x {mb} microbatches x {steps} steps = {want}")
-        require(launches[backward] == want // 2,
-                f"{arch}: {backward} launched {launches[backward]} times in training, not "
-                f"{kernel_layers} layers x {mb} microbatches x {steps} steps = {want // 2}")
-        others = {k: v for k, v in launches.items() if k not in (kernel, backward) and v}
-        require(not others, f"{arch}: unexpected launches in training {others}")
-
-        # -- resume from step ckpt_every: the steps after it again -------------
-        # the last checkpoint goes, as if the run had stopped before writing
-        # it (tinyllama's take 11 GB each: bf16 parameters, f32 moments), and
-        # the resumed run writes none
-        shutil.rmtree(tmp / "run" / f"step_{steps:08d}")
-        t0 = time.perf_counter()
-        with counting_plain_calls(plain_calls):
-            rest = run_training(dataclasses.replace(run, resume=True, ckpt_every=10 * steps))
-        resume_wall = time.perf_counter() - t0
-        # no plain version ran in a training step of either run: the backward
-        # is the kernels'
-        require(not any(plain_calls.values()),
-                f"{arch}: plain versions called in training on the card: {plain_calls}")
-        rest_seconds = rest["step_seconds"]
-        start = TRAIN_RUN["ckpt_every"]
-        require(rest["steps"] == len(rest["losses"]) == steps - start,
-                f"{arch}: the resumed run took {rest['steps']} steps, not {steps - start}")
-        resume_rel = abs(rest["final_loss"] - whole["final_loss"]) / abs(whole["final_loss"])
-        require(resume_rel <= 1e-2, f"{arch}: the resumed run's final loss {rest['final_loss']} "
-                f"is not within 1e-2 of the uninterrupted run's {whole['final_loss']}")
-        if keep is not None:
-            shutil.move(tmp / "run", keep)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-
-    if arch not in FRESH_BATCH_LOSS_FALLS:
-        plain_training_witness(arch, whole["losses"], refit_loss, wrappers, batch_of)
-
-    # -- the step's time: the resumed run's steps after its first two (no
-    # checkpoint is written then); its profile: one more step outside the run
-    params = model.init(0)
-    opt = AdamW(state_dtype=torch.bfloat16 if cfg.parallel.opt_state_dtype == "bfloat16"
-                else torch.float32, cfg=cfg)
-    state = opt.init(params)
-    step_fn = make_train_step(model, opt, rules, shape, lr=TRAIN_RUN["lr"], loss_chunk=0,
-                              microbatches=mb)
-    batch = batch_of(0, gb)
-    step_s = statistics.median(rest_seconds[2:])
-    n_active = cfg.active_param_count()
-    prof_holder = {}
-
-    def one_step():
-        prof_holder["out"] = step_fn(params, state, batch)
-
-    prof = profile_train_step(one_step, kernel_names, backward_names)
-    del prof_holder
-    summary = {
-        "arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model,
-        "params_B": sum(t.numel() for t in _leaves(params)) / 1e9,
-        "active_param_count": n_active, "global_batch": gb, "seq_len": seq, "microbatches": mb,
-        "steps": steps, "losses": whole["losses"],
-        "first_loss": whole["first_loss"], "final_loss": whole["final_loss"],
-        "step0_batch_loss_after_run": refit_loss,
-        "resumed_final_loss": rest["final_loss"], "resume_rel_diff": resume_rel,
-        f"{kernel}_launches": launches[kernel], f"{backward}_launches": launches[backward],
-        "plain_version_calls": plain_calls, "run_wall_s": wall,
-        "resumed_run_wall_s": resume_wall,
-        "run_mean_tok_per_s": whole["mean_tok_per_s"], "peak_mem_GB": peak_gb,
-        "held_bytes": whole["held_bytes"],
-        "resumed_step_ms_each": [t * 1e3 for t in rest_seconds],
-        "step_ms_median_after_2": step_s * 1e3,
-        "tokens_per_s": gb * seq / step_s,
-        "model_flops_share": 6 * n_active * gb * seq / step_s / H100_SXM.peak_flops,
-        "card": card,
-    }
-    print(f"train {arch} " + json.dumps(summary))
-    print(f"profile {arch} train step ({gb} x {seq}, {mb} microbatches) " + json.dumps(prof))
-
-    # -- float32 at full width: kernels against plain, 1 against 2 microbatches
-    params32 = _map_leaves(params, lambda t: t.float())
-    del model, params, state, step_fn, batch
+    seq = TRAIN_RUN["seq_len"]
     gc.collect()
     torch.cuda.empty_cache()
     cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
@@ -2160,18 +2072,215 @@ def phase7_training(arch: str, wrappers: dict, card: str, keep=None):
     require(abs(float(global_norm(g2)) - mk["grad_norm"]) <= 1e-4 * mk["grad_norm"],
             f"{arch} f32: 2 microbatches give grad_norm {float(global_norm(g2))}, not "
             f"{mk['grad_norm']}")
-    print(f"train {arch} f32 parity " + json.dumps({
-        "batch": f"{PARITY_BATCH} x {seq}", "kernels": mk, "plain": mp,
-        "loss_rel_diff": abs(mk["loss"] - mp["loss"]) / abs(mp["loss"]),
-        "grad_norm_rel_diff": abs(mk["grad_norm"] - mp["grad_norm"]) / mp["grad_norm"],
-        "grads_max_diff_over_max_g": vs_plain, "microbatches_2_vs_1_max_diff_over_max_g": vs_mb,
-        "loss_2_microbatches": float(m2["loss"]), "peak_mem_GB":
-            torch.cuda.max_memory_allocated() / 1e9}))
+    out = {"batch": f"{PARITY_BATCH} x {seq}", "layers": cfg.num_layers, "kernels": mk,
+           "plain": mp, "loss_rel_diff": abs(mk["loss"] - mp["loss"]) / abs(mp["loss"]),
+           "grad_norm_rel_diff": abs(mk["grad_norm"] - mp["grad_norm"]) / mp["grad_norm"],
+           "grads_max_diff_over_max_g": vs_plain, "microbatches_2_vs_1_max_diff_over_max_g": vs_mb,
+           "loss_2_microbatches": float(m2["loss"]), "peak_mem_GB":
+               torch.cuda.max_memory_allocated() / 1e9}
+    print(f"train {arch} f32 parity " + json.dumps(out))
     del params32, gk, g2, step2, batch
     gc.collect()
     torch.cuda.empty_cache()
-    return ({kernel: launches[kernel], backward: launches[backward]}, train_function_ms(kernel),
-            rest["losses"], summary)
+    return out
+
+
+def phase7_training(arch: str, wrappers: dict, card: str, keep=None, *, layers: int = 0,
+                    steps: int = TRAIN_RUN["steps"], resume: bool = True):
+    """Train one model at full width through ``run_training`` (on its (1, 1)
+    mesh) and check it: finite losses, no plain version called, the kernel
+    and its backward launched per layer, microbatch and step; the step's
+    median ms, one profiled step, and the float32 parity step.  ``layers``
+    cuts the depth (0: the config's; the cut printed under ``reduced``).
+    With ``resume`` the run checkpoints at step ``ckpt_every`` and its end,
+    step 0's batch must score lower with its last checkpoint, and a second
+    run resumes from step ``ckpt_every``; ``keep``: a directory that
+    receives the run's checkpoint of step ``ckpt_every``.  Returns ({kernel:
+    launches, backward kernel: launches} of the run, the resumed run's
+    losses or None, the run's readings)."""
+    import dataclasses
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.mesh import H100_SXM
+    from repro_torch.launch.steps import default_microbatches, make_train_step
+    from repro_torch.launch.train import TrainLoopConfig, run_training
+    from repro_torch.models import make_model
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.optim import AdamW
+    from repro_torch.parallel.mesh_rules import MeshRules, MeshShape
+
+    full = get_config(arch)
+    cfg = full.replace(num_layers=layers) if layers else full
+    kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+    kernel_names = ("ssd_state_kernel", "ssd_pass_kernel", "ssd_output_kernel") \
+        if kernel == "ssd_scan" else ("flash_fwd",)
+    backward_names = ("ssd_dpass_kernel", "ssd_bwd_kernel", "ssd_bwd_bc_kernel") \
+        if kernel == "ssd_scan" else ("flash_bwd",)
+    backward = f"{kernel}_backward"
+    kernel_layers = sum(kind in KERNEL_KINDS[kernel] for kind in layer_kinds(cfg))
+    gb, seq, mb = (TRAIN_RUN[k] for k in ("global_batch", "seq_len", "microbatches"))
+    shape = InputShape("train", seq, gb, "train")
+    rules = MeshRules(MeshShape((1, 1), ("data", "model")), cfg.parallel)
+    require(default_microbatches(cfg, shape, rules) == mb, f"{arch}: default_microbatches "
+            f"gives {default_microbatches(cfg, shape, rules)}, not {mb}")
+    model = make_model(cfg, device="cuda")
+    source = SyntheticTokens(cfg.padded_vocab, seq, seed=0)   # run_training's, at seed 0
+
+    def batch_of(step: int, rows: int):
+        b = source.batch(step, shard=0, num_shards=1, per_shard=rows)
+        return {k: torch.from_numpy(getattr(b, k)).cuda() for k in ("tokens", "labels", "mask")}
+
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_", dir=root))
+    rest = None
+    try:
+        # -- the run: with ``resume``, checkpoints at steps 3 and 6 -------------
+        run = TrainLoopConfig(arch=arch, smoke=False, layers=layers, device="cuda",
+                              ckpt_dir=str(tmp / "run") if resume else None, log_every=1,
+                              **dict(TRAIN_RUN, steps=steps))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        plain_calls = {}
+        t0 = time.perf_counter()
+        with counting_plain_calls(plain_calls):
+            whole = run_training(run)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: w.launches for name, w in wrappers.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        require(whole["steps"] == len(whole["losses"]) == steps,
+                f"{arch}: the run took {whole['steps']} steps, not {steps}")
+        require(all(math.isfinite(loss) for loss in whole["losses"]),
+                f"{arch}: a loss is not finite")
+        refit_loss = None
+        if resume:
+            # the loss falls: step 0's batch scores lower with the trained
+            # parameters (the last step's checkpoint) than with the initial ones
+            trained = Checkpointer(tmp / "run").restore(steps, (model.init(run.seed),))[0][0]
+            with torch.no_grad():
+                refit_loss = float(model.loss_fn(
+                    _map_leaves(trained, lambda t: t.cuda()), batch_of(0, gb), loss_chunk=0)[0])
+            del trained
+            require(refit_loss < whole["first_loss"], f"{arch}: step 0's batch scores "
+                    f"{refit_loss} after the run, not below its first loss {whole['first_loss']}")
+        if arch in FRESH_BATCH_LOSS_FALLS:
+            require(whole["final_loss"] < whole["first_loss"], f"{arch}: the loss did not "
+                    f"fall ({whole['first_loss']} -> {whole['final_loss']})")
+        # each layer that holds the kernel launches it twice per microbatch
+        # and step: in the forward, and again when remat recomputes its unit
+        # (one layer) in the backward; its backward kernel once.  tinyllama:
+        # 2 x 22 x 2 x 6 = 528 and 264; mamba2: 2 x 24 x 2 x 6 = 576 and 288;
+        # stablelm-12b at 4 layers and 4 steps: 64 and 32
+        want = 2 * kernel_layers * mb * steps
+        require(launches[kernel] == want,
+                f"{arch}: {kernel} launched {launches[kernel]} times in training, not 2 x "
+                f"{kernel_layers} layers x {mb} microbatches x {steps} steps = {want}")
+        require(launches[backward] == want // 2,
+                f"{arch}: {backward} launched {launches[backward]} times in training, not "
+                f"{kernel_layers} layers x {mb} microbatches x {steps} steps = {want // 2}")
+        others = {k: v for k, v in launches.items() if k not in (kernel, backward) and v}
+        require(not others, f"{arch}: unexpected launches in training {others}")
+
+        if resume:
+            # -- resume from step ckpt_every: the steps after it again ---------
+            # the last checkpoint goes, as if the run had stopped before
+            # writing it (tinyllama's take 11 GB each: bf16 parameters, f32
+            # moments), and the resumed run writes none
+            shutil.rmtree(tmp / "run" / f"step_{steps:08d}")
+            t0 = time.perf_counter()
+            with counting_plain_calls(plain_calls):
+                rest = run_training(dataclasses.replace(run, resume=True,
+                                                        ckpt_every=10 * steps))
+            resume_wall = time.perf_counter() - t0
+            start = TRAIN_RUN["ckpt_every"]
+            require(rest["steps"] == len(rest["losses"]) == steps - start,
+                    f"{arch}: the resumed run took {rest['steps']} steps, not {steps - start}")
+            resume_rel = abs(rest["final_loss"] - whole["final_loss"]) / abs(whole["final_loss"])
+            require(resume_rel <= 1e-2, f"{arch}: the resumed run's final loss "
+                    f"{rest['final_loss']} is not within 1e-2 of the uninterrupted run's "
+                    f"{whole['final_loss']}")
+            if keep is not None:
+                shutil.move(tmp / "run", keep)
+        # no plain version ran in a training step of either run: the backward
+        # is the kernels'
+        require(not any(plain_calls.values()),
+                f"{arch}: plain versions called in training on the card: {plain_calls}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    if resume and arch not in FRESH_BATCH_LOSS_FALLS:
+        plain_training_witness(arch, whole["losses"], refit_loss, wrappers, batch_of)
+
+    # -- the step's time: the resumed run's steps after its first two (no
+    # checkpoint is written then), else the run's after its first; its
+    # profile: one more step outside the run
+    params = model.init(0)
+    opt = AdamW(state_dtype=torch.bfloat16 if cfg.parallel.opt_state_dtype == "bfloat16"
+                else torch.float32, cfg=cfg)
+    state = opt.init(params)
+    step_fn = make_train_step(model, opt, rules, shape, lr=TRAIN_RUN["lr"], loss_chunk=0,
+                              microbatches=mb)
+    batch = batch_of(0, gb)
+    step_s = statistics.median(rest["step_seconds"][2:] if resume else whole["step_seconds"][1:])
+    n_active = cfg.active_param_count()
+    prof_holder = {}
+
+    def one_step():
+        prof_holder["out"] = step_fn(params, state, batch)
+
+    prof = profile_train_step(one_step, kernel_names, backward_names)
+    del prof_holder
+    summary = {
+        "arch": arch, "layers": cfg.num_layers,
+        "reduced": {"num_layers": [full.num_layers, layers]} if layers else {},
+        "d_model": cfg.d_model, "head_dim": cfg.head_dim,
+        "params_B": sum(t.numel() for t in _leaves(params)) / 1e9,
+        "active_param_count": n_active, "global_batch": gb, "seq_len": seq, "microbatches": mb,
+        "steps": steps, "losses": whole["losses"],
+        "first_loss": whole["first_loss"], "final_loss": whole["final_loss"],
+        f"{kernel}_launches": launches[kernel], f"{backward}_launches": launches[backward],
+        "plain_version_calls": plain_calls, "run_wall_s": wall,
+        "run_mean_tok_per_s": whole["mean_tok_per_s"], "peak_mem_GB": peak_gb,
+        "held_bytes": whole["held_bytes"],
+        "step_ms_each": [t * 1e3 for t in whole["step_seconds"]],
+        "tokens_per_s": gb * seq / step_s,
+        "model_flops_share": 6 * n_active * gb * seq / step_s / H100_SXM.peak_flops,
+        "card": card,
+    }
+    if resume:
+        summary.update({
+            "step0_batch_loss_after_run": refit_loss,
+            "resumed_final_loss": rest["final_loss"], "resume_rel_diff": resume_rel,
+            "resumed_run_wall_s": resume_wall,
+            "resumed_step_ms_each": [t * 1e3 for t in rest["step_seconds"]],
+            "step_ms_median_after_2": step_s * 1e3})
+    else:
+        summary["step_ms_median_after_1"] = step_s * 1e3
+    label = f"{arch} ({layers} of {full.num_layers} layers)" if layers else arch
+    print(f"train {label} " + json.dumps(summary))
+    print(f"profile {label} train step ({gb} x {seq}, {mb} microbatches) " + json.dumps(prof))
+
+    # -- float32 at full width: kernels against plain, 1 against 2 microbatches
+    params32 = _map_leaves(params, lambda t: t.float())
+    del model, params, state, step_fn, batch
+    f32_parity_step(arch, cfg, params32, rules, batch_of)
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ({kernel: launches[kernel], backward: launches[backward]},
+            rest["losses"] if resume else None, summary)
+
 
 # phase 8: the distribution layer (slice F1) with two ranks on the one card.
 # NCCL refuses two ranks on one device, so they share gloo (its send and
@@ -3281,13 +3390,21 @@ def main() -> int:
         resumed, trained = {}, {}
         for arch in TRAIN_ARCHS:
             keep = kept / arch if arch == DIST_TRAIN["arch"] else None
-            counts, train_ms, resumed[arch], trained[arch] = phase7_training(
-                arch, wrappers, card, keep)
+            counts, resumed[arch], trained[arch] = phase7_training(arch, wrappers, card, keep)
             for name, launches in counts.items():
                 kernels[name]["launches"] += launches
                 kernels[name]["launches_by_path"][f"phase 7 train {arch}"] = launches
-            kernels[next(iter(counts))]["train_fwd_bwd"] = train_ms
+            kernel = next(iter(counts))
+            kernels[kernel]["train_fwd_bwd"] = train_function_ms(kernel)
             print(f"phase 7 {arch} done at {time.perf_counter() - t_start:.1f} s")
+        arch = WIDE_TRAIN["arch"]
+        counts, _, _ = phase7_training(arch, wrappers, card, layers=WIDE_TRAIN["layers"],
+                                       steps=WIDE_TRAIN["steps"], resume=False)
+        for name, launches in counts.items():
+            kernels[name]["launches"] += launches
+            kernels[name]["launches_by_path"][
+                f"phase 7 train {arch} ({WIDE_TRAIN['layers']} layers)"] = launches
+        print(f"phase 7 {arch} done at {time.perf_counter() - t_start:.1f} s")
         t8 = time.perf_counter()
         for path, counts in phase8_distributed(kept / DIST_TRAIN["arch"],
                                                resumed[DIST_TRAIN["arch"]], card).items():

@@ -23,9 +23,10 @@
 //    would leave dQ a remainder past the bf16 row tolerance.  No atomics:
 //    two calls give the same bits.
 //
-// bf16 at padded widths DP 64 and 128 (every D <= 128; tinyllama, qwen3-moe
-// and every phase-9 rank) runs on wgmma (csrc/flash_tiles.cuh), one
-// warpgroup a CTA, in two launches:
+// bf16 runs on wgmma (csrc/flash_tiles.cuh) in two launches (three where
+// the dK/dV walk is split, below).  At padded widths DP 64 and 128 (every
+// D <= 128; tinyllama, qwen3-moe and every phase-9 rank) one warpgroup a
+// CTA:
 //  1. flash_bwd_rows_wgmma, a CTA per (batch, kv head, 64 rows; rows
 //     numbered i * G + g as in the forward): three walks over the key tiles
 //     its rows see, the tiles by cp.async into a ring of two or three
@@ -44,18 +45,46 @@
 //     accumulators already have the layout of wgmma's A operand, so P^T and
 //     dS^T stay in registers for dV += P^T dO and dK += dS^T Q (RS form, Q
 //     and dO MN-major).  The G heads of the kv head are summed inside it.
-//  Both grids are launched longest walk first: causal dK/dV CTAs from the
-//  first key tile on, causal row CTAs from the last row tile back, and a
-//  window without causality the other way round.  exp is the MUFU's 2^x of
-//  scores scaled by scale * log2(e).  P and dS enter their products as two bf16
-//  operands each (the value and its rounding's remainder): D 1 under
-//  cancellation needs them, and D 1 .. 64 share the DP 64 kernel.  P is
-//  e / L with L the row's own sum, so a row that sees one key has e == L and
-//  P = 1 exactly (the rows kernel tests e == L; elsewhere it multiplies by
-//  1 / L, within one rounding of the quotient).
+// At DP 192 and 256 (stablelm's D 160, recurrentgemma's 256; every D from
+// 129) one warpgroup holding dQ's 64 x DP f32 accumulators spills, and it
+// cannot hold dK's and dV's 2 x 64 x DP (255 registers a thread), so each
+// CTA runs two consumer warpgroups (256 threads, one CTA a SM: its tiles
+// take ~195 KB):
+//  1. The rows kernel.  DP 192: flash_bwd_rows_wgmma with two warpgroups,
+//     each the kernel above for 64 rows of its own, the CTA's 128 rows
+//     sharing one ring of key tiles (half the tile traffic a row).  DP 256,
+//     where the 128 rows' Q and dO would leave no room for a ring:
+//     flash_bwd_rows_wide, 64 rows a CTA, warpgroup w taking keys
+//     [32 w, 32 w + 32) of every key tile (S and dP as m64n32 products, dS K
+//     as an RS product of two k steps over the whole DP): no product twice;
+//     the warpgroups' row sums meet in shared memory, and warpgroup 1's dQ
+//     is added to warpgroup 0's there, in that order.
+//  2. flash_bwd_dkdv_wide: flash_bwd_dkdv_wgmma's walk, warpgroup w owning
+//     dK's and dV's columns [w DP / 2, (w + 1) DP / 2) (n128, n64 and n32
+//     products); both form the whole S^T and dP^T, so that P^T and dS^T stay
+//     in registers for their halves of dV and dK (RS form).  Where its
+//     CTAs (batch x kv heads x 64-key tiles) are short of a wave of the
+//     card's SMs (recurrentgemma's one kv head at B 1: 64), the wrapper
+//     cuts each key tile's row walk into the least number of contiguous
+//     ranges that fills one (at most the kv head's row tiles); each CTA
+//     sums its range into f32 scratch, part (splits, 2, B, Sk, KVH, DP),
+//     and
+//  3. flash_bwd_split_sum adds the ranges in order and writes dk and dv.
+// All grids are launched longest walk first: causal dK/dV CTAs from the
+// first key tile on, causal row CTAs from the last row tile back, and a
+// window without causality the other way round.  exp is the MUFU's 2^x of
+// scores scaled by scale * log2(e).  Up to DP 128 P and dS enter their
+// products as two bf16 operands each (the value and its rounding's
+// remainder): D 1 under cancellation needs them, and D 1 .. 64 share the
+// DP 64 kernel.  Past it (D >= 129) they enter as bf16 alone, which every
+// case holds within the bf16 tolerance (a row's terms cancel less there),
+// and the products the remainders took are saved.  P is e / L with L the
+// row's own sum, so a row that sees one key has e == L and P = 1 exactly
+// (the rows kernels test e == L, and a key the masks drop adds e = 0
+// exactly to either warpgroup's share of L; elsewhere they multiply by
+// 1 / L, within one rounding of the quotient).
 //
-// bf16 at DP 192 and 256 (stablelm's D 160, recurrentgemma's 256) and f32
-// at every width keep the first kernels (PR 23), three launches:
+// f32 at every width keeps the first kernels, three launches:
 //  1. flash_bwd_rows_kernel<kDelta = true>, a CTA per (batch, kv head, 64
 //     rows): walks the key tiles the forward walks (and from the window's
 //     first key on), recomputes S and dP, and sums P * dP per row: Delta.
@@ -64,17 +93,13 @@
 //     dS, and accumulates dV += P^T dO and dK += dS^T Q in registers.
 //  3. flash_bwd_rows_kernel<kDelta = false>: as kernel 1, accumulating
 //     dQ += dS K.
-// There, bf16 runs mma.sync m16n8k16 on the tensor cores with f32
-// accumulators (one warpgroup cannot hold 2 x 64 x DP f32 accumulators of
-// dK and dV past DP 128); f32 runs the same fragment layout on the CUDA
-// cores in IEEE f32 FMA (no TF32), q scaled before the product as in the
-// forward: it is the path of the parity checks.  Each CTA is 8 warps.
-// Tiles live in shared memory, padded by 16 bytes a row so that the
-// fragment loads meet no bank conflicts; the operands that are read along
-// their rows (dO, Q and K as the B operand of dV, dK and dQ) go through
-// ldmatrix.trans in bf16.  Key tiles are 64 keys up to DP 128 and 32 past
-// it, which keeps the f32 kernels within the 232,448 bytes of shared
-// memory a block may use (217,856 at DP 256).
+// They run the mma.sync m16n8k16 fragment layout on the CUDA cores in IEEE
+// f32 FMA (no TF32), q scaled before the product as in the forward: the
+// path of the parity checks.  Each CTA is 8 warps.  Tiles live in shared
+// memory, padded by 16 bytes a row so that the fragment loads meet no bank
+// conflicts.  Key tiles are 64 keys up to DP 128 and 32 past it, which
+// keeps them within the 232,448 bytes of shared memory a block may use
+// (217,856 at DP 256).
 //
 // Head dims: any D from 1 to 256, at padded widths DP of 16, 32, 64, 128,
 // 192, 256 (bf16: 64, 128, 192, 256) whose extra columns are zero in shared
@@ -86,7 +111,9 @@
 // forward's kernel_flops, against reads of q, k, v, dO and writes of dq,
 // dk, dv.  The wgmma kernels form S three times and dP twice a (row tile,
 // key tile) pair, and with the remainders run 13 tile products where the
-// forward runs 2 (backward_flops in kernels/flash_attention/ops.py).
+// forward runs 2; past DP 128, without the remainders and with both of the
+// dK/dV kernel's warpgroups forming S^T and dP^T, 12 (backward_flops in
+// kernels/flash_attention/ops.py).
 //
 // The entry point returns cudaGetLastError() so the wrapper can raise on a
 // refused launch.
@@ -96,6 +123,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "flash_tiles.cuh"
@@ -124,28 +152,6 @@ template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
   return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two 8x8 bf16 matrices (rows k .. k + 15, 8 columns from p), transposed:
-// the B fragment of m16n8k16 for a B stored with its n columns contiguous.
-// Lanes 0-15 name the 16 rows.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(sm90::smem_u32(p)));
 }
 
 // One warp: acc[nt] += A (16 x kdim) B (kdim x 8 NT), in mma.sync's m16n8
@@ -177,33 +183,6 @@ __device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const float* a, in
   }
 }
 
-// bf16: the tensor cores.  A's pairs along k are 32-bit loads; B's too when
-// its columns run along k, else ldmatrix.trans (rows 16-byte aligned).
-template <int NT, bool kBRows>
-__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const bf16* a, int lda,
-                                         const bf16* b, int ldb, int kdim) {
-  const int lane = threadIdx.x % 32, gid = lane / 4, tig = lane % 4;
-  for (int k0 = 0; k0 < kdim; k0 += 16) {
-    uint32_t af[4];
-    af[0] = ld32(a + gid * lda + k0 + 2 * tig);
-    af[1] = ld32(a + (gid + 8) * lda + k0 + 2 * tig);
-    af[2] = ld32(a + gid * lda + k0 + 8 + 2 * tig);
-    af[3] = ld32(a + (gid + 8) * lda + k0 + 8 + 2 * tig);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      uint32_t b0, b1;
-      if constexpr (kBRows) {
-        ldmatrix_x2_trans(b0, b1, b + (k0 + lane % 16) * ldb + nt * 8);
-      } else {
-        const bf16* col = b + (nt * 8 + gid) * ldb + k0 + 2 * tig;
-        b0 = ld32(col);
-        b1 = ld32(col + 8);
-      }
-      mma_bf16(acc[nt], af, b0, b1);
-    }
-  }
-}
-
 // Rows [0, n_rows) of a tile of DP columns with row stride ld: row r from
 // row_ptr(r) (null: zeros), its first d columns, times mult (f32 only);
 // the other columns zero.
@@ -214,20 +193,6 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, int n_rows, int d,
     const int r = e / DP, c = e % DP;
     const float* src = row_ptr(r);
     dst[r * ld + c] = (src != nullptr && c < d) ? src[c] * mult : 0.0f;
-  }
-}
-
-// bf16: 16-byte copies of whole 8-column chunks (d % 8 == 0).
-template <int DP, typename RowPtr>
-__device__ __forceinline__ void load_rows(bf16* dst, int ld, int n_rows, int d, float,
-                                          RowPtr row_ptr) {
-  constexpr int kChunks = DP / 8;
-  for (int e = threadIdx.x; e < n_rows * kChunks; e += kThreads) {
-    const int r = e / kChunks, c = e % kChunks;
-    const bf16* src = row_ptr(r);
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (src != nullptr && 8 * c < d) val = *reinterpret_cast<const uint4*>(src + 8 * c);
-    *reinterpret_cast<uint4*>(dst + r * ld + 8 * c) = val;
   }
 }
 
@@ -407,7 +372,6 @@ constexpr int rows_smem_bytes() {
 static_assert(dkdv_smem_bytes<float, kMaxHeadDim>() <= kMaxSmemBytes, "f32 dK/dV tiles");
 static_assert(rows_smem_bytes<float, kMaxHeadDim>() <= kMaxSmemBytes, "f32 row tiles");
 static_assert(dkdv_smem_bytes<float, 128>() <= kMaxSmemBytes, "f32 dK/dV tiles at DP 128");
-static_assert(dkdv_smem_bytes<bf16, kMaxHeadDim>() <= kMaxSmemBytes, "bf16 dK/dV tiles");
 
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
@@ -628,11 +592,14 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kSmPerSmBytes = 233472;  // shared memory of one SM, 1 KB of it reserved a CTA
 
 // Stages of the ring of streamed tiles: loads run kStages - 1 steps ahead.
-// The rows kernels keep three CTAs a SM at DP 64 and two at DP 128; the
-// dK/dV kernels, whose registers allow two CTAs a SM at DP 64 and one at
-// DP 128, take four.
+// The rows kernels keep three CTAs a SM at DP 64 and two at DP 128, and one
+// at DP 256 (two stages; DP 192: rows_stages); the dK/dV kernels, whose
+// registers allow two CTAs a SM at DP 64 and one past it, take four up to
+// DP 128, then three at DP 192 and two at 256 (flash_bwd_dkdv_wide's two
+// held tiles fill the rest).
 template <int DP, bool kDkdv>
 __host__ __device__ constexpr int ring_stages() {
+  if (DP > 128) return DP == 192 ? 3 : 2;
   return kDkdv ? 4 : (DP == 64 ? 3 : 2);
 }
 
@@ -647,6 +614,9 @@ static_assert(3 * (wg_smem_bytes<64, false>() + 1024) <= kSmPerSmBytes, "3 rows 
 static_assert(2 * (wg_smem_bytes<128, false>() + 1024) <= kSmPerSmBytes, "2 rows CTAs a SM, DP 128");
 static_assert(2 * (wg_smem_bytes<64, true>() + 1024) <= kSmPerSmBytes, "2 dK/dV CTAs a SM, DP 64");
 static_assert(wg_smem_bytes<128, true>() <= kMaxSmemBytes, "dK/dV ring at DP 128");
+static_assert(wg_smem_bytes<256, false>() <= kMaxSmemBytes, "rows ring at DP 256");
+static_assert(wg_smem_bytes<192, true>() <= kMaxSmemBytes, "dK/dV ring at DP 192");
+static_assert(wg_smem_bytes<256, true>() <= kMaxSmemBytes, "dK/dV ring at DP 256");
 
 // The CTAs a SM the registers must allow: at DP 64 three rows CTAs (168
 // registers a thread) and two dK/dV CTAs (up to 255: capped at 168 it
@@ -690,9 +660,10 @@ __device__ __forceinline__ void zero(float (&r)[N]) {
   for (int i = 0; i < N; ++i) r[i] = 0.0f;
 }
 
-__device__ __forceinline__ void fence_operand(uint32_t (&a)[4][4]) {
+template <int KS>
+__device__ __forceinline__ void fence_operand(uint32_t (&a)[KS][4]) {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) sm90::fence_regs(a[ks]);
+  for (int ks = 0; ks < KS; ++ks) sm90::fence_regs(a[ks]);
 }
 
 // Sum over the 4 lanes that hold one accumulator row; every lane gets the
@@ -724,25 +695,27 @@ __device__ __forceinline__ bool tile_masked(const Problem& pb, int rho0, int k0)
 
 // The swizzled tile of 64 keys from k0 of x (B, Sk, KVH, D) by cp.async,
 // zero past Sk.
-template <int DP>
+template <int DP, int kThreads = flash::kWarpgroup>
 __device__ __forceinline__ void load_keys(uint32_t tile, const bf16* x, const Problem& pb, int b,
                                           int kvh, int k0, int d) {
-  flash::load_tile<DP>(tile, x, d, [&](int r) -> const bf16* {
+  flash::load_tile<DP, kThreads>(tile, x, d, [&](int r) -> const bf16* {
     if (k0 + r >= pb.seq_k) return nullptr;
     return x + ((static_cast<int64_t>(b) * pb.seq_k + k0 + r) * pb.kv_heads + kvh) * d;
   });
 }
 
 // The swizzled tiles of rows rho0 .. rho0 + 63 of q and of dO by cp.async
-// (zero past the last row): one division a row.
-template <int DP>
+// (zero past the last row): one division a row.  kThreads threads copy
+// (threadIdx.x % kThreads of them).
+template <int DP, int kThreads = flash::kWarpgroup>
 __device__ __forceinline__ void load_row_tiles(uint32_t q_tile, uint32_t do_tile, const bf16* q,
                                                const bf16* dout, const Problem& pb, int b,
                                                int kvh, int rho0, int d) {
   constexpr int kSlots = DP / 8;
-  const int c = threadIdx.x % kSlots;
+  const int tid = threadIdx.x % kThreads;
+  const int c = tid % kSlots;
   if (8 * c >= d) return;  // padding, zeroed once
-  for (int r = threadIdx.x / kSlots; r < kRows; r += flash::kWarpgroup / kSlots) {
+  for (int r = tid / kSlots; r < kRows; r += kThreads / kSlots) {
     const int rho = rho0 + r;
     const bool ok = rho < pb.total_rows;
     int64_t off = 0;
@@ -757,57 +730,79 @@ __device__ __forceinline__ void load_row_tiles(uint32_t q_tile, uint32_t do_tile
   }
 }
 
+// kWGs warpgroups a CTA, each with 64 rows of its own (the CTA's rows
+// 64 w .. 64 w + 63), sharing the ring of key tiles (kStages stages); one
+// warpgroup up to DP 128, two at DP 192.
+template <int DP, int kWGs>
+__host__ __device__ constexpr int rows_stages() {
+  return kWGs == 1 ? ring_stages<DP, false>() : 2;
+}
+template <int DP, int kWGs>
+__host__ __device__ constexpr int rows_smem_bytes() {
+  return (2 * kWGs + 2 * rows_stages<DP, kWGs>()) * DP * 128 +
+         rows_stages<DP, kWGs>() * (3 * kRows * 4 + 8) + 1024;
+}
+static_assert(rows_smem_bytes<192, 2>() <= kMaxSmemBytes, "paired rows at DP 192");
+
 // kFull: D == DP, a compile-time head dim.
-template <int DP, bool kFull>
-__global__ void __launch_bounds__(flash::kWarpgroup, min_ctas<DP, false>())
+// kRemainder: dS enters dQ += dS K as value + remainder (up to DP 128;
+// past it as bf16 alone, within the bf16 tolerance at every D it takes).
+template <int DP, bool kFull, int kWGs = 1, bool kRemainder = true>
+__global__ void __launch_bounds__(flash::kWarpgroup * kWGs, kWGs == 1 ? min_ctas<DP, false>() : 1)
 flash_bwd_rows_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
                      const float* __restrict__ stats, float* __restrict__ aux,
                      bf16* __restrict__ dq, Problem pb) {
   constexpr int T = DP * 128;  // bytes of a tile
-  constexpr int kStages = ring_stages<DP, false>();
+  constexpr int kStages = rows_stages<DP, kWGs>();
+  constexpr int kThreads = flash::kWarpgroup * kWGs, kCtaRows = kRows * kWGs;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = sm90::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms are 1024-aligned
   unsigned char* const tiles = smem_raw + (base - raw);
-  const uint32_t q_tile = base, do_tile = base + T;  // stage s: K at (2 + 2s) T, V at (3 + 2s) T
-  const uint32_t full = base + (2 + 2 * kStages) * T;  // stage s's barrier at full + 8 s
+  const int tid = threadIdx.x % flash::kWarpgroup, wg = threadIdx.x / flash::kWarpgroup;
+  // warpgroup w's Q and dO at 2w T, (2w + 1) T; stage s: K at (2 kWGs + 2s) T, V after it
+  const uint32_t q_tile = base + 2 * wg * T, do_tile = q_tile + T;
+  const uint32_t ring = base + 2 * kWGs * T;
+  const uint32_t full = ring + 2 * kStages * T;  // stage s's barrier at full + 8 s
 
   const int nbh = pb.batch * pb.kv_heads;
   const int bh = blockIdx.x % nbh, b = bh / pb.kv_heads, kvh = bh % pb.kv_heads;
-  const int n_row_tiles = (pb.total_rows + kRows - 1) / kRows;
-  const int rho0 = longest_first(blockIdx.x / nbh, n_row_tiles, pb.causal) * kRows;
+  const int n_row_tiles = (pb.total_rows + kCtaRows - 1) / kCtaRows;
+  const int cta_rho0 = longest_first(blockIdx.x / nbh, n_row_tiles, pb.causal) * kCtaRows;
+  const int rho0 = cta_rho0 + kRows * wg;  // this warpgroup's rows
   const int D = kFull ? DP : pb.head_dim, G = pb.groups;
-  const int tid = threadIdx.x;
 
-  if (tid == 0) {
+  if (threadIdx.x == 0) {
 #pragma unroll
-    for (int s = 0; s < kStages; ++s) sm90::mbar_init(full + 8 * s, flash::kWarpgroup);
+    for (int s = 0; s < kStages; ++s) sm90::mbar_init(full + 8 * s, kThreads);
     sm90::fence_mbar_init();
   }
-  if constexpr (!kFull) flash::zero_padding<DP>(tiles, 2 + 2 * kStages, D);
+  if constexpr (!kFull) flash::zero_padding<DP, kThreads>(tiles, 2 * kWGs + 2 * kStages, D);
   __syncthreads();
 
-  const int first_pos = rho0 / G, last_pos = (min(rho0 + kRows, pb.total_rows) - 1) / G;
+  // the key tiles any row of the CTA sees
+  const int first_pos = cta_rho0 / G;
+  const int last_pos = (min(cta_rho0 + kCtaRows, pb.total_rows) - 1) / G;
   const KeyWalk walk(pb, first_pos, last_pos);
   // the walk for L takes two key tiles a step (S of the second in dP's
   // registers); then the walks for Delta and for dQ, a tile a step
   const int n0 = (walk.n + 1) / 2;
   const int n_steps = walk.n ? n0 + 2 * walk.n : 0;
 
-  load_row_tiles<DP>(q_tile, do_tile, q, dout, pb, b, kvh, rho0, D);
+  load_row_tiles<DP>(q_tile, do_tile, q, dout, pb, b, kvh, rho0, D);  // each warpgroup its own
   // step's tiles into its stage: K, and the next K (the walk for L) or V;
   // the first stage's phase also covers Q and dO
   auto load_step = [&](int step) {
     const bool first_walk = step < n0;
     const int t = first_walk ? 2 * step : (step - n0) % walk.n;
     const int st = step % kStages, k0 = (walk.t_lo + t) * kRows;
-    const uint32_t kt = base + (2 + 2 * st) * T;
-    load_keys<DP>(kt, k, pb, b, kvh, k0, D);
+    const uint32_t kt = ring + 2 * st * T;
+    load_keys<DP, kThreads>(kt, k, pb, b, kvh, k0, D);
     if (!first_walk) {
-      load_keys<DP>(kt + T, v, pb, b, kvh, k0, D);
+      load_keys<DP, kThreads>(kt + T, v, pb, b, kvh, k0, D);
     } else if (t + 1 < walk.n) {
-      load_keys<DP>(kt + T, k, pb, b, kvh, k0 + kRows, D);
+      load_keys<DP, kThreads>(kt + T, k, pb, b, kvh, k0 + kRows, D);
     }
     sm90::cp_async_arrive(full + 8 * st);
   };
@@ -868,7 +863,7 @@ flash_bwd_rows_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int st = step % kStages;
     sm90::mbar_wait(full + 8 * st, (step / kStages) & 1);
     sm90::fence_proxy_async();  // the copies' writes, before wgmma reads them
-    return base + (2 + 2 * st) * T;
+    return ring + 2 * st * T;
   };
   float s[32], dp[32];
   int step = 0;
@@ -952,10 +947,10 @@ flash_bwd_rows_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int h = 0; h < 2; ++h) delta[h] = row_total(part[h]);
 
-  // dQ += dS K, dS = P (dP - Delta) where kept, as value + remainder.  A
-  // step's product runs on while the next step's S and dP are issued: the
-  // wait for those completes it, and only then (all warps past it) is its
-  // stage loaded again and its operand's registers free.
+  // dQ += dS K, dS = P (dP - Delta) where kept (kRemainder: as value +
+  // remainder).  A step's product runs on while the next step's S and dP
+  // are issued: the wait for those completes it, and only then (all warps
+  // past it) is its stage loaded again and its operand's registers free.
   float dq_acc[DP / 2];
   zero(dq_acc);
   uint32_t hi[4][4] = {}, lo[4][4] = {};
@@ -965,16 +960,20 @@ flash_bwd_rows_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       dp[i] = keep ? p * (dp[i] - delta[i % 4 / 2]) : 0.0f;
     });
     fence_operand(hi);  // the previous step's product has completed
-    fence_operand(lo);
+    if constexpr (kRemainder) fence_operand(lo);
     __syncthreads();
     if (t > 0 && step + kStages - 1 < n_steps) load_step(step + kStages - 1);
-    split_operand(dp, hi, lo);
+    if constexpr (kRemainder) {
+      split_operand(dp, hi, lo);
+      fence_operand(lo);
+    } else {
+      flash::pack_operand(dp, hi);
+    }
     fence_operand(hi);
-    fence_operand(lo);
     sm90::fence_regs(dq_acc);
     sm90::wgmma_fence();
     flash::rs_issue<DP>(dq_acc, hi, kt);
-    flash::rs_issue<DP>(dq_acc, lo, kt);
+    if constexpr (kRemainder) flash::rs_issue<DP>(dq_acc, lo, kt);
     sm90::wgmma_commit();
   }
   sm90::wgmma_wait_all();
@@ -1162,6 +1161,554 @@ flash_bwd_dkdv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at DP 192 and 256: the dK/dV kernel with two consumer warpgroups.
+
+constexpr int kWide = 2 * flash::kWarpgroup;  // threads of flash_bwd_dkdv_wide
+
+// Issues o (64 x kN f32, from register kOff of o) += A B[:, kC0 .. kC0 + kN),
+// A (64 x 16) from registers, B an MN-major tile in shared memory whose 16
+// rows along the depth start at `rows` (its DP columns in 64-column
+// regions, kRegionBytes apart): pieces of n128 (two whole regions), n64 (one)
+// and n32 (half a region, from its start or 64 bytes in), in column order,
+// each piece's accumulators o's next registers.
+template <int kC0, int kN, int kOff, int N>
+__device__ __forceinline__ void rs_issue_cols(float (&o)[N], const uint32_t (&a)[4],
+                                              uint32_t rows) {
+  using flash::kAtomBytes;
+  using flash::kRegionBytes;
+  if constexpr (kN > 0) {
+    constexpr int kRegion = kC0 / 64, kIn = kC0 % 64;
+    const uint32_t at = rows + kRegion * kRegionBytes + kIn * 2;
+    if constexpr (kIn == 0 && kN >= 128) {
+      sm90::wgmma_rs_m64n128k16(*reinterpret_cast<float(*)[64]>(o + kOff), a,
+                                sm90::wgmma_desc_sw128(at, kRegionBytes, kAtomBytes), 1);
+      rs_issue_cols<kC0 + 128, kN - 128, kOff + 64>(o, a, rows);
+    } else if constexpr (kIn == 0 && kN >= 64) {
+      sm90::wgmma_rs_m64n64k16(*reinterpret_cast<float(*)[32]>(o + kOff), a,
+                               sm90::wgmma_desc_sw128(at, kRegionBytes, kAtomBytes), 1);
+      rs_issue_cols<kC0 + 64, kN - 64, kOff + 32>(o, a, rows);
+    } else {
+      static_assert(kIn % 32 == 0 && kN >= 32, "pieces of 32 columns within a region");
+      sm90::wgmma_rs_m64n32k16(*reinterpret_cast<float(*)[16]>(o + kOff), a,
+                               sm90::wgmma_desc_sw128(at, kRegionBytes, kAtomBytes), 1);
+      rs_issue_cols<kC0 + 32, kN - 32, kOff + 16>(o, a, rows);
+    }
+  }
+}
+
+// o (64 x DP / 2 f32) += A B[:, half], A (64 x 64) from registers (the
+// layout of pack_operand), B (64 x DP) MN-major in shared memory, half the
+// columns [kHalf * DP / 2, (kHalf + 1) * DP / 2).  The caller fences,
+// commits, waits.
+template <int DP, int kHalf>
+__device__ __forceinline__ void rs_issue_half(float (&o)[DP / 4], const uint32_t (&a)[4][4],
+                                              uint32_t b_tile) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    rs_issue_cols<kHalf * DP / 2, DP / 2, 0>(o, a[ks], b_tile + ks * 2 * flash::kAtomBytes);
+}
+
+// Issues s (64 x 32 f32) = A (64 x DP) B^T for 32 rows of B from b_rows,
+// both tiles K-major (b_rows a multiple of 8 rows into its tile): DP / 16
+// wgmma steps, the first overwriting s.  The caller fences, commits, waits.
+template <int DP>
+__device__ __forceinline__ void ss_issue_n32(float (&s)[16], uint32_t a_tile, uint32_t b_rows) {
+  using flash::kAtomBytes;
+  using flash::kRegionBytes;
+#pragma unroll
+  for (int ks = 0; ks < DP / 16; ++ks) {
+    const uint32_t off = ks / 4 * kRegionBytes + ks % 4 * 32;
+    const uint64_t da = sm90::wgmma_desc_sw128(a_tile + off, 16, kAtomBytes);
+    const uint64_t db = sm90::wgmma_desc_sw128(b_rows + off, 16, kAtomBytes);
+    if (ks == 0) {
+      sm90::wgmma_ss_m64n32k16_first(s, da, db);
+    } else {
+      sm90::wgmma_ss_m64n32k16(s, da, db, 1);
+    }
+  }
+}
+
+// bf16 at DP 256: flash_bwd_rows_wgmma's three walks with two warpgroups
+// a CTA (one warpgroup holding dQ's 64 x DP f32 accumulators spills, and
+// two warpgroups of 64 rows each, as at DP 192, would leave no room for a
+// ring of key tiles beside their Q and dO).  Warpgroup w takes keys [32 w, 32 w + 32) of every key tile: its
+// S and dP are m64n32 products (SS form) and its dS enters dQ += dS K as an
+// RS product of two k steps over the whole DP, so no product is formed
+// twice.  The warpgroups' row sums of e (L) and of P dP (Delta) meet in
+// shared memory, warpgroup 0's first, and warpgroup 1's dQ is added to
+// warpgroup 0's in shared memory at the end: the same order every call.  A
+// key the masks drop gives e = 0 exactly, so a row's one key still has
+// e == L and P = 1.
+template <int DP>
+__global__ void __launch_bounds__(kWide, 1)
+flash_bwd_rows_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ stats, float* __restrict__ aux,
+                    bf16* __restrict__ dq, Problem pb) {
+  constexpr int T = DP * 128;
+  constexpr int kStages = ring_stages<DP, false>();
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const tiles = smem_raw + (base - raw);
+  const uint32_t q_tile = base, do_tile = base + T;  // stage s: K at (2 + 2s) T, V at (3 + 2s) T
+  // the warpgroups' row sums: [L, Delta][warpgroup][64 rows]
+  float* const red = reinterpret_cast<float*>(tiles + (2 + 2 * kStages) * T);
+  const uint32_t full = base + (2 + 2 * kStages) * T + 4 * kRows * 4;  // a barrier a stage
+
+  const int nbh = pb.batch * pb.kv_heads;
+  const int bh = blockIdx.x % nbh, b = bh / pb.kv_heads, kvh = bh % pb.kv_heads;
+  const int n_row_tiles = (pb.total_rows + kRows - 1) / kRows;
+  const int rho0 = longest_first(blockIdx.x / nbh, n_row_tiles, pb.causal) * kRows;
+  const int D = pb.head_dim, G = pb.groups;
+  const int tid = threadIdx.x, wg = tid / flash::kWarpgroup, t = tid % flash::kWarpgroup;
+  const int kw = 32 * wg;  // this warpgroup's first key of a tile
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) sm90::mbar_init(full + 8 * s, kWide);
+    sm90::fence_mbar_init();
+  }
+  flash::zero_padding<DP, kWide>(tiles, 2 + 2 * kStages, D);
+  __syncthreads();
+
+  const int first_pos = rho0 / G, last_pos = (min(rho0 + kRows, pb.total_rows) - 1) / G;
+  const KeyWalk walk(pb, first_pos, last_pos);
+  const int n0 = (walk.n + 1) / 2;
+  const int n_steps = walk.n ? n0 + 2 * walk.n : 0;
+
+  load_row_tiles<DP, kWide>(q_tile, do_tile, q, dout, pb, b, kvh, rho0, D);
+  auto load_step = [&](int step) {
+    const bool first_walk = step < n0;
+    const int tt = first_walk ? 2 * step : (step - n0) % walk.n;
+    const int st = step % kStages, k0 = (walk.t_lo + tt) * kRows;
+    const uint32_t kt = base + (2 + 2 * st) * T;
+    load_keys<DP, kWide>(kt, k, pb, b, kvh, k0, D);
+    if (!first_walk) {
+      load_keys<DP, kWide>(kt + T, v, pb, b, kvh, k0, D);
+    } else if (tt + 1 < walk.n) {
+      load_keys<DP, kWide>(kt + T, k, pb, b, kvh, k0 + kRows, D);
+    }
+    sm90::cp_async_arrive(full + 8 * st);
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s)
+    if (s < n_steps) load_step(s);
+  if (n_steps == 0) {
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<0>();
+  }
+
+  const int ra = t / 32 * 16 + t % 32 / 4;
+  const int col = 2 * (t % 4);
+  bool row_ok[2], masked_row[2];
+  int pos[2];
+  float m2[2], l_fwd[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rho = rho0 + ra + 8 * h;
+    row_ok[h] = rho < pb.total_rows;
+    pos[h] = rho / G;
+    float m = 0.0f;
+    l_fwd[h] = 1.0f;
+    if (row_ok[h]) {
+      const int64_t idx = stat_index(pb, b, kvh, rho);
+      m = stats[idx];
+      l_fwd[h] = stats[plane(pb) + idx];
+    }
+    masked_row[h] = m == kMaskValue;
+    m2[h] = masked_row[h] ? kMaskValue : m * kLog2e;
+  }
+  const float scale2 = pb.scale * kLog2e;
+  // as in flash_bwd_rows_wgmma, for accumulator element i (of 16) of this
+  // warpgroup's 32 keys of the tile at k0
+  auto exp_score = [&](float x, int i, int k0, auto kMasked, bool& keep) -> float {
+    const int h = i % 4 / 2;
+    keep = true;
+    if constexpr (!decltype(kMasked)::value) {
+      return ex2(x * scale2 - m2[h]);
+    } else {
+      const int key = k0 + kw + i / 4 * 8 + col + i % 2;
+      const bool present = row_ok[h] && key < pb.seq_k;
+      keep = present;
+      if (pb.causal) keep = keep && key <= pos[h];
+      if (pb.window) keep = keep && key > pos[h] - pb.window;
+      return present ? ex2((keep ? x * scale2 : kMaskValue) - m2[h]) : 0.0f;
+    }
+  };
+  auto ready = [&](int step, bool load) -> uint32_t {
+    if (load && step + kStages - 1 < n_steps) load_step(step + kStages - 1);
+    const int st = step % kStages;
+    sm90::mbar_wait(full + 8 * st, (step / kStages) & 1);
+    sm90::fence_proxy_async();
+    return base + (2 + 2 * st) * T;
+  };
+  // each row's sum over both warpgroups' keys, warpgroup 0's share first
+  // (every lane of a warp shuffles); which: 0 for L, 1 for Delta
+  auto row_sums = [&](float (&part)[2], int which, float (&out)[2]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float v = row_total(part[h]);
+      if (t % 4 == 0) red[(2 * which + wg) * kRows + ra + 8 * h] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      out[h] = red[2 * which * kRows + ra + 8 * h] + red[(2 * which + 1) * kRows + ra + 8 * h];
+  };
+  float s[16], dp[16];
+  int step = 0;
+  const uint32_t k_rows = kw * 128;  // byte offset of this warpgroup's keys in a K-major tile
+
+  // L: the sums of e, two key tiles a step
+  float part[2] = {0.0f, 0.0f};
+  auto sum_l = [&](const float (&acc)[16], int key0, auto kMasked) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      bool keep;
+      part[i % 4 / 2] += exp_score(acc[i], i, key0, kMasked, keep);
+    }
+  };
+  for (int tt = 0; tt < walk.n; tt += 2, ++step) {
+    const uint32_t kt = ready(step, true);
+    const int k0 = (walk.t_lo + tt) * kRows;
+    const bool pair = tt + 1 < walk.n;
+    sm90::wgmma_fence();
+    ss_issue_n32<DP>(s, q_tile, kt + k_rows);
+    if (pair) ss_issue_n32<DP>(dp, q_tile, kt + T + k_rows);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+    if (tile_masked(pb, rho0, k0)) {
+      sum_l(s, k0, std::true_type{});
+    } else {
+      sum_l(s, k0, std::false_type{});
+    }
+    if (pair && tile_masked(pb, rho0, k0 + kRows)) {
+      sum_l(dp, k0 + kRows, std::true_type{});
+    } else if (pair) {
+      sum_l(dp, k0 + kRows, std::false_type{});
+    }
+    __syncthreads();
+  }
+  float norm[2], inv_norm[2], delta[2], sum[2];
+  row_sums(part, 0, sum);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    norm[h] = fmaxf(masked_row[h] ? l_fwd[h] : sum[h], 1e-30f);
+    inv_norm[h] = 1.0f / norm[h];
+    part[h] = 0.0f;
+  }
+
+  auto gradient_step = [&](uint32_t kt, int k0, auto fn) {
+    sm90::wgmma_fence();
+    ss_issue_n32<DP>(s, q_tile, kt + k_rows);       // S = Q K^T, this warpgroup's keys
+    ss_issue_n32<DP>(dp, do_tile, kt + T + k_rows);  // dP = dO V^T
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+    auto body = [&](auto kMasked) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        bool keep;
+        const float e = exp_score(s[i], i, k0, kMasked, keep);
+        float p = e * inv_norm[i % 4 / 2];
+        if constexpr (decltype(kMasked)::value) p = e == norm[i % 4 / 2] ? 1.0f : p;
+        fn(i, p, keep);
+      }
+    };
+    if (tile_masked(pb, rho0, k0)) {
+      body(std::true_type{});
+    } else {
+      body(std::false_type{});
+    }
+  };
+  for (int tt = 0; tt < walk.n; ++tt, ++step) {  // Delta
+    const uint32_t kt = ready(step, true);
+    gradient_step(kt, (walk.t_lo + tt) * kRows, [&](int i, float p, bool keep) {
+      if (keep) part[i % 4 / 2] = fmaf(p, dp[i], part[i % 4 / 2]);
+    });
+    __syncthreads();
+  }
+  row_sums(part, 1, delta);
+
+  // dQ += dS K over this warpgroup's 32 keys (K's rows kw .. kw + 31 as the
+  // MN-major B operand), a step's product running on while the next step's
+  // S and dP are issued, as in flash_bwd_rows_wgmma
+  float dq_acc[DP / 2];
+  zero(dq_acc);
+  uint32_t ds[2][4] = {};
+  for (int tt = 0; tt < walk.n; ++tt, ++step) {
+    const uint32_t kt = ready(step, tt == 0);
+    gradient_step(kt, (walk.t_lo + tt) * kRows, [&](int i, float p, bool keep) {
+      dp[i] = keep ? p * (dp[i] - delta[i % 4 / 2]) : 0.0f;
+    });
+    fence_operand(ds);
+    __syncthreads();
+    if (tt > 0 && step + kStages - 1 < n_steps) load_step(step + kStages - 1);
+    flash::pack_operand(dp, ds);
+    fence_operand(ds);
+    sm90::fence_regs(dq_acc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+      rs_issue_cols<0, DP, 0>(dq_acc, ds[ks], kt + (kw / 8 + 2 * ks) * flash::kAtomBytes);
+    sm90::wgmma_commit();
+  }
+  sm90::wgmma_wait_all();
+  sm90::fence_regs(dq_acc);
+
+  // warpgroup 1's dQ through the ring's first stage (no longer read), then
+  // warpgroup 0 adds it to its own and writes
+  float* const dq1 = reinterpret_cast<float*>(tiles + 2 * T);
+  __syncthreads();
+  if (wg == 1) {
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dq1[i * flash::kWarpgroup + t] = dq_acc[i];
+  }
+  __syncthreads();
+  if (wg == 1) return;
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dq_acc[i] += dq1[i * flash::kWarpgroup + t];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!row_ok[h]) continue;
+    const int rho = rho0 + ra + 8 * h;
+    if (t % 4 == 0) {  // for the dK/dV kernel: m log2(e), 1 / L, Delta
+      const int64_t idx = stat_index(pb, b, kvh, rho);
+      aux[idx] = m2[h];
+      aux[plane(pb) + idx] = inv_norm[h];
+      aux[2 * plane(pb) + idx] = delta[h];
+    }
+    const int i = rho / G, g = rho % G;
+    bf16* dst = dq + ((static_cast<int64_t>(b) * pb.seq_q + i) * pb.heads + kvh * G + g) * D;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      if (8 * j < D)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + col) = __floats2bfloat162_rn(
+            dq_acc[4 * j + 2 * h] * pb.scale, dq_acc[4 * j + 2 * h + 1] * pb.scale);
+    }
+  }
+}
+
+// A CTA per (batch, kv head, 64 keys; `splits` ranges of its row walk):
+// flash_bwd_dkdv_wgmma's walk with 256 threads.  Warpgroup w owns dK's and
+// dV's columns [w DP / 2, (w + 1) DP / 2), 2 x DP / 4 f32 a thread (one
+// warpgroup would need 2 x DP / 2, past the 255 registers a thread may
+// hold); both form the whole S^T and dP^T (SS form), so that P^T and dS^T
+// stay in registers as the A operand of their own halves of dV += P^T dO and
+// dK += dS^T Q (RS form).  Q and dO tiles by cp.async into a ring of
+// ring_stages stages on mbarriers, as in flash_bwd_dkdv_wgmma.  With one
+// range the CTA writes dk (times scale) and dv in bf16; with several (the
+// grid of key tiles short of a wave) its range's sums go to part (splits,
+// 2, B, Sk, KVH, DP) in f32 and flash_bwd_split_sum adds them in order.
+template <int DP>
+__global__ void __launch_bounds__(kWide, 1)
+flash_bwd_dkdv_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ aux, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                    float* __restrict__ part, int splits, Problem pb) {
+  constexpr int T = DP * 128;
+  constexpr int kStages = ring_stages<DP, true>();
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const tiles = smem_raw + (base - raw);
+  const uint32_t k_tile = base, v_tile = base + T;  // stage s: Q at (2 + 2s) T, dO at (3 + 2s) T
+  float* const row_stats = reinterpret_cast<float*>(tiles + (2 + 2 * kStages) * T);
+  const uint32_t full = base + (2 + 2 * kStages) * T + kStages * 3 * kRows * 4;
+
+  const int nbh = pb.batch * pb.kv_heads;
+  const int sp = blockIdx.x % splits, cta = blockIdx.x / splits;
+  const int bh = cta % nbh, b = bh / pb.kv_heads, kvh = bh % pb.kv_heads;
+  const int n_key_tiles = (pb.seq_k + kRows - 1) / kRows;
+  const int k0 = longest_first(cta / nbh, n_key_tiles, !pb.causal && pb.window) * kRows;
+  const int D = pb.head_dim;
+  const int tid = threadIdx.x, wg = tid / flash::kWarpgroup, t = tid % flash::kWarpgroup;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) sm90::mbar_init(full + 8 * s, kWide);
+    sm90::fence_mbar_init();
+  }
+  flash::zero_padding<DP, kWide>(tiles, 2 + 2 * kStages, D);
+  __syncthreads();
+
+  load_keys<DP, kWide>(k_tile, k, pb, b, kvh, k0, D);
+  load_keys<DP, kWide>(v_tile, v, pb, b, kvh, k0, D);
+  const RowWalk walk(pb, k0, kRows);
+  const int it0 = static_cast<int>(static_cast<int64_t>(sp) * walk.n / splits);  // this range
+  const int n = static_cast<int>(static_cast<int64_t>(sp + 1) * walk.n / splits) - it0;
+  // the range's j-th row tile into stage j % kStages (the first stage's
+  // phase also covers K and V); threads tid < 192 copy the statistics of
+  // row tid % 64: m log2(e), 1 / L, Delta
+  auto load_step = [&](int j) {
+    const int st = j % kStages, rho0 = walk.tile(it0 + j) * kRows;
+    const uint32_t qt = base + (2 + 2 * st) * T;
+    load_row_tiles<DP, kWide>(qt, qt + T, q, dout, pb, b, kvh, rho0, D);
+    const int p = tid / kRows;
+    if (p < 3) {
+      const int r = tid % kRows, rho = rho0 + r;
+      const bool ok = rho < pb.total_rows;
+      const int64_t idx = ok ? stat_index(pb, b, kvh, rho) : 0;
+      sm90::cp_async4(sm90::smem_u32(row_stats + st * 3 * kRows + p * kRows + r),
+                      aux + p * plane(pb) + idx, ok);
+    }
+    sm90::cp_async_arrive(full + 8 * st);
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s)
+    if (s < n) load_step(s);
+  if (n == 0) {  // no row of this range sees the keys: zero sums
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<0>();
+  }
+
+  // this thread's two keys (h = 0, 1) and its first row in each 8-row block,
+  // as in flash_bwd_dkdv_wgmma (each warpgroup holds the whole S^T)
+  const int ra = t / 32 * 16 + t % 32 / 4;
+  const int col = 2 * (t % 4);
+  const float scale2 = pb.scale * kLog2e;
+  float dk_acc[DP / 4], dv_acc[DP / 4];
+  zero(dk_acc);
+  zero(dv_acc);
+  float s[32], dp[32];
+
+  for (int j = 0; j < n; ++j) {
+    if (j + kStages - 1 < n) load_step(j + kStages - 1);
+    const int st = j % kStages, rho0 = walk.tile(it0 + j) * kRows;
+    const uint32_t qt = base + (2 + 2 * st) * T;
+    sm90::mbar_wait(full + 8 * st, (j / kStages) & 1);
+    sm90::fence_proxy_async();
+    const float* rs = row_stats + st * 3 * kRows;
+    sm90::wgmma_fence();  // s and dp are the products' outputs only
+    flash::ss_issue<DP, true>(s, k_tile, qt);       // S^T = K Q^T
+    flash::ss_issue<DP, true>(dp, v_tile, qt + T);  // dP^T = V dO^T
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+
+    // P^T and dS^T in place of S^T and dP^T, as in flash_bwd_dkdv_wgmma
+    auto gradient = [&](auto kMasked) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {  // rows 8 jj + col, + 1 of the tile
+        const float2 m2 = *reinterpret_cast<const float2*>(rs + 8 * jj + col);
+        const float2 il = *reinterpret_cast<const float2*>(rs + kRows + 8 * jj + col);
+        const float2 dl = *reinterpret_cast<const float2*>(rs + 2 * kRows + 8 * jj + col);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          int pos = 0;
+          bool row_ok = true;
+          if constexpr (decltype(kMasked)::value) {
+            const int rho = rho0 + 8 * jj + col + u;
+            row_ok = rho < pb.total_rows;
+            pos = rho / pb.groups;
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * jj + 2 * h + u;
+            bool present = true, keep = true;
+            if constexpr (decltype(kMasked)::value) {
+              const int key = k0 + ra + 8 * h;
+              present = row_ok && key < pb.seq_k;
+              keep = present;
+              if (pb.causal) keep = keep && key <= pos;
+              if (pb.window) keep = keep && key > pos - pb.window;
+            }
+            const float e =
+                present ? ex2((keep ? s[i] * scale2 : kMaskValue) - (u ? m2.y : m2.x)) : 0.0f;
+            const float p = e * (u ? il.y : il.x);
+            dp[i] = keep ? p * (dp[i] - (u ? dl.y : dl.x)) : 0.0f;
+            s[i] = p;
+          }
+        }
+      }
+    };
+    if (tile_masked(pb, rho0, k0)) {
+      gradient(std::true_type{});
+    } else {
+      gradient(std::false_type{});
+    }
+    // dV[:, half] += P^T dO[:, half], dK[:, half] += dS^T Q[:, half], P and
+    // dS in bf16
+    uint32_t pa[4][4], dsa[4][4];
+    flash::pack_operand(s, pa);
+    flash::pack_operand(dp, dsa);
+    fence_operand(pa);
+    fence_operand(dsa);
+    sm90::fence_regs(dv_acc);
+    sm90::fence_regs(dk_acc);
+    sm90::wgmma_fence();
+    if (wg == 0) {
+      rs_issue_half<DP, 0>(dv_acc, pa, qt + T);
+      rs_issue_half<DP, 0>(dk_acc, dsa, qt);
+    } else {
+      rs_issue_half<DP, 1>(dv_acc, pa, qt + T);
+      rs_issue_half<DP, 1>(dk_acc, dsa, qt);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(dv_acc);
+    sm90::fence_regs(dk_acc);
+    __syncthreads();  // both warpgroups are done with this stage before it is loaded again
+  }
+
+  const int c0 = wg * DP / 2;
+  const int64_t part_plane = static_cast<int64_t>(pb.batch) * pb.seq_k * pb.kv_heads * DP;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = k0 + ra + 8 * h;
+    if (key >= pb.seq_k) continue;
+    const int64_t kr = (static_cast<int64_t>(b) * pb.seq_k + key) * pb.kv_heads + kvh;
+#pragma unroll
+    for (int jj = 0; jj < DP / 16; ++jj) {
+      const int c = c0 + 8 * jj + col;
+      if (c >= D) continue;
+      const float2 gk = make_float2(dk_acc[4 * jj + 2 * h], dk_acc[4 * jj + 2 * h + 1]);
+      const float2 gv = make_float2(dv_acc[4 * jj + 2 * h], dv_acc[4 * jj + 2 * h + 1]);
+      if (splits == 1) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + kr * D + c) =
+            __floats2bfloat162_rn(gk.x * pb.scale, gk.y * pb.scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + kr * D + c) = __floats2bfloat162_rn(gv.x, gv.y);
+      } else {
+        float* at = part + 2 * sp * part_plane + kr * DP + c;
+        *reinterpret_cast<float2*>(at) = gk;
+        *reinterpret_cast<float2*>(at + part_plane) = gv;
+      }
+    }
+  }
+}
+
+// dk (times scale) and dv in bf16: the `splits` ranges' sums of
+// flash_bwd_dkdv_wide in part (splits, 2, rows, DP) added in order (two
+// calls give the same bits); rows = B Sk KVH, two columns a thread.
+__global__ void __launch_bounds__(256)
+flash_bwd_split_sum(const float* __restrict__ part, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                    int64_t rows, int d, int dp, int splits, float scale) {
+  const int64_t plane = rows * dp, pairs = rows * (d / 2);
+  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; e < pairs;
+       e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t r = e / (d / 2);
+    const int c = 2 * static_cast<int>(e % (d / 2));
+    float2 gk = make_float2(0.0f, 0.0f), gv = gk;
+    for (int sp = 0; sp < splits; ++sp) {
+      const float2 a = *reinterpret_cast<const float2*>(part + 2 * sp * plane + r * dp + c);
+      const float2 w = *reinterpret_cast<const float2*>(part + (2 * sp + 1) * plane + r * dp + c);
+      gk.x += a.x;
+      gk.y += a.y;
+      gv.x += w.x;
+      gv.y += w.y;
+    }
+    *reinterpret_cast<__nv_bfloat162*>(dk + r * d + c) =
+        __floats2bfloat162_rn(gk.x * scale, gk.y * scale);
+    *reinterpret_cast<__nv_bfloat162*>(dv + r * d + c) = __floats2bfloat162_rn(gv.x, gv.y);
+  }
+}
+
 template <int DP, bool kFull>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* dout,
                          const float* stats, float* aux, void* dq, void* dk, void* dv,
@@ -1227,26 +1774,81 @@ cudaError_t launch_width(const void* q, const void* k, const void* v, const void
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dtype(const void* q, const void* k, const void* v, const void* dout,
-                         const float* stats, float* aux, void* dq, void* dk, void* dv,
-                         const Problem& pb, cudaStream_t stream) {
-#define K4_BWD(DP) launch_width<T, DP>(q, k, v, dout, stats, aux, dq, dk, dv, pb, stream)
+// bf16 at DP 192 and 256: the rows kernel (flash_bwd_rows_wgmma with two
+// warpgroups at DP 192, flash_bwd_rows_wide at 256), flash_bwd_dkdv_wide
+// over `splits` ranges of each key tile's walk, and with several ranges
+// flash_bwd_split_sum.
+template <int DP>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* dout,
+                        const float* stats, float* aux, void* dq, void* dk, void* dv, float* part,
+                        int splits, const Problem& pb, cudaStream_t stream) {
+  // DP 192: two warpgroups of 64 rows a CTA; DP 256 (whose 128 rows of Q
+  // and dO leave no room for a ring): 64 rows, the keys split
+  constexpr bool kPair = DP == 192;
+  constexpr int rows_smem = kPair ? rows_smem_bytes<DP, 2>() : wg_smem_bytes<DP, false>();
+  constexpr int kv_smem = wg_smem_bytes<DP, true>(), cta_rows = kPair ? 2 * kRows : kRows;
+  const auto rows_kernel = [] {
+    if constexpr (kPair) {
+      return flash_bwd_rows_wgmma<DP, false, 2, false>;
+    } else {
+      return flash_bwd_rows_wide<DP>;
+    }
+  }();
+  cudaError_t err = cudaFuncSetAttribute(rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         rows_smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_wide<DP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem);
+  if (err != cudaSuccess) return err;
+  const int64_t nbh = static_cast<int64_t>(pb.batch) * pb.kv_heads;
+  const int64_t row_ctas = nbh * ((pb.total_rows + cta_rows - 1) / cta_rows);
+  const int64_t key_ctas = nbh * ((pb.seq_k + kRows - 1) / kRows) * splits;
+  if (row_ctas > INT32_MAX || key_ctas > INT32_MAX) return cudaErrorInvalidValue;
+  const bf16* tq = static_cast<const bf16*>(q);
+  const bf16* tk = static_cast<const bf16*>(k);
+  const bf16* tv = static_cast<const bf16*>(v);
+  const bf16* tdo = static_cast<const bf16*>(dout);
+  rows_kernel<<<static_cast<unsigned>(row_ctas), kWide, rows_smem, stream>>>(
+      tq, tk, tv, tdo, stats, aux, static_cast<bf16*>(dq), pb);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_wide<DP><<<static_cast<unsigned>(key_ctas), kWide, kv_smem, stream>>>(
+      tq, tk, tv, tdo, aux, static_cast<bf16*>(dk), static_cast<bf16*>(dv), part, splits, pb);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const int64_t rows = static_cast<int64_t>(pb.batch) * pb.seq_k * pb.kv_heads;
+  const int64_t blocks = std::min<int64_t>((rows * (pb.head_dim / 2) + 255) / 256, 4096);
+  flash_bwd_split_sum<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+      part, static_cast<bf16*>(dk), static_cast<bf16*>(dv), rows, pb.head_dim, DP, splits,
+      pb.scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* dout,
+                       const float* stats, float* aux, void* dq, void* dk, void* dv,
+                       const Problem& pb, cudaStream_t stream) {
+#define K4_BWD(DP) launch_width<float, DP>(q, k, v, dout, stats, aux, dq, dk, dv, pb, stream)
   const int d = pb.head_dim;
-  if constexpr (sizeof(T) == 2) {  // bf16: wgmma up to DP 128
-#define K4_WGMMA(DP, FULL) launch_wgmma<DP, FULL>(q, k, v, dout, stats, aux, dq, dk, dv, pb, stream)
-    if (d <= 64) return d == 64 ? K4_WGMMA(64, true) : K4_WGMMA(64, false);
-    if (d <= 128) return d == 128 ? K4_WGMMA(128, true) : K4_WGMMA(128, false);
-#undef K4_WGMMA
-  } else {
-    if (d <= 16) return K4_BWD(16);
-    if (d <= 32) return K4_BWD(32);
-    if (d <= 64) return K4_BWD(64);
-    if (d <= 128) return K4_BWD(128);
-  }
+  if (d <= 16) return K4_BWD(16);
+  if (d <= 32) return K4_BWD(32);
+  if (d <= 64) return K4_BWD(64);
+  if (d <= 128) return K4_BWD(128);
   if (d <= 192) return K4_BWD(192);
   return K4_BWD(256);
 #undef K4_BWD
+}
+
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* dout,
+                        const float* stats, float* aux, void* dq, void* dk, void* dv,
+                        float* part, int splits, const Problem& pb, cudaStream_t stream) {
+#define K4_WGMMA(DP, FULL) launch_wgmma<DP, FULL>(q, k, v, dout, stats, aux, dq, dk, dv, pb, stream)
+#define K4_WIDE(DP) launch_wide<DP>(q, k, v, dout, stats, aux, dq, dk, dv, part, splits, pb, stream)
+  const int d = pb.head_dim;
+  if (d <= 64) return d == 64 ? K4_WGMMA(64, true) : K4_WGMMA(64, false);
+  if (d <= 128) return d == 128 ? K4_WGMMA(128, true) : K4_WGMMA(128, false);
+  return d <= 192 ? K4_WIDE(192) : K4_WIDE(256);
+#undef K4_WIDE
+#undef K4_WGMMA
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -1263,26 +1865,33 @@ const char* flash_attention_bwd_error_string(int err) {
 // (B, Sk, KVH, D), contiguous, on the card, 1 <= D <= 256; stats (2, B, H,
 // Sq) f32: the forward's m, then l; aux (3, B, H, Sq) f32 scratch (the
 // rows' statistics for the dK/dV kernel).  bfloat16 also needs D % 8 == 0
-// and 16-byte aligned q, k, v, dout.
+// and 16-byte aligned q, k, v, dout.  splits: the ranges each key tile's
+// row walk is cut into, 1 but for bfloat16 past D 128, whose part is then
+// (splits, 2, B, Sk, KVH, DP) f32 scratch (DP 192 up to D 192, else 256);
+// null with one range.
 int flash_attention_backward_launch(const void* q, const void* k, const void* v,
                                     const void* dout, const float* stats, float* aux, void* dq,
-                                    void* dk, void* dv, int batch, int seq_q, int seq_k, int heads,
-                                    int kv_heads, int head_dim, int dtype, int causal, int window,
-                                    float scale, void* stream) {
+                                    void* dk, void* dv, float* part, int batch, int seq_q,
+                                    int seq_k, int heads, int kv_heads, int head_dim, int dtype,
+                                    int causal, int window, int splits, float scale,
+                                    void* stream) {
   if (batch <= 0 || seq_q <= 0 || seq_k <= 0 || kv_heads <= 0 || heads % kv_heads ||
       head_dim < 1 || head_dim > kMaxHeadDim || batch > 65535 || kv_heads > 65535 ||
-      static_cast<int64_t>(seq_q) * (heads / kv_heads) > (int64_t{1} << 30))
+      static_cast<int64_t>(seq_q) * (heads / kv_heads) > (int64_t{1} << 30) || splits < 1 ||
+      splits > 65535 || (splits > 1) != (part != nullptr) ||
+      (splits > 1 && (dtype != 1 || head_dim <= 128)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Problem pb{batch, seq_q, seq_k, heads, kv_heads, head_dim, heads / kv_heads,
                    seq_q * (heads / kv_heads), causal, window, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return static_cast<int>(launch_dtype<float>(q, k, v, dout, stats, aux, dq, dk, dv, pb, s));
+    return static_cast<int>(launch_f32(q, k, v, dout, stats, aux, dq, dk, dv, pb, s));
   if (dtype == 1) {
     // 16-byte copies need whole 8-column chunks on 16-byte aligned rows
     if (head_dim % 8 || !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout))
       return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(launch_dtype<bf16>(q, k, v, dout, stats, aux, dq, dk, dv, pb, s));
+    return static_cast<int>(
+        launch_bf16(q, k, v, dout, stats, aux, dq, dk, dv, part, splits, pb, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -31,12 +31,12 @@ __device__ __forceinline__ uint32_t tile_offset(int r, int c) {
 // Fills a tile of 64 rows of DP bf16 in shared memory by 16-byte cp.async
 // copies of the d / 8 chunks (d % 8 == 0) of row r from row_ptr(r), or
 // zeros where row_ptr(r) is null; the columns past d were zeroed once by
-// zero_padding.  The warpgroup's 128 threads copy.
-template <int DP, typename RowPtr>
+// zero_padding.  The CTA's kThreads threads copy.
+template <int DP, int kThreads = kWarpgroup, typename RowPtr>
 __device__ __forceinline__ void load_tile(uint32_t tile, const __nv_bfloat16* any, int d,
                                           RowPtr row_ptr) {
   constexpr int kSlots = DP / 8;
-  for (int e = threadIdx.x; e < kTileRows * kSlots; e += kWarpgroup) {
+  for (int e = threadIdx.x; e < kTileRows * kSlots; e += kThreads) {
     const int r = e / kSlots, c = e % kSlots;
     if (8 * c >= d) continue;
     const __nv_bfloat16* src = row_ptr(r);
@@ -46,12 +46,12 @@ __device__ __forceinline__ void load_tile(uint32_t tile, const __nv_bfloat16* an
 
 // Zeroes the columns d .. DP - 1 (d % 8 == 0) of `n_tiles` consecutive
 // tiles: the products read them, and no copy writes them.
-template <int DP>
+template <int DP, int kThreads = kWarpgroup>
 __device__ __forceinline__ void zero_padding(unsigned char* tiles, int n_tiles, int d) {
   constexpr int kTileBytes = DP * 128;
   const int pad_chunks = (DP - d) / 8;
   if (pad_chunks == 0) return;
-  for (int e = threadIdx.x; e < n_tiles * kTileRows * pad_chunks; e += kWarpgroup) {
+  for (int e = threadIdx.x; e < n_tiles * kTileRows * pad_chunks; e += kThreads) {
     const int t = e / (kTileRows * pad_chunks);
     const int r = e / pad_chunks % kTileRows;
     const int c = d / 8 + e % pad_chunks;
@@ -95,11 +95,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// The A operand of an RS product from a 64 x 64 accumulator p: k step ks
-// takes p's 8-column blocks 2ks and 2ks + 1, as pairs of bf16.
-__device__ __forceinline__ void pack_operand(const float (&p)[32], uint32_t (&a)[4][4]) {
+// The A operand of an RS product from a 64 x 16 KS accumulator p: k step
+// ks takes p's 8-column blocks 2ks and 2ks + 1, as pairs of bf16.
+template <int KS>
+__device__ __forceinline__ void pack_operand(const float (&p)[8 * KS], uint32_t (&a)[KS][4]) {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
+  for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) a[ks][i] = pack_bf16(p[8 * ks + 2 * i], p[8 * ks + 2 * i + 1]);
   }

@@ -47,14 +47,20 @@ rounds back to ``m``), and the Function saves q, k, v and those
 statistics.  The backward is a kernel of its own
 (``csrc/flash_attention_bwd.cu``), recomputing S from q and k in the
 forward's arithmetic, with no atomics (two calls give the same bits).  In
-bf16 up to D 128 it is two launches on ``wgmma``: per 64 rows the row sum L
-of exp(S − m), Δ = rowsum(P ∘ dP) with P = exp(S − m) / L, and dQ; then dK
+bf16 it is two launches on ``wgmma``: per 64 rows the row sum L of
+exp(S − m), Δ = rowsum(P ∘ dP) with P = exp(S − m) / L, and dQ; then dK
 and dV per 64 keys, with P and dS kept in registers as the A operand of
-their products; tiles arrive by asynchronous copies into a two-stage ring,
-and the CTAs with the longest causal walks start first.  f32, and bf16 past
-D 128, keep three launches on ``mma.sync`` / the CUDA cores (L and Δ, dK
-and dV, dQ).  In bf16 P and dS enter the products as two bf16 operands each
-(the value and its rounding's remainder).  It is counted in
+their products; tiles arrive by asynchronous copies into a ring of stages,
+and the CTAs with the longest causal walks start first.  Past D 128 (padded
+widths 192 and 256) each kernel runs two warpgroups a CTA: the rows kernel
+gives each 64 rows of its own (DP 192) or half of each key tile's keys
+(DP 256), the dK/dV kernel half of dK's and dV's columns; and where the dK/dV grid (batch × kv heads × 64-key tiles) is
+short of a wave of the card's SMs, each key tile's row walk is cut into
+:func:`walk_splits` ranges whose f32 sums a third launch adds in order (f32
+scratch the wrapper allocates).  f32 keeps three launches on the CUDA cores
+(L and Δ, dK and dV, dQ).  In bf16 up to D 128 P and dS enter the products
+as two bf16 operands each (the value and its rounding's remainder), past
+it as one.  It is counted in
 ``flash_attention.backward_launches``, apart from the forward's
 ``launches``.  :func:`flash_attention_backward_plain` computes
 the same gradient densely from the same statistics, for the tests and
@@ -76,7 +82,8 @@ import torch
 from ... import _build, costs
 
 __all__ = ["MASK_VALUE", "MAX_HEAD_DIM", "flash_attention", "flash_attention_plain",
-           "flash_attention_backward", "flash_attention_backward_plain"]
+           "flash_attention_backward", "flash_attention_backward_plain", "padded_width",
+           "walk_splits"]
 
 MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
 MAX_HEAD_DIM = 256
@@ -85,7 +92,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P, _P)
-_BWD_ARGS = (_P,) * 9 + (_I,) * 9 + (ctypes.c_float, _P)
+_BWD_ARGS = (_P,) * 10 + (_I,) * 10 + (ctypes.c_float, _P)
+KEY_TILE = 64  # keys a dK/dV CTA of the bf16 backward takes
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -233,10 +241,29 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, win
     return (out if dk == d else out[..., :d].contiguous()), st
 
 
+def padded_width(d: int, bf16: bool) -> int:
+    """The padded head width DP the backward kernels take D at."""
+    widths = (64, 128, 192, 256) if bf16 else (16, 32, 64, 128, 192, 256)
+    return next(w for w in widths if d <= w)
+
+
+def walk_splits(batch: int, seq_q: int, seq_k: int, heads: int, kv_heads: int, d: int,
+                bf16: bool, sms: int) -> int:
+    """The ranges each key tile's row walk is cut into in the bf16 dK/dV
+    kernel past D 128 (one CTA an SM): 1 where its CTAs (batch × kv head ×
+    64 keys) fill a wave of the card's ``sms`` SMs, else the least number
+    that does, at most the row tiles of a kv head (64 rows each)."""
+    ctas = batch * kv_heads * -(-seq_k // KEY_TILE)
+    if not bf16 or d <= 128 or ctas >= sms:
+        return 1
+    return max(1, min(-(-sms // ctas), -(-seq_q * (heads // kv_heads) // 64)))
+
+
 def flash_attention_backward(q, k, v, stats, grad_out, *, causal: bool, window: int,
                              scale: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One call of the backward kernels on CUDA tensors (two or three
-    launches on the stream), counted once in
+    launches on the stream: three for f32, and for bf16 past D 128 with a
+    split walk), counted once in
     ``flash_attention.backward_launches``: (dq, dk, dv) in q's dtype, from
     the forward's statistics ``stats`` (2, B, H, Sq)."""
     _check(q, k, v)
@@ -257,14 +284,21 @@ def flash_attention_backward(q, k, v, stats, grad_out, *, causal: bool, window: 
         q, k, v, g = (_bf16_operand(x, dk) for x in (q, k, v, g))
     dq, dkey, dval = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     aux = torch.empty((3, b, h, sq), dtype=torch.float32, device=q.device)  # rows' statistics
+    bf16 = q.dtype == torch.bfloat16
+    splits = walk_splits(b, sq, sk, h, kvh, dk, bf16,
+                         torch.cuda.get_device_properties(q.device).multi_processor_count)
+    # the ranges' f32 sums of dK and dV, added in order by a last launch
+    part = torch.empty((splits, 2, b, sk, kvh, padded_width(dk, bf16)), dtype=torch.float32,
+                       device=q.device) if splits > 1 else None
     stats = stats.contiguous()
     launch = _build.function("flash_attention_bwd", "flash_attention_backward_launch", _BWD_ARGS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), stats.data_ptr(),
                      aux.data_ptr(), dq.data_ptr(), dkey.data_ptr(), dval.data_ptr(),
+                     part.data_ptr() if part is not None else None,
                      b, sq, sk, h, kvh, dk, _DTYPE_CODE[q.dtype], int(causal), int(window),
-                     float(scale), stream)
+                     splits, float(scale), stream)
     _build.check("flash_attention_bwd", err, "flash_attention backward launch")
     _build.count_launch(flash_attention, "backward_launches")
     if dk != d:

@@ -14,7 +14,7 @@ import functools
 
 from .flash_attention import (
     flash_attention, flash_attention_backward, flash_attention_backward_plain,
-    flash_attention_plain,
+    flash_attention_plain, padded_width, walk_splits,
 )
 from .ref import mha_ref
 
@@ -58,24 +58,39 @@ def backward_flops(batch: int, sq: int, sk: int, heads: int, head_dim: int, *,
     three walks of the rows forming S; S and dP; S, dP and dS·K; and the
     dK/dV walk forming Sᵀ, dPᵀ, Pᵀ·dO and dSᵀ·Q: 10 where the forward has
     2, 5 × ``kernel_flops``.  In bf16 P and dS enter their three products
-    as two operands each (value and remainder): 13, 6.5 ×.  (The f32
-    kernels and bf16's past D 128 form the same products in three launches.)
-    ``kernel_flops(backward=True)`` counts the 2.5 × of a backward that
-    forms S and dP once: the least work, which bounds it."""
-    return (6.5 if bf16 else 5.0) * kernel_flops(batch, sq, sk, heads, head_dim, causal=causal)
+    as two operands each (value and remainder): 13, 6.5 ×.  Past D 128 in
+    bf16 they enter as one operand, and the dK/dV kernel's two warpgroups
+    each form the whole Sᵀ and dPᵀ (and half of dV and dK): 12, 6 ×.  (The
+    f32 kernels form the same products as the first count in three
+    launches.)  ``kernel_flops(backward=True)`` counts the 2.5 × of a
+    backward that forms S and dP once: the least work, which bounds it."""
+    products = (12 if head_dim > 128 else 13) if bf16 else 10
+    return products / 2 * kernel_flops(batch, sq, sk, heads, head_dim, causal=causal)
 
 
 def backward_hbm_bytes(batch: int, sq: int, sk: int, heads: int, kv_heads: int, head_dim: int,
-                       *, bytes_per_el: int = 2) -> float:
+                       *, bytes_per_el: int = 2, scratch: bool = True) -> float:
     """The backward's traffic by construction: Q, K, V and dO read once, dQ,
-    dK and dV written once, and the f32 row statistics: the forward's m and
-    l read, then the rows' statistics for the dK/dV kernel written and read
-    (bf16 up to D 128, the ``wgmma`` kernels: m·log₂e, 1 / L and Δ, 8 planes
-    of (B, H, Sq) in all; otherwise L and Δ, 6)."""
+    dK and dV written once, the forward's f32 row statistics m and l read,
+    and with ``scratch`` the kernels' own: the rows' statistics for the
+    dK/dV kernel written and read (bf16, the ``wgmma`` kernels: m·log₂e,
+    1 / L and Δ, 8 planes of (B, H, Sq) in all; f32: L and Δ, 6), and where
+    the bf16 dK/dV grid past D 128 is short of a wave of the H100 SXM's SMs
+    (``walk_splits``), its ranges' f32 sums of dK and dV written and read
+    once more.  Without ``scratch``: the least bytes, which bound it."""
+    from ...launch.mesh import H100_SXM
+
     q_b = batch * sq * heads * head_dim * bytes_per_el
     kv_b = 2 * batch * sk * kv_heads * head_dim * bytes_per_el
-    planes = 8 if bytes_per_el == 2 and head_dim <= 128 else 6
-    return 2 * (2 * q_b + kv_b) + planes * 4 * batch * heads * sq
+    io = 2 * (2 * q_b + kv_b)
+    if not scratch:
+        return io + 2 * 4 * batch * heads * sq
+    bf16 = bytes_per_el == 2
+    planes = 8 if bf16 else 6
+    splits = walk_splits(batch, sq, sk, heads, kv_heads, head_dim, bf16, H100_SXM.sms)
+    part = 0 if splits == 1 else \
+        splits * 2 * batch * sk * kv_heads * padded_width(head_dim, bf16) * 4
+    return io + planes * 4 * batch * heads * sq + 2 * part
 
 
 @functools.lru_cache(maxsize=None)

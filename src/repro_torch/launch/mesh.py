@@ -57,7 +57,7 @@ class HardwareSpec:
 
     def __init__(self, name: str, peak_flops: float, f32_flops: float, hbm_bw: float,
                  hbm_bytes: float, intra_node_bw: float, node_size: int,
-                 inter_node_bw: float) -> None:
+                 inter_node_bw: float, sms: int) -> None:
         self.name = name
         self.peak_flops = peak_flops        # FLOP/s bf16 on the tensor cores
         self.f32_flops = f32_flops          # FLOP/s float32 outside the tensor cores
@@ -66,6 +66,7 @@ class HardwareSpec:
         self.intra_node_bw = intra_node_bw  # bytes/s a GPU sends inside a node
         self.node_size = node_size          # GPUs a node
         self.inter_node_bw = inter_node_bw  # bytes/s a GPU sends to other nodes
+        self.sms = sms                      # streaming multiprocessors: a wave of CTAs
 
     def group_rate(self, mesh_shape: Sequence[int], axis_names: Sequence[str],
                    group_axes: Sequence[str]) -> float:
@@ -82,7 +83,7 @@ class HardwareSpec:
 
 
 # NVIDIA H100 SXM data sheet: 989 TFLOP/s bf16 (dense), 67 TFLOP/s fp32,
-# 3.35 TB/s HBM3, 80 GB; NVLink 4 at 900 GB/s a GPU in total, 450 GB/s a
+# 3.35 TB/s HBM3, 80 GB, 132 SMs; NVLink 4 at 900 GB/s a GPU in total, 450 GB/s a
 # direction, 8 GPUs a node behind NVSwitch (H100 data sheet); one 400 Gb/s
 # NDR InfiniBand port a GPU, 50 GB/s, between nodes (NVIDIA DGX H100 data sheet)
 H100_SXM = HardwareSpec(
@@ -94,4 +95,5 @@ H100_SXM = HardwareSpec(
     intra_node_bw=450e9,
     node_size=8,
     inter_node_bw=50e9,
+    sms=132,
 )

@@ -154,16 +154,24 @@ def test_k4_plain_backward_bf16_inputs(b, sq, sk, h, kvh, d, causal, window):
         assert_rows_close(g, torch.from_numpy(np.array(j)))
 
 
-def k4_backward_walks(sq, sk, g, causal, window, d):
+def k4_backward_walks(sq, sk, g, causal, window, d, bf16=True, splits=1):
     """The (row tile, key tile) pairs K4's backward kernels visit, as
     ``csrc/flash_attention_bwd.cu`` computes them: the dK/dV kernel's row
-    tiles per key tile, and the row kernels' key tiles per row tile (the
-    walks for L, Δ and dQ share them); and each grid's tiles in launch
-    order with the length of each walk."""
-    rows, kt = 64, 64 if d <= 128 else 32
+    tiles (64 rows) per key tile, and the rows kernel's key tiles per CTA
+    of ``cta`` rows (the walks for L, Δ and dQ share them); and each grid's
+    tiles in launch order with the length of each walk.  Key tiles are 64
+    keys but in the f32 kernels past D 128 (32).  The bf16 rows kernel at
+    DP 192 runs two warpgroups of 64 rows a CTA (128 rows) over the union of
+    their key tiles; elsewhere a CTA holds 64 rows.  With ``splits`` ranges
+    (the bf16 kernel past D 128 on a grid short of a wave), ``ranges`` maps
+    each key tile to the row tiles of each contiguous range of its walk.
+    Returns (dkdv pairs, rows pairs (CTA, key tile), (64, cta), key tile,
+    launches)."""
+    rows, kt = 64, 64 if bf16 or d <= 128 else 32
+    cta = 2 * rows if bf16 and fk.padded_width(d, True) == 192 else rows
     total = sq * g
     dkdv, dq = set(), set()
-    dkdv_len, dq_len = {}, {}
+    dkdv_len, dq_len, ranges = {}, {}, {}
     for kb in range(-(-sk // kt)):
         k0 = kb * kt
         k_last = min(k0 + kt, sk) - 1
@@ -176,10 +184,11 @@ def k4_backward_walks(sq, sk, g, causal, window, d):
         f_hi = max(f_lo, (sq * g + rows - 1) // rows) if fm < sq else f_lo
         walk = list(range(t_lo, t_hi)) + list(range(f_lo, f_hi))
         dkdv |= {(t, kb) for t in walk}
-        dkdv_len[kb] = len(walk)
-    n_row_tiles = -(-total // rows)
+        dkdv_len[kb] = n = len(walk)
+        ranges[kb] = [walk[sp * n // splits:(sp + 1) * n // splits] for sp in range(splits)]
+    n_row_tiles = -(-total // cta)
     for t in range(n_row_tiles):
-        first, last = t * rows // g, (min(t * rows + rows, total) - 1) // g
+        first, last = t * cta // g, (min(t * cta + cta, total) - 1) // g
         k_lo = max(0, first - window + 1) if window else 0
         k_hi = min(sk, last + 1) if causal else sk
         t_lo = k_lo // kt
@@ -193,8 +202,9 @@ def k4_backward_walks(sq, sk, g, causal, window, d):
 
     launches = {"dkdv": [(kb, dkdv_len[kb]) for kb in order(len(dkdv_len),
                                                            not causal and bool(window))],
-                "rows": [(t, dq_len[t]) for t in order(n_row_tiles, causal)]}
-    return dkdv, dq, rows, kt, launches
+                "rows": [(t, dq_len[t]) for t in order(n_row_tiles, causal)],
+                "ranges": ranges}
+    return dkdv, dq, (rows, cta), kt, launches
 
 
 @pytest.mark.parametrize("sq,sk,g,causal,window,d", [
@@ -202,11 +212,13 @@ def k4_backward_walks(sq, sk, g, causal, window, d):
     (130, 90, 4, True, 20, 256), (55, 300, 5, False, 0, 64), (1, 300, 8, False, 0, 192),
     (150, 100, 3, False, 30, 64), (90, 300, 2, True, 0, 160), (300, 300, 1, True, 1, 32),
 ])
-def test_k4_backward_tile_walks_cover_every_contribution(sq, sk, g, causal, window, d):
+@pytest.mark.parametrize("bf16", [True, False])
+def test_k4_backward_tile_walks_cover_every_contribution(sq, sk, g, causal, window, d, bf16):
     """Every pair with P != 0 (dV) lies in a tile pair the dK/dV kernel walks,
     and every pair the masks keep (dS, hence dQ and dK) in one that both
     kernels walk; pairs outside add nothing."""
-    dkdv, dq, rows, kt, _ = k4_backward_walks(sq, sk, g, causal, window, d)
+    dkdv, dq, (rows, cta), kt, _ = k4_backward_walks(sq, sk, g, causal, window, d, bf16)
+    assert cta == (128 if bf16 and 128 < d <= 192 else 64)
     i = np.arange(sq)[:, None]
     j = np.arange(sk)[None, :]
     keep = np.ones((sq, sk), bool)
@@ -217,11 +229,10 @@ def test_k4_backward_tile_walks_cover_every_contribution(sq, sk, g, causal, wind
     masked_row = ~keep.any(1)
     gives_p = keep | masked_row[:, None]          # a fully masked row: 1 / Sk everywhere
     for rho in range(sq * g):
-        t = rho // rows
         for key in np.flatnonzero(gives_p[rho // g]):
-            assert (t, key // kt) in dkdv, (rho, key)
+            assert (rho // rows, key // kt) in dkdv, (rho, key)
         for key in np.flatnonzero(keep[rho // g]):
-            assert (t, key // kt) in dq, (rho, key)
+            assert (rho // cta, key // kt) in dq, (rho, key)
 
 
 @pytest.mark.parametrize("sq,sk,g,causal,window,d", [
@@ -231,14 +242,17 @@ def test_k4_backward_tile_walks_cover_every_contribution(sq, sk, g, causal, wind
     (150, 100, 3, False, 30, 64),      # a window without causality: the other way round
     (55, 300, 5, False, 0, 64),        # no mask: every walk as long
     (300, 300, 1, True, 70, 128),
+    (2048, 2048, 4, True, 0, 160),     # stablelm-12b's: 128-row CTAs at DP 192
+    (300, 300, 3, True, 0, 192),
+    (2048, 2048, 16, True, 0, 256),    # D 256: 64-row CTAs (the keys split between warpgroups)
 ])
 def test_k4_backward_grids_launch_the_longest_walks_first(sq, sk, g, causal, window, d):
     """Each grid launches every tile once; the causal grids (and a window's
     dK/dV grid) launch their walks from the longest to the shortest, so the
     short walks fill the card's last wave."""
-    _, _, rows, kt, launches = k4_backward_walks(sq, sk, g, causal, window, d)
+    _, _, (rows, cta), kt, launches = k4_backward_walks(sq, sk, g, causal, window, d)
     assert sorted(t for t, _ in launches["dkdv"]) == list(range(-(-sk // kt)))
-    assert sorted(t for t, _ in launches["rows"]) == list(range(-(-sq * g // rows)))
+    assert sorted(t for t, _ in launches["rows"]) == list(range(-(-sq * g // cta)))
     grids = ("dkdv", "rows") if causal and not window else \
         ("dkdv",) if window and not causal else ()
     for grid in grids:
@@ -247,6 +261,50 @@ def test_k4_backward_grids_launch_the_longest_walks_first(sq, sk, g, causal, win
     if causal and not window:  # the first CTA launched walks every tile it can
         assert launches["dkdv"][0] == (0, -(-sq * g // rows))
         assert launches["rows"][0][1] == -(-sk // kt)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,window", [
+    (1, 4096, 4096, 16, 1, 256, True, 2048),   # recurrentgemma's windowed rows
+    (1, 1024, 1024, 16, 1, 256, True, 300),    # the card test's split case
+    (1, 130, 130, 4, 1, 256, True, 33),
+    (2, 120, 70, 4, 2, 256, True, 20),         # masked rows past every key
+    (1, 300, 300, 4, 2, 192, False, 0),
+    (1, 200, 150, 8, 2, 200, True, 0),
+])
+def test_k4_backward_split_walks_take_each_tile_pair_once(b, sq, sk, h, kvh, d, causal, window):
+    """Where the bf16 dK/dV grid past D 128 is short of a wave, each key
+    tile's walk is cut into contiguous ranges, one CTA each: every (row
+    tile, key tile) pair of the walk lies in exactly one range, the ranges
+    in the walk's order, and the CTAs then fill a wave (or every range
+    holds one row tile)."""
+    splits = fk.walk_splits(b, sq, sk, h, kvh, d, True, 132)
+    assert splits > 1
+    g = h // kvh
+    dkdv, _, _, kt, launches = k4_backward_walks(sq, sk, g, causal, window, d, splits=splits)
+    whole, _, _, _, unsplit = k4_backward_walks(sq, sk, g, causal, window, d)
+    assert kt == 64 and dkdv == whole
+    key_ctas = b * kvh * -(-sk // kt)
+    assert key_ctas * splits >= 132 or splits == -(-sq * g // 64)
+    for kb, ranges in launches["ranges"].items():
+        walk = unsplit["ranges"][kb][0]
+        assert len(ranges) == splits
+        assert [t for r in ranges for t in r] == walk  # in order, each tile once
+        assert {(t, kb) for t in walk} == {p for p in dkdv if p[1] == kb}
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,bf16,want", [
+    (1, 4096, 4096, 16, 1, 256, True, 3),      # recurrentgemma: 64 CTAs, 3 ranges fill a wave
+    (1, 2048, 2048, 16, 1, 256, True, 5),      # 32 key tiles
+    (1, 2048, 2048, 32, 8, 160, True, 1),      # stablelm-12b: 256 CTAs, unsplit
+    (4, 2048, 2048, 32, 4, 64, True, 1),       # D 64: the one-warpgroup kernel, never split
+    (1, 4096, 4096, 16, 1, 128, True, 1),      # D 128: likewise, short or not
+    (1, 4096, 4096, 16, 1, 256, False, 1),     # f32: the CUDA-core kernels, never split
+    (1, 130, 130, 4, 1, 256, True, 9),         # at most the row tiles of a kv head
+    (2, 4224, 4224, 8, 2, 192, True, 1),       # 2 x 2 x 66 = 264 CTAs: past a wave
+    (1, 4224, 4224, 8, 2, 136, True, 1),       # 2 x 66 = 132 CTAs: exactly a wave
+])
+def test_k4_backward_split_engages_only_under_a_wave(b, sq, sk, h, kvh, d, bf16, want):
+    assert fk.walk_splits(b, sq, sk, h, kvh, d, bf16, 132) == want
 
 
 def test_k4_function_on_the_cpu_launches_nothing():
@@ -271,9 +329,13 @@ class _Report:
         self.kernels[name] = (flops, hbm_bytes)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k4_meta_backward_charges_its_kernels(dtype):
-    b, sq, h, kvh, d, window = 2, 96, 8, 2, 64, 40
+@pytest.mark.parametrize("dtype,d", [
+    pytest.param(torch.float32, 64, id="dtype0"), pytest.param(torch.bfloat16, 64, id="dtype1"),
+    pytest.param(torch.bfloat16, 160, id="bf16-d160"),
+    pytest.param(torch.bfloat16, 256, id="bf16-d256"),
+])
+def test_k4_meta_backward_charges_its_kernels(dtype, d):
+    b, sq, h, kvh, window = 2, 96, 8, 2, 40
     q, k, v = (torch.empty(s, device="meta", dtype=dtype).requires_grad_()
                for s in ((b, sq, h, d), (b, sq, kvh, d), (b, sq, kvh, d)))
     with costs.pricing(_Report()) as report:
@@ -283,13 +345,24 @@ def test_k4_meta_backward_charges_its_kernels(dtype):
     el = 2 if dtype == torch.bfloat16 else 4
     share = fops.window_share(sq, sq, True, window)
     # bf16 at D 64: the wgmma kernels' 13 tile products and 8 planes of row
-    # statistics; f32: 10 products and 6 planes
-    planes = 8 if dtype == torch.bfloat16 else 6
+    # statistics; past D 128 12 products (P and dS without their remainders,
+    # both warpgroups of the dK/dV kernel forming S and dP), and this grid
+    # of 2 x 2 x 2 key tiles, short of a wave, walks its key tiles in 6
+    # ranges (the row tiles of a kv head) whose f32 sums at DP 192 / 256 are
+    # written and read once; f32: 10 products and 6 planes
+    bf16 = dtype == torch.bfloat16
+    planes = 8 if bf16 else 6
+    products = (12 if d > 128 else 13) if bf16 else 10
+    splits = fk.walk_splits(b, sq, sq, h, kvh, d, bf16, 132)
+    assert splits == (6 if d > 128 else 1)
+    part = 2 * splits * 2 * b * sq * kvh * (192 if d <= 192 else 256) * 4 if splits > 1 else 0
     io = 2 * (2 * b * sq * h * d + 2 * b * sq * kvh * d) * el
     assert fops.backward_hbm_bytes(b, sq, sq, h, kvh, d, bytes_per_el=el) == \
-        io + planes * 4 * b * h * sq
+        io + planes * 4 * b * h * sq + part
+    assert fops.backward_hbm_bytes(b, sq, sq, h, kvh, d, bytes_per_el=el, scratch=False) == \
+        io + 2 * 4 * b * h * sq
     assert report.kernels["flash_attention_backward"] == (
-        (6.5 if dtype == torch.bfloat16 else 5.0) * fops.kernel_flops(b, sq, sq, h, d) * share,
+        products / 2 * fops.kernel_flops(b, sq, sq, h, d) * share,
         fops.backward_hbm_bytes(b, sq, sq, h, kvh, d, bytes_per_el=el))
     assert report.kernels["flash_attention"][0] == fops.kernel_flops(b, sq, sq, h, d) * share
 

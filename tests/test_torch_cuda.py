@@ -555,6 +555,14 @@ K4_BACKWARD_SHAPES = [  # b, sq, sk, h, kvh, d, causal, window
     (1, 150, 100, 8, 1, 128, True, 0),
     (1, 200, 100, 8, 2, 128, True, 30),     # causal window past every key: masked rows
     (1, 129, 129, 8, 1, 64, False, 40),     # a window without causality
+    # bf16 past D 128: the two-warpgroup kernels at padded widths 192 and
+    # 256 (D 136 and 200 padded, 192 full), a one-kv-head grid short of a
+    # wave whose key tiles walk split ranges, masked rows at D 256
+    (1, 100, 100, 4, 2, 136, True, 0),
+    (2, 150, 150, 8, 2, 192, True, 0),
+    (1, 130, 90, 4, 4, 200, False, 0),
+    (1, 1024, 1024, 16, 1, 256, True, 300),
+    (1, 140, 60, 4, 2, 256, True, 25),      # causal window past every key: masked rows
 ]
 
 
@@ -589,7 +597,7 @@ def test_k4_backward_kernel_matches_plain(cuda, b, sq, sk, h, kvh, d, causal, wi
     assert all(torch.equal(a, g) for a, g in zip(again, got))
 
 
-@pytest.mark.parametrize("d", [8, 64, 128, 256])
+@pytest.mark.parametrize("d", [8, 64, 128, 160, 192, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k4_backward_one_key_rows_give_dq_exactly_zero(cuda, d, dtype):
     """A window of 1: every row sees its own key alone, so P = 1 and dS = 0
