@@ -50,9 +50,17 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    D 128); and what phase 10a/10c's prefill hands it, on a rank (B 2, S
    512, 16 / 2 heads, D 64) and in the parent's one-rank run (B 4, S 512,
    32 / 4 heads).  K4's bound counts the (query, key) pairs its masks
-   keep.  K5 at mamba2-130m's prefill (``K5_SHAPES``: B 1 at S 2048, 1000
-   and the longest served prompt's 891; phase 10b's B 2 a rank and B 4 in
-   the one-rank run at S 512; H 24, P 64, N 128, chunk 256) with zero and
+   keep.  Each K4 row also names the kernel that ran (bf16 past D 128:
+   ``flash_fwd_bf16_wide``, launched once a call there and nowhere else),
+   SDPA's time on the card alone (``library_device_ms``) beside its
+   ``library_ms``; a line of its own gives, for each row, the (64-row
+   tile, 64-key tile) pairs the wrapper's ``forward_walk`` says the forward
+   walks (a model, not read on the card) beside those that hold a pair the
+   masks keep.  The kernels line carries the wide forward as
+   ``flash_attention_wide`` (its row: stablelm-12b's S 2048 in bf16).  K5 at mamba2-130m's prefill
+   (``K5_SHAPES``: B 1 at S 2048, 1000 and the longest served prompt's
+   891; phase 10b's B 2 a rank and B 4 in the one-rank run at S 512; H 24,
+   P 64, N 128, chunk 256) with zero and
    nonzero h0 at 2e-4.  Then the backward kernels at what training hands
    them, each against its plain backward (``flash_attention_backward_plain``,
    ``ssd_scan_backward_plain``) on the forward kernel's row statistics,
@@ -85,7 +93,8 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    card, 8 requests through ``ServingEngine`` (4 slots, continuous,
    inline, greedy, max_len 2048).  Every request completes, the RunReport
    covers each exactly once, the kernel launches equal the layers that
-   launch it × prefills (176, 192, 320, 384 and 96), and a float32 copy
+   launch it × prefills (176, 192, 320, 384 and 96; stablelm-12b's and
+   recurrentgemma-9b's all through the wide bf16 forward), and a float32 copy
    of each model (its bf16 weights moved to the host first; qwen3-moe's
    first 4 layers, since its 123 GB do not fit) gives the same greedy
    tokens through the kernels as through their plain versions, with
@@ -171,7 +180,8 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
   (``WIDE_TRAIN``): stablelm-12b at full width (D 160) cut to 4 of its 40
   layers (``reduced``), 4 steps of the same batch and microbatches, no
   checkpoint: finite losses, no plain version called, 2 × 4 × 2 × 4 K4
-  and 4 × 2 × 4 backward launches, the median step, one profiled step's
+  launches (every one the wide bf16 forward) and 4 × 2 × 4 backward
+  launches, the median step, one profiled step's
   backward kernels by name with their share of its kernel time, and the
   float32 parity step at those 4 layers at the measures above.
 8. The distribution layer (slice F1): two ranks spawned on the one card
@@ -433,30 +443,41 @@ def require(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-class BackwardCount:
-    """A kernel wrapper's backward launches (``wrapper.backward_launches``),
-    read and set to 0 as a wrapper's ``launches``."""
+class Count:
+    """Another count of a kernel wrapper (``wrapper.backward_launches``,
+    ``wrapper.wide_launches``), read and set to 0 as a wrapper's
+    ``launches``."""
 
-    def __init__(self, wrapper):
-        self.wrapper = wrapper
+    def __init__(self, wrapper, attr: str):
+        self.wrapper, self.attr = wrapper, attr
 
     @property
     def launches(self) -> int:
-        return self.wrapper.backward_launches
+        return getattr(self.wrapper, self.attr)
 
     @launches.setter
     def launches(self, n: int) -> None:
-        self.wrapper.backward_launches = n
+        setattr(self.wrapper, self.attr, n)
 
 
 def model_wrappers() -> dict:
-    """K4 and K5 and their backward kernels, by the names of the JSON line."""
+    """K4 and K5 and their backward kernels, and K4's bf16 forward past D
+    128 (``flash_fwd_bf16_wide``, counted within K4's launches too), by the
+    names of the JSON line."""
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
 
     return {"flash_attention": flash_attention, "ssd_scan": ssd_scan,
-            "flash_attention_backward": BackwardCount(flash_attention),
-            "ssd_scan_backward": BackwardCount(ssd_scan)}
+            "flash_attention_wide": Count(flash_attention, "wide_launches"),
+            "flash_attention_backward": Count(flash_attention, "backward_launches"),
+            "ssd_scan_backward": Count(ssd_scan, "backward_launches")}
+
+
+def wide_share(cfg, k4_launches: int) -> dict:
+    """The wide forward's launches a run of ``cfg`` must count beside K4's:
+    every K4 launch of a bf16 model past D 128, else none."""
+    wide = cfg.family != "ssm" and cfg.dtype == "bfloat16" and cfg.head_dim > 128
+    return {"flash_attention_wide": k4_launches if wide else 0}
 
 
 # the plain versions that no training step on the card may call: the
@@ -557,6 +578,35 @@ def attn_keep(sq: int, sk: int, causal: bool, window: int):
     if window:
         keep &= j > i - window
     return keep
+
+
+def tile_pairs(nb: int, sq: int, sk: int, h: int, kvh: int, d: int, bf16: bool, causal: bool,
+               window: int, keep) -> tuple:
+    """(walked, kept): the (64-row tile, 64-key tile) pairs K4's forward
+    walks on these inputs as the wrapper's ``forward_walk`` models it (each
+    64-row warpgroup of a CTA walks the CTA's walk; nothing here is read on
+    the card), and the pairs that hold one (query, key) pair the
+    masks keep (``keep``, (Sq, Sk) on the card, or None: every pair)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        KEY_TILE, forward_cta_rows, forward_walk,
+    )
+
+    g, cta = h // kvh, forward_cta_rows(d, bf16)
+    rows, key_tiles = sq * g, -(-sk // KEY_TILE)
+    if keep is not None:  # (Sq, key tiles): a position keeps a key of the tile
+        padded = torch.nn.functional.pad(keep, (0, key_tiles * KEY_TILE - sk))
+        by_tile = padded.reshape(sq, key_tiles, KEY_TILE).any(-1)
+    walked = kept = 0
+    for rho0 in range(0, rows, cta):
+        t_lo, t_end = forward_walk(rho0 // g, (min(rho0 + cta, rows) - 1) // g, sk, causal,
+                                   window)
+        walked += cta // 64 * (t_end - t_lo)
+        for r0 in range(rho0, min(rho0 + cta, rows), 64):
+            p0, p1 = r0 // g, (min(r0 + 64, rows) - 1) // g
+            kept += key_tiles if keep is None else int(by_tile[p0:p1 + 1].any(0).sum())
+    return nb * kvh * walked, nb * kvh * kept
 
 
 def without_a_tile(q, k, v, keep):
@@ -869,12 +919,13 @@ def phase4_model_kernels():
 
     kernels = {}
     rng = np.random.default_rng(0)
+    wide = Count(flash_attention, "wide_launches")
 
     def normal(*shape, scale=1.0):
         return torch.from_numpy(scale * rng.standard_normal(shape, dtype=np.float32)).cuda()
 
     # -- K4 at the served models' attention -----------------------------------
-    rows = []
+    rows, walks = [], []
     for model_name, nb, h, kvh, d, causal, window, lengths in K4_SHAPES:
         for sq, sk in lengths:
             q32, k32, v32 = normal(nb, sq, h, d), normal(nb, sk, kvh, d), normal(nb, sk, kvh, d)
@@ -884,7 +935,12 @@ def phase4_model_kernels():
                 run = functools.partial(flash_attention, q, k, v, **mask)
                 label = f"K4 flash_attention {model_name} D={d} Sq={sq} Sk={sk} {name}"
                 want = flash_attention_plain(q, k, v, **mask)
+                before = wide.launches
                 got = run().float()
+                # bf16 past D 128 runs flash_fwd_bf16_wide, and nothing else does
+                is_wide = dtype == torch.bfloat16 and d > 128
+                require(wide.launches - before == int(is_wide),
+                        f"{label}: flash_fwd_bf16_wide launched {wide.launches - before} times")
                 tol = attn_tol(name, want)
                 err = compare(label, got, want.float(), tol)
                 # the largest share of its tolerance that an element takes
@@ -908,6 +964,7 @@ def phase4_model_kernels():
                     qt, kt, vt, enable_gqa=True, **how)
                 lib_err = float((sdpa().transpose(1, 2).float() - want.float()).abs().max())
                 library = time_ms(sdpa)
+                library_dev = time_ms(sdpa, hold=True)
                 el = 2 if dtype == torch.bfloat16 else 4
                 # the work this mask leaves: kernel_flops scaled by the
                 # window's share of the causal pairs
@@ -919,13 +976,32 @@ def phase4_model_kernels():
                                  f"Sk={sk} causal={causal} window={window} {name}",
                                  max_abs_err=err, tolerance_used=used, ms=ms, device_ms=dev,
                                  plain_ms=plain, bound_ms=b, bound_by=by, library_ms=library,
-                                 x_library=ms / library, library_max_abs_diff=lib_err))
+                                 library_device_ms=library_dev, x_library=ms / library,
+                                 x_library_device=dev / library_dev,
+                                 library_max_abs_diff=lib_err, kernel=(
+                                     "flash_fwd_bf16_wide" if is_wide else "flash_fwd")))
+                walked, needed = tile_pairs(nb, sq, sk, h, kvh, d, dtype == torch.bfloat16,
+                                            causal, window, keep if causal or window else None)
+                walks.append(dict(shape=rows[-1]["shape"], tile_pairs_walked=walked,
+                                  tile_pairs_kept=needed))
     print("K4 at full width " + json.dumps(rows))
+    # a model, not a reading: what forward_walk says each row's CTAs walk
+    print("K4 forward walks, modelled by forward_walk " + json.dumps(walks))
     main_row = rows[0]  # tinyllama's S 2048 bf16, every PR's yardstick
     kernels["flash_attention"] = dict(
         name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/flash_attention.py:85", shapes=rows,
         **{k: main_row[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")})
+    # stablelm-12b's S 2048 bf16 (D 160): the wide forward's yardstick
+    wide_row = next(r for r in rows if r["model"] == "stablelm-12b" and "Sq=2048" in r["shape"]
+                    and r["shape"].endswith("bfloat16"))
+    kernels["flash_attention_wide"] = dict(
+        name="flash_attention_wide", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_wide.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:85",
+        shapes=[r for r in rows if r["kernel"] == "flash_fwd_bf16_wide"],
+        **{k: wide_row[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")})
 
     # -- K5 at mamba2-130m's prefill ------------------------------------------
@@ -1188,7 +1264,8 @@ def profile_top10(fn):
 
 
 def phase5_serving(arch: str, wrappers: dict):
-    """Serve one model at full width; returns (kernel name, launches, bf16 tokens)."""
+    """Serve one model at full width; returns ({kernel name: launches}, bf16
+    tokens, K4's launches past the window)."""
     import gc
 
     import numpy as np
@@ -1231,8 +1308,13 @@ def phase5_serving(arch: str, wrappers: dict):
     require(launches[kernel] == want,
             f"{arch}: {kernel} launched {launches[kernel]} times, not {kernel_layers} layers x "
             f"{len(specs)} prefills = {want}")
-    others = {k: v for k, v in launches.items() if k != kernel and v}
+    counts = {kernel: want, **wide_share(cfg, want)}
+    wide = counts["flash_attention_wide"]
+    require(launches["flash_attention_wide"] == wide, f"{arch}: flash_attention_wide launched "
+            f"{launches['flash_attention_wide']} times, not {wide}")
+    others = {k: v for k, v in launches.items() if k not in counts and v}
     require(not others, f"{arch}: unexpected launches {others}")
+    counts = {k: n for k, n in counts.items() if n}
 
     tokens = sum(len(r.tokens) for r in results.values())
     ttft = sorted(r.ttft for r in results.values())
@@ -1326,7 +1408,7 @@ def phase5_serving(arch: str, wrappers: dict):
     del params32, fast, plain, res_k, res_p
     gc.collect()
     torch.cuda.empty_cache()  # the next model finds the card empty
-    return kernel, launches[kernel], bf16_tokens, rolled
+    return counts, bf16_tokens, rolled
 
 
 def greedy(model, params, prompt, max_len: int, steps: int, **source):
@@ -2096,8 +2178,8 @@ def phase7_training(arch: str, wrappers: dict, card: str, keep=None, *, layers: 
     step 0's batch must score lower with its last checkpoint, and a second
     run resumes from step ``ckpt_every``; ``keep``: a directory that
     receives the run's checkpoint of step ``ckpt_every``.  Returns ({kernel:
-    launches, backward kernel: launches} of the run, the resumed run's
-    losses or None, the run's readings)."""
+    launches, backward kernel: launches, and the wide forward's where it
+    ran} of the run, the resumed run's losses or None, the run's readings)."""
     import dataclasses
     import gc
     import math
@@ -2189,8 +2271,13 @@ def phase7_training(arch: str, wrappers: dict, card: str, keep=None, *, layers: 
         require(launches[backward] == want // 2,
                 f"{arch}: {backward} launched {launches[backward]} times in training, not "
                 f"{kernel_layers} layers x {mb} microbatches x {steps} steps = {want // 2}")
-        others = {k: v for k, v in launches.items() if k not in (kernel, backward) and v}
+        counts = {kernel: want, backward: want // 2, **wide_share(cfg, want)}
+        wide = counts["flash_attention_wide"]
+        require(launches["flash_attention_wide"] == wide, f"{arch}: flash_attention_wide "
+                f"launched {launches['flash_attention_wide']} times in training, not {wide}")
+        others = {k: v for k, v in launches.items() if k not in counts and v}
         require(not others, f"{arch}: unexpected launches in training {others}")
+        counts = {k: n for k, n in counts.items() if n}
 
         if resume:
             # -- resume from step ckpt_every: the steps after it again ---------
@@ -2249,7 +2336,7 @@ def phase7_training(arch: str, wrappers: dict, card: str, keep=None, *, layers: 
         "active_param_count": n_active, "global_batch": gb, "seq_len": seq, "microbatches": mb,
         "steps": steps, "losses": whole["losses"],
         "first_loss": whole["first_loss"], "final_loss": whole["final_loss"],
-        f"{kernel}_launches": launches[kernel], f"{backward}_launches": launches[backward],
+        **{f"{name}_launches": n for name, n in counts.items()},
         "plain_version_calls": plain_calls, "run_wall_s": wall,
         "run_mean_tok_per_s": whole["mean_tok_per_s"], "peak_mem_GB": peak_gb,
         "held_bytes": whole["held_bytes"],
@@ -2278,8 +2365,7 @@ def phase7_training(arch: str, wrappers: dict, card: str, keep=None, *, layers: 
     del params32
     gc.collect()
     torch.cuda.empty_cache()
-    return ({kernel: launches[kernel], backward: launches[backward]},
-            rest["losses"] if resume else None, summary)
+    return counts, rest["losses"] if resume else None, summary
 
 
 # phase 8: the distribution layer (slice F1) with two ranks on the one card.
@@ -2363,7 +2449,7 @@ def _phase8a(rank: int, mesh, plan: dict) -> dict:
     want = 2 * kernel_layers * mb * (steps - start)   # forward and remat, a layer and step
     if device == "cuda":
         require(launches == dict(ssd_scan=want, ssd_scan_backward=want // 2, flash_attention=0,
-                                 flash_attention_backward=0),
+                                 flash_attention_wide=0, flash_attention_backward=0),
                 f"8a rank {rank}: launches {launches}, not ssd_scan {want} and its backward "
                 f"{want // 2}")
 
@@ -2660,7 +2746,7 @@ def _phase9_train(mesh, plan: dict, part: str, arch: str, layers: int) -> dict:
     want = 2 * attn * run_cfg["steps"]      # forward and remat, a layer and step
     if device == "cuda":
         require(launches == dict(flash_attention=want, flash_attention_backward=want // 2,
-                                 ssd_scan=0, ssd_scan_backward=0),
+                                 flash_attention_wide=0, ssd_scan=0, ssd_scan_backward=0),
                 f"{part}: launches {launches}, not flash_attention {want} and its backward "
                 f"{want // 2}")
     result = dict(arch=arch, layers=cfg.num_layers, mesh=list(TP_MESH),
@@ -3343,16 +3429,19 @@ def main() -> int:
     print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
     wrappers.update(model_wrappers())
     inline_tokens = {}
-    for name in ("flash_attention", "ssd_scan", "flash_attention_backward", "ssd_scan_backward"):
+    for name in ("flash_attention", "ssd_scan", "flash_attention_wide", "flash_attention_backward",
+                 "ssd_scan_backward"):
         kernels[name]["launches"] = 0
         kernels[name]["launches_by_path"] = {}
 
     def serve_inline(arch):
-        name, launches, inline_tokens[arch], rolled = phase5_serving(arch, wrappers)
-        kernels[name]["launches"] += launches
-        kernels[name]["launches_by_path"][f"phase 5 {arch}"] = launches
+        counts, inline_tokens[arch], rolled = phase5_serving(arch, wrappers)
+        for name, launches in counts.items():
+            kernels[name]["launches"] += launches
+            kernels[name]["launches_by_path"][f"phase 5 {arch}"] = launches
         if rolled:
-            kernels[name]["launches_by_path"][f"phase 5 {arch} f32 past the window"] = rolled
+            kernels["flash_attention"]["launches_by_path"][
+                f"phase 5 {arch} f32 past the window"] = rolled
         print(f"phase 5 {arch} done at {time.perf_counter() - t_start:.1f} s")
 
     for arch in SERVE_ARCHS:
@@ -3443,6 +3532,12 @@ def main() -> int:
           f"({time.perf_counter() - t11:.1f} s)")
     print("launches on the main paths: " + ", ".join(
         f"{k}={v['launches_by_path']}" for k, v in kernels.items()))
+    # the wide forward served stablelm-12b and recurrentgemma-9b and trained
+    # stablelm-12b
+    for phase in ("phase 5", "phase 7"):
+        n = sum(c for path, c in kernels["flash_attention_wide"]["launches_by_path"].items()
+                if path.startswith(phase))
+        require(n > 0, f"flash_attention_wide was not launched in {phase}")
     # the backward kernels ran in every training phase's steps
     for name in ("flash_attention_backward", "ssd_scan_backward"):
         for phase in ("phase 7", "phase 8", "phase 9"):

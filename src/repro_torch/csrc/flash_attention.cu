@@ -12,23 +12,33 @@
 //    nothing to l) and query rows past Sq (the ragged last tiles) are
 //    masked here, so any length runs through the kernel.
 //
-// Head dims: any D from 1 to 256.  Each path instantiates a few padded
-// widths DP >= D (bf16: 64, 128, 192, 256; f32: 16, 32, 64, 128, 192,
-// 256); the columns D .. DP - 1 are zero in shared memory, so the padded
-// products add exact zeros and equal the unpadded ones.  Only D columns are
-// read from and written to device memory.
+// Head dims: any D from 1 to 256 in f32, 1 to 128 in bf16 (bf16 past 128
+// runs csrc/flash_attention_wide.cu).  Each path instantiates a few padded
+// widths DP >= D (bf16: 64, 128; f32: 16, 32, 64, 128, 192, 256); the
+// columns D .. DP - 1 are zero in shared memory, so the padded products add
+// exact zeros and equal the unpadded ones.  Only D columns are read from and
+// written to device memory.
 //
 // Both dtypes give one CTA to each (batch, kv head, block of 64 query
 // rows), where a row is one (position i, group g) pair, numbered i * G + g:
 // the G heads of a position are adjacent in memory and share the CTA's
 // keys.  A causal CTA stops at the tile that holds its last row's
-// diagonal, as the TPU kernel does.  The dtype alone selects the kernel.
+// diagonal, as the TPU kernel does.  A windowed CTA starts at the tile that
+// holds its first row's window edge, max(0, first position - window + 1):
+// no key before it is kept, and at the first walked tile alpha = exp(MASK -
+// m) = 0 multiplies what the skipped tiles would have added by zero, so o
+// and the statistics keep their bits.  A CTA holding a fully masked row
+// (position >= Sk + window - 1, when Sq > Sk) walks from tile 0, so that row
+// averages every key as the TPU kernel's does (flash::forward_walk in
+// csrc/flash_tiles.cuh, for every forward kernel; forward_walk in
+// kernels/flash_attention/flash_attention.py states it for the tests).  The
+// dtype and, in bf16, the head dim select the kernel.
 // Where a training step will take the gradient, the caller passes a
 // (2, B, H, Sq) f32 buffer and each row's final max m and denominator l
 // are written there for the backward (csrc/flash_attention_bwd.cu); with
 // null (serving) nothing else changes.
 //
-// bf16 (flash_fwd_bf16_kernel): the tensor cores.  Bound: operations,
+// bf16 up to D 128 (flash_fwd_bf16_kernel): the tensor cores.  Bound: operations,
 // kernel_flops = 4 * B * H * Sq * Sk * D (halved when causal): 17.2 GFLOP
 // for tinyllama's prefill at S = 2048, 0.017 ms at the 989 TFLOP/s bf16
 // peak, against 19 MB of q, k, v and o.  One warpgroup (128 threads) owns
@@ -44,7 +54,7 @@
 //  - P is rounded to bf16 in registers, where the S fragment already has
 //    the layout of wgmma's A operand, and O += P V runs in the RS form,
 //    DP columns as m64n128k16 pieces and an m64n64k16 for the last 64 of
-//    DP = 64 or 192, with the V tile read from shared memory MN-major (the
+//    DP = 64, with the V tile read from shared memory MN-major (the
 //    transpose bit), as it lies in memory.  The scale, max, exp, l and O
 //    stay f32: only P is rounded.
 //  - K and V tiles arrive by 16-byte cp.async copies in a ring of two
@@ -87,6 +97,7 @@ constexpr int kMaxHeadDim = 256;
 constexpr int kMaxSmemBytes = 232448;  // dynamic shared memory a block may use on sm_90
 constexpr int kRows = 64;      // query rows (position, group) per CTA
 constexpr int kKeys = 64;      // keys per tile
+static_assert(kKeys == flash::kTileRows, "flash::forward_walk counts tiles of kKeys keys");
 constexpr int kThreads = 128;  // 8 row groups x 16 column groups
 constexpr int kRowsPerThread = 8;
 constexpr int kKeysPerThread = 4;
@@ -158,11 +169,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
   for (int r = 0; r < kRowsPerThread; ++r) q_pos[r] = (row0 + tr * kRowsPerThread + r) / groups;
 
-  int n_tiles = (seq_k + kKeys - 1) / kKeys;
-  if (causal) {
-    const int last_pos = (min(row0 + kRows, total_rows) - 1) / groups;
-    n_tiles = min(n_tiles, (last_pos + kKeys) / kKeys);
-  }
+  const int last_pos = (min(row0 + kRows, total_rows) - 1) / groups;
+  const flash::ForwardWalk walk =
+      flash::forward_walk(row0 / groups, last_pos, seq_k, causal, window);
 
   float m_run[kRowsPerThread], l_run[kRowsPerThread], acc[kRowsPerThread][kCols];
 #pragma unroll
@@ -174,7 +183,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 
   const long kv_base = static_cast<long>(b) * seq_k;
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = walk.t_lo; t < walk.t_end; ++t) {
     const int k0 = t * kKeys;
     __syncthreads();  // the previous tile's K, V and P are no longer read
     for (int e = tid; e < kKeys * DP; e += kThreads) {
@@ -324,10 +333,10 @@ using flash::zero_padding;
 constexpr int bf16_smem_bytes(int dp) {
   return 5 * dp * 128 + 2 * 8 + 1024;  // Q, two K and two V tiles, two barriers, alignment
 }
-static_assert(bf16_smem_bytes(kMaxHeadDim) <= kMaxSmemBytes, "bf16 K4 tiles exceed shared memory");
+static_assert(bf16_smem_bytes(128) <= kMaxSmemBytes, "bf16 K4 tiles exceed shared memory");
 
-// kFull: D == DP, a compile-time head dim for the exact widths 64, 128,
-// 192 and 256 (at D 64 a runtime D took 20 % more time on an H100).
+// kFull: D == DP, a compile-time head dim for the exact widths 64 and 128
+// (at D 64 a runtime D took 20 % more time on an H100).
 template <int DP, bool kFull>
 __global__ void __launch_bounds__(kWarpgroup)
 flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -364,26 +373,29 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     const int i = rho / groups, g = rho % groups;
     return q + ((static_cast<int64_t>(b) * seq_q + i) * heads + kvh * groups + g) * D;
   });
-  auto load_kv = [&](int t) {  // tile t into stage t % 2; Q joins stage 0's first phase
-    const uint32_t kt = base + (1 + 2 * (t & 1)) * kTileBytes;
+  const int last_row = min(row0 + kTileRows, total_rows) - 1;
+  const int first_pos = row0 / groups;
+  const int last_pos = last_row / groups;
+  const flash::ForwardWalk walk = flash::forward_walk(first_pos, last_pos, seq_k, causal, window);
+  const int t_lo = walk.t_lo;
+  const int n_tiles = walk.t_end - t_lo;
+
+  // the walk's j-th tile (key tile t_lo + j) into stage j % 2; Q joins stage
+  // 0's first phase
+  auto load_kv = [&](int j) {
+    const uint32_t kt = base + (1 + 2 * (j & 1)) * kTileBytes;
     auto row = [&](const __nv_bfloat16* x) {
       return [&, x](int r) -> const __nv_bfloat16* {
-        const int j = t * kTileRows + r;
-        if (j >= seq_k) return nullptr;
-        return x + ((static_cast<int64_t>(b) * seq_k + j) * kv_heads + kvh) * D;
+        const int key = (t_lo + j) * kTileRows + r;
+        if (key >= seq_k) return nullptr;
+        return x + ((static_cast<int64_t>(b) * seq_k + key) * kv_heads + kvh) * D;
       };
     };
     load_tile<DP>(kt, k, D, row(k));
     load_tile<DP>(kt + kTileBytes, v, D, row(v));
-    sm90::cp_async_arrive(full + 8 * (t & 1));
+    sm90::cp_async_arrive(full + 8 * (j & 1));
   };
   load_kv(0);
-
-  const int last_row = min(row0 + kTileRows, total_rows) - 1;
-  const int first_pos = row0 / groups;
-  const int last_pos = last_row / groups;
-  int n_tiles = (seq_k + kTileRows - 1) / kTileRows;
-  if (causal) n_tiles = min(n_tiles, (last_pos + kTileRows) / kTileRows);
 
   // this thread's two rows (h = 0, 1) and its first column in each 8-column block
   const int ra = tid / 32 * 16 + tid % 32 / 4;
@@ -397,15 +409,15 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
   float s[32];
 
-  for (int t = 0; t < n_tiles; ++t) {
-    // stage (t + 1) % 2 was released by the barrier that ended tile t - 1
-    if (t + 1 < n_tiles) load_kv(t + 1);
-    const uint32_t kt = base + (1 + 2 * (t & 1)) * kTileBytes;
-    sm90::mbar_wait(full + 8 * (t & 1), (t >> 1) & 1);
+  for (int j = 0; j < n_tiles; ++j) {
+    // stage (j + 1) % 2 was released by the barrier that ended tile j - 1
+    if (j + 1 < n_tiles) load_kv(j + 1);
+    const uint32_t kt = base + (1 + 2 * (j & 1)) * kTileBytes;
+    sm90::mbar_wait(full + 8 * (j & 1), (j >> 1) & 1);
     sm90::fence_proxy_async();  // the copies' writes, before wgmma reads them
     qk_product<DP>(s, q_tile, kt);
 
-    const int k0 = t * kTileRows;
+    const int k0 = (t_lo + j) * kTileRows;
     const bool masked = k0 + kTileRows > seq_k || (causal && k0 + kTileRows - 1 > first_pos) ||
                         (window && k0 <= last_pos - window);
     float mx[2] = {kMaskValue, kMaskValue};
@@ -556,8 +568,7 @@ cudaError_t launch_bf16_width(int head_dim, const void* q, const void* k, const 
                      window, scale, stats, stream)
   if (head_dim <= 64) return K4_BF16(64);
   if (head_dim <= 128) return K4_BF16(128);
-  if (head_dim <= 192) return K4_BF16(192);
-  return K4_BF16(256);
+  return cudaErrorInvalidValue;  // csrc/flash_attention_wide.cu takes D > 128
 #undef K4_BF16
 }
 
@@ -585,8 +596,9 @@ const char* flash_attention_error_string(int err) {
 }
 
 // dtype: 0 float32, 1 bfloat16.  q, o (B, Sq, H, D) and k, v (B, Sk, KVH, D),
-// contiguous, on the card, 1 <= D <= 256; bfloat16 also needs D % 8 == 0
-// and 16-byte aligned tensors.  stats, null or (2, B, H, Sq) f32, receives
+// contiguous, on the card, 1 <= D <= 256 (bfloat16: D <= 128, the rest is
+// flash_attention_wide_launch's); bfloat16 also needs D % 8 == 0 and
+// 16-byte aligned tensors.  stats, null or (2, B, H, Sq) f32, receives
 // each row's final max m and denominator l for the backward
 // (csrc/flash_attention_bwd.cu); null leaves the forward as it is.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int batch,

@@ -1166,37 +1166,6 @@ flash_bwd_dkdv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 constexpr int kWide = 2 * flash::kWarpgroup;  // threads of flash_bwd_dkdv_wide
 
-// Issues o (64 x kN f32, from register kOff of o) += A B[:, kC0 .. kC0 + kN),
-// A (64 x 16) from registers, B an MN-major tile in shared memory whose 16
-// rows along the depth start at `rows` (its DP columns in 64-column
-// regions, kRegionBytes apart): pieces of n128 (two whole regions), n64 (one)
-// and n32 (half a region, from its start or 64 bytes in), in column order,
-// each piece's accumulators o's next registers.
-template <int kC0, int kN, int kOff, int N>
-__device__ __forceinline__ void rs_issue_cols(float (&o)[N], const uint32_t (&a)[4],
-                                              uint32_t rows) {
-  using flash::kAtomBytes;
-  using flash::kRegionBytes;
-  if constexpr (kN > 0) {
-    constexpr int kRegion = kC0 / 64, kIn = kC0 % 64;
-    const uint32_t at = rows + kRegion * kRegionBytes + kIn * 2;
-    if constexpr (kIn == 0 && kN >= 128) {
-      sm90::wgmma_rs_m64n128k16(*reinterpret_cast<float(*)[64]>(o + kOff), a,
-                                sm90::wgmma_desc_sw128(at, kRegionBytes, kAtomBytes), 1);
-      rs_issue_cols<kC0 + 128, kN - 128, kOff + 64>(o, a, rows);
-    } else if constexpr (kIn == 0 && kN >= 64) {
-      sm90::wgmma_rs_m64n64k16(*reinterpret_cast<float(*)[32]>(o + kOff), a,
-                               sm90::wgmma_desc_sw128(at, kRegionBytes, kAtomBytes), 1);
-      rs_issue_cols<kC0 + 64, kN - 64, kOff + 32>(o, a, rows);
-    } else {
-      static_assert(kIn % 32 == 0 && kN >= 32, "pieces of 32 columns within a region");
-      sm90::wgmma_rs_m64n32k16(*reinterpret_cast<float(*)[16]>(o + kOff), a,
-                               sm90::wgmma_desc_sw128(at, kRegionBytes, kAtomBytes), 1);
-      rs_issue_cols<kC0 + 32, kN - 32, kOff + 16>(o, a, rows);
-    }
-  }
-}
-
 // o (64 x DP / 2 f32) += A B[:, half], A (64 x 64) from registers (the
 // layout of pack_operand), B (64 x DP) MN-major in shared memory, half the
 // columns [kHalf * DP / 2, (kHalf + 1) * DP / 2).  The caller fences,
@@ -1206,7 +1175,7 @@ __device__ __forceinline__ void rs_issue_half(float (&o)[DP / 4], const uint32_t
                                               uint32_t b_tile) {
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks)
-    rs_issue_cols<kHalf * DP / 2, DP / 2, 0>(o, a[ks], b_tile + ks * 2 * flash::kAtomBytes);
+    flash::rs_issue_cols<kHalf * DP / 2, DP / 2, 0>(o, a[ks], b_tile + ks * 2 * flash::kAtomBytes);
 }
 
 // Issues s (64 x 32 f32) = A (64 x DP) B^T for 32 rows of B from b_rows,
@@ -1455,7 +1424,7 @@ flash_bwd_rows_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
     sm90::wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < 2; ++ks)
-      rs_issue_cols<0, DP, 0>(dq_acc, ds[ks], kt + (kw / 8 + 2 * ks) * flash::kAtomBytes);
+      flash::rs_issue_cols<0, DP, 0>(dq_acc, ds[ks], kt + (kw / 8 + 2 * ks) * flash::kAtomBytes);
     sm90::wgmma_commit();
   }
   sm90::wgmma_wait_all();

@@ -1,5 +1,6 @@
-// K4's bf16 tiles and tensor-core products, shared by the forward
-// (csrc/flash_attention.cu) and the backward (csrc/flash_attention_bwd.cu).
+// K4's bf16 tiles and tensor-core products, shared by the forwards
+// (csrc/flash_attention.cu, csrc/flash_attention_wide.cu) and the backward
+// (csrc/flash_attention_bwd.cu), and the forwards' walk over the key tiles.
 //
 // A tile is 64 rows of DP bf16 (DP a multiple of 64) in shared memory,
 // stored in regions of 64 columns (one 128-byte row each), each region
@@ -26,6 +27,27 @@ constexpr int kAtomBytes = 8 * 128;             // one 128-byte swizzle atom: 8 
 // Byte offset of the 16-byte chunk c (columns 8c .. 8c + 7) of row r.
 __device__ __forceinline__ uint32_t tile_offset(int r, int c) {
   return (c / 8) * kRegionBytes + r * 128 + (((c % 8) ^ (r % 8)) << 4);
+}
+
+// The key tiles [t_lo, t_end) of kTileRows keys that a forward CTA whose
+// rows sit at positions first_pos .. last_pos walks, in every forward
+// kernel (forward_walk in kernels/flash_attention/flash_attention.py states
+// the same arithmetic for the tests): a causal walk stops at the tile of
+// the last row's diagonal; a window starts at the tile that holds the first
+// row's window edge, max(0, first_pos - window + 1), except where a row sees
+// no key at all (position >= Sk + window - 1, when Sq > Sk): that CTA walks
+// from tile 0, so the row averages every key, as the TPU kernel's does.
+struct ForwardWalk {
+  int t_lo, t_end;
+};
+
+__device__ __forceinline__ ForwardWalk forward_walk(int first_pos, int last_pos, int seq_k,
+                                                    int causal, int window) {
+  ForwardWalk w{0, (seq_k + kTileRows - 1) / kTileRows};
+  if (causal) w.t_end = min(w.t_end, last_pos / kTileRows + 1);
+  if (window && last_pos < static_cast<int64_t>(seq_k) + window - 1)
+    w.t_lo = max(0, first_pos - window + 1) / kTileRows;
+  return w;
 }
 
 // Fills a tile of 64 rows of DP bf16 in shared memory by 16-byte cp.async
@@ -130,6 +152,35 @@ __device__ __forceinline__ void rs_issue(float (&o)[DP / 2], const uint32_t (&a)
       sm90::wgmma_rs_m64n64k16(
           *reinterpret_cast<float(*)[32]>(o + 32 * kLast), a[ks],
           sm90::wgmma_desc_sw128(rows + kLast * kRegionBytes, kRegionBytes, kAtomBytes), 1);
+    }
+  }
+}
+
+// Issues o (64 x kN f32, from register kOff of o) += A B[:, kC0 .. kC0 + kN),
+// A (64 x 16) from registers, B an MN-major tile in shared memory whose 16
+// rows along the depth start at `rows` (its DP columns in 64-column
+// regions, kRegionBytes apart): pieces of n128 (two whole regions), n64 (one)
+// and n32 (half a region, from its start or 64 bytes in), in column order,
+// each piece's accumulators o's next registers.
+template <int kC0, int kN, int kOff, int N>
+__device__ __forceinline__ void rs_issue_cols(float (&o)[N], const uint32_t (&a)[4],
+                                              uint32_t rows) {
+  if constexpr (kN > 0) {
+    constexpr int kRegion = kC0 / 64, kIn = kC0 % 64;
+    const uint32_t at = rows + kRegion * kRegionBytes + kIn * 2;
+    if constexpr (kIn == 0 && kN >= 128) {
+      sm90::wgmma_rs_m64n128k16(*reinterpret_cast<float(*)[64]>(o + kOff), a,
+                                sm90::wgmma_desc_sw128(at, kRegionBytes, kAtomBytes), 1);
+      rs_issue_cols<kC0 + 128, kN - 128, kOff + 64>(o, a, rows);
+    } else if constexpr (kIn == 0 && kN >= 64) {
+      sm90::wgmma_rs_m64n64k16(*reinterpret_cast<float(*)[32]>(o + kOff), a,
+                               sm90::wgmma_desc_sw128(at, kRegionBytes, kAtomBytes), 1);
+      rs_issue_cols<kC0 + 64, kN - 64, kOff + 32>(o, a, rows);
+    } else {
+      static_assert(kIn % 32 == 0 && kN >= 32, "pieces of 32 columns within a region");
+      sm90::wgmma_rs_m64n32k16(*reinterpret_cast<float(*)[16]>(o + kOff), a,
+                               sm90::wgmma_desc_sw128(at, kRegionBytes, kAtomBytes), 1);
+      rs_issue_cols<kC0 + 32, kN - 32, kOff + 16>(o, a, rows);
     }
   }
 }

@@ -44,6 +44,32 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// As mbar_wait, but a wait that has not completed after 2^31 clock cycles
+// (about a second, where a tile's copies take microseconds) traps: a launch
+// error instead of a card that never finishes the kernel.
+__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar, uint32_t parity) {
+  const long long start = clock64();
+  uint32_t done;
+  for (;;) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1ll << 31)) asm volatile("trap;");
+  }
+}
+
+// One arrival on the barrier.
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
 // Orders this thread's earlier generic-proxy accesses of shared memory
 // before later async-proxy accesses (bulk copies, wgmma operand reads).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -133,6 +159,12 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Waits until at most N of the warpgroup's committed groups are pending
+// (the older ones have completed).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Pins the registers of a wgmma fragment in program order against the

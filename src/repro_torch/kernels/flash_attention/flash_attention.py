@@ -1,7 +1,8 @@
 """Flash attention forward, K4: CUDA for Hopper, plain PyTorch beside.
 
 The counterpart of ``repro.kernels.flash_attention.flash_attention``; the
-CUDA source is ``repro_torch/csrc/flash_attention.cu``.
+CUDA sources are ``repro_torch/csrc/flash_attention.cu`` and, for bf16 past
+D 128, ``repro_torch/csrc/flash_attention_wide.cu``.
 :func:`flash_attention` (K4) replaces ``flash_attention_pallas``: GQA
 attention with an online softmax in float32, causal (top-left aligned:
 query ``i`` sees keys ``j <= i``) and/or windowed (``j > i - window``)
@@ -11,11 +12,17 @@ and ``Sk`` reach the kernel: it masks the ragged last tiles itself.
 The dtype selects the kernel.  bfloat16 runs on the tensor cores, bound
 by operations (``ops.kernel_flops`` over the 989 TFLOP/s bf16 peak):
 ``wgmma`` forms S = Q·Kᵀ and O += P·V in f32 accumulators, the K/V tiles
-arrive by asynchronous copies into a two-stage ring on mbarriers, and the
-softmax stays in f32 registers; only P is rounded to bf16 before P·V,
-which stays within the bf16 tolerance (2e-2).  float32 runs on the CUDA
-cores in f32 FMA, held to 2e-4 / 2e-5: the tensor cores would need TF32
-operands there, and that path already beats PyTorch's f32 attention.
+arrive by asynchronous copies into rings on mbarriers, and the softmax
+stays in f32 registers; only P is rounded to bf16 before P·V, which stays
+within the bf16 tolerance (2e-2).  Up to D 128 one warpgroup takes 64 rows
+a CTA; past it ``flash_fwd_bf16_wide`` runs two warpgroups of 64 rows on
+one ring of key tiles (filled by a producer warpgroup up to D 160, by the
+two warpgroups past it), each overlapping its softmax with its products,
+and counts its launches in ``flash_attention.wide_launches`` too.  Every
+walk over the key tiles starts at the CTA's first row's window edge
+(:func:`forward_walk`).  float32 runs on the CUDA cores in f32 FMA, held
+to 2e-4 / 2e-5: the tensor cores would need TF32 operands there, and that
+path already beats PyTorch's f32 attention.
 
 :func:`flash_attention_plain` computes the same function densely with the
 kernel's arithmetic: ``q`` scaled before the product, masked scores set
@@ -82,8 +89,8 @@ import torch
 from ... import _build, costs
 
 __all__ = ["MASK_VALUE", "MAX_HEAD_DIM", "flash_attention", "flash_attention_plain",
-           "flash_attention_backward", "flash_attention_backward_plain", "padded_width",
-           "walk_splits"]
+           "flash_attention_backward", "flash_attention_backward_plain", "forward_cta_rows",
+           "forward_walk", "padded_width", "walk_splits"]
 
 MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
 MAX_HEAD_DIM = 256
@@ -92,8 +99,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P, _P)
+_WIDE_ARGS = _ARGS[:10] + _ARGS[11:]  # no dtype: bf16 alone
 _BWD_ARGS = (_P,) * 10 + (_I,) * 10 + (ctypes.c_float, _P)
-KEY_TILE = 64  # keys a dK/dV CTA of the bf16 backward takes
+KEY_TILE = 64  # keys a tile of every K4 kernel holds
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -230,14 +238,19 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, win
         q, k, v = (_bf16_operand(x, dk) for x in (q, k, v))
     out = torch.empty_like(q)
     st = torch.empty((2, b, h, sq), dtype=torch.float32, device=q.device) if stats else None
-    launch = _build.function("flash_attention", "flash_attention_launch", _ARGS)
+    wide = q.dtype == torch.bfloat16 and dk > 128  # flash_fwd_bf16_wide
+    library = "flash_attention_wide" if wide else "flash_attention"
+    dtype = () if wide else (_DTYPE_CODE[q.dtype],)
+    launch = _build.function(library, f"{library}_launch", _WIDE_ARGS if wide else _ARGS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     b, sq, sk, h, kvh, dk, _DTYPE_CODE[q.dtype], int(causal), int(window),
+                     b, sq, sk, h, kvh, dk, *dtype, int(causal), int(window),
                      float(scale), st.data_ptr() if st is not None else None, stream)
-    _build.check("flash_attention", err, "flash_attention launch")
+    _build.check(library, err, f"{library} launch")
     _build.count_launch(flash_attention)
+    if wide:
+        _build.count_launch(flash_attention, "wide_launches")
     return (out if dk == d else out[..., :d].contiguous()), st
 
 
@@ -245,6 +258,31 @@ def padded_width(d: int, bf16: bool) -> int:
     """The padded head width DP the backward kernels take D at."""
     widths = (64, 128, 192, 256) if bf16 else (16, 32, 64, 128, 192, 256)
     return next(w for w in widths if d <= w)
+
+
+def forward_cta_rows(d: int, bf16: bool) -> int:
+    """The rows (i · G + g) a CTA of the forward kernels takes: 128 for
+    ``flash_fwd_bf16_wide`` (bf16 past D 128), else 64."""
+    return 128 if bf16 and d > 128 else 64
+
+
+def forward_walk(first_pos: int, last_pos: int, seq_k: int, causal: bool,
+                 window: int) -> Tuple[int, int]:
+    """The key tiles ``[t_lo, t_end)`` (of KEY_TILE keys) a forward CTA whose
+    rows sit at positions ``first_pos .. last_pos`` walks, as every forward
+    kernel computes it (``flash::forward_walk`` in ``csrc/flash_tiles.cuh``):
+    causal walks stop at the tile of the last row's
+    diagonal; a window starts at the tile that holds the first row's
+    window edge, max(0, first_pos − window + 1), except where a row sees no
+    key at all (position ≥ Sk + window − 1, when Sq > Sk): that CTA walks
+    from tile 0, so the row averages every key, as the TPU kernel's does."""
+    t_end = -(-seq_k // KEY_TILE)
+    if causal:
+        t_end = min(t_end, last_pos // KEY_TILE + 1)
+    t_lo = 0
+    if window and last_pos < seq_k + window - 1:
+        t_lo = max(0, first_pos - window + 1) // KEY_TILE
+    return t_lo, t_end
 
 
 def walk_splits(batch: int, seq_q: int, seq_k: int, heads: int, kv_heads: int, d: int,
@@ -385,4 +423,5 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+flash_attention.wide_launches = 0   # those of flash_fwd_bf16_wide, within ``launches``
 flash_attention.backward_launches = 0

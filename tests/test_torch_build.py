@@ -32,3 +32,12 @@ def test_library_name_follows_the_source_and_its_headers(tmp_path, monkeypatch):
 def test_every_source_includes_only_headers_that_exist():
     for name in _build.SOURCES:  # a missing csrc header raises here
         assert _build._library_path(name).parent == _build.BUILD_DIR
+
+
+def test_every_source_defines_its_error_string():
+    # function() resolves <name>_error_string in each library it loads,
+    # and build() compiles every source, the wide forward's with the others
+    assert "flash_attention_wide" in _build.SOURCES
+    for name in _build.SOURCES:
+        text = (_build.SRC_DIR / f"{name}.cu").read_text()
+        assert f"const char* {name}_error_string(int err)" in text, name

@@ -26,6 +26,10 @@ train step through the kernels matches one through the plain versions.
 The backward kernels (K4's and K5's) are held to their plain versions in
 both of K4's dtypes and at the training shapes, give the same bits on two
 calls, and count in ``backward_launches`` apart from the forwards.
+K4's bf16 forward past D 128 (``flash_fwd_bf16_wide``) is held to the
+plain version in every form its walk meets (windows, rows that see no key,
+Sq 1, Sq ≠ Sk), gives the same bits on two calls, and writes the plain
+version's row statistics.
 What a model axis of 2 hands the kernels is held too: K4 on a rank's
 heads equals those heads of the full call, and the loss's vocab-parallel
 cross-entropy on two halves of the vocabulary equals the plain loss.
@@ -416,6 +420,57 @@ def test_k4_wgmma_tile_products(cuda, d):
     _build.check("flash_attention", err, "wgmma probe")
     torch.testing.assert_close(s, q.float() @ k.float().T, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(o, s.bfloat16().float() @ v.float(), rtol=1e-5, atol=1e-3)
+
+
+# -- K4's bf16 forward past D 128: flash_fwd_bf16_wide ------------------------
+WIDE_SHAPES = [  # b, sq, sk, h, kvh, d, causal, window
+    (1, 300, 300, 4, 4, 136, True, 0),         # G 1, D padded to 160 columns
+    (1, 891, 891, 32, 8, 160, True, 0),        # stablelm-12b's heads at the longest prompt
+    (2, 200, 200, 16, 1, 192, True, 0),        # G 16
+    (1, 150, 150, 4, 1, 200, False, 0),        # D padded to 256 columns
+    (2, 129, 129, 4, 2, 192, False, 0),
+    (1, 2100, 2100, 16, 1, 256, True, 2048),   # recurrentgemma-9b past its window
+    (1, 333, 333, 16, 1, 200, True, 100),      # ragged, a window
+    (1, 1, 700, 16, 1, 256, False, 0),         # Sq 1 (a decode step)
+    (1, 1, 700, 4, 4, 160, True, 0),           # Sq 1, causal: key 0 alone
+    (2, 77, 130, 8, 2, 160, False, 0),         # Sq < Sk, ragged both ways
+    (1, 130, 65, 4, 1, 256, True, 0),          # Sq > Sk, causal (top-left)
+    (1, 1200, 700, 16, 2, 256, True, 300),     # a window past every key of the last rows
+    (1, 500, 200, 4, 4, 136, False, 50),       # the same without causality, G 1
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,window", WIDE_SHAPES)
+def test_k4_wide_forward_matches_plain(cuda, b, sq, sk, h, kvh, d, causal, window):
+    # bf16 past D 128 launches flash_fwd_bf16_wide (counted in both of K4's
+    # counts); it is held to the plain version at phase 4's bf16 tolerance,
+    # a row that sees no key averages every key as the plain version does,
+    # two calls give the same bits, and with the statistics it writes the
+    # same output and the plain version's m and l
+    q, k, v = attention_inputs(b, sq, sk, h, kvh, d, torch.bfloat16, cuda, seed=sq + sk + d)
+    mask = dict(causal=causal, window=window)
+    n, nw = fk.flash_attention.launches, fk.flash_attention.wide_launches
+    got = fk.flash_attention(q, k, v, **mask)
+    torch.cuda.synchronize()
+    assert (fk.flash_attention.launches, fk.flash_attention.wide_launches) == (n + 1, nw + 1)
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    assert within_tol(got, fk.flash_attention_plain(q, k, v, **mask), torch.bfloat16)
+    assert torch.equal(fk.flash_attention(q, k, v, **mask), got)
+    out, stats = fk._launch(q, k, v, causal, window, d**-0.5, stats=True)
+    assert torch.equal(out, got)
+    _, m, l = fk.flash_attention_plain(q, k, v, stats=True, **mask)
+    torch.testing.assert_close(stats[0], m, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(stats[1], l, rtol=2e-4, atol=1e-5)
+
+
+def test_k4_narrow_library_refuses_bf16_past_d128(cuda):
+    # no fallback: the one-warpgroup library no longer takes bf16 past D 128
+    launch = _build.function("flash_attention", "flash_attention_launch", fk._ARGS)
+    q = torch.zeros(1, 64, 2, 160, device=cuda, dtype=torch.bfloat16)
+    err = launch(q.data_ptr(), q.data_ptr(), q.data_ptr(), torch.empty_like(q).data_ptr(),
+                 1, 64, 64, 2, 2, 160, 1, 1, 0, 160**-0.5, None,
+                 torch.cuda.current_stream().cuda_stream)
+    assert err == 1  # cudaErrorInvalidValue
 
 
 def ssd_inputs(b, s, h, p, n, device, seed=0, with_h0=False):

@@ -20,22 +20,36 @@ from repro_torch.kernels.flash_attention.ref import mha_ref  # noqa: E402
 F32_TOL = dict(rtol=2e-4, atol=2e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 
-SHAPES = [  # b, sq, h, kvh, d, causal, window: test_kernels.py's five, then ragged
-    (2, 128, 4, 2, 32, True, 0),
-    (1, 256, 8, 1, 16, True, 0),     # MQA
-    (2, 128, 4, 4, 64, False, 0),    # MHA non-causal
-    (1, 256, 4, 2, 32, True, 64),    # local window
-    (1, 128, 2, 2, 128, True, 0),    # wide head
-    (1, 100, 4, 2, 32, True, 0),     # ragged Sq: no 64-row tiling
-    (2, 77, 6, 3, 16, True, 9),      # ragged, odd group count, window
+SHAPES = [  # b, sq, sk, h, kvh, d, causal, window: test_kernels.py's five, then ragged
+    (2, 128, 128, 4, 2, 32, True, 0),
+    (1, 256, 256, 8, 1, 16, True, 0),     # MQA
+    (2, 128, 128, 4, 4, 64, False, 0),    # MHA non-causal
+    (1, 256, 256, 4, 2, 32, True, 64),    # local window
+    (1, 128, 128, 2, 2, 128, True, 0),    # wide head
+    (1, 100, 100, 4, 2, 32, True, 0),     # ragged Sq: no 64-row tiling
+    (2, 77, 77, 6, 3, 16, True, 9),       # ragged, odd group count, window
     # head dims the card pads to wider tiles: the smoke configs' 8, 24, 80,
     # stablelm-12b's 160 and recurrentgemma-9b's 256
-    (1, 70, 4, 2, 8, True, 0),
-    (1, 100, 4, 2, 24, True, 0),
-    (1, 128, 2, 1, 80, False, 0),
-    (1, 128, 4, 1, 160, True, 0),
-    (1, 130, 2, 1, 256, True, 64),
+    (1, 70, 70, 4, 2, 8, True, 0),
+    (1, 100, 100, 4, 2, 24, True, 0),
+    (1, 128, 128, 2, 1, 80, False, 0),
+    (1, 128, 128, 4, 1, 160, True, 0),
+    (1, 130, 130, 2, 1, 256, True, 64),
+    # the wide bf16 kernel's widths with a window and Sq > Sk: the last rows
+    # see no key (position >= Sk + window - 1) and average every key, as
+    # the Pallas kernel's rows do (the -inf oracle gives NaN there)
+    (1, 192, 128, 4, 2, 200, True, 40),
+    (1, 256, 128, 2, 1, 256, True, 64),
+    (1, 192, 64, 2, 2, 200, False, 30),
+    (1, 128, 128, 4, 1, 256, False, 50),
 ]
+
+
+def shape_id(shape):
+    """The test id: pytest's own for Sq == Sk (the ids these cases had
+    before Sk joined them), ``Sq x Sk`` otherwise."""
+    b, sq, sk, *rest = shape
+    return "-".join(map(str, (b, sq if sq == sk else f"{sq}x{sk}", *rest)))
 
 
 def inputs(b, sq, sk, h, kvh, d, seed):
@@ -49,9 +63,9 @@ def to_np(x):
     return np.asarray(x, np.float32) if not isinstance(x, torch.Tensor) else x.float().numpy()
 
 
-@pytest.mark.parametrize("b,sq,h,kvh,d,causal,window", SHAPES)
-def test_plain_matches_jax_kernel_and_oracle(b, sq, h, kvh, d, causal, window):
-    qn, kn, vn = inputs(b, sq, sq, h, kvh, d, seed=sq + d)
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,window", SHAPES, ids=map(shape_id, SHAPES))
+def test_plain_matches_jax_kernel_and_oracle(b, sq, sk, h, kvh, d, causal, window):
+    qn, kn, vn = inputs(b, sq, sk, h, kvh, d, seed=sq + d)
     q, k, v = map(torch.from_numpy, (qn, kn, vn))
     before = fk.flash_attention.launches
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
@@ -61,9 +75,15 @@ def test_plain_matches_jax_kernel_and_oracle(b, sq, h, kvh, d, causal, window):
                                        q_block=64, kv_block=64)
     want_ref = jax_mha_ref(jq, jk, jv, causal=causal, window=window)
     np.testing.assert_allclose(got.numpy(), to_np(want_kernel), **F32_TOL)
-    np.testing.assert_allclose(got.numpy(), to_np(want_ref), **F32_TOL)
-    np.testing.assert_allclose(mha_ref(q, k, v, causal=causal, window=window).numpy(),
-                               to_np(want_ref), **F32_TOL)
+    keep = fk._keep(sq, sk, causal, window, "cpu")
+    seen = np.ones(sq, bool) if keep is None else keep.any(1).numpy()  # rows that see a key
+    np.testing.assert_allclose(got.numpy()[:, seen], to_np(want_ref)[:, seen], **F32_TOL)
+    np.testing.assert_allclose(mha_ref(q, k, v, causal=causal, window=window).numpy()[:, seen],
+                               to_np(want_ref)[:, seen], **F32_TOL)
+    if not seen.all():  # a row that sees no key averages every key
+        np.testing.assert_allclose(got.numpy()[:, ~seen],
+                                   np.repeat(vn.mean(1), h // kvh, axis=1)[:, None]
+                                   .repeat((~seen).sum(), axis=1), rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -161,3 +181,44 @@ def test_wrapper_rejects_an_empty_head_dim():
     q = torch.zeros(1, 8, 2, 0)
     with pytest.raises(ValueError, match="head dim"):
         fk.flash_attention(q, q, q)
+
+
+WALKS = [  # sq, sk, h, kvh, d, bf16, causal, window
+    (300, 300, 4, 2, 64, True, True, 64),
+    (2100, 2100, 16, 1, 256, True, True, 2048),   # recurrentgemma-9b past its window
+    (4096, 4096, 16, 1, 256, False, True, 2048),
+    (1200, 700, 16, 2, 256, True, True, 300),     # rows past every key
+    (900, 500, 8, 2, 64, True, True, 200),
+    (500, 100, 4, 4, 32, False, False, 30),       # a window without causality, rows past it
+    (700, 1200, 8, 1, 160, True, False, 250),
+    (77, 77, 6, 3, 16, False, True, 9),
+    (130, 130, 4, 2, 200, True, True, 0),         # no window: from tile 0
+    (1, 300, 8, 1, 136, True, False, 40),         # Sq 1
+    (2048, 2048, 32, 8, 160, True, True, 0),
+]
+
+
+@pytest.mark.parametrize("sq,sk,h,kvh,d,bf16,causal,window", WALKS)
+def test_forward_walk_covers_every_kept_pair(sq, sk, h, kvh, d, bf16, causal, window):
+    # each forward CTA's walk over the key tiles (forward_walk, the kernels'
+    # arithmetic): every pair its rows keep lies in a walked tile; a window
+    # starts at the first row's window edge, where the first kept key is;
+    # a CTA holding a row that sees no key walks every key tile from 0
+    g, tile = h // kvh, fk.KEY_TILE
+    rows, cta = sq * g, fk.forward_cta_rows(d, bf16)
+    assert cta == (128 if bf16 and d > 128 else 64)
+    keep = fk._keep(sq, sk, causal, window, "cpu")
+    keep = torch.ones((sq, sk), dtype=torch.bool) if keep is None else keep
+    for rho0 in range(0, rows, cta):
+        first, last = rho0 // g, (min(rho0 + cta, rows) - 1) // g
+        t_lo, t_end = fk.forward_walk(first, last, sk, causal, window)
+        kept = keep[first:last + 1].nonzero()[:, 1]
+        if kept.numel():
+            assert int(kept.min()) // tile >= t_lo and int(kept.max()) // tile < t_end
+        if not keep[first:last + 1].any(1).all():
+            assert (t_lo, t_end) == (0, -(-sk // tile))
+        else:
+            assert t_lo == (max(0, first - window + 1) // tile if window else 0)
+            assert t_lo == int(kept.min()) // tile
+            if causal:
+                assert t_end == min(-(-sk // tile), last // tile + 1)

@@ -20,7 +20,7 @@ torch = pytest.importorskip("torch")
 import repro.core as jax_core  # noqa: E402
 import repro_torch.core as core  # noqa: E402
 from repro_torch.core import FleetManager, HeteroRuntime  # noqa: E402
-from repro_torch.core.transport import SleepWork  # noqa: E402
+from repro_torch.core.transport import RemoteUnit, SleepWork  # noqa: E402
 
 SIM_FIELDS = ("seed", "book_events", "convicted", "false_convictions", "missed_crashes",
               "conviction_delay", "survivors")
@@ -115,20 +115,30 @@ def test_fleet_manager_units_host_cuda_unless_told():
     assert not rt.units
 
 
-def test_frozen_worker_is_convicted_by_heartbeat():
+def test_frozen_worker_is_convicted_by_heartbeat(monkeypatch):
     rt = HeteroRuntime()
     with FleetManager(rt, heartbeat=0.2, patience=5, remote_backend="thread") as fm:
         fm.scale_to(2)
         victim = fm.members[-1]
         pid = fm.handle(victim).proc.pid
-        freeze = threading.Timer(0.3, os.kill, args=(pid, signal.SIGSTOP))
-        freeze.start()
-        try:
-            t0 = time.perf_counter()
-            rep = rt.parallel_for(SleepWork(2e-3), num_items=1200, policy="multidynamic",
-                                  acc_chunk=8)
-        finally:
-            freeze.cancel()
+        # the victim freezes once a chunk has been handed to it (the run
+        # builds its units from their specs), so the run cannot end before
+        # the freeze however loaded the host is: that chunk waits for the
+        # conviction and is requeued
+        frozen = threading.Event()
+        submit = RemoteUnit.submit
+
+        def submit_then_freeze(unit, chunk, work_fn):
+            submit(unit, chunk, work_fn)
+            if unit.name == victim and not frozen.is_set():
+                frozen.set()
+                os.kill(pid, signal.SIGSTOP)
+
+        monkeypatch.setattr(RemoteUnit, "submit", submit_then_freeze)
+        t0 = time.perf_counter()
+        rep = rt.parallel_for(SleepWork(2e-3), num_items=1200, policy="multidynamic",
+                              acc_chunk=8)
+        assert frozen.is_set(), "no chunk reached the victim"
         assert time.perf_counter() - t0 > 0.3, "the run ended before the freeze"
         fm.kill_unit(victim)
         assert fm.reap() == [victim]
