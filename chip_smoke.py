@@ -51,13 +51,25 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    512, 16 / 2 heads, D 64) and in the parent's one-rank run (B 4, S 512,
    32 / 4 heads).  K4's bound counts the (query, key) pairs its masks
    keep.  Each K4 row also names the kernel that ran (bf16 past D 128:
-   ``flash_fwd_bf16_wide``, launched once a call there and nowhere else),
+   ``flash_fwd_bf16_wide``, launched once a call there and nowhere else;
+   f32: ``flash_fwd_f32_kernel``, counted in ``f32_launches``),
    SDPA's time on the card alone (``library_device_ms``) beside its
-   ``library_ms``; a line of its own gives, for each row, the (64-row
+   ``library_ms``.  An f32 row's bound prices its products on the split
+   route (six bf16 products of three-piece operands at the bf16 peak,
+   ``split_bound_ms``), the 67 TFLOP/s f32 bound beside it
+   (``bound_67tf_ms``), and it prints the error against float64
+   (``float64_attention``) of the kernel, the plain version and SDPA, as
+   the largest share of the f32 tolerance an element takes
+   (``float64_error_ratio``; the kernel's must be at most the larger of
+   0.1 and twice the plain version's), the kernels SDPA launched
+   (``library_kernels``) and its own by the profiler's names
+   (``launch_device_ms``).  A line of its own gives, for each row, the (64-row
    tile, 64-key tile) pairs the wrapper's ``forward_walk`` says the forward
    walks (a model, not read on the card) beside those that hold a pair the
    masks keep.  The kernels line carries the wide forward as
-   ``flash_attention_wide`` (its row: stablelm-12b's S 2048 in bf16).  K5 at mamba2-130m's prefill
+   ``flash_attention_wide`` (its row: stablelm-12b's S 2048 in bf16) and
+   the f32 forward as ``flash_attention_f32`` (tinyllama's S 2048 in
+   f32).  K5 at mamba2-130m's prefill
    (``K5_SHAPES``: B 1 at S 2048, 1000 and the longest served prompt's
    891; phase 10b's B 2 a rank and B 4 in the one-rank run at S 512; H 24,
    P 64, N 128, chunk 256) with zero and
@@ -82,8 +94,12 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    and logsumexp of its forward where no window drops a pair; in f32, and
    in bf16 where one does, ``_scaled_dot_product_efficient_attention_
    backward`` on those of its forward, the window an additive 0 / -inf
-   bias; a shape PyTorch refuses prints the error under
-   ``library_error``, with no time.
+   bias, with its device time (``library_device_ms``) and the kernels it
+   launched (``library_kernels``); a shape PyTorch refuses prints the
+   error under ``library_error``, with no time.  K4's f32 backward rows
+   carry both bounds and the float64 errors of dq, dk and dv as the
+   forward's do, and the kernels line carries the f32 backward as
+   ``flash_attention_f32_backward``.
 5. Serving at full width, inline: tinyllama-1.1b (K4, D 64), mamba2-130m
    (K5), stablelm-12b (K4, D 160; 24 GB in bf16), qwen3-moe-30b-a3b (K4,
    D 128, 128 experts top-8 with capacity chunks and the dense fallback;
@@ -104,7 +120,9 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    patterns); the MoE check prints the
    smallest top-k router margin it met; recurrentgemma's f32 copy also
    prefills a 3000-token prompt (max_len 4096: its KV caches roll at 2048
-   rows) and decodes 16 tokens, equal between kernels and plain.  Prints
+   rows) and decodes 16 tokens, equal between kernels and plain.
+   K4's launches in the f32 copy are all f32's (``flash_attention_f32``),
+   one a layer that holds K4 and a prefill.  Prints
    TTFT, prefill and decode times, tokens/s, peak memory, the MoE routing
    of one prefill (``moe_overflow_frac``, ``moe_load_max`` as means over
    the layers) and a profiler top-10 of one prefill and one decode step.
@@ -461,8 +479,10 @@ class Count:
 
 
 def model_wrappers() -> dict:
-    """K4 and K5 and their backward kernels, and K4's bf16 forward past D
-    128 (``flash_fwd_bf16_wide``, counted within K4's launches too), by the
+    """K4 and K5 and their backward kernels, K4's bf16 forward past D 128
+    (``flash_fwd_bf16_wide``, counted within K4's launches too) and K4's
+    f32 forward and backward (``flash_fwd_f32_kernel`` and its gradient's
+    kernels, counted within K4's forward and backward launches too), by the
     names of the JSON line."""
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
@@ -470,6 +490,8 @@ def model_wrappers() -> dict:
     return {"flash_attention": flash_attention, "ssd_scan": ssd_scan,
             "flash_attention_wide": Count(flash_attention, "wide_launches"),
             "flash_attention_backward": Count(flash_attention, "backward_launches"),
+            "flash_attention_f32": Count(flash_attention, "f32_launches"),
+            "flash_attention_f32_backward": Count(flash_attention, "f32_backward_launches"),
             "ssd_scan_backward": Count(ssd_scan, "backward_launches")}
 
 
@@ -649,6 +671,47 @@ def bound_ms(n_bytes: float, flops: float, bf16: bool = False):
     t_bytes = n_bytes / H100_SXM.hbm_bw
     t_ops = flops / (H100_SXM.peak_flops if bf16 else H100_SXM.f32_flops)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def split_bound_ms(n_bytes: float, flops: float):
+    """``bound_ms`` of f32 K4 work on the tensor cores: each f32 product as
+    the six bf16 products of three-piece operands (``ops.tensor_core_flops``)
+    at the bf16 peak; with the same work's bound at the 67 TFLOP/s f32 rate
+    beside it: (ms, bound_by, ms at 67 TF)."""
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    b, by = bound_ms(n_bytes, fops.tensor_core_flops(flops, bf16=False), bf16=True)
+    return b, by, bound_ms(n_bytes, flops)[0]
+
+
+def float64_attention(q, k, v, gy, causal: bool, window: int, scale: float):
+    """K4's function in float64 (the plain version's arithmetic: masked
+    scores at MASK_VALUE, so a row that sees no key averages every key) and,
+    with ``gy``, its gradient by autograd: (o, dq, dk, dv), float64."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.flash_attention import MASK_VALUE
+
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    with torch.enable_grad():
+        q, k, v = (x.detach().double().requires_grad_(gy is not None) for x in (q, k, v))
+        s = torch.einsum("bqkgd,bskd->bkgqs", q.reshape(b, sq, kvh, h // kvh, d) * scale, k)
+        keep = attn_keep(sq, sk, causal, window)
+        p = torch.softmax(s.masked_fill(~keep, MASK_VALUE), dim=-1)
+        del s
+        o = torch.einsum("bkgqs,bskd->bqkgd", p, v).reshape(b, sq, h, d)
+        if gy is None:
+            return (o.detach(),)
+        return (o.detach(), *torch.autograd.grad(o, (q, k, v), gy.double()))
+
+
+def f32_error_ratio(got, want) -> float:
+    """The largest |got - want| / (atol + rtol |want|) at K4's f32
+    tolerance: 1 is the tolerance's edge."""
+    tol = ATTN_TOL["float32"]
+    want = want.double()
+    return float(((got.double() - want).abs() / (tol["atol"] + tol["rtol"] * want.abs())).max())
 
 
 def compare(name: str, got, want, tol: dict) -> float:
@@ -920,6 +983,7 @@ def phase4_model_kernels():
     kernels = {}
     rng = np.random.default_rng(0)
     wide = Count(flash_attention, "wide_launches")
+    f32_count = Count(flash_attention, "f32_launches")
 
     def normal(*shape, scale=1.0):
         return torch.from_numpy(scale * rng.standard_normal(shape, dtype=np.float32)).cuda()
@@ -935,12 +999,16 @@ def phase4_model_kernels():
                 run = functools.partial(flash_attention, q, k, v, **mask)
                 label = f"K4 flash_attention {model_name} D={d} Sq={sq} Sk={sk} {name}"
                 want = flash_attention_plain(q, k, v, **mask)
-                before = wide.launches
+                before = wide.launches, f32_count.launches
                 got = run().float()
-                # bf16 past D 128 runs flash_fwd_bf16_wide, and nothing else does
+                # bf16 past D 128 runs flash_fwd_bf16_wide, f32 flash_fwd_f32_kernel,
+                # and nothing else does
                 is_wide = dtype == torch.bfloat16 and d > 128
-                require(wide.launches - before == int(is_wide),
-                        f"{label}: flash_fwd_bf16_wide launched {wide.launches - before} times")
+                is_f32 = dtype == torch.float32
+                require((wide.launches - before[0], f32_count.launches - before[1]) ==
+                        (int(is_wide), int(is_f32)),
+                        f"{label}: flash_fwd_bf16_wide and flash_fwd_f32_kernel launched "
+                        f"{wide.launches - before[0]} and {f32_count.launches - before[1]} times")
                 tol = attn_tol(name, want)
                 err = compare(label, got, want.float(), tol)
                 # the largest share of its tolerance that an element takes
@@ -962,7 +1030,8 @@ def phase4_model_kernels():
                        dict(is_causal=causal))
                 sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                     qt, kt, vt, enable_gqa=True, **how)
-                lib_err = float((sdpa().transpose(1, 2).float() - want.float()).abs().max())
+                lib_out = sdpa().transpose(1, 2)
+                lib_err = float((lib_out.float() - want.float()).abs().max())
                 library = time_ms(sdpa)
                 library_dev = time_ms(sdpa, hold=True)
                 el = 2 if dtype == torch.bfloat16 else 4
@@ -970,8 +1039,26 @@ def phase4_model_kernels():
                 # window's share of the causal pairs
                 flops = fops.kernel_flops(nb, sq, sk, h, d, causal=causal) * \
                     fops.window_share(sq, sk, causal, window)
-                b, by = bound_ms(fops.kernel_hbm_bytes(nb, sq, sk, h, kvh, d, bytes_per_el=el),
-                                 flops, bf16=dtype == torch.bfloat16)
+                n_bytes = fops.kernel_hbm_bytes(nb, sq, sk, h, kvh, d, bytes_per_el=el)
+                extra = {}
+                if is_f32:  # the split route's bound, the 67 TF one, errors against float64
+                    b, by, extra["bound_67tf_ms"] = split_bound_ms(n_bytes, flops)
+                    ref = float64_attention(q, k, v, None, causal, window, d**-0.5)[0]
+                    extra.update(float64_error_ratio=dict(
+                        kernel=f32_error_ratio(got, ref), plain=f32_error_ratio(want, ref),
+                        library=f32_error_ratio(lib_out, ref)))
+                    # the issue's measure, with the plain version standing in
+                    # for the parent's kernel (tools/k4_forward_vs_parent.py
+                    # holds the parent's itself)
+                    ratios = extra["float64_error_ratio"]
+                    require(ratios["kernel"] <= max(0.1, 2 * ratios["plain"]),
+                            f"{label}: {ratios} of the f32 tolerance from float64")
+                    extra["library_kernels"] = sorted(launch_device_ms(sdpa))
+                    extra["launch_device_ms"] = launch_device_ms(run)  # the kernel's, by name
+                    del ref
+                else:
+                    b, by = bound_ms(n_bytes, flops, bf16=True)
+                del lib_out
                 rows.append(dict(model=model_name, shape=f"B={nb} H={h} KVH={kvh} D={d} Sq={sq} "
                                  f"Sk={sk} causal={causal} window={window} {name}",
                                  max_abs_err=err, tolerance_used=used, ms=ms, device_ms=dev,
@@ -979,7 +1066,8 @@ def phase4_model_kernels():
                                  library_device_ms=library_dev, x_library=ms / library,
                                  x_library_device=dev / library_dev,
                                  library_max_abs_diff=lib_err, kernel=(
-                                     "flash_fwd_bf16_wide" if is_wide else "flash_fwd")))
+                                     "flash_fwd_bf16_wide" if is_wide else "flash_fwd_f32_kernel"
+                                     if is_f32 else "flash_fwd_bf16_kernel"), **extra))
                 walked, needed = tile_pairs(nb, sq, sk, h, kvh, d, dtype == torch.bfloat16,
                                             causal, window, keep if causal or window else None)
                 walks.append(dict(shape=rows[-1]["shape"], tile_pairs_walked=walked,
@@ -990,9 +1078,19 @@ def phase4_model_kernels():
     main_row = rows[0]  # tinyllama's S 2048 bf16, every PR's yardstick
     kernels["flash_attention"] = dict(
         name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention/flash_attention.py:85", shapes=rows,
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:85",
+        shapes=[r for r in rows if r["kernel"] == "flash_fwd_bf16_kernel"],
         **{k: main_row[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")})
+    # tinyllama's S 2048 f32: the f32 forward's yardstick
+    f32_row = next(r for r in rows if r["kernel"] == "flash_fwd_f32_kernel")
+    kernels["flash_attention_f32"] = dict(
+        name="flash_attention_f32", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_f32.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:85",
+        shapes=[r for r in rows if r["kernel"] == "flash_fwd_f32_kernel"],
+        **{k: f32_row[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms")})
     # stablelm-12b's S 2048 bf16 (D 160): the wide forward's yardstick
     wide_row = next(r for r in rows if r["model"] == "stablelm-12b" and "Sq=2048" in r["shape"]
                     and r["shape"].endswith("bfloat16"))
@@ -1048,23 +1146,25 @@ def launch_device_ms(fn) -> dict:
     return {key[:90]: us / 1e3 for us, key, _ in _kernel_rows(prof)}
 
 
-def backward_library_ms(q, k, v, gy, causal: bool, window: int, scale: float):
-    """(ms, the call timed, PyTorch's error or None) of one PyTorch call that
-    computes K4's backward on the same inputs, K and V expanded to the H
-    query heads before the timed call (the group sum stays outside it): a
-    yardstick the port never calls.  bf16 without a window that drops a
-    pair (none, or one of at least Sq): ``_scaled_dot_product_flash_
-    attention_backward`` on the output and logsumexp of its forward.  f32
-    (which the flash kernels do not take), and bf16 with such a window:
-    ``_scaled_dot_product_efficient_attention_backward`` on those of its
-    forward, the window (where it drops a pair) an additive 0 / -inf bias,
-    the causal mask the kernel's own.  A shape PyTorch refuses gives no
-    time and the error, printed; no other call stands in."""
+def backward_library(q, k, v, gy, causal: bool, window: int, scale: float) -> dict:
+    """One PyTorch call that computes K4's backward on the same inputs, K
+    and V expanded to the H query heads before the timed call (the group
+    sum stays outside it): a yardstick the port never calls.  bf16 without
+    a window that drops a pair (none, or one of at least Sq):
+    ``_scaled_dot_product_flash_attention_backward`` on the output and
+    logsumexp of its forward.  f32 (which the flash kernels do not take),
+    and bf16 with such a window: ``_scaled_dot_product_efficient_attention_
+    backward`` on those of its forward, the window (where it drops a pair)
+    an additive 0 / -inf bias, the causal mask the kernel's own.  Returns
+    {ms, device_ms, call, error, kernels (the profiler's kernel names and
+    device ms of one call), grads ((dq, dk, dv) in K4's layouts, the group
+    summed in float64)}; a shape PyTorch refuses gives no time and the
+    error, printed; no other call stands in."""
     import torch
 
-    b, sq, h, _ = q.shape
-    sk = k.shape[1]
-    g = h // k.shape[2]
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
     qt, gt = (x.transpose(1, 2).contiguous() for x in (q, gy))
     kt, vt = (x.repeat_interleave(g, dim=2).transpose(1, 2).contiguous() for x in (k, v))
     aten = torch.ops.aten
@@ -1072,28 +1172,39 @@ def backward_library_ms(q, k, v, gy, causal: bool, window: int, scale: float):
     flash = q.dtype == torch.bfloat16 and not windowed
     call = ("_scaled_dot_product_flash_attention_backward" if flash else
             "_scaled_dot_product_efficient_attention_backward")
+    out = dict(ms=None, device_ms=None, call=call, error=None, kernels=None, grads=None)
     try:
         if flash:
             fwd = aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, causal, False,
                                                            scale=scale)
-            out, lse, cum_q, cum_k, max_q, max_k, seed, offset = fwd[:8]
-            ms = time_ms(lambda: aten._scaled_dot_product_flash_attention_backward(
-                gt, qt, kt, vt, out, lse, cum_q, cum_k, max_q, max_k, 0.0, causal, seed, offset,
-                scale=scale))
+            o, lse, cum_q, cum_k, max_q, max_k, seed, offset = fwd[:8]
+
+            def run():
+                return aten._scaled_dot_product_flash_attention_backward(
+                    gt, qt, kt, vt, o, lse, cum_q, cum_k, max_q, max_k, 0.0, causal, seed,
+                    offset, scale=scale)
         else:
             bias = torch.zeros((sq, sk), dtype=q.dtype, device=q.device).masked_fill(
                 ~attn_keep(sq, sk, False, window), float("-inf")).expand(b, h, sq, sk) \
                 if windowed else None
-            out, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
+            o, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
                 qt, kt, vt, bias, True, 0.0, causal, scale=scale)
-            ms = time_ms(lambda: aten._scaled_dot_product_efficient_attention_backward(
-                gt, qt, kt, vt, bias, out, lse, seed, offset, 0.0,
-                [True, True, True, False], causal, scale=scale))
-        return ms, call, None
+
+            def run():
+                return aten._scaled_dot_product_efficient_attention_backward(
+                    gt, qt, kt, vt, bias, o, lse, seed, offset, 0.0,
+                    [True, True, True, False], causal, scale=scale)
+        out.update(ms=time_ms(run), device_ms=time_ms(run, hold=True),
+                   kernels=launch_device_ms(run))
+        dq, dk, dv = run()[:3]
+        out["grads"] = (dq.transpose(1, 2),
+                        *(x.double().reshape(b, kvh, g, sk, d).sum(2).transpose(1, 2)
+                          for x in (dk, dv)))
     except RuntimeError as e:
-        print(f"{call} refused B={b} H={h} D={q.shape[3]} Sq={sq} Sk={sk} causal={causal} "
+        print(f"{call} refused B={b} H={h} D={d} Sq={sq} Sk={sk} causal={causal} "
               f"window={window} {q.dtype}: {e}")
-        return None, call, str(e)[:400]
+        out["error"] = str(e)[:400]
+    return out
 
 
 def phase4_backward_kernels() -> dict:
@@ -1104,7 +1215,8 @@ def phase4_backward_kernels() -> dict:
 
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.flash_attention import (
-        KEY_TILE, _launch, flash_attention_backward, flash_attention_backward_plain, walk_splits,
+        KEY_TILE, _launch, flash_attention, flash_attention_backward,
+        flash_attention_backward_plain, walk_splits,
     )
     from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_backward, ssd_scan_backward_plain
@@ -1128,12 +1240,14 @@ def phase4_backward_kernels() -> dict:
             _, stats = _launch(q, k, v, causal, window, mask["scale"], stats=True)
             label = f"K4 backward {use} D={d} Sq={sq} Sk={sk} {name}"
             run = functools.partial(flash_attention_backward, q, k, v, stats, gy, **mask)
+            f32 = Count(flash_attention, "f32_backward_launches").launches
             got = run()
+            require(Count(flash_attention, "f32_backward_launches").launches - f32 ==
+                    int(dtype == torch.float32), f"{label}: the f32 backward's count")
             want = flash_attention_backward_plain(q, k, v, stats[0], stats[1], gy, **mask)
             err = max(compare(f"{label} d{x}", g.float(), w.float(), attn_tol(name, w))
                       for x, g, w in zip("qkv", got, want))
             require(same_bits(got, run()), f"{label}: two calls differ")
-            del want
             ms = time_ms(run)
             dev = time_ms(run, hold=True)
             plain = time_ms(lambda: flash_attention_backward_plain(q, k, v, stats[0], stats[1], gy,
@@ -1142,33 +1256,53 @@ def phase4_backward_kernels() -> dict:
             # the least work: the backward's five products, 2.5 x the forward's
             flops = 2.5 * fops.kernel_flops(nb, sq, sk, h, d, causal=causal) * \
                 fops.window_share(sq, sk, causal, window)
-            b, by = bound_ms(fops.backward_hbm_bytes(nb, sq, sk, h, kvh, d, bytes_per_el=el,
-                                                     scratch=False),
-                             flops, bf16=dtype == torch.bfloat16)
-            library, call, refused = backward_library_ms(q, k, v, gy, causal, window,
-                                                         mask["scale"])
-            # bf16's dK/dV grid: its key tiles' CTAs, times the ranges of a split walk
+            n_bytes = fops.backward_hbm_bytes(nb, sq, sk, h, kvh, d, bytes_per_el=el,
+                                              scratch=False)
+            lib = backward_library(q, k, v, gy, causal, window, mask["scale"])
+            extra = {}
+            if dtype == torch.float32:  # the split route's bound, the 67 TF one, float64
+                b, by, extra["bound_67tf_ms"] = split_bound_ms(n_bytes, flops)
+                ref = float64_attention(q, k, v, gy, causal, window, mask["scale"])[1:]
+                extra["float64_error_ratio"] = ratios = {
+                    f"d{x}": dict(kernel=f32_error_ratio(g, r), plain=f32_error_ratio(w, r),
+                                  library=None if lib["grads"] is None else
+                                  f32_error_ratio(lg, r))
+                    for x, g, w, r, lg in zip("qkv", got, want, ref,
+                                              lib["grads"] or (None,) * 3)}
+                for x, ratio in ratios.items():
+                    require(ratio["kernel"] <= max(0.1, 2 * ratio["plain"]),
+                            f"{label} {x}: {ratio} of the f32 tolerance from float64")
+                del ref
+            else:
+                b, by = bound_ms(n_bytes, flops, bf16=True)
+            del want
+            # the dK/dV grid: its key tiles' CTAs, times the ranges of a split walk
             sms = torch.cuda.get_device_properties(0).multi_processor_count
             splits = walk_splits(nb, sq, sk, h, kvh, d, dtype == torch.bfloat16, sms)
-            dkdv_ctas = nb * kvh * -(-sk // KEY_TILE) * splits \
-                if dtype == torch.bfloat16 else None
+            dkdv_ctas = nb * kvh * -(-sk // KEY_TILE) * splits
             require(splits == 1 or dkdv_ctas >= sms, f"{label}: a split dK/dV grid of "
                     f"{dkdv_ctas} CTAs, short of {sms}")
             rows.append(dict(use=use, shape=f"B={nb} H={h} KVH={kvh} D={d} Sq={sq} Sk={sk} "
                              f"causal={causal} window={window} {name}", max_abs_err=err, ms=ms,
                              walk_splits=splits, dkdv_ctas=dkdv_ctas,
                              device_ms=dev, plain_ms=plain, bound_ms=b, bound_by=by,
-                             library_ms=library, library_call=call, library_error=refused,
-                             launch_device_ms=launch_device_ms(run), bitwise_repeatable=True))
-            del got, stats
+                             library_ms=lib["ms"], library_device_ms=lib["device_ms"],
+                             library_call=lib["call"], library_error=lib["error"],
+                             library_kernels=lib["kernels"],
+                             launch_device_ms=launch_device_ms(run), bitwise_repeatable=True,
+                             **extra))
+            del got, stats, lib
     print("K4 backward at training shapes " + json.dumps(rows))
-    main_row = rows[0]  # tinyllama's training microbatch in bf16, phase 7's
-    kernels["flash_attention_backward"] = dict(
-        name="flash_attention_backward", route="cuda",
-        source="src/repro_torch/csrc/flash_attention_bwd.cu",
-        replaces="src/repro/kernels/flash_attention/flash_attention.py:85", shapes=rows,
-        **{k: main_row[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms")})
+    for entry, dtype, source in (
+            ("flash_attention_backward", "bfloat16", "flash_attention_bwd.cu"),
+            ("flash_attention_f32_backward", "float32", "flash_attention_f32_bwd.cu")):
+        shapes = [r for r in rows if r["shape"].endswith(dtype)]
+        main_row = shapes[0]  # tinyllama's training microbatch, phase 7's
+        kernels[entry] = dict(
+            name=entry, route="cuda", source=f"src/repro_torch/csrc/{source}",
+            replaces="src/repro/kernels/flash_attention/flash_attention.py:85", shapes=shapes,
+            **{k: main_row[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")})
 
     hh, p, n = 24, 64, 128
     rows = []
@@ -1381,7 +1515,18 @@ def phase5_serving(arch: str, wrappers: dict):
     with (_observing("core.moe_dispatch", "route_topk",
                      lambda args, _, out: margins.append(_top_k_margin(args, out)))
           if cfg.family == "moe" else contextlib.nullcontext()):
+        for w in wrappers.values():
+            w.launches = 0
         _, res_k, _ = serve(fast, params32, specs)
+        # K4's f32 kernel, once a layer that holds K4 and a prefill
+        f32 = wrappers["flash_attention_f32"].launches
+        want32 = sum(kind in KERNEL_KINDS["flash_attention"] for kind in layer_kinds(cfg32)) * \
+            len(specs) if kernel == "flash_attention" else 0
+        require(f32 == want32 == wrappers["flash_attention"].launches,
+                f"{arch} f32: flash_attention_f32 launched {f32} times, K4 "
+                f"{wrappers['flash_attention'].launches}, not {want32}")
+        if f32:
+            counts["flash_attention_f32"] = f32
         _, res_p, _ = serve(plain, params32, specs)
     margin = f", smallest top-k router margin {float(min(margins)):.3e}" if margins else ""
     worst = 0.0
@@ -1452,6 +1597,8 @@ def past_the_window(arch, cfg, fast, plain, params, wrappers):
         require(rows == {cfg.window}, f"{arch}: KV caches of {rows} rows, not {cfg.window}")
         out[name] = dict(tokens=tokens, prefill_ms=prefill_ms, decode_ms_per_step=decode_ms,
                          launches=launches.pop("flash_attention", 0))
+        require(launches.pop("flash_attention_f32", 0) == out[name]["launches"],
+                f"{arch} {name}: a K4 launch past the window took another kernel than f32's")
         require(not launches, f"{arch} {name}: unexpected launches {launches}")
     require(out["kernels"]["tokens"] == out["plain"]["tokens"],
             f"{arch} f32: the {n_prompt}-token prompt's greedy tokens differ between kernels "
@@ -1596,7 +1743,13 @@ def phase5_cross_source(arch: str, wrappers: dict):
     params32 = _map_leaves(params, lambda t: t.to("cuda", torch.float32))
     del params
     fast, plain = make_model(cfg32, device="cuda"), make_model(cfg32, device="cuda", plain=True)
+    for w in wrappers.values():
+        w.launches = 0
     tok_k, _, _ = run(fast, params32, torch.float32)
+    f32 = wrappers["flash_attention_f32"].launches
+    require(f32 == wrappers["flash_attention"].launches == launches["flash_attention"],
+            f"{arch} f32: flash_attention_f32 launched {f32} times, not "
+            f"{launches['flash_attention']}")
     tok_p, _, _ = run(plain, params32, torch.float32)
     require(tok_k == tok_p, f"{arch} f32: greedy tokens differ between kernels and plain")
     worst = 0.0
@@ -1613,7 +1766,7 @@ def phase5_cross_source(arch: str, wrappers: dict):
     del params32, fast, plain
     gc.collect()
     torch.cuda.empty_cache()
-    return launches["flash_attention"], by_kind
+    return launches["flash_attention"], by_kind, f32
 
 
 def _host_ms(fn) -> float:
@@ -2131,11 +2284,15 @@ def f32_parity_step(arch: str, cfg, params32, rules, batch_of) -> dict:
     opt32 = AdamW(cfg=cfg32)
     shape32 = InputShape("parity", seq, PARITY_BATCH, "train")
     batch = batch_of(100, PARITY_BATCH)
-    results = {}
+    results, step_s = {}, {}
     for plain in (False, True):
         step32 = make_train_step(make_model(cfg32, device="cuda", plain=plain), opt32, rules,
                                  shape32, lr=TRAIN_RUN["lr"], loss_chunk=0, microbatches=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         grads, metrics = step32.grads(params32, batch)
+        torch.cuda.synchronize()
+        step_s["plain" if plain else "kernels"] = time.perf_counter() - t0  # its first call
         metrics = dict(metrics, grad_norm=global_norm(grads))  # the step's, before clipping
         results[plain] = (grads, {k: float(v) for k, v in metrics.items()})
         del grads, step32
@@ -2158,8 +2315,8 @@ def f32_parity_step(arch: str, cfg, params32, rules, batch_of) -> dict:
            "plain": mp, "loss_rel_diff": abs(mk["loss"] - mp["loss"]) / abs(mp["loss"]),
            "grad_norm_rel_diff": abs(mk["grad_norm"] - mp["grad_norm"]) / mp["grad_norm"],
            "grads_max_diff_over_max_g": vs_plain, "microbatches_2_vs_1_max_diff_over_max_g": vs_mb,
-           "loss_2_microbatches": float(m2["loss"]), "peak_mem_GB":
-               torch.cuda.max_memory_allocated() / 1e9}
+           "loss_2_microbatches": float(m2["loss"]), "grads_s_first_call": step_s,
+           "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9}
     print(f"train {arch} f32 parity " + json.dumps(out))
     del params32, gk, g2, step2, batch
     gc.collect()
@@ -2361,7 +2518,18 @@ def phase7_training(arch: str, wrappers: dict, card: str, keep=None, *, layers: 
     # -- float32 at full width: kernels against plain, 1 against 2 microbatches
     params32 = _map_leaves(params, lambda t: t.float())
     del model, params, state, step_fn, batch
+    for w in wrappers.values():
+        w.launches = 0
     f32_parity_step(arch, cfg, params32, rules, batch_of)
+    if kernel == "flash_attention":  # K4's f32 kernels ran the kernels' steps, and only they
+        f32 = {k: wrappers[k].launches for k in ("flash_attention_f32",
+                                                 "flash_attention_f32_backward")}
+        require(0 < f32["flash_attention_f32"] == wrappers["flash_attention"].launches and
+                0 < f32["flash_attention_f32_backward"] ==
+                wrappers["flash_attention_backward"].launches,
+                f"{arch} f32 parity: launches {f32}, K4 {wrappers['flash_attention'].launches} "
+                f"and its backward {wrappers['flash_attention_backward'].launches}")
+        counts.update(f32)
     del params32
     gc.collect()
     torch.cuda.empty_cache()
@@ -2449,7 +2617,8 @@ def _phase8a(rank: int, mesh, plan: dict) -> dict:
     want = 2 * kernel_layers * mb * (steps - start)   # forward and remat, a layer and step
     if device == "cuda":
         require(launches == dict(ssd_scan=want, ssd_scan_backward=want // 2, flash_attention=0,
-                                 flash_attention_wide=0, flash_attention_backward=0),
+                                 flash_attention_wide=0, flash_attention_backward=0,
+                                 flash_attention_f32=0, flash_attention_f32_backward=0),
                 f"8a rank {rank}: launches {launches}, not ssd_scan {want} and its backward "
                 f"{want // 2}")
 
@@ -2568,10 +2737,11 @@ def _phase8c(rank: int, mesh, plan: dict) -> dict:
         w.launches = 0
     grads, metrics = two.grads(shards, batch)
     launches = {k: w.launches for k, w in wrappers.items()}
-    if device == "cuda":   # the forward, remat's replay and the backward, a layer
-        require(launches["flash_attention"] == 2 * cfg.num_layers and
-                launches["flash_attention_backward"] == cfg.num_layers,
-                f"8c rank {rank}: launches {launches}")
+    if device == "cuda":   # the forward, remat's replay and the backward, a layer, all f32
+        require(launches["flash_attention"] == launches["flash_attention_f32"] ==
+                2 * cfg.num_layers and
+                launches["flash_attention_backward"] == launches["flash_attention_f32_backward"] ==
+                cfg.num_layers, f"8c rank {rank}: launches {launches}")
     metrics = {k: float(v) for k, v in dict(metrics, grad_norm=two.global_norm(grads)).items()}
     grads = two.gather(grads)
     one_rules = MeshRules(MeshShape((1, 1), ("data", "model")), cfg.parallel)
@@ -2746,7 +2916,8 @@ def _phase9_train(mesh, plan: dict, part: str, arch: str, layers: int) -> dict:
     want = 2 * attn * run_cfg["steps"]      # forward and remat, a layer and step
     if device == "cuda":
         require(launches == dict(flash_attention=want, flash_attention_backward=want // 2,
-                                 flash_attention_wide=0, ssd_scan=0, ssd_scan_backward=0),
+                                 flash_attention_wide=0, ssd_scan=0, ssd_scan_backward=0,
+                                 flash_attention_f32=0, flash_attention_f32_backward=0),
                 f"{part}: launches {launches}, not flash_attention {want} and its backward "
                 f"{want // 2}")
     result = dict(arch=arch, layers=cfg.num_layers, mesh=list(TP_MESH),
@@ -2816,6 +2987,12 @@ def _phase9c(rank: int, mesh, plan: dict) -> dict:
         metrics = {k: float(v) for k, v in dict(metrics,
                                                 grad_norm=two.global_norm(grads)).items()}
         launches[name] = {k: w.launches for k, w in wrappers.items()}
+        got = launches[name]
+        if device == "cuda":   # float32: K4 through its f32 kernels alone
+            require(got["flash_attention"] == got["flash_attention_f32"] and
+                    got["flash_attention_backward"] == got["flash_attention_f32_backward"] and
+                    (arch == "mamba2-130m" or got["flash_attention_f32"] > 0),
+                    f"9c {name}: launches {got}")
         grads = two.gather(grads)
         result = dict(layers=cfg.num_layers, sequence_parallel=sp, batch=f"{rows} x {seq}",
                       mesh=metrics, launches=launches[name])
@@ -3067,7 +3244,8 @@ def _phase10_case(mesh, plan: dict, part: str, arch: str, dtype: str, check: boo
     d, m = mesh.get_coordinate()
     local_rows = slice(d * rows // TP_MESH[0], (d + 1) * rows // TP_MESH[0])
     heads = []      # (query, kv) heads of every K4 call of the prefill; K5's heads
-    wrappers = {"flash_attention": flash_attention, "ssd_scan": ssd_scan}
+    wrappers = {"flash_attention": flash_attention, "ssd_scan": ssd_scan,
+                "flash_attention_f32": Count(flash_attention, "f32_launches")}
     load_at_start = os.getloadavg()[0]
 
     def call(fn, *args):
@@ -3123,9 +3301,11 @@ def _phase10_case(mesh, plan: dict, part: str, arch: str, dtype: str, check: boo
             f"not {want_heads}")
     if cuda:
         got = prefill_reading["launches"]
-        require(got == {"flash_attention": attn, "ssd_scan": ssd},
-                f"{name}: a prefill launched {got}, not K4 {attn} and K5 {ssd} times")
-        require(all(r["launches"] == {"flash_attention": 0, "ssd_scan": 0}
+        f32 = attn if dtype == "float32" else 0
+        require(got == {"flash_attention": attn, "ssd_scan": ssd, "flash_attention_f32": f32},
+                f"{name}: a prefill launched {got}, not K4 {attn} ({f32} f32) and K5 {ssd} times")
+        require(all(r["launches"] == {"flash_attention": 0, "ssd_scan": 0,
+                                      "flash_attention_f32": 0}
                     for r in decode_readings), f"{name}: a decode step launched a kernel")
     total = rows * plan["steps"]
     if check:
@@ -3430,7 +3610,7 @@ def main() -> int:
     wrappers.update(model_wrappers())
     inline_tokens = {}
     for name in ("flash_attention", "ssd_scan", "flash_attention_wide", "flash_attention_backward",
-                 "ssd_scan_backward"):
+                 "ssd_scan_backward", "flash_attention_f32", "flash_attention_f32_backward"):
         kernels[name]["launches"] = 0
         kernels[name]["launches_by_path"] = {}
 
@@ -3468,10 +3648,12 @@ def main() -> int:
     for arch in INLINE_ARCHS:
         serve_inline(arch)
     for arch in CROSS_SOURCE_ARCHS:
-        launches, by_kind = phase5_cross_source(arch, wrappers)
+        launches, by_kind, f32 = phase5_cross_source(arch, wrappers)
         kernels["flash_attention"]["launches"] += launches
         for kind, n in by_kind.items():
             kernels["flash_attention"]["launches_by_path"][f"phase 5 {arch} {kind}"] = n
+        kernels["flash_attention_f32"]["launches"] += f32
+        kernels["flash_attention_f32"]["launches_by_path"][f"phase 5 {arch} f32"] = f32
         print(f"phase 5 {arch} done at {time.perf_counter() - t_start:.1f} s")
     # phase 7 keeps mamba2's checkpoint and resumed losses for phase 8a
     kept = Path(tempfile.mkdtemp(prefix="chip_smoke_kept_", dir=ROOT / "build"))
@@ -3544,6 +3726,16 @@ def main() -> int:
             n = sum(c for path, c in kernels[name]["launches_by_path"].items()
                     if path.startswith(phase))
             require(n > 0, f"{name} was not launched in {phase}'s training")
+    # K4's f32 kernels ran every f32 check: phase 5's serving, phase 7's
+    # parity steps, 8c's and 9c's steps and 10a's prefills (the backward in
+    # the training steps)
+    for name, phases in (("flash_attention_f32", ("phase 5", "phase 7", "phase 8c", "phase 9c",
+                                                  "phase 10")),
+                         ("flash_attention_f32_backward", ("phase 7", "phase 8c", "phase 9c"))):
+        for phase in phases:
+            n = sum(c for path, c in kernels[name]["launches_by_path"].items()
+                    if path.startswith(phase))
+            require(n > 0, f"{name} was not launched in {phase}")
 
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -31,7 +31,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "function", "check", "count_launch"]
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
 SOURCES = ("hotspot", "spmm", "flash_attention", "flash_attention_wide", "flash_attention_bwd",
-           "ssd_scan")
+           "flash_attention_f32", "flash_attention_f32_bwd", "ssd_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo",

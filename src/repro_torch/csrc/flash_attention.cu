@@ -1,44 +1,43 @@
-// Flash attention forward (K4) for Hopper (sm_90a), bound to Python with ctypes.
+// Flash attention forward (K4) in bf16 for Hopper (sm_90a), bound to Python with ctypes.
 //
 // flash_attention_launch replaces src/repro/kernels/flash_attention/
-//    flash_attention.py flash_attention_pallas (body _flash_kernel): GQA
-//    attention over q (B, Sq, H, D) and k, v (B, Sk, KVH, D), the G = H/KVH
-//    query heads of one kv head sharing its keys, with an online softmax in
-//    f32 (running max m, denominator l, accumulator acc) and the output
-//    acc / max(l, 1e-30) in q's dtype.  Masks as in the TPU kernel: causal
-//    is top-left aligned (query i sees keys j <= i), the window keeps
-//    j > i - window, and masked scores are -0.7 * FLT_MAX (not -inf), so a
-//    fully masked tile behaves as it does there.  Keys past Sk (which add
-//    nothing to l) and query rows past Sq (the ragged last tiles) are
-//    masked here, so any length runs through the kernel.
+//    flash_attention.py flash_attention_pallas (body _flash_kernel) for bf16
+//    q, k, v with a head dim D up to 128: GQA attention over q (B, Sq, H, D)
+//    and k, v (B, Sk, KVH, D), the G = H/KVH query heads of one kv head
+//    sharing its keys, with an online softmax in f32 (running max m,
+//    denominator l, accumulator acc) and the output acc / max(l, 1e-30) in
+//    bf16.  Masks as in the TPU kernel: causal is top-left aligned (query i
+//    sees keys j <= i), the window keeps j > i - window, and masked scores
+//    are -0.7 * FLT_MAX (not -inf), so a fully masked tile behaves as it
+//    does there.  Keys past Sk (which add nothing to l) and query rows past
+//    Sq (the ragged last tiles) are masked here, so any length runs through
+//    the kernel.  bf16 past D 128 runs csrc/flash_attention_wide.cu, and
+//    float32 csrc/flash_attention_f32.cu.
 //
-// Head dims: any D from 1 to 256 in f32, 1 to 128 in bf16 (bf16 past 128
-// runs csrc/flash_attention_wide.cu).  Each path instantiates a few padded
-// widths DP >= D (bf16: 64, 128; f32: 16, 32, 64, 128, 192, 256); the
-// columns D .. DP - 1 are zero in shared memory, so the padded products add
-// exact zeros and equal the unpadded ones.  Only D columns are read from and
-// written to device memory.
+// Head dims: the padded widths DP 64 and 128; the columns D .. DP - 1 are
+// zero in shared memory, so the padded products add exact zeros and equal
+// the unpadded ones.  Only D columns are read from and written to device
+// memory.
 //
-// Both dtypes give one CTA to each (batch, kv head, block of 64 query
-// rows), where a row is one (position i, group g) pair, numbered i * G + g:
-// the G heads of a position are adjacent in memory and share the CTA's
-// keys.  A causal CTA stops at the tile that holds its last row's
-// diagonal, as the TPU kernel does.  A windowed CTA starts at the tile that
-// holds its first row's window edge, max(0, first position - window + 1):
-// no key before it is kept, and at the first walked tile alpha = exp(MASK -
-// m) = 0 multiplies what the skipped tiles would have added by zero, so o
-// and the statistics keep their bits.  A CTA holding a fully masked row
-// (position >= Sk + window - 1, when Sq > Sk) walks from tile 0, so that row
-// averages every key as the TPU kernel's does (flash::forward_walk in
-// csrc/flash_tiles.cuh, for every forward kernel; forward_walk in
-// kernels/flash_attention/flash_attention.py states it for the tests).  The
-// dtype and, in bf16, the head dim select the kernel.
+// One CTA to each (batch, kv head, block of 64 query rows), where a row is
+// one (position i, group g) pair, numbered i * G + g: the G heads of a
+// position are adjacent in memory and share the CTA's keys.  A causal CTA
+// stops at the tile that holds its last row's diagonal, as the TPU kernel
+// does.  A windowed CTA starts at the tile that holds its first row's
+// window edge, max(0, first position - window + 1): no key before it is
+// kept, and at the first walked tile alpha = exp(MASK - m) = 0 multiplies
+// what the skipped tiles would have added by zero, so o and the statistics
+// keep their bits.  A CTA holding a fully masked row (position >= Sk +
+// window - 1, when Sq > Sk) walks from tile 0, so that row averages every
+// key as the TPU kernel's does (flash::forward_walk in csrc/flash_tiles.cuh,
+// for every forward kernel; forward_walk in
+// kernels/flash_attention/flash_attention.py states it for the tests).
 // Where a training step will take the gradient, the caller passes a
 // (2, B, H, Sq) f32 buffer and each row's final max m and denominator l
 // are written there for the backward (csrc/flash_attention_bwd.cu); with
 // null (serving) nothing else changes.
 //
-// bf16 up to D 128 (flash_fwd_bf16_kernel): the tensor cores.  Bound: operations,
+// flash_fwd_bf16_kernel: the tensor cores.  Bound: operations,
 // kernel_flops = 4 * B * H * Sq * Sk * D (halved when causal): 17.2 GFLOP
 // for tinyllama's prefill at S = 2048, 0.017 ms at the 989 TFLOP/s bf16
 // peak, against 19 MB of q, k, v and o.  One warpgroup (128 threads) owns
@@ -66,20 +65,6 @@
 //    wrapper pads D to a multiple of 8 with zero columns, and copies an
 //    unaligned tensor to an aligned one, before the launch.
 //
-// f32 (flash_fwd_kernel): the CUDA cores.  This is the path of the f32
-// parity checks (the serving path's greedy token equality), the tensor
-// cores would need TF32 operands there (10-bit mantissas, against an f32
-// tolerance of 2e-4 / 2e-5), and it already runs faster than PyTorch's f32
-// scaled_dot_product_attention.  The CTA stages its q rows (scaled, as
-// f32, transposed) once, then walks the keys in tiles of 64: K
-// (transposed) and V tiles are staged in shared memory as f32; each of the
-// 128 threads computes an 8 x 4 block of the 64 x 64 score tile with FMA
-// over the D columns, the row max and sum are reduced across the 16
-// threads that share a row with warp shuffles, P goes through shared
-// memory, and each thread accumulates an 8 x DP/16 block of the output in
-// registers.  At DP = 256 the CTA's shared memory is 222,208 B of the
-// 232,448 a block may use.  Bound: operations, at the 67 TFLOP/s f32 rate.
-//
 // The entry points return cudaGetLastError() so the wrapper can raise on a
 // refused launch.
 
@@ -95,233 +80,7 @@ namespace {
 
 constexpr int kMaxHeadDim = 256;
 constexpr int kMaxSmemBytes = 232448;  // dynamic shared memory a block may use on sm_90
-constexpr int kRows = 64;      // query rows (position, group) per CTA
-constexpr int kKeys = 64;      // keys per tile
-static_assert(kKeys == flash::kTileRows, "flash::forward_walk counts tiles of kKeys keys");
-constexpr int kThreads = 128;  // 8 row groups x 16 column groups
-constexpr int kRowsPerThread = 8;
-constexpr int kKeysPerThread = 4;
-constexpr int kPad = 4;        // keeps float4 alignment of the transposed tiles
-constexpr int kQStride = kRows + kPad;
-constexpr int kKStride = kKeys + kPad;
 constexpr float kMaskValue = -0.7f * FLT_MAX;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-
-// Sum over the 16 lanes that share a row, read back from the first of them
-// so that every lane holds the same rounding of the sum.
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return __shfl_sync(0xffffffffu, v, threadIdx.x & 16);
-}
-
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-template <int DP>
-constexpr int smem_floats() {
-  return DP * kQStride + DP * kKStride + kKeys * DP + kKeys * kQStride;
-}
-static_assert(smem_floats<kMaxHeadDim>() * 4 <= kMaxSmemBytes, "f32 K4 tiles exceed shared memory");
-
-// DP: the padded width (a multiple of 16); head_dim <= DP columns are real.
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int seq_q, int seq_k, int heads, int kv_heads, int head_dim,
-                 int causal, int window, float scale, float* __restrict__ stats) {
-  constexpr int kCols = DP / 16;  // output columns per thread
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                      // [DP][kQStride]   q rows, transposed
-  float* ks = qs + DP * kQStride;        // [DP][kKStride]   key tile, transposed
-  float* vs = ks + DP * kKStride;        // [kKeys][DP]      value tile
-  float* ps = vs + kKeys * DP;           // [kKeys][kQStride] probabilities, transposed
-
-  const int D = head_dim;
-  const int groups = heads / kv_heads;
-  const int b = blockIdx.z;
-  const int kvh = blockIdx.y;
-  const int row0 = blockIdx.x * kRows;
-  const int total_rows = seq_q * groups;
-  const int tid = threadIdx.x;
-  const int tr = tid / 16;
-  const int tc = tid % 16;
-
-  for (int e = tid; e < kRows * DP; e += kThreads) {
-    const int r = e / DP, d = e % DP;
-    const int rho = row0 + r;
-    float val = 0.0f;
-    if (rho < total_rows && d < D) {
-      const int i = rho / groups, g = rho % groups;
-      val = to_f32(q[((static_cast<long>(b) * seq_q + i) * heads + kvh * groups + g) * D + d]) *
-            scale;
-    }
-    qs[d * kQStride + r] = val;
-  }
-
-  int q_pos[kRowsPerThread];
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) q_pos[r] = (row0 + tr * kRowsPerThread + r) / groups;
-
-  const int last_pos = (min(row0 + kRows, total_rows) - 1) / groups;
-  const flash::ForwardWalk walk =
-      flash::forward_walk(row0 / groups, last_pos, seq_k, causal, window);
-
-  float m_run[kRowsPerThread], l_run[kRowsPerThread], acc[kRowsPerThread][kCols];
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
-    m_run[r] = kMaskValue;
-    l_run[r] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.0f;
-  }
-
-  const long kv_base = static_cast<long>(b) * seq_k;
-  for (int t = walk.t_lo; t < walk.t_end; ++t) {
-    const int k0 = t * kKeys;
-    __syncthreads();  // the previous tile's K, V and P are no longer read
-    for (int e = tid; e < kKeys * DP; e += kThreads) {
-      const int j = e / DP, d = e % DP;
-      const int kp = k0 + j;
-      float kv = 0.0f, vv = 0.0f;
-      if (kp < seq_k && d < D) {
-        const long idx = ((kv_base + kp) * kv_heads + kvh) * D + d;
-        kv = to_f32(k[idx]);
-        vv = to_f32(v[idx]);
-      }
-      ks[d * kKStride + j] = kv;
-      vs[j * DP + d] = vv;
-    }
-    __syncthreads();
-
-    float s[kRowsPerThread][kKeysPerThread];
-#pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r)
-#pragma unroll
-      for (int jj = 0; jj < kKeysPerThread; ++jj) s[r][jj] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {  // the padded columns are zero: skip them
-      const float4 qa = *reinterpret_cast<const float4*>(&qs[d * kQStride + tr * 8]);
-      const float4 qb = *reinterpret_cast<const float4*>(&qs[d * kQStride + tr * 8 + 4]);
-      const float4 kk = *reinterpret_cast<const float4*>(&ks[d * kKStride + tc * 4]);
-      const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
-      const float kv[4] = {kk.x, kk.y, kk.z, kk.w};
-#pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r)
-#pragma unroll
-        for (int jj = 0; jj < kKeysPerThread; ++jj) s[r][jj] = fmaf(qv[r], kv[jj], s[r][jj]);
-    }
-
-#pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) {
-      float mx = kMaskValue;
-#pragma unroll
-      for (int jj = 0; jj < kKeysPerThread; ++jj) {
-        const int kp = k0 + tc * 4 + jj;
-        bool keep = kp < seq_k;
-        if (causal) keep = keep && kp <= q_pos[r];
-        if (window) keep = keep && kp > q_pos[r] - window;
-        if (!keep) s[r][jj] = kMaskValue;
-        mx = fmaxf(mx, s[r][jj]);
-      }
-      const float m_new = fmaxf(m_run[r], row_max(mx));
-      const float alpha = expf(m_run[r] - m_new);
-      float sum = 0.0f;
-#pragma unroll
-      for (int jj = 0; jj < kKeysPerThread; ++jj) {
-        const int kp = k0 + tc * 4 + jj;
-        // keys past Sk are not there at all: they add nothing to l
-        const float p = kp < seq_k ? expf(s[r][jj] - m_new) : 0.0f;
-        s[r][jj] = p;
-        sum += p;
-      }
-      l_run[r] = l_run[r] * alpha + row_sum(sum);
-      m_run[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[r][c] *= alpha;
-    }
-#pragma unroll
-    for (int jj = 0; jj < kKeysPerThread; ++jj) {
-      float* dst = &ps[(tc * 4 + jj) * kQStride + tr * 8];
-      *reinterpret_cast<float4*>(dst) = make_float4(s[0][jj], s[1][jj], s[2][jj], s[3][jj]);
-      *reinterpret_cast<float4*>(dst + 4) = make_float4(s[4][jj], s[5][jj], s[6][jj], s[7][jj]);
-    }
-    __syncthreads();
-
-    const int n_keys = min(kKeys, seq_k - k0);
-    for (int j = 0; j < n_keys; ++j) {
-      const float4 pa = *reinterpret_cast<const float4*>(&ps[j * kQStride + tr * 8]);
-      const float4 pb = *reinterpret_cast<const float4*>(&ps[j * kQStride + tr * 8 + 4]);
-      const float pv[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const float vv = vs[j * DP + tc + 16 * c];
-#pragma unroll
-        for (int r = 0; r < kRowsPerThread; ++r) acc[r][c] = fmaf(pv[r], vv, acc[r][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
-    const int rho = row0 + tr * kRowsPerThread + r;
-    if (rho >= total_rows) continue;
-    const int i = rho / groups, g = rho % groups;
-    const float denom = fmaxf(l_run[r], 1e-30f);
-    if (stats != nullptr && tc == 0) {  // m and l, (2, B, H, Sq), for the backward
-      const long idx = (static_cast<long>(b) * heads + kvh * groups + g) * seq_q + i;
-      stats[idx] = m_run[r];
-      stats[static_cast<long>(gridDim.z) * heads * seq_q + idx] = l_run[r];
-    }
-    T* dst = o + ((static_cast<long>(b) * seq_q + i) * heads + kvh * groups + g) * D;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      if (tc + 16 * c < D) dst[tc + 16 * c] = from_f32<T>(acc[r][c] / denom);
-    }
-  }
-}
-
-template <typename T, int DP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int batch, int seq_q,
-                   int seq_k, int heads, int kv_heads, int head_dim, int causal, int window,
-                   float scale, float* stats, cudaStream_t stream) {
-  constexpr int smem = smem_floats<DP>() * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const long row_blocks = (static_cast<long>(seq_q) * (heads / kv_heads) + kRows - 1) / kRows;
-  const dim3 grid(static_cast<unsigned>(row_blocks), kv_heads, batch);
-  flash_fwd_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), seq_q, seq_k, heads, kv_heads, head_dim, causal, window, scale, stats);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_dim(int head_dim, const void* q, const void* k, const void* v, void* o,
-                       int batch, int seq_q, int seq_k, int heads, int kv_heads, int causal,
-                       int window, float scale, float* stats, cudaStream_t stream) {
-#define K4_F32(DP)                                                                          \
-  launch<T, DP>(q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, head_dim, causal, window, \
-                scale, stats, stream)
-  if (head_dim <= 16) return K4_F32(16);
-  if (head_dim <= 32) return K4_F32(32);
-  if (head_dim <= 64) return K4_F32(64);
-  if (head_dim <= 128) return K4_F32(128);
-  if (head_dim <= 192) return K4_F32(192);
-  return K4_F32(256);
-#undef K4_F32
-}
-
-
-// ---------------------------------------------------------------------------
-// bf16: tensor cores (wgmma), K/V tiles loaded asynchronously.
 
 using flash::kTileRows;
 using flash::kWarpgroup;
@@ -595,34 +354,22 @@ const char* flash_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dtype: 0 float32, 1 bfloat16.  q, o (B, Sq, H, D) and k, v (B, Sk, KVH, D),
-// contiguous, on the card, 1 <= D <= 256 (bfloat16: D <= 128, the rest is
-// flash_attention_wide_launch's); bfloat16 also needs D % 8 == 0 and
-// 16-byte aligned tensors.  stats, null or (2, B, H, Sq) f32, receives
+// q, o (B, Sq, H, D) and k, v (B, Sk, KVH, D) in bfloat16, contiguous, on
+// the card, 1 <= D <= 128 (the rest is flash_attention_wide_launch's),
+// D % 8 == 0, 16-byte aligned.  stats, null or (2, B, H, Sq) f32, receives
 // each row's final max m and denominator l for the backward
 // (csrc/flash_attention_bwd.cu); null leaves the forward as it is.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int batch,
                            int seq_q, int seq_k, int heads, int kv_heads, int head_dim,
-                           int dtype, int causal, int window, float scale, float* stats,
-                           void* stream) {
+                           int causal, int window, float scale, float* stats, void* stream) {
+  // 16-byte copies need whole 8-column chunks on 16-byte aligned rows
   if (batch <= 0 || seq_q <= 0 || seq_k <= 0 || kv_heads <= 0 || heads % kv_heads ||
-      head_dim < 1 || head_dim > kMaxHeadDim)
+      head_dim < 1 || head_dim > kMaxHeadDim || head_dim % 8 || !aligned16(q) ||
+      !aligned16(k) || !aligned16(v) || !aligned16(o))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = launch_dim<float>(head_dim, q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, causal,
-                            window, scale, stats, s);
-  } else if (dtype == 1) {
-    // 16-byte copies need whole 8-column chunks on 16-byte aligned rows
-    if (head_dim % 8 || !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
-      return static_cast<int>(cudaErrorInvalidValue);
-    err = launch_bf16_width(head_dim, q, k, v, o, batch, seq_q, seq_k, heads, kv_heads, causal,
-                            window, scale, stats, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(launch_bf16_width(head_dim, q, k, v, o, batch, seq_q, seq_k, heads,
+                                            kv_heads, causal, window, scale, stats,
+                                            static_cast<cudaStream_t>(stream)));
 }
 
 // One tile of each bf16 product (S = q k^T, O = bf16(S) v) for (64, D)

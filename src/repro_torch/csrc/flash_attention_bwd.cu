@@ -84,30 +84,13 @@
 // exactly to either warpgroup's share of L; elsewhere they multiply by
 // 1 / L, within one rounding of the quotient).
 //
-// f32 at every width keeps the first kernels, three launches:
-//  1. flash_bwd_rows_kernel<kDelta = true>, a CTA per (batch, kv head, 64
-//     rows): walks the key tiles the forward walks (and from the window's
-//     first key on), recomputes S and dP, and sums P * dP per row: Delta.
-//  2. flash_bwd_dkdv_kernel, a CTA per (batch, kv head, tile of KT keys):
-//     the walk of the wgmma kernel above; recomputes S and dP, forms P and
-//     dS, and accumulates dV += P^T dO and dK += dS^T Q in registers.
-//  3. flash_bwd_rows_kernel<kDelta = false>: as kernel 1, accumulating
-//     dQ += dS K.
-// They run the mma.sync m16n8k16 fragment layout on the CUDA cores in IEEE
-// f32 FMA (no TF32), q scaled before the product as in the forward: the
-// path of the parity checks.  Each CTA is 8 warps.  Tiles live in shared
-// memory, padded by 16 bytes a row so that the fragment loads meet no bank
-// conflicts.  Key tiles are 64 keys up to DP 128 and 32 past it, which
-// keeps them within the 232,448 bytes of shared memory a block may use
-// (217,856 at DP 256).
+// Head dims: any D from 1 to 256, at padded widths DP of 64, 128, 192 and
+// 256 whose extra columns are zero in shared memory.  bf16 needs D % 8 == 0
+// and 16-byte aligned tensors (the wrapper pads).  float32 runs
+// csrc/flash_attention_f32_bwd.cu.
 //
-// Head dims: any D from 1 to 256, at padded widths DP of 16, 32, 64, 128,
-// 192, 256 (bf16: 64, 128, 192, 256) whose extra columns are zero in shared
-// memory.  bf16 needs D % 8 == 0 and 16-byte aligned tensors (the wrapper
-// pads).
-//
-// Bound: operations, at the bf16 tensor-core rate (989 TFLOP/s) for bf16
-// and the 67 TFLOP/s f32 rate otherwise; the least work is 2.5x the
+// Bound: operations, at the bf16 tensor-core rate (989 TFLOP/s); the least
+// work is 2.5x the
 // forward's kernel_flops, against reads of q, k, v, dO and writes of dq,
 // dk, dv.  The wgmma kernels form S three times and dP twice a (row tile,
 // key tile) pair, and with the remainders run 13 tile products where the
@@ -134,67 +117,9 @@ namespace {
 constexpr int kMaxHeadDim = 256;
 constexpr int kMaxSmemBytes = 232448;  // dynamic shared memory a block may use on sm_90
 constexpr int kRows = 64;              // query rows (position, group) of a row tile
-constexpr int kThreads = 256;          // 8 warps
 constexpr float kMaskValue = -0.7f * FLT_MAX;
 
 using bf16 = __nv_bfloat16;
-
-// elements of row padding: 16 bytes
-template <typename T>
-__host__ __device__ constexpr int pad() {
-  return 16 / static_cast<int>(sizeof(T));
-}
-// keys of a key tile: 64, or 32 past DP 128 (shared memory)
-template <int DP> __host__ __device__ constexpr int key_tile() { return DP <= 128 ? 64 : 32; }
-
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// One warp: acc[nt] += A (16 x kdim) B (kdim x 8 NT), in mma.sync's m16n8
-// fragment layout: lane (gid = lane / 4, tig = lane % 4) holds rows gid and
-// gid + 8 and columns 2 tig, 2 tig + 1 of each 8-column tile nt, as
-// acc[nt][0, 1] (row gid) and acc[nt][2, 3] (row gid + 8).  A(r, k) =
-// a[r * lda + k]; B(k, n) = b[n * ldb + k] (kBRows false: each column of B
-// contiguous along k) or b[k * ldb + n] (kBRows true).  kdim % 16 == 0.
-// f32: the CUDA cores, sums in k order.
-template <int NT, bool kBRows>
-__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const float* a, int lda,
-                                         const float* b, int ldb, int kdim) {
-  const int lane = threadIdx.x % 32, gid = lane / 4, tig = lane % 4;
-  const float* a0p = a + gid * lda;
-  const float* a1p = a + (gid + 8) * lda;
-#pragma unroll 4
-  for (int k = 0; k < kdim; ++k) {
-    const float a0 = a0p[k], a1 = a1p[k];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int n = nt * 8 + 2 * tig;
-      const float b0 = kBRows ? b[k * ldb + n] : b[n * ldb + k];
-      const float b1 = kBRows ? b[k * ldb + n + 1] : b[(n + 1) * ldb + k];
-      acc[nt][0] = fmaf(a0, b0, acc[nt][0]);
-      acc[nt][1] = fmaf(a0, b1, acc[nt][1]);
-      acc[nt][2] = fmaf(a1, b0, acc[nt][2]);
-      acc[nt][3] = fmaf(a1, b1, acc[nt][3]);
-    }
-  }
-}
-
-// Rows [0, n_rows) of a tile of DP columns with row stride ld: row r from
-// row_ptr(r) (null: zeros), its first d columns, times mult (f32 only);
-// the other columns zero.
-template <int DP, typename RowPtr>
-__device__ __forceinline__ void load_rows(float* dst, int ld, int n_rows, int d, float mult,
-                                          RowPtr row_ptr) {
-  for (int e = threadIdx.x; e < n_rows * DP; e += kThreads) {
-    const int r = e / DP, c = e % DP;
-    const float* src = row_ptr(r);
-    dst[r * ld + c] = (src != nullptr && c < d) ? src[c] * mult : 0.0f;
-  }
-}
 
 // What a CTA knows of its problem.
 struct Problem {
@@ -202,16 +127,7 @@ struct Problem {
   float scale;
 };
 
-// The 64 rows of row tile rho0 of (b, kvh): their q (or dO) rows and their
-// statistics' index (b, kvh * G + g, i) in (B, H, Sq).
-template <typename T>
-__device__ __forceinline__ const T* row_of(const T* x, const Problem& pb, int b, int kvh, int rho) {
-  if (rho >= pb.total_rows) return nullptr;
-  const int i = rho / pb.groups, g = rho % pb.groups;
-  return x + ((static_cast<int64_t>(b) * pb.seq_q + i) * pb.heads + kvh * pb.groups + g) *
-                 pb.head_dim;
-}
-
+// The statistics' index (b, kvh * G + g, i) in (B, H, Sq) of row rho.
 __device__ __forceinline__ int64_t stat_index(const Problem& pb, int b, int kvh, int rho) {
   const int i = rho / pb.groups, g = rho % pb.groups;
   return (static_cast<int64_t>(b) * pb.heads + kvh * pb.groups + g) * pb.seq_q + i;
@@ -242,347 +158,6 @@ struct RowWalk {
 
 __device__ __forceinline__ int64_t plane(const Problem& pb) {
   return static_cast<int64_t>(pb.batch) * pb.heads * pb.seq_q;
-}
-
-// The tile's rows' m and, where aux holds them, L and Delta (aux (2, B, H,
-// Sq): L, then Delta) into shared memory; without aux L = 1, Delta = 0.
-// Rows past the end: P = 0 there anyway.
-__device__ __forceinline__ void load_stats(float* m_row, float* n_row, float* d_row,
-                                           const float* stats, const float* aux,
-                                           const Problem& pb, int b, int kvh, int rho0) {
-  const int r = threadIdx.x;
-  if (r >= kRows) return;
-  const int rho = rho0 + r;
-  float m = 0.0f, n = 1.0f, dl = 0.0f;
-  if (rho < pb.total_rows) {
-    const int64_t idx = stat_index(pb, b, kvh, rho);
-    m = stats[idx];
-    if (aux != nullptr) {
-      n = aux[idx];
-      dl = aux[plane(pb) + idx];
-    }
-  }
-  m_row[r] = m;
-  n_row[r] = n;
-  d_row[r] = dl;
-}
-
-// S = Q K^T (and with kDp dP = dO V^T) for the 64 rows (from rho0) and KT
-// keys (from k0) in shared memory, warp (wr, wc) of a 4 x 2 grid taking
-// rows 16 wr and keys wc KT / 2.  Each element goes to out(row, key, a, b)
-// (tile coordinates): with kDp a = P = exp(S - m) / L and b = dS = P (dP -
-// Delta) (0 where masked); without, a = exp(S - m), b = 0.  s_scale: scale
-// for bf16 (the forward scales the f32 scores), 1 for f32 (q was scaled as
-// it was loaded).
-template <typename T, int DP, int KT, bool kDp, typename Out>
-__device__ __forceinline__ void scores(const T* qs, const T* dos, const T* ks, const T* vs,
-                                       int ld, const float* m_row, const float* n_row,
-                                       const float* d_row, const Problem& pb, int rho0, int k0,
-                                       float s_scale, Out out) {
-  constexpr int NT = KT / 16;
-  const int warp = threadIdx.x / 32, wr = warp % 4, wc = warp / 4;
-  const int lane = threadIdx.x % 32, gid = lane / 4, tig = lane % 4;
-  float s[NT][4], dp[NT][4];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.0f;
-  warp_mma<NT, false>(s, qs + 16 * wr * ld, ld, ks + wc * (KT / 2) * ld, ld, DP);
-  if constexpr (kDp)
-    warp_mma<NT, false>(dp, dos + 16 * wr * ld, ld, vs + wc * (KT / 2) * ld, ld, DP);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = 16 * wr + gid + 8 * h;
-    const int rho = rho0 + r;
-    const bool row_ok = rho < pb.total_rows;
-    const int pos = rho / pb.groups;
-    const float m = m_row[r], n = n_row[r], delta = d_row[r];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int kl = wc * (KT / 2) + nt * 8 + 2 * tig + u;
-        const int key = k0 + kl;
-        const bool present = row_ok && key < pb.seq_k;  // keys past Sk are not there at all
-        bool keep = present;
-        if (pb.causal) keep = keep && key <= pos;
-        if (pb.window) keep = keep && key > pos - pb.window;
-        const float x = keep ? s[nt][2 * h + u] * s_scale : kMaskValue;
-        const float e = present ? expf(x - m) : 0.0f;
-        if constexpr (kDp) {
-          const float p = e / n;
-          out(r, kl, p, keep ? p * (dp[nt][2 * h + u] - delta) : 0.0f);
-        } else {
-          out(r, kl, e, 0.0f);
-        }
-      }
-  }
-}
-
-// v as a product's operand: bf16 keeps its rounding's remainder in a second
-// operand (hi + lo), so that the products of P and dS stay near f32 where a
-// row's terms cancel; f32 stores v whole.
-template <typename T>
-__device__ __forceinline__ void store_operand(T* hi, T* lo, float v) {
-  const T h = from_f32<T>(v);
-  *hi = h;
-  if constexpr (sizeof(T) == 2) *lo = from_f32<T>(v - to_f32(h));
-}
-
-// Per-row sums of a value each lane holds for rows gid and gid + 8 of its
-// warp's 16 (scores' warp grid: rows warp % 4, key halves warp / 4): over
-// the 4 lanes of a row, then the two key halves in order, into sums[row].
-// halves: 2 * kRows floats of scratch.
-__device__ __forceinline__ void row_sums(float (&part)[2], float* halves, float* sums) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gid = lane / 4;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    part[h] += __shfl_xor_sync(0xffffffffu, part[h], 1);
-    part[h] += __shfl_xor_sync(0xffffffffu, part[h], 2);
-  }
-  if (lane % 4 == 0) {
-    float* half = halves + (warp / 4) * kRows + 16 * (warp % 4) + gid;
-    half[0] = part[0];
-    half[8] = part[1];
-  }
-  __syncthreads();
-  if (threadIdx.x < kRows) sums[threadIdx.x] = halves[threadIdx.x] + halves[kRows + threadIdx.x];
-  __syncthreads();
-}
-
-template <typename T>
-__host__ __device__ constexpr int parts() {
-  return sizeof(T) == 2 ? 2 : 1;
-}
-
-template <typename T, int DP>
-constexpr int dkdv_smem_bytes() {
-  constexpr int ld = DP + pad<T>(), ldp = kRows + pad<T>(), kt = key_tile<DP>();
-  return (2 * kt * ld + 2 * kRows * ld + 2 * parts<T>() * kt * ldp) *
-             static_cast<int>(sizeof(T)) + 3 * kRows * 4;
-}
-
-template <typename T, int DP>
-constexpr int rows_smem_bytes() {
-  constexpr int ld = DP + pad<T>(), lds = key_tile<DP>() + pad<T>(), kt = key_tile<DP>();
-  return (2 * kRows * ld + 2 * kt * ld + parts<T>() * kRows * lds) *
-             static_cast<int>(sizeof(T)) + 5 * kRows * 4;
-}
-
-static_assert(dkdv_smem_bytes<float, kMaxHeadDim>() <= kMaxSmemBytes, "f32 dK/dV tiles");
-static_assert(rows_smem_bytes<float, kMaxHeadDim>() <= kMaxSmemBytes, "f32 row tiles");
-static_assert(dkdv_smem_bytes<float, 128>() <= kMaxSmemBytes, "f32 dK/dV tiles at DP 128");
-
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      const T* __restrict__ dout, const float* __restrict__ stats,
-                      const float* __restrict__ aux, T* __restrict__ dk, T* __restrict__ dv,
-                      Problem pb) {
-  constexpr int KT = key_tile<DP>();
-  constexpr int ld = DP + pad<T>(), ldp = kRows + pad<T>();
-  constexpr bool kF32 = sizeof(T) == 4;
-  constexpr int WK = KT / 16, WD = 8 / WK, DW = DP / WD, NT = DW / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ks = reinterpret_cast<T*>(smem_raw);  // [KT][ld] keys
-  T* vs = ks + KT * ld;                    // [KT][ld] values
-  T* qs = vs + KT * ld;                    // [kRows][ld] q rows (f32: scaled)
-  T* dos = qs + kRows * ld;                // [kRows][ld] dO rows
-  T* pt = dos + kRows * ld;                // [parts][KT][ldp] P^T (bf16: hi, lo)
-  T* dst = pt + parts<T>() * KT * ldp;     // [parts][KT][ldp] dS^T
-  float* m_row = reinterpret_cast<float*>(dst + parts<T>() * KT * ldp);
-  float* n_row = m_row + kRows;
-  float* d_row = n_row + kRows;
-
-  const int b = blockIdx.z, kvh = blockIdx.y, k0 = blockIdx.x * KT;
-  const int D = pb.head_dim;
-  auto kv_row = [&](const T* x) {
-    return [&, x](int r) -> const T* {
-      if (k0 + r >= pb.seq_k) return nullptr;
-      return x + ((static_cast<int64_t>(b) * pb.seq_k + k0 + r) * pb.kv_heads + kvh) * D;
-    };
-  };
-  load_rows<DP>(ks, ld, KT, D, 1.0f, kv_row(k));
-  load_rows<DP>(vs, ld, KT, D, 1.0f, kv_row(v));
-
-  const RowWalk walk(pb, k0, KT);
-
-  const int warp = threadIdx.x / 32, wk = warp % WK, wd = warp / WK;
-  float dk_acc[NT][4], dv_acc[NT][4];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[nt][e] = dv_acc[nt][e] = 0.0f;
-
-  for (int it = 0; it < walk.n; ++it) {
-    const int rho0 = walk.tile(it) * kRows;
-    __syncthreads();  // the previous tile's rows, P and dS are no longer read
-    load_rows<DP>(qs, ld, kRows, D, kF32 ? pb.scale : 1.0f,
-                  [&](int r) { return row_of(q, pb, b, kvh, rho0 + r); });
-    load_rows<DP>(dos, ld, kRows, D, 1.0f,
-                  [&](int r) { return row_of(dout, pb, b, kvh, rho0 + r); });
-    load_stats(m_row, n_row, d_row, stats, aux, pb, b, kvh, rho0);
-    __syncthreads();
-    scores<T, DP, KT, true>(qs, dos, ks, vs, ld, m_row, n_row, d_row, pb, rho0, k0,
-                            kF32 ? 1.0f : pb.scale, [&](int r, int kl, float p, float ds) {
-                              store_operand(&pt[kl * ldp + r], &pt[(KT + kl) * ldp + r], p);
-                              store_operand(&dst[kl * ldp + r], &dst[(KT + kl) * ldp + r], ds);
-                            });
-    __syncthreads();
-#pragma unroll
-    for (int part = 0; part < parts<T>(); ++part) {
-      warp_mma<NT, true>(dv_acc, pt + (part * KT + 16 * wk) * ldp, ldp, dos + wd * DW, ld, kRows);
-      warp_mma<NT, true>(dk_acc, dst + (part * KT + 16 * wk) * ldp, ldp, qs + wd * DW, ld, kRows);
-    }
-  }
-
-  // f32 multiplied by scale as q was loaded; bf16 scales here
-  const float dk_mult = kF32 ? 1.0f : pb.scale;
-  const int lane = threadIdx.x % 32, gid = lane / 4, tig = lane % 4;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int key = k0 + 16 * wk + gid + 8 * h;
-    if (key >= pb.seq_k) continue;
-    const int64_t base = ((static_cast<int64_t>(b) * pb.seq_k + key) * pb.kv_heads + kvh) * D;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int d = wd * DW + nt * 8 + 2 * tig + u;
-        if (d < D) {
-          dk[base + d] = from_f32<T>(dk_acc[nt][2 * h + u] * dk_mult);
-          dv[base + d] = from_f32<T>(dv_acc[nt][2 * h + u]);
-        }
-      }
-  }
-}
-
-// kDelta: per row, L = sum of exp(S - m) over the keys (the forward's l
-// where the row sees no key, m = MASK), then Delta = sum of P dP over the
-// kept keys with P = exp(S - m) / L, into aux (2, B, H, Sq); else dQ =
-// scale dS K of those rows, from aux.
-template <typename T, int DP, bool kDelta>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      const T* __restrict__ dout, const float* __restrict__ stats,
-                      float* __restrict__ aux, T* __restrict__ dq, Problem pb) {
-  constexpr int KT = key_tile<DP>();
-  constexpr int ld = DP + pad<T>(), lds = KT + pad<T>();
-  constexpr bool kF32 = sizeof(T) == 4;
-  constexpr int DW = DP / 2, NT = DW / 8;  // warp (wr, wd) of 4 x 2: 16 rows, DP / 2 columns
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* qs = reinterpret_cast<T*>(smem_raw);  // [kRows][ld] q rows (f32: scaled)
-  T* dos = qs + kRows * ld;                // [kRows][ld] dO rows
-  T* ks = dos + kRows * ld;                // [KT][ld] keys
-  T* vs = ks + KT * ld;                    // [KT][ld] values
-  T* dss = vs + KT * ld;                   // [parts][kRows][lds] dS (bf16: hi, lo)
-  float* m_row = reinterpret_cast<float*>(dss + parts<T>() * kRows * lds);
-  float* n_row = m_row + kRows;            // L
-  float* d_row = n_row + kRows;            // Delta (0 while kDelta sums P dP)
-  float* halves = d_row + kRows;           // [2][kRows] the key halves' row sums
-
-  const int b = blockIdx.z, kvh = blockIdx.y, rho0 = blockIdx.x * kRows;
-  const int G = pb.groups, D = pb.head_dim;
-  load_rows<DP>(qs, ld, kRows, D, kF32 ? pb.scale : 1.0f,
-                [&](int r) { return row_of(q, pb, b, kvh, rho0 + r); });
-  load_rows<DP>(dos, ld, kRows, D, 1.0f, [&](int r) { return row_of(dout, pb, b, kvh, rho0 + r); });
-  load_stats(m_row, n_row, d_row, stats, kDelta ? nullptr : aux, pb, b, kvh, rho0);
-
-  // the key tiles any row of the CTA sees (dS is 0 elsewhere)
-  const int first_pos = rho0 / G;
-  const int last_pos = (min(rho0 + kRows, pb.total_rows) - 1) / G;
-  const int k_lo = pb.window ? max(0, first_pos - pb.window + 1) : 0;
-  const int k_hi = pb.causal ? min(pb.seq_k, last_pos + 1) : pb.seq_k;
-  const int t_lo = k_lo / KT;
-  const int t_hi = k_hi > k_lo ? (k_hi + KT - 1) / KT : t_lo;
-  auto load_keys = [&](int k0, bool values) {
-    auto kv_row = [&](const T* x) {
-      return [&, x](int r) -> const T* {
-        if (k0 + r >= pb.seq_k) return nullptr;
-        return x + ((static_cast<int64_t>(b) * pb.seq_k + k0 + r) * pb.kv_heads + kvh) * D;
-      };
-    };
-    load_rows<DP>(ks, ld, KT, D, 1.0f, kv_row(k));
-    if (values) load_rows<DP>(vs, ld, KT, D, 1.0f, kv_row(v));
-  };
-  const float s_scale = kF32 ? 1.0f : pb.scale;
-
-  if constexpr (kDelta) {
-    float part[2] = {0.0f, 0.0f};  // rows gid and gid + 8 of the warp's 16, this lane's keys
-    for (int t = t_lo; t < t_hi; ++t) {  // L
-      __syncthreads();  // the previous tile's keys are no longer read
-      load_keys(t * KT, false);
-      __syncthreads();
-      scores<T, DP, KT, false>(qs, dos, ks, vs, ld, m_row, n_row, d_row, pb, rho0, t * KT,
-                               s_scale,
-                               [&](int r, int, float e, float) { part[(r % 16) / 8] += e; });
-    }
-    __syncthreads();
-    row_sums(part, halves, n_row);
-    if (threadIdx.x < kRows) {  // a row that sees no key keeps the forward's l
-      const int r = threadIdx.x, rho = rho0 + r;
-      if (rho < pb.total_rows) {
-        const int64_t idx = stat_index(pb, b, kvh, rho);
-        float n = n_row[r];
-        if (m_row[r] == kMaskValue) n = stats[plane(pb) + idx];
-        n = fmaxf(n, 1e-30f);
-        n_row[r] = n;
-        aux[idx] = n;
-      } else {
-        n_row[r] = 1.0f;
-      }
-    }
-    part[0] = part[1] = 0.0f;
-    for (int t = t_lo; t < t_hi; ++t) {  // Delta: dS with Delta = 0 is P dP where kept
-      __syncthreads();
-      load_keys(t * KT, true);
-      __syncthreads();
-      scores<T, DP, KT, true>(qs, dos, ks, vs, ld, m_row, n_row, d_row, pb, rho0, t * KT, s_scale,
-                              [&](int r, int, float, float ds) { part[(r % 16) / 8] += ds; });
-    }
-    __syncthreads();
-    row_sums(part, halves, d_row);
-    const int r = threadIdx.x;
-    if (r < kRows && rho0 + r < pb.total_rows)
-      aux[plane(pb) + stat_index(pb, b, kvh, rho0 + r)] = d_row[r];
-    return;
-  }
-
-  const int warp = threadIdx.x / 32, wr = warp % 4, wd = warp / 4;
-  float dq_acc[NT][4];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[nt][e] = 0.0f;
-  for (int t = t_lo; t < t_hi; ++t) {
-    __syncthreads();  // the previous tile's K, V and dS are no longer read
-    load_keys(t * KT, true);
-    __syncthreads();
-    scores<T, DP, KT, true>(qs, dos, ks, vs, ld, m_row, n_row, d_row, pb, rho0, t * KT, s_scale,
-                            [&](int r, int kl, float, float ds) {
-                              store_operand(&dss[r * lds + kl], &dss[(kRows + r) * lds + kl], ds);
-                            });
-    __syncthreads();
-#pragma unroll
-    for (int part = 0; part < parts<T>(); ++part)
-      warp_mma<NT, true>(dq_acc, dss + (part * kRows + 16 * wr) * lds, lds, ks + wd * DW, ld, KT);
-  }
-
-  const int lane = threadIdx.x % 32, gid = lane / 4, tig = lane % 4;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int rho = rho0 + 16 * wr + gid + 8 * h;
-    if (rho >= pb.total_rows) continue;
-    const int i = rho / G, g = rho % G;
-    T* row = dq + ((static_cast<int64_t>(b) * pb.seq_q + i) * pb.heads + kvh * G + g) * D;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int d = wd * DW + nt * 8 + 2 * tig + u;
-        if (d < D) row[d] = from_f32<T>(dq_acc[nt][2 * h + u] * pb.scale);
-      }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1708,41 +1283,6 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
-cudaError_t launch_width(const void* q, const void* k, const void* v, const void* dout,
-                         const float* stats, float* aux, void* dq, void* dk, void* dv,
-                         const Problem& pb, cudaStream_t stream) {
-  constexpr int kv_smem = dkdv_smem_bytes<T, DP>();
-  constexpr int rows_smem = rows_smem_bytes<T, DP>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_rows_kernel<T, DP, true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, rows_smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_rows_kernel<T, DP, false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, rows_smem);
-  if (err != cudaSuccess) return err;
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(dout);
-  const dim3 rows_grid((pb.total_rows + kRows - 1) / kRows, pb.kv_heads, pb.batch);
-  flash_bwd_rows_kernel<T, DP, true><<<rows_grid, kThreads, rows_smem, stream>>>(
-      tq, tk, tv, tdo, stats, aux, nullptr, pb);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  constexpr int KT = key_tile<DP>();
-  const dim3 kv_grid((pb.seq_k + KT - 1) / KT, pb.kv_heads, pb.batch);
-  flash_bwd_dkdv_kernel<T, DP><<<kv_grid, kThreads, kv_smem, stream>>>(
-      tq, tk, tv, tdo, stats, aux, static_cast<T*>(dk), static_cast<T*>(dv), pb);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  flash_bwd_rows_kernel<T, DP, false><<<rows_grid, kThreads, rows_smem, stream>>>(
-      tq, tk, tv, tdo, stats, aux, static_cast<T*>(dq), pb);
-  return cudaGetLastError();
-}
-
 // bf16 at DP 192 and 256: the rows kernel (flash_bwd_rows_wgmma with two
 // warpgroups at DP 192, flash_bwd_rows_wide at 256), flash_bwd_dkdv_wide
 // over `splits` ranges of each key tile's walk, and with several ranges
@@ -1793,20 +1333,6 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, const void*
   return cudaGetLastError();
 }
 
-cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* dout,
-                       const float* stats, float* aux, void* dq, void* dk, void* dv,
-                       const Problem& pb, cudaStream_t stream) {
-#define K4_BWD(DP) launch_width<float, DP>(q, k, v, dout, stats, aux, dq, dk, dv, pb, stream)
-  const int d = pb.head_dim;
-  if (d <= 16) return K4_BWD(16);
-  if (d <= 32) return K4_BWD(32);
-  if (d <= 64) return K4_BWD(64);
-  if (d <= 128) return K4_BWD(128);
-  if (d <= 192) return K4_BWD(192);
-  return K4_BWD(256);
-#undef K4_BWD
-}
-
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* dout,
                         const float* stats, float* aux, void* dq, void* dk, void* dv,
                         float* part, int splits, const Problem& pb, cudaStream_t stream) {
@@ -1830,39 +1356,29 @@ const char* flash_attention_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dtype: 0 float32, 1 bfloat16.  q, dout, dq (B, Sq, H, D); k, v, dk, dv
-// (B, Sk, KVH, D), contiguous, on the card, 1 <= D <= 256; stats (2, B, H,
-// Sq) f32: the forward's m, then l; aux (3, B, H, Sq) f32 scratch (the
-// rows' statistics for the dK/dV kernel).  bfloat16 also needs D % 8 == 0
-// and 16-byte aligned q, k, v, dout.  splits: the ranges each key tile's
-// row walk is cut into, 1 but for bfloat16 past D 128, whose part is then
-// (splits, 2, B, Sk, KVH, DP) f32 scratch (DP 192 up to D 192, else 256);
-// null with one range.
+// q, dout, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, KVH, D) in bfloat16,
+// contiguous, on the card, 1 <= D <= 256, D % 8 == 0, 16-byte aligned q,
+// k, v, dout; stats (2, B, H, Sq) f32: the forward's m, then l; aux (3, B,
+// H, Sq) f32 scratch (the rows' statistics for the dK/dV kernel).  splits:
+// the ranges each key tile's row walk is cut into, 1 but past D 128, whose
+// part is then (splits, 2, B, Sk, KVH, DP) f32 scratch (DP 192 up to D 192,
+// else 256); null with one range.
 int flash_attention_backward_launch(const void* q, const void* k, const void* v,
                                     const void* dout, const float* stats, float* aux, void* dq,
                                     void* dk, void* dv, float* part, int batch, int seq_q,
-                                    int seq_k, int heads, int kv_heads, int head_dim, int dtype,
-                                    int causal, int window, int splits, float scale,
-                                    void* stream) {
+                                    int seq_k, int heads, int kv_heads, int head_dim, int causal,
+                                    int window, int splits, float scale, void* stream) {
+  // 16-byte copies need whole 8-column chunks on 16-byte aligned rows
   if (batch <= 0 || seq_q <= 0 || seq_k <= 0 || kv_heads <= 0 || heads % kv_heads ||
       head_dim < 1 || head_dim > kMaxHeadDim || batch > 65535 || kv_heads > 65535 ||
       static_cast<int64_t>(seq_q) * (heads / kv_heads) > (int64_t{1} << 30) || splits < 1 ||
-      splits > 65535 || (splits > 1) != (part != nullptr) ||
-      (splits > 1 && (dtype != 1 || head_dim <= 128)))
+      splits > 65535 || (splits > 1) != (part != nullptr) || (splits > 1 && head_dim <= 128) ||
+      head_dim % 8 || !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout))
     return static_cast<int>(cudaErrorInvalidValue);
   const Problem pb{batch, seq_q, seq_k, heads, kv_heads, head_dim, heads / kv_heads,
                    seq_q * (heads / kv_heads), causal, window, scale};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return static_cast<int>(launch_f32(q, k, v, dout, stats, aux, dq, dk, dv, pb, s));
-  if (dtype == 1) {
-    // 16-byte copies need whole 8-column chunks on 16-byte aligned rows
-    if (head_dim % 8 || !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout))
-      return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(
-        launch_bf16(q, k, v, dout, stats, aux, dq, dk, dv, part, splits, pb, s));
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_bf16(q, k, v, dout, stats, aux, dq, dk, dv, part, splits, pb,
+                                      static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 """Flash attention forward, K4: CUDA for Hopper, plain PyTorch beside.
 
 The counterpart of ``repro.kernels.flash_attention.flash_attention``; the
-CUDA sources are ``repro_torch/csrc/flash_attention.cu`` and, for bf16 past
-D 128, ``repro_torch/csrc/flash_attention_wide.cu``.
+CUDA sources are ``repro_torch/csrc/flash_attention.cu`` (bf16 up to D 128),
+``repro_torch/csrc/flash_attention_wide.cu`` (bf16 past it) and
+``repro_torch/csrc/flash_attention_f32.cu`` (float32).
 :func:`flash_attention` (K4) replaces ``flash_attention_pallas``: GQA
 attention with an online softmax in float32, causal (top-left aligned:
 query ``i`` sees keys ``j <= i``) and/or windowed (``j > i - window``)
@@ -20,9 +21,13 @@ one ring of key tiles (filled by a producer warpgroup up to D 160, by the
 two warpgroups past it), each overlapping its softmax with its products,
 and counts its launches in ``flash_attention.wide_launches`` too.  Every
 walk over the key tiles starts at the CTA's first row's window edge
-(:func:`forward_walk`).  float32 runs on the CUDA cores in f32 FMA, held
-to 2e-4 / 2e-5: the tensor cores would need TF32 operands there, and that
-path already beats PyTorch's f32 attention.
+(:func:`forward_walk`).  float32, held to 2e-4 / 2e-5 of the plain
+version, runs on the tensor cores too: each f32 operand is split into three
+bf16 pieces (:func:`three_pieces`) and each product is the six products of
+pieces whose indices sum to at most 2, near-f32 arithmetic (TF32's 10-bit
+mantissas alone would miss the tolerance); one warpgroup takes 64 rows a
+CTA at every width, and the launches count in
+``flash_attention.f32_launches`` too.
 
 :func:`flash_attention_plain` computes the same function densely with the
 kernel's arithmetic: ``q`` scaled before the product, masked scores set
@@ -40,10 +45,10 @@ counts its launches in ``flash_attention.launches``.  On ``meta`` tensors
 (the dry-run) it checks what the CUDA route checks, returns a meta output
 and charges ``ops.kernel_flops`` / ``kernel_hbm_bytes`` to the active
 cost report (``repro_torch/costs.py``): priced, not launched, not
-counted.  The bf16 kernel loads whole 8-column chunks of 16-byte aligned
-rows, so for it the wrapper
-pads D to a multiple of 8 with zero columns (and slices the output back),
-and copies an unaligned tensor to a fresh buffer.
+counted.  The kernels load whole 16-byte chunks of 16-byte aligned rows,
+so the wrapper pads D to a multiple of 8 (bf16) or 4 (f32) with zero
+columns (and slices the output back), and copies an unaligned tensor to a
+fresh buffer.
 
 **Gradients.**  :func:`flash_attention` is a ``torch.autograd.Function``:
 its output requires grad whenever ``q``, ``k`` or ``v`` does, on either
@@ -64,12 +69,16 @@ gives each 64 rows of its own (DP 192) or half of each key tile's keys
 (DP 256), the dK/dV kernel half of dK's and dV's columns; and where the dK/dV grid (batch × kv heads × 64-key tiles) is
 short of a wave of the card's SMs, each key tile's row walk is cut into
 :func:`walk_splits` ranges whose f32 sums a third launch adds in order (f32
-scratch the wrapper allocates).  f32 keeps three launches on the CUDA cores
-(L and Δ, dK and dV, dQ).  In bf16 up to D 128 P and dS enter the products
-as two bf16 operands each (the value and its rounding's remainder), past
-it as one.  It is counted in
-``flash_attention.backward_launches``, apart from the forward's
-``launches``.  :func:`flash_attention_backward_plain` computes
+scratch the wrapper allocates).  In bf16 up to D 128 P and dS enter the
+products as two bf16 operands each (the value and its rounding's
+remainder), past it as one.  float32 (``csrc/flash_attention_f32_bwd.cu``)
+runs the same two launches on ``wgmma`` with every operand as three bf16
+pieces, one warpgroup a CTA at every width, the dK/dV kernel walking its
+rows once up to D 128 and twice past it (dV, then dK: one accumulator held
+at a time), and splits its walks wherever that grid is short of a wave.
+It is counted in ``flash_attention.backward_launches``, apart from the
+forward's ``launches``, and f32 in ``f32_backward_launches`` too.
+:func:`flash_attention_backward_plain` computes
 the same gradient densely from the same statistics, for the tests and
 ``chip_smoke.py``.  The JAX package has no backward kernel (its model
 never calls K4, and its training takes XLA's autodiff of plain ``jnp``
@@ -90,18 +99,20 @@ from ... import _build, costs
 
 __all__ = ["MASK_VALUE", "MAX_HEAD_DIM", "flash_attention", "flash_attention_plain",
            "flash_attention_backward", "flash_attention_backward_plain", "forward_cta_rows",
-           "forward_walk", "padded_width", "walk_splits"]
+           "forward_walk", "padded_width", "three_pieces", "walk_splits"]
 
 MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
 MAX_HEAD_DIM = 256
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P, _P)
-_WIDE_ARGS = _ARGS[:10] + _ARGS[11:]  # no dtype: bf16 alone
-_BWD_ARGS = (_P,) * 10 + (_I,) * 10 + (ctypes.c_float, _P)
-KEY_TILE = 64  # keys a tile of every K4 kernel holds
+# q, k, v, o, B, Sq, Sk, H, KVH, D, causal, window, scale, stats, stream
+_ARGS = (_P,) * 4 + (_I,) * 8 + (ctypes.c_float, _P, _P)
+# q, k, v, dO, stats, aux, dq, dk, dv, part, B, Sq, Sk, H, KVH, D, causal,
+# window, splits, scale, stream
+_BWD_ARGS = (_P,) * 10 + (_I,) * 9 + (ctypes.c_float, _P)
+KEY_TILE = 64  # keys a forward CTA's walk counts in (flash::forward_walk)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -113,7 +124,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree on B or D")
     if k.shape[2] == 0 or h % k.shape[2]:
         raise ValueError(f"{h} query heads do not group over {k.shape[2]} kv heads")
-    if q.dtype != k.dtype or q.dtype != v.dtype or q.dtype not in _DTYPE_CODE:
+    if q.dtype != k.dtype or q.dtype != v.dtype or q.dtype not in _DTYPES:
         raise TypeError(f"K4 takes float32 or bfloat16 q, k, v of one dtype, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if len({q.device, k.device, v.device}) != 1:
@@ -128,12 +139,24 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"K4 runs on cpu, cuda or meta, got {q.device}")
 
 
-def _bf16_operand(x: torch.Tensor, d8: int) -> torch.Tensor:
-    """``x`` (contiguous) as the bf16 kernel's 16-byte copies take it: D
-    padded with zero columns to ``d8``, on a 16-byte aligned buffer."""
-    if x.shape[-1] != d8:
-        return torch.nn.functional.pad(x, (0, d8 - x.shape[-1]))
+def _operand(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` (contiguous) as the kernels' 16-byte copies take it: D padded
+    with zero columns to ``width``, on a 16-byte aligned buffer."""
+    if x.shape[-1] != width:
+        return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
     return x.clone() if x.data_ptr() % 16 else x
+
+
+def three_pieces(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The three bf16 pieces the f32 kernels split an f32 operand into, as
+    f32 tensors: x0 = bf16(x), x1 = bf16(x − x0), x2 = bf16(x − x0 − x1),
+    each subtraction exact, so x0 + x1 + x2 == x (but where bf16(x) rounds
+    past f32's largest value, or x2 falls below the normal range)."""
+    x = x.float()
+    x0 = x.bfloat16().float()
+    r = x - x0
+    x1 = r.bfloat16().float()
+    return x0, x1, (r - x1).bfloat16().float()
 
 
 def _keep(sq: int, sk: int, causal: bool, window: int, device) -> Optional[torch.Tensor]:
@@ -221,9 +244,10 @@ def flash_attention_backward_plain(
 
 
 def _width(q: torch.Tensor) -> int:
-    """The head dim the kernels take: D, padded to a multiple of 8 for bf16."""
-    d = q.shape[-1]
-    return -(-d // 8) * 8 if q.dtype == torch.bfloat16 else d
+    """The head dim the kernels take: D, padded to a multiple of 8 for bf16
+    and of 4 for f32 (16-byte chunks)."""
+    chunk = 8 if q.dtype == torch.bfloat16 else 4
+    return -(-q.shape[-1] // chunk) * chunk
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int,
@@ -234,30 +258,32 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, win
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     dk = _width(q)
-    if q.dtype == torch.bfloat16:
-        q, k, v = (_bf16_operand(x, dk) for x in (q, k, v))
+    q, k, v = (_operand(x, dk) for x in (q, k, v))
     out = torch.empty_like(q)
     st = torch.empty((2, b, h, sq), dtype=torch.float32, device=q.device) if stats else None
-    wide = q.dtype == torch.bfloat16 and dk > 128  # flash_fwd_bf16_wide
-    library = "flash_attention_wide" if wide else "flash_attention"
-    dtype = () if wide else (_DTYPE_CODE[q.dtype],)
-    launch = _build.function(library, f"{library}_launch", _WIDE_ARGS if wide else _ARGS)
+    f32 = q.dtype == torch.float32  # flash_fwd_f32_kernel
+    wide = not f32 and dk > 128  # flash_fwd_bf16_wide
+    library = "flash_attention_f32" if f32 else \
+        "flash_attention_wide" if wide else "flash_attention"
+    launch = _build.function(library, f"{library}_launch", _ARGS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     b, sq, sk, h, kvh, dk, *dtype, int(causal), int(window),
+                     b, sq, sk, h, kvh, dk, int(causal), int(window),
                      float(scale), st.data_ptr() if st is not None else None, stream)
     _build.check(library, err, f"{library} launch")
     _build.count_launch(flash_attention)
     if wide:
         _build.count_launch(flash_attention, "wide_launches")
+    if f32:
+        _build.count_launch(flash_attention, "f32_launches")
     return (out if dk == d else out[..., :d].contiguous()), st
 
 
-def padded_width(d: int, bf16: bool) -> int:
-    """The padded head width DP the backward kernels take D at."""
-    widths = (64, 128, 192, 256) if bf16 else (16, 32, 64, 128, 192, 256)
-    return next(w for w in widths if d <= w)
+def padded_width(d: int) -> int:
+    """The padded head width DP the backward kernels take D at, in either
+    dtype."""
+    return next(w for w in (64, 128, 192, 256) if d <= w)
 
 
 def forward_cta_rows(d: int, bf16: bool) -> int:
@@ -287,23 +313,24 @@ def forward_walk(first_pos: int, last_pos: int, seq_k: int, causal: bool,
 
 def walk_splits(batch: int, seq_q: int, seq_k: int, heads: int, kv_heads: int, d: int,
                 bf16: bool, sms: int) -> int:
-    """The ranges each key tile's row walk is cut into in the bf16 dK/dV
-    kernel past D 128 (one CTA an SM): 1 where its CTAs (batch × kv head ×
-    64 keys) fill a wave of the card's ``sms`` SMs, else the least number
-    that does, at most the row tiles of a kv head (64 rows each)."""
+    """The ranges each key tile's row walk is cut into in the dK/dV kernels
+    that run one CTA an SM (bf16 past D 128, and f32 at every width): 1 where
+    its CTAs (batch × kv head × 64 keys) fill a wave of the card's ``sms``
+    SMs, else the least number that does, at most the row tiles of a kv
+    head (64 rows each).  bf16 up to D 128 never splits."""
     ctas = batch * kv_heads * -(-seq_k // KEY_TILE)
-    if not bf16 or d <= 128 or ctas >= sms:
+    if (bf16 and d <= 128) or ctas >= sms:
         return 1
     return max(1, min(-(-sms // ctas), -(-seq_q * (heads // kv_heads) // 64)))
 
 
 def flash_attention_backward(q, k, v, stats, grad_out, *, causal: bool, window: int,
                              scale: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One call of the backward kernels on CUDA tensors (two or three
-    launches on the stream: three for f32, and for bf16 past D 128 with a
-    split walk), counted once in
-    ``flash_attention.backward_launches``: (dq, dk, dv) in q's dtype, from
-    the forward's statistics ``stats`` (2, B, H, Sq)."""
+    """One call of the backward kernels on CUDA tensors (two launches on the
+    stream, three with a split walk), counted once in
+    ``flash_attention.backward_launches`` (and f32 in
+    ``f32_backward_launches``): (dq, dk, dv) in q's dtype, from the
+    forward's statistics ``stats`` (2, B, H, Sq)."""
     _check(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"the K4 backward kernel runs on cuda, got {q.device}")
@@ -318,27 +345,30 @@ def flash_attention_backward(q, k, v, stats, grad_out, *, causal: bool, window: 
     dk = _width(q)
     q, k, v = (x.contiguous() for x in (q, k, v))
     g = grad_out.to(q.dtype).contiguous()
-    if q.dtype == torch.bfloat16:
-        q, k, v, g = (_bf16_operand(x, dk) for x in (q, k, v, g))
+    q, k, v, g = (_operand(x, dk) for x in (q, k, v, g))
     dq, dkey, dval = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     aux = torch.empty((3, b, h, sq), dtype=torch.float32, device=q.device)  # rows' statistics
     bf16 = q.dtype == torch.bfloat16
     splits = walk_splits(b, sq, sk, h, kvh, dk, bf16,
                          torch.cuda.get_device_properties(q.device).multi_processor_count)
     # the ranges' f32 sums of dK and dV, added in order by a last launch
-    part = torch.empty((splits, 2, b, sk, kvh, padded_width(dk, bf16)), dtype=torch.float32,
+    part = torch.empty((splits, 2, b, sk, kvh, padded_width(dk)), dtype=torch.float32,
                        device=q.device) if splits > 1 else None
     stats = stats.contiguous()
-    launch = _build.function("flash_attention_bwd", "flash_attention_backward_launch", _BWD_ARGS)
+    library = "flash_attention_bwd" if bf16 else "flash_attention_f32_bwd"
+    launch = _build.function(library, "flash_attention_backward_launch" if bf16 else
+                             "flash_attention_f32_backward_launch", _BWD_ARGS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), stats.data_ptr(),
                      aux.data_ptr(), dq.data_ptr(), dkey.data_ptr(), dval.data_ptr(),
                      part.data_ptr() if part is not None else None,
-                     b, sq, sk, h, kvh, dk, _DTYPE_CODE[q.dtype], int(causal), int(window),
-                     splits, float(scale), stream)
-    _build.check("flash_attention_bwd", err, "flash_attention backward launch")
+                     b, sq, sk, h, kvh, dk, int(causal), int(window), splits, float(scale),
+                     stream)
+    _build.check(library, err, "flash_attention backward launch")
     _build.count_launch(flash_attention, "backward_launches")
+    if not bf16:
+        _build.count_launch(flash_attention, "f32_backward_launches")
     if dk != d:
         dq, dkey, dval = (x[..., :d].contiguous() for x in (dq, dkey, dval))
     return dq, dkey, dval
@@ -424,4 +454,6 @@ def flash_attention(
 
 flash_attention.launches = 0
 flash_attention.wide_launches = 0   # those of flash_fwd_bf16_wide, within ``launches``
+flash_attention.f32_launches = 0    # those of flash_fwd_f32_kernel, within ``launches``
 flash_attention.backward_launches = 0
+flash_attention.f32_backward_launches = 0  # the f32 backward's, within ``backward_launches``

@@ -20,7 +20,12 @@ from .ref import mha_ref
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_backward",
            "flash_attention_backward_plain", "mha_ref", "kernel_hbm_bytes", "kernel_flops",
-           "backward_flops", "backward_hbm_bytes", "attended_pairs", "window_share"]
+           "backward_flops", "backward_hbm_bytes", "attended_pairs", "window_share",
+           "F32_PIECE_PRODUCTS", "tensor_core_flops"]
+
+# the bf16 products that make one f32 product on the tensor cores: three
+# pieces a side, the pairs whose piece indices sum to at most 2
+F32_PIECE_PRODUCTS = 6
 
 
 def kernel_hbm_bytes(
@@ -60,12 +65,23 @@ def backward_flops(batch: int, sq: int, sk: int, heads: int, head_dim: int, *,
     2, 5 × ``kernel_flops``.  In bf16 P and dS enter their three products
     as two operands each (value and remainder): 13, 6.5 ×.  Past D 128 in
     bf16 they enter as one operand, and the dK/dV kernel's two warpgroups
-    each form the whole Sᵀ and dPᵀ (and half of dV and dK): 12, 6 ×.  (The
-    f32 kernels form the same products as the first count in three
-    launches.)  ``kernel_flops(backward=True)`` counts the 2.5 × of a
-    backward that forms S and dP once: the least work, which bounds it."""
-    products = (12 if head_dim > 128 else 13) if bf16 else 10
+    each form the whole Sᵀ and dPᵀ (and half of dV and dK): 12, 6 ×.  The
+    f32 kernels form the same 10 up to D 64; past it their dK/dV kernel
+    walks its rows twice (Sᵀ and Pᵀ·dO; dPᵀ, Sᵀ and dSᵀ·Q): 11, 5.5 ×; each
+    f32 product is ``F32_PIECE_PRODUCTS`` bf16 products on the tensor
+    cores (:func:`tensor_core_flops`).  ``kernel_flops(backward=True)`` counts the
+    2.5 × of a backward that forms S and dP once: the least work, which
+    bounds it."""
+    products = (12 if head_dim > 128 else 13) if bf16 else (10 if head_dim <= 64 else 11)
     return products / 2 * kernel_flops(batch, sq, sk, heads, head_dim, causal=causal)
+
+
+def tensor_core_flops(flops: float, bf16: bool) -> float:
+    """The tensor cores' multiply-adds (×2) that run ``flops`` of K4's
+    products: bf16 as they are; f32 as ``F32_PIECE_PRODUCTS`` bf16 products
+    of three-piece operands each (``three_pieces``), what the f32 kernels'
+    bound is priced at (the bf16 peak)."""
+    return flops if bf16 else F32_PIECE_PRODUCTS * flops
 
 
 def backward_hbm_bytes(batch: int, sq: int, sk: int, heads: int, kv_heads: int, head_dim: int,
@@ -89,7 +105,7 @@ def backward_hbm_bytes(batch: int, sq: int, sk: int, heads: int, kv_heads: int, 
     planes = 8 if bf16 else 6
     splits = walk_splits(batch, sq, sk, heads, kv_heads, head_dim, bf16, H100_SXM.sms)
     part = 0 if splits == 1 else \
-        splits * 2 * batch * sk * kv_heads * padded_width(head_dim, bf16) * 4
+        splits * 2 * batch * sk * kv_heads * padded_width(head_dim) * 4
     return io + planes * 4 * batch * heads * sq + 2 * part
 
 

@@ -29,6 +29,7 @@ from repro_torch.kernels.flash_attention import flash_attention as fk  # noqa: E
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as sops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan as ssk  # noqa: E402
+from test_torch_flash_attention import pieces_einsum  # noqa: E402
 
 F32_TOL = dict(rtol=2e-4, atol=2e-5)
 SSD_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -154,21 +155,102 @@ def test_k4_plain_backward_bf16_inputs(b, sq, sk, h, kvh, d, causal, window):
         assert_rows_close(g, torch.from_numpy(np.array(j)))
 
 
+def f32_pieces_backward(q, k, v, gy, *, causal, window, scale):
+    """K4's f32 backward in its kernels' arithmetic on the CPU (the
+    forward's m and l, L recomputed, Δ from P and dP, P a quotient), every
+    product as ``pieces_einsum``: (dq, dk, dv)."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qs = q.reshape(b, sq, kvh, g, d) * scale
+    s = pieces_einsum("bqkgd,bskd->bkgqs", qs, k)
+    keep = fk._keep(sq, sk, causal, window, "cpu")
+    if keep is not None:
+        s = s.masked_fill(~keep, fk.MASK_VALUE)
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    norm = torch.where(m == fk.MASK_VALUE, e.sum(-1, keepdim=True), e.sum(-1, keepdim=True))
+    p = e / torch.clamp(norm, min=1e-30)
+    do = gy.reshape(b, sq, kvh, g, d)
+    dv = pieces_einsum("bkgqs,bqkgd->bskd", p, do)
+    dp = pieces_einsum("bqkgd,bskd->bkgqs", do, v)
+    pdp = p * dp if keep is None else (p * dp).masked_fill(~keep, 0.0)
+    ds = p * (dp - pdp.sum(-1, keepdim=True))
+    if keep is not None:
+        ds = ds.masked_fill(~keep, 0.0)
+    dq = pieces_einsum("bkgqs,bskd->bqkgd", ds, k) * scale
+    dk = pieces_einsum("bkgqs,bqkgd->bskd", ds, qs)
+    return dq.reshape(b, sq, h, d), dk, dv
+
+
+def float64_grads(q, k, v, gy, mask):
+    """Autograd of the plain function in float64 (masked scores at
+    MASK_VALUE: a row that sees no key gives its uniform P to dV)."""
+    leaves = [x.double().requires_grad_() for x in (q, k, v)]
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    s = torch.einsum("bqkgd,bskd->bkgqs",
+                     leaves[0].reshape(b, sq, kvh, h // kvh, d) * mask["scale"], leaves[1])
+    keep = fk._keep(sq, sk, mask["causal"], mask["window"], "cpu")
+    if keep is not None:
+        s = s.masked_fill(~keep, fk.MASK_VALUE)
+    o = torch.einsum("bkgqs,bskd->bqkgd", torch.softmax(s, -1), leaves[2]).reshape(b, sq, h, d)
+    return torch.autograd.grad(o, leaves, gy.double())
+
+
+PIECE_CASES = [  # b, sq, sk, h, kvh, d, causal, window
+    (1, 33, 33, 2, 2, 1, True, 0),        # D 1
+    (2, 40, 40, 4, 2, 16, True, 9),       # a window
+    (1, 70, 70, 4, 1, 64, True, 0),
+    (1, 40, 40, 4, 2, 160, False, 0),     # stablelm-12b's D
+    (1, 30, 30, 2, 1, 256, True, 8),      # recurrentgemma-9b's D and a window
+    (2, 23, 37, 6, 3, 12, False, 0),      # cross, Sq < Sk
+    (2, 1, 50, 8, 1, 16, False, 0),       # Sq 1
+    (1, 30, 30, 4, 2, 8, True, 1),        # every row sees one key
+    MASKED_ROWS,                          # rows that see no key
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,window", PIECE_CASES)
+def test_k4_f32_pieces_backward_matches_jax_grad(b, sq, sk, h, kvh, d, causal, window):
+    """The f32 backward kernels' products (three bf16 pieces a side, six
+    products) within a tenth of the f32 tolerance of ``jax.grad`` of the
+    JAX package's ``mha_ref`` (float64 autograd of the plain function where
+    a row sees no key, which ``mha_ref``'s -inf gives NaN); a row that sees
+    one key has dQ = 0 exactly."""
+    qn, kn, vn, gn = k4_inputs(b, sq, sk, h, kvh, d, seed=sq + sk + d)
+    q, k, v, gy = map(torch.from_numpy, (qn, kn, vn, gn))
+    mask = dict(causal=causal, window=window, scale=d**-0.5)
+    got = f32_pieces_backward(q, k, v, gy, **mask)
+    if window and sq > sk + window - 1:
+        want = [w.float() for w in float64_grads(q, k, v, gy, mask)]
+    else:
+        want = [torch.from_numpy(np.array(w)) for w in jax_grads(qn, kn, vn, gn, mask)]
+    for name, g, w in zip("qkv", got, want):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-6, msg=name)
+    if causal and window == 1:
+        assert bool((got[0] == 0).all())
+
+
 def k4_backward_walks(sq, sk, g, causal, window, d, bf16=True, splits=1):
     """The (row tile, key tile) pairs K4's backward kernels visit, as
     ``csrc/flash_attention_bwd.cu`` computes them: the dK/dV kernel's row
     tiles (64 rows) per key tile, and the rows kernel's key tiles per CTA
     of ``cta`` rows (the walks for L, Δ and dQ share them); and each grid's
-    tiles in launch order with the length of each walk.  Key tiles are 64
-    keys but in the f32 kernels past D 128 (32).  The bf16 rows kernel at
-    DP 192 runs two warpgroups of 64 rows a CTA (128 rows) over the union of
-    their key tiles; elsewhere a CTA holds 64 rows.  With ``splits`` ranges
-    (the bf16 kernel past D 128 on a grid short of a wave), ``ranges`` maps
-    each key tile to the row tiles of each contiguous range of its walk.
-    Returns (dkdv pairs, rows pairs (CTA, key tile), (64, cta), key tile,
+    tiles in launch order with the length of each walk.  The dK/dV kernels
+    take 64 keys a CTA; the rows kernels' key tiles are 64 keys but in the
+    f32 kernels (``csrc/flash_attention_f32_bwd.cu``), whose tiles of
+    pieces hold 64 keys at DP 64, 32 at DP 128, 16 at DP 192 and 256.  The
+    bf16 rows kernel at DP 192 runs two warpgroups of 64 rows a CTA (128
+    rows) over the union of their key tiles; elsewhere a CTA holds 64 rows.
+    With ``splits`` ranges (the dK/dV grid short of a wave: bf16 past D 128,
+    f32 at every width), ``ranges`` maps each key tile to the row tiles of
+    each contiguous range of its walk.  Returns (dkdv pairs, rows pairs (CTA,
+    row key tile), (64, cta), (dK/dV key tile, rows kernel's key tile),
     launches)."""
-    rows, kt = 64, 64 if bf16 or d <= 128 else 32
-    cta = 2 * rows if bf16 and fk.padded_width(d, True) == 192 else rows
+    rows, kt = 64, 64
+    rkt = 64 if bf16 else {64: 64, 128: 32, 192: 16, 256: 16}[fk.padded_width(d)]
+    cta = 2 * rows if bf16 and fk.padded_width(d) == 192 else rows
     total = sq * g
     dkdv, dq = set(), set()
     dkdv_len, dq_len, ranges = {}, {}, {}
@@ -191,8 +273,8 @@ def k4_backward_walks(sq, sk, g, causal, window, d, bf16=True, splits=1):
         first, last = t * cta // g, (min(t * cta + cta, total) - 1) // g
         k_lo = max(0, first - window + 1) if window else 0
         k_hi = min(sk, last + 1) if causal else sk
-        t_lo = k_lo // kt
-        t_hi = (k_hi + kt - 1) // kt if k_hi > k_lo else t_lo
+        t_lo = k_lo // rkt
+        t_hi = (k_hi + rkt - 1) // rkt if k_hi > k_lo else t_lo
         dq |= {(t, kb) for kb in range(t_lo, t_hi)}
         dq_len[t] = t_hi - t_lo
 
@@ -204,7 +286,7 @@ def k4_backward_walks(sq, sk, g, causal, window, d, bf16=True, splits=1):
                                                            not causal and bool(window))],
                 "rows": [(t, dq_len[t]) for t in order(n_row_tiles, causal)],
                 "ranges": ranges}
-    return dkdv, dq, (rows, cta), kt, launches
+    return dkdv, dq, (rows, cta), (kt, rkt), launches
 
 
 @pytest.mark.parametrize("sq,sk,g,causal,window,d", [
@@ -217,7 +299,7 @@ def test_k4_backward_tile_walks_cover_every_contribution(sq, sk, g, causal, wind
     """Every pair with P != 0 (dV) lies in a tile pair the dK/dV kernel walks,
     and every pair the masks keep (dS, hence dQ and dK) in one that both
     kernels walk; pairs outside add nothing."""
-    dkdv, dq, (rows, cta), kt, _ = k4_backward_walks(sq, sk, g, causal, window, d, bf16)
+    dkdv, dq, (rows, cta), (kt, rkt), _ = k4_backward_walks(sq, sk, g, causal, window, d, bf16)
     assert cta == (128 if bf16 and 128 < d <= 192 else 64)
     i = np.arange(sq)[:, None]
     j = np.arange(sk)[None, :]
@@ -232,7 +314,7 @@ def test_k4_backward_tile_walks_cover_every_contribution(sq, sk, g, causal, wind
         for key in np.flatnonzero(gives_p[rho // g]):
             assert (rho // rows, key // kt) in dkdv, (rho, key)
         for key in np.flatnonzero(keep[rho // g]):
-            assert (rho // cta, key // kt) in dq, (rho, key)
+            assert (rho // cta, key // rkt) in dq, (rho, key)
 
 
 @pytest.mark.parametrize("sq,sk,g,causal,window,d", [
@@ -250,7 +332,7 @@ def test_k4_backward_grids_launch_the_longest_walks_first(sq, sk, g, causal, win
     """Each grid launches every tile once; the causal grids (and a window's
     dK/dV grid) launch their walks from the longest to the shortest, so the
     short walks fill the card's last wave."""
-    _, _, (rows, cta), kt, launches = k4_backward_walks(sq, sk, g, causal, window, d)
+    _, _, (rows, cta), (kt, _), launches = k4_backward_walks(sq, sk, g, causal, window, d)
     assert sorted(t for t, _ in launches["dkdv"]) == list(range(-(-sk // kt)))
     assert sorted(t for t, _ in launches["rows"]) == list(range(-(-sq * g // cta)))
     grids = ("dkdv", "rows") if causal and not window else \
@@ -280,7 +362,8 @@ def test_k4_backward_split_walks_take_each_tile_pair_once(b, sq, sk, h, kvh, d, 
     splits = fk.walk_splits(b, sq, sk, h, kvh, d, True, 132)
     assert splits > 1
     g = h // kvh
-    dkdv, _, _, kt, launches = k4_backward_walks(sq, sk, g, causal, window, d, splits=splits)
+    dkdv, _, _, (kt, _), launches = k4_backward_walks(sq, sk, g, causal, window, d,
+                                                      splits=splits)
     whole, _, _, _, unsplit = k4_backward_walks(sq, sk, g, causal, window, d)
     assert kt == 64 and dkdv == whole
     key_ctas = b * kvh * -(-sk // kt)
@@ -298,7 +381,8 @@ def test_k4_backward_split_walks_take_each_tile_pair_once(b, sq, sk, h, kvh, d, 
     (1, 2048, 2048, 32, 8, 160, True, 1),      # stablelm-12b: 256 CTAs, unsplit
     (4, 2048, 2048, 32, 4, 64, True, 1),       # D 64: the one-warpgroup kernel, never split
     (1, 4096, 4096, 16, 1, 128, True, 1),      # D 128: likewise, short or not
-    (1, 4096, 4096, 16, 1, 256, False, 1),     # f32: the CUDA-core kernels, never split
+    (1, 4096, 4096, 16, 1, 256, False, 3),     # f32: one CTA an SM too, split at every width
+    (1, 4096, 4096, 16, 1, 64, False, 3),
     (1, 130, 130, 4, 1, 256, True, 9),         # at most the row tiles of a kv head
     (2, 4224, 4224, 8, 2, 192, True, 1),       # 2 x 2 x 66 = 264 CTAs: past a wave
     (1, 4224, 4224, 8, 2, 136, True, 1),       # 2 x 66 = 132 CTAs: exactly a wave
@@ -349,13 +433,13 @@ def test_k4_meta_backward_charges_its_kernels(dtype, d):
     # both warpgroups of the dK/dV kernel forming S and dP), and this grid
     # of 2 x 2 x 2 key tiles, short of a wave, walks its key tiles in 6
     # ranges (the row tiles of a kv head) whose f32 sums at DP 192 / 256 are
-    # written and read once; f32: 10 products and 6 planes
+    # written and read once; f32 at D 64: 10 products, 6 planes and 6 ranges
     bf16 = dtype == torch.bfloat16
     planes = 8 if bf16 else 6
     products = (12 if d > 128 else 13) if bf16 else 10
     splits = fk.walk_splits(b, sq, sq, h, kvh, d, bf16, 132)
-    assert splits == (6 if d > 128 else 1)
-    part = 2 * splits * 2 * b * sq * kvh * (192 if d <= 192 else 256) * 4 if splits > 1 else 0
+    assert splits == (1 if bf16 and d <= 128 else 6)
+    part = 2 * splits * 2 * b * sq * kvh * fk.padded_width(d) * 4 if splits > 1 else 0
     io = 2 * (2 * b * sq * h * d + 2 * b * sq * kvh * d) * el
     assert fops.backward_hbm_bytes(b, sq, sq, h, kvh, d, bytes_per_el=el) == \
         io + planes * 4 * b * h * sq + part

@@ -468,9 +468,126 @@ def test_k4_narrow_library_refuses_bf16_past_d128(cuda):
     launch = _build.function("flash_attention", "flash_attention_launch", fk._ARGS)
     q = torch.zeros(1, 64, 2, 160, device=cuda, dtype=torch.bfloat16)
     err = launch(q.data_ptr(), q.data_ptr(), q.data_ptr(), torch.empty_like(q).data_ptr(),
-                 1, 64, 64, 2, 2, 160, 1, 1, 0, 160**-0.5, None,
+                 1, 64, 64, 2, 2, 160, 1, 0, 160**-0.5, None,
                  torch.cuda.current_stream().cuda_stream)
     assert err == 1  # cudaErrorInvalidValue
+
+
+# -- K4's float32 kernels: three bf16 pieces an operand, on wgmma ---------------
+F32_SHAPES = [  # b, sq, sk, h, kvh, d, causal, window
+    (1, 70, 70, 2, 1, 1, True, 0),           # D 1
+    (2, 130, 130, 4, 2, 16, True, 0),
+    (1, 300, 300, 8, 2, 64, True, 0),
+    (1, 200, 200, 4, 2, 128, True, 64),      # a window
+    (1, 333, 333, 16, 2, 160, True, 0),      # stablelm-12b's D
+    (2, 150, 150, 8, 1, 192, False, 0),
+    (1, 400, 400, 16, 1, 256, True, 300),    # recurrentgemma-9b's D and a window
+    (1, 55, 300, 20, 20, 64, False, 0),      # cross, Sq < Sk
+    (1, 1, 700, 16, 1, 256, False, 0),       # Sq 1 (a decode step)
+    (1, 1, 300, 4, 4, 128, True, 0),         # Sq 1, causal: key 0 alone
+    (1, 200, 100, 8, 2, 64, True, 30),       # a window past every key of the last rows
+    (1, 140, 60, 4, 2, 256, True, 25),
+    (2, 90, 90, 4, 2, 5, True, 1),           # every row sees one key
+    (1, 129, 129, 8, 1, 160, False, 40),     # a window without causality
+]
+
+
+def float64_attention(q, k, v, gy, causal, window, scale):
+    """K4's function in float64, the plain version's arithmetic (masked
+    scores at MASK_VALUE, so a row that sees no key averages every key),
+    and with ``gy`` its gradient by autograd: (o, dq, dk, dv) in float64."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    q, k, v = (x.double().requires_grad_() for x in (q, k, v))
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.reshape(b, sq, kvh, h // kvh, d) * scale, k)
+    i = torch.arange(sq, device=q.device)[:, None]
+    j = torch.arange(sk, device=q.device)[None, :]
+    keep = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= j <= i
+    if window:
+        keep &= j > i - window
+    p = torch.softmax(s.masked_fill(~keep, fk.MASK_VALUE), dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v).reshape(b, sq, h, d)
+    if gy is None:
+        return (o.detach(),)
+    return (o.detach(), *torch.autograd.grad(o, (q, k, v), gy.double()))
+
+
+def f32_error_ratio(got, want):
+    """The largest |got - want| / (atol + rtol |want|) at K4's f32
+    tolerance (2e-4 / 2e-5): 1 is the tolerance's edge."""
+    want = want.double()
+    return float(((got.double() - want).abs() / (2e-5 + 2e-4 * want.abs())).max())
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,window", F32_SHAPES)
+def test_k4_f32_forward_and_backward_against_float64(cuda, b, sq, sk, h, kvh, d, causal, window):
+    """The f32 kernels (three bf16 pieces an operand) against the float64
+    function: no worse than the larger of a tenth of the f32 tolerance and
+    twice the plain f32 version's own error (``f32_error_ratio``), and
+    within the tolerance of the plain version; the forward counts one launch
+    in ``f32_launches``, the backward one in ``f32_backward_launches``; two
+    calls give the same bits, and where every row sees one key dQ is 0 to
+    the bit."""
+    q, k, v = attention_inputs(b, sq, sk, h, kvh, d, torch.float32, cuda, seed=sq + sk + d)
+    gy = torch.from_numpy(np.random.default_rng(d).standard_normal(
+        (b, sq, h, d), dtype=np.float32)).to(cuda)
+    scale = d**-0.5
+    mask = dict(causal=causal, window=window)
+    n, nf = fk.flash_attention.launches, fk.flash_attention.f32_launches
+    out, stats = fk._launch(q, k, v, causal, window, scale, stats=True)
+    torch.cuda.synchronize()
+    assert (fk.flash_attention.launches, fk.flash_attention.f32_launches) == (n + 1, nf + 1)
+    nb, nfb = fk.flash_attention.backward_launches, fk.flash_attention.f32_backward_launches
+    grads = fk.flash_attention_backward(q, k, v, stats, gy, scale=scale, **mask)
+    torch.cuda.synchronize()
+    assert (fk.flash_attention.backward_launches,
+            fk.flash_attention.f32_backward_launches) == (nb + 1, nfb + 1)
+    want = float64_attention(q, k, v, gy, causal, window, scale)
+    plain = fk.flash_attention_plain(q, k, v, stats=True, scale=scale, **mask)
+    plain_grads = fk.flash_attention_backward_plain(q, k, v, plain[1], plain[2], gy,
+                                                    scale=scale, **mask)
+    for name, got, p, w in zip(("o", "dq", "dk", "dv"), (out, *grads), (plain[0], *plain_grads),
+                               want):
+        assert got.dtype == torch.float32 and bool(torch.isfinite(got).all()), name
+        assert within_tol(got, p, torch.float32), name
+        ratio, plain_ratio = f32_error_ratio(got, w), f32_error_ratio(p, w)
+        assert ratio <= max(0.1, 2 * plain_ratio), (name, ratio, plain_ratio)
+    again = fk._launch(q, k, v, causal, window, scale, stats=True)
+    assert torch.equal(again[0], out) and torch.equal(again[1], stats)
+    again = fk.flash_attention_backward(q, k, v, stats, gy, scale=scale, **mask)
+    assert all(torch.equal(a, g) for a, g in zip(again, grads))
+    if causal and window == 1:
+        assert bool((grads[0] == 0).all())
+
+
+def test_k4_f32_launches_count_one_call(cuda):
+    # one f32 call through the Function: one forward launch, counted in
+    # launches and f32_launches; its backward one in backward_launches and
+    # f32_backward_launches; bf16 counts in neither f32 count
+    q, k, v = (x.requires_grad_() for x in attention_inputs(1, 100, 100, 4, 2, 64,
+                                                             torch.float32, cuda))
+    counts = ("launches", "f32_launches", "backward_launches", "f32_backward_launches")
+    before = [getattr(fk.flash_attention, c) for c in counts]
+    fk.flash_attention(q, k, v).sum().backward()
+    torch.cuda.synchronize()
+    assert [getattr(fk.flash_attention, c) - n for c, n in zip(counts, before)] == [1, 1, 1, 1]
+    qb, kb, vb = (x.detach().bfloat16().requires_grad_() for x in (q, k, v))
+    before = [getattr(fk.flash_attention, c) for c in counts]
+    fk.flash_attention(qb, kb, vb).float().sum().backward()
+    torch.cuda.synchronize()
+    assert [getattr(fk.flash_attention, c) - n for c, n in zip(counts, before)] == [1, 0, 1, 0]
+
+
+def test_k4_f32_library_refuses_unpadded_head_dims(cuda):
+    # the f32 kernels' 16-byte loads take D % 4 == 0 alone: the wrapper pads
+    q = torch.zeros(1, 64, 2, 64, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    fwd = _build.function("flash_attention_f32", "flash_attention_f32_launch", fk._ARGS)
+    err = fwd(q.data_ptr(), q.data_ptr(), q.data_ptr(), torch.empty_like(q).data_ptr(),
+              1, 64, 64, 2, 2, 6, 1, 0, 1.0, None, stream)
+    assert err == 1  # D % 4 != 0: cudaErrorInvalidValue
 
 
 def ssd_inputs(b, s, h, p, n, device, seed=0, with_h0=False):

@@ -207,8 +207,9 @@ def test_dot_flops_beside_the_reference_s(reference, arch, kind):
       its replay) by ``kernel_flops``, which halves the causal S × S
       product, and its backward by its kernels' own ``backward_flops``,
       f × ``kernel_flops`` (S formed four times and dP three times across
-      its passes, with dV, dK and dQ: f = 5; in bf16 P and dS enter their
-      products as two operands each, f = 6.5; halved too); the plain path
+      its passes, with dV, dK and dQ: f = 5, f32 past D 64 S five times:
+      5.5; in bf16 P and dS enter their products as two operands each, f =
+      6.5; halved too); the plain path
       forms the full products in the forward and its replay (2 full
       forwards) and autograd's backward of its two einsums (four products:
       2 full forwards, counted here op by op).  So the kernel path's dots
@@ -264,7 +265,7 @@ def test_dot_flops_beside_the_reference_s(reference, arch, kind):
     h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     full = 4.0 * b * h * s * s * d
     assert k4_flops(b, s, s, h, d) == full / 2
-    f = 6.5 if cfg.dtype == "bfloat16" else 5.0
+    f = 6.5 if cfg.dtype == "bfloat16" else 5.0 if cfg.head_dim <= 64 else 5.5
     assert k4_bwd_flops(b, s, s, h, d, bf16=cfg.dtype == "bfloat16") == f * full / 2
     shapes = ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d))
     assert _plain_call_dots(flash_attention_plain, *shapes) == full

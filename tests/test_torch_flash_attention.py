@@ -177,6 +177,105 @@ def test_bf16_p_rounding_stays_within_bf16_tolerance(b, s, h, kvh, d, causal, wi
     np.testing.assert_allclose(to_np(got), to_np(want), **BF16_TOL)
 
 
+def pieces_einsum(eq, a, b):
+    """A product as K4's f32 kernels run it on the CPU: the six products of
+    the operands' three bf16 pieces (``three_pieces``) whose indices sum to
+    at most 2, smallest first, each a product of bf16 values (exact in f32)
+    summed in f32."""
+    pa, pb = fk.three_pieces(a), fk.three_pieces(b)
+    out = None
+    for i, j in ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)):
+        term = torch.einsum(eq, pa[i], pb[j])
+        out = term if out is None else out + term
+    return out
+
+
+def f32_pieces_forward(q, k, v, *, causal, window, stats=False):
+    """K4's f32 forward in the kernel's arithmetic: S = (scale q) kᵀ and O =
+    P v as ``pieces_einsum`` products, the softmax in f32 as the plain
+    version's (masked scores at MASK_VALUE); with ``stats`` also (m, l)."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    s = pieces_einsum("bqkgd,bskd->bkgqs", q.reshape(b, sq, kvh, h // kvh, d) * d**-0.5, k)
+    keep = fk._keep(sq, sk, causal, window, "cpu")
+    if keep is not None:
+        s = s.masked_fill(~keep, fk.MASK_VALUE)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = pieces_einsum("bkgqs,bskd->bqkgd", p, v) / torch.clamp(l.permute(0, 3, 1, 2, 4), min=1e-30)
+    o = o.reshape(b, sq, h, d)
+    return (o, m.reshape(b, h, sq), l.reshape(b, h, sq)) if stats else o
+
+
+F32_TENTH = dict(rtol=2e-5, atol=2e-6)  # a tenth of K4's f32 tolerance
+PIECE_SHAPES = [  # b, sq, sk, h, kvh, d, causal, window
+    (1, 70, 70, 2, 1, 1, True, 0),        # D 1
+    (2, 77, 77, 6, 3, 16, True, 9),       # a window
+    (1, 130, 130, 4, 2, 64, True, 0),
+    (1, 100, 100, 4, 1, 160, False, 0),   # stablelm-12b's D
+    (1, 66, 66, 2, 1, 256, True, 20),     # recurrentgemma-9b's D and a window
+    (1, 37, 130, 4, 2, 64, False, 0),     # cross, Sq < Sk
+    (1, 1, 90, 8, 1, 128, False, 0),      # Sq 1
+    (2, 40, 40, 4, 2, 8, True, 1),        # every row sees one key
+    (1, 96, 64, 4, 2, 16, True, 20),      # rows 83.. see no key
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,window", PIECE_SHAPES,
+                         ids=map(shape_id, PIECE_SHAPES))
+def test_f32_pieces_forward_matches_jax_kernel(b, sq, sk, h, kvh, d, causal, window):
+    # the f32 kernels' products (three bf16 pieces a side, six products)
+    # stay within a tenth of the f32 tolerance of the Pallas kernel; a row
+    # that sees no key (NaN there at these blocks) averages every key
+    qn, kn, vn = inputs(b, sq, sk, h, kvh, d, seed=sq + sk + d)
+    got = f32_pieces_forward(*map(torch.from_numpy, (qn, kn, vn)), causal=causal,
+                             window=window).numpy()
+    want = jops.flash_attention(*map(jnp.asarray, (qn, kn, vn)), causal=causal, window=window,
+                                q_block=64, kv_block=64)
+    keep = fk._keep(sq, sk, causal, window, "cpu")
+    seen = np.ones(sq, bool) if keep is None else keep.any(1).numpy()
+    np.testing.assert_allclose(got[:, seen], to_np(want)[:, seen], **F32_TENTH)
+    mean = np.repeat(vn.mean(1), h // kvh, axis=1)[:, None].repeat((~seen).sum(), axis=1)
+    np.testing.assert_allclose(got[:, ~seen], mean, **F32_TENTH)
+
+
+def test_three_pieces_hold_every_bit_of_f32():
+    """x0 + x1 + x2 == x in f32 for values of magnitude 2^-100 to 2^126 of
+    either sign, and zeros stay zero.  The split has two limits outside
+    that range: within a bf16 rounding of f32's largest value bf16(x)
+    rounds to infinity, and below 2^-110 or so the last piece x2 (about
+    2^-16 of x) falls among the subnormals and keeps fewer bits."""
+    rng = np.random.default_rng(0)
+    mant = rng.uniform(1.0, 2.0, 100_000)
+    x = np.ldexp(mant, rng.integers(-100, 127, mant.size)) * rng.choice([-1.0, 1.0], mant.size)
+    x = torch.from_numpy(x.astype(np.float32))
+    x0, x1, x2 = fk.three_pieces(x)
+    for piece in (x0, x1, x2):
+        assert torch.equal(piece, piece.bfloat16().float())  # each a bf16 value
+    assert torch.equal((x0 + x1) + x2, x)
+    assert torch.equal(x0 + (x1 + x2), x)
+    zeros = fk.three_pieces(torch.zeros(5))
+    assert all(torch.equal(z, torch.zeros(5)) for z in zeros)
+
+
+@pytest.mark.parametrize("d,f32_products", [(64, 10), (5, 10), (128, 11), (256, 11)])
+def test_f32_tensor_core_counts(d, f32_products):
+    # the f32 forward's products run as six bf16 products each; the f32
+    # backward forms 10 f32 products a tile pair up to D 64 (its dK/dV
+    # kernel walks its rows once) and 11 past it (twice)
+    args = (2, 2048, 2048, 32, d)
+    assert ops.F32_PIECE_PRODUCTS == 6
+    assert ops.tensor_core_flops(ops.kernel_flops(*args), bf16=False) == \
+        6 * ops.kernel_flops(*args)
+    assert ops.tensor_core_flops(ops.kernel_flops(*args), bf16=True) == ops.kernel_flops(*args)
+    for causal in (True, False):
+        assert ops.backward_flops(*args, causal=causal) == \
+            f32_products / 2 * ops.kernel_flops(*args, causal=causal)
+    assert ops.backward_flops(*args, bf16=True) == \
+        (13 if d <= 128 else 12) / 2 * ops.kernel_flops(*args)
+
+
 def test_wrapper_rejects_an_empty_head_dim():
     q = torch.zeros(1, 8, 2, 0)
     with pytest.raises(ValueError, match="head dim"):
