@@ -26,7 +26,7 @@ import time
 from pathlib import Path
 from typing import Callable, Dict, Iterable, Sequence
 
-__all__ = ["SOURCES", "BUILD_DIR", "build", "function", "check", "count_launch"]
+__all__ = ["SOURCES", "BUILD_DIR", "build", "function", "check", "count_launch", "setup_seconds"]
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
@@ -40,6 +40,10 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _functions: Dict[tuple, Callable[..., int]] = {}
+# host seconds this process spent on each library: nvcc's, where it built one
+# (``build``), and loading it (``function``)
+_built: Dict[str, float] = {}
+_loaded: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -98,7 +102,7 @@ def build(names: Iterable[str] = SOURCES, *, verbose: bool = False) -> Dict[str,
     failures = []
     for name, (t0, tmp, target, proc) in procs.items():
         output, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
+        seconds[name] = _built[name] = time.perf_counter() - t0
         if proc.returncode != 0:
             failures.append(f"nvcc failed on csrc/{name}.cu:\n{output}")
             continue
@@ -123,7 +127,9 @@ def function(library: str, name: str, argtypes: Sequence) -> Callable[..., int]:
             lib = _libs.get(library)
             if lib is None:
                 build([library])
+                t0 = time.perf_counter()
                 lib = ctypes.CDLL(str(_library_path(library)))
+                _loaded[library] = time.perf_counter() - t0
                 err = getattr(lib, f"{library}_error_string")
                 err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
                 _libs[library] = lib
@@ -131,6 +137,14 @@ def function(library: str, name: str, argtypes: Sequence) -> Callable[..., int]:
             fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
             _functions[key] = fn
         return fn
+
+
+def setup_seconds() -> Dict[str, Dict[str, float]]:
+    """{"built": {library: nvcc's seconds}, "loaded": {library: seconds to
+    load it}} of what this process built and loaded so far: a run that
+    found its libraries built lists none under "built"."""
+    with _lock:
+        return {"built": dict(_built), "loaded": dict(_loaded)}
 
 
 def check(library: str, err: int, what: str) -> None:

@@ -69,6 +69,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..checkpoint.elastic_restore import reshard_tree
 from ..configs.base import InputShape, ModelConfig
 from ..models import Model
@@ -309,7 +310,11 @@ class TrainStep(_MeshStep):
                                            loss_chunk=self.loss_chunk, tp=self.tp)
         if weight is not None:
             loss = loss * weight
-        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        with tracing.span("backward"):
+            try:
+                grads = torch.autograd.grad(loss, live, allow_unused=True)
+            finally:
+                tracing.close_backward()
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(live, grads)]
         it = iter(grads)
         return (tree_map(lambda _: next(it), params),
@@ -341,17 +346,18 @@ class TrainStep(_MeshStep):
                                                   None if weights is None else weights[i])
             if reduce is not None:
                 grads = reduce(grads)
-            if gacc is None:
-                gacc = tree_map(lambda g: torch.zeros(g.shape, dtype=acc_dtype, device=g.device),
-                                grads)
-            with torch.no_grad():
-                tree_map(lambda a, g: a.add_(g.to(a.dtype) / mb if weights is None
-                                             else g.to(a.dtype)), gacc, grads)
-            del grads
-            if macc is None:
-                macc = {k: torch.zeros((), dtype=torch.float32, device=v.device)
-                        for k, v in metrics.items()}
-            macc = {k: macc[k] + weigh(metrics[k]) for k in macc}
+            with tracing.span("accumulate"):
+                if gacc is None:
+                    gacc = tree_map(lambda g: torch.zeros(g.shape, dtype=acc_dtype,
+                                                          device=g.device), grads)
+                with torch.no_grad():
+                    tree_map(lambda a, g: a.add_(g.to(a.dtype) / mb if weights is None
+                                                 else g.to(a.dtype)), gacc, grads)
+                del grads
+                if macc is None:
+                    macc = {k: torch.zeros((), dtype=torch.float32, device=v.device)
+                            for k, v in metrics.items()}
+                macc = {k: macc[k] + weigh(metrics[k]) for k in macc}
         return gacc, macc
 
     def _weights(self, local: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -418,11 +424,15 @@ class TrainStep(_MeshStep):
         ``grads`` are clipped in place and ``opt_state``'s moments updated in
         place (donated, as the reference's jitted step donates its state):
         the caller reads neither again."""
-        norm = None if self.tp is None else self.global_norm(grads)
-        grads, gnorm = clip_by_global_norm(grads, GRAD_CLIP, norm=norm, inplace=True)
-        updates, opt_state = self.optimizer.update(grads, opt_state, params, self.lr)
-        del grads
-        params = AdamW.apply_updates(params, updates)
+        with tracing.span("update"):
+            with tracing.span("update.clip"):
+                norm = None if self.tp is None else self.global_norm(grads)
+                grads, gnorm = clip_by_global_norm(grads, GRAD_CLIP, norm=norm, inplace=True)
+            with tracing.span("update.adamw"):
+                updates, opt_state = self.optimizer.update(grads, opt_state, params, self.lr)
+            del grads
+            with tracing.span("update.apply"):
+                params = AdamW.apply_updates(params, updates)
         return params, opt_state, dict(metrics, grad_norm=gnorm)
 
     def __call__(self, params, opt_state: AdamWState, batch: Dict[str, torch.Tensor]):

@@ -49,6 +49,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from .. import tracing
 from ..configs.base import InputShape, ModelConfig
 from ..parallel.collectives import gather_seq, reduce_from
 from ..parallel.tensor_parallel import TensorParallel
@@ -167,24 +168,29 @@ class Model:
         s = labels.shape[1]
         head = (params["embed"].T if cfg.tie_embeddings or cfg.family == "encdec"
                 else params.get("lm_head"))
-        if tp is not None and tp.size > 1:
-            loss = _vocab_parallel_loss(tp.enter(hidden), head, labels, mask, tp,
-                                        loss_chunk if loss_chunk and s % loss_chunk == 0 else s)
-        elif loss_chunk and s > loss_chunk and s % loss_chunk == 0:
-            tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
-            denom = torch.zeros((), dtype=torch.float32, device=hidden.device)
-            for c in range(s // loss_chunk):
-                cols = slice(c * loss_chunk, (c + 1) * loss_chunk)
-                lf = (hidden[:, cols] @ head).float()
-                lse = torch.logsumexp(lf, dim=-1)
-                picked = torch.gather(lf, -1, labels[:, cols].long()[..., None])[..., 0]
-                m = (mask[:, cols].float() if mask is not None
-                     else torch.ones_like(lse))
-                tot = tot + torch.sum((lse - picked) * m)
-                denom = denom + torch.sum(m)
-            loss = tot / torch.clamp(denom, min=1.0)
-        else:
-            loss, _ = cross_entropy_loss(self.logits(params, hidden), labels, mask)
+        with tracing.span("loss"):
+            if tp is not None and tp.size > 1:
+                chunk = loss_chunk if loss_chunk and s % loss_chunk == 0 else s
+                loss = _vocab_parallel_loss(tp.enter(hidden), head, labels, mask, tp, chunk)
+            elif loss_chunk and s > loss_chunk and s % loss_chunk == 0:
+                tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+                denom = torch.zeros((), dtype=torch.float32, device=hidden.device)
+                for c in range(s // loss_chunk):
+                    cols = slice(c * loss_chunk, (c + 1) * loss_chunk)
+                    lf = (hidden[:, cols] @ head).float()
+                    lse = torch.logsumexp(lf, dim=-1)
+                    picked = torch.gather(lf, -1, labels[:, cols].long()[..., None])[..., 0]
+                    m = (mask[:, cols].float() if mask is not None
+                         else torch.ones_like(lse))
+                    tot = tot + torch.sum((lse - picked) * m)
+                    denom = denom + torch.sum(m)
+                loss = tot / torch.clamp(denom, min=1.0)
+            else:
+                loss, _ = cross_entropy_loss(self.logits(params, hidden), labels, mask)
+        if tracing.enabled():
+            chain = tracing.BackwardChain()
+            chain.layer(0, "loss.backward", hidden)
+            chain.end(loss)
         metrics = {"ce_loss": loss, **aux}
         if cfg.family == "moe":
             loss = loss + MOE_AUX_COEF * aux["moe_aux_loss"] + MOE_Z_COEF * aux["moe_z_loss"]

@@ -41,6 +41,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import tracing
 from ..configs.base import ModelConfig
 from .attention import attention, attention_params, init_kv_cache, kv_cache_specs
 from .ffn import ffn, ffn_params
@@ -253,15 +254,21 @@ def decoder_forward(
         aux.update({key: torch.zeros((), dtype=torch.float32, device=x.device)
                     for key in AUX_KEYS})
     kinds = layer_kinds(cfg)
+    # each block's backward as a span: remat's re-run of a block (this
+    # ``run`` again, inside the backward) falls inside it
+    chain = tracing.BackwardChain() if tracing.enabled() else None
 
     def run(x, lo: int, hi: int):
         """Layers [lo, hi) -> (x, each layer's aux values)."""
         auxes = []
         for i in range(lo, hi):
-            x, block_aux = _apply_block(kinds[i], params["layers"][i], x, cfg, mode=mode,
-                                        positions=positions,
-                                        cache=caches[i] if caches is not None else None,
-                                        image_embeds=image_embeds, plain=plain, tp=tp)
+            if chain is not None:
+                chain.layer(i, f"block.{kinds[i]}.backward", x)
+            with tracing.span(f"block.{kinds[i]}"):
+                x, block_aux = _apply_block(kinds[i], params["layers"][i], x, cfg, mode=mode,
+                                            positions=positions,
+                                            cache=caches[i] if caches is not None else None,
+                                            image_embeds=image_embeds, plain=plain, tp=tp)
             auxes.append(block_aux)
         return x, auxes
 
@@ -281,6 +288,8 @@ def decoder_forward(
             for block_aux in auxes:
                 for key, value in block_aux.items():
                     aux[key] = aux[key] + value.float()
+    if chain is not None:
+        chain.end(x)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), caches
 
 

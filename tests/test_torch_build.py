@@ -41,3 +41,36 @@ def test_every_source_defines_its_error_string():
     for name in _build.SOURCES:
         text = (_build.SRC_DIR / f"{name}.cu").read_text()
         assert f"const char* {name}_error_string(int err)" in text, name
+
+
+def test_setup_seconds_names_what_was_built_and_loaded(tmp_path, monkeypatch):
+    """``setup_seconds`` lists a library under "built" only where this
+    process ran nvcc on it, and under "loaded" once it is loaded."""
+    import types
+
+    (tmp_path / "csrc").mkdir()
+    (tmp_path / "csrc" / "k.cu").write_text("int k;\n")
+    nvcc = tmp_path / "nvcc"   # writes the file after -o, as nvcc would
+    nvcc.write_text('#!/bin/sh\nwhile [ $# -gt 0 ]; do [ "$1" = -o ] && : > "$2"; shift; done\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "SRC_DIR", tmp_path / "csrc")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    for name in ("_libs", "_functions", "_built", "_loaded"):
+        monkeypatch.setattr(_build, name, {})
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: types.SimpleNamespace(
+        k_error_string=types.SimpleNamespace(), k_launch=types.SimpleNamespace()))
+    assert _build.setup_seconds() == {"built": {}, "loaded": {}}
+    _build.function("k", "k_launch", [])
+    first = _build.setup_seconds()
+    assert set(first["built"]) == set(first["loaded"]) == {"k"}
+    assert first["built"]["k"] > 0 and first["loaded"]["k"] >= 0
+    _build.build(["k"])                 # already built: nvcc does not run
+    _build.function("k", "k_launch", [])
+    assert _build.setup_seconds() == first
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "_functions", {})
+    monkeypatch.setattr(_build, "_built", {})   # a later process finds it built
+    monkeypatch.setattr(_build, "_loaded", {})
+    _build.function("k", "k_launch", [])
+    assert _build.setup_seconds()["built"] == {} and "k" in _build.setup_seconds()["loaded"]
