@@ -99,7 +99,18 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    error under ``library_error``, with no time.  K4's f32 backward rows
    carry both bounds and the float64 errors of dq, dk and dv as the
    forward's do, and the kernels line carries the f32 backward as
-   ``flash_attention_f32_backward``.
+   ``flash_attention_f32_backward``.  Last, the causal conv (no TPU
+   kernel: it replaced the eager chain ``causal_conv_plain``) at
+   ``CONV_SHAPES``: mamba2-130m's xBC at the benchmark's training batch (B
+   32 × S 2048, C 1792 read as a column slice of 3352-wide bf16 rows, SiLU)
+   and recurrentgemma-9b's RG-LRU prefill input (C 4096, no SiLU).  The
+   forward bitwise the plain chain's; the backward (dx, dw, db) against
+   float64 autograd of the plain chain, each within 2^-7 of its tensor's
+   largest value and dx at least as close as the eager chain's bf16
+   gradient, two calls bitwise equal; both timed beside the plain chain
+   (its forward; its forward + backward by autograd) and against their
+   bytes bound.  The kernels line carries them as ``causal_conv`` and
+   ``causal_conv_backward``.
 5. Serving at full width, inline: tinyllama-1.1b (K4, D 64), mamba2-130m
    (K5), stablelm-12b (K4, D 160; 24 GB in bf16), qwen3-moe-30b-a3b (K4,
    D 128, 128 experts top-8 with capacity chunks and the dense fallback;
@@ -110,7 +121,9 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    inline, greedy, max_len 2048).  Every request completes, the RunReport
    covers each exactly once, the kernel launches equal the layers that
    launch it × prefills (176, 192, 320, 384 and 96; stablelm-12b's and
-   recurrentgemma-9b's all through the wide bf16 forward), and a float32 copy
+   recurrentgemma-9b's all through the wide bf16 forward), the causal
+   conv's the SSD and RG-LRU layers × prefills (mamba2's 192,
+   recurrentgemma's 26 × 8), and a float32 copy
    of each model (its bf16 weights moved to the host first; qwen3-moe's
    first 4 layers, since its 123 GB do not fit) gives the same greedy
    tokens through the kernels as through their plain versions, with
@@ -147,7 +160,8 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
       once with a short prefill; phase 5's 8 requests served per model
       with ``backend="remote:a,b"`` and a ``cuda`` model spec (seed 0), 4
       slots, continuous, greedy.  Every token stream equals phase 5's
-      inline one, the workers launch K4 22 × 8 and K5 24 × 8 times (read
+      inline one, the workers launch K4 22 × 8 and K5 and the causal
+      conv 24 × 8 times (read
       by a ``LaunchCounts`` probe through a ``RemoteUnit``), and the
       parent launches neither.  Prints TTFT, prefill and decode times,
       tokens/s, the cache bytes a request and the wire latency.
@@ -172,7 +186,8 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    mamba2 the same 6 steps run again with ``plain=True`` and their
    losses are printed beside the kernels' (a witness, not a check); the
    kernel launches equal 2 × the layers that hold it × 2 microbatches ×
-   6 steps (remat runs each unit's forward twice); a second run resumes
+   6 steps (remat runs each unit's forward twice), mamba2's causal conv's
+   as K5's; a second run resumes
    at step 3 from its checkpoint, runs exactly 3 steps and ends within
    rtol 1e-2 of the first's final loss.  Then: the step's host-clock time
    (the resumed run's steps after its first two, median; each ends in
@@ -181,8 +196,9 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    peak memory, and a profiler top-10 of one step with the shares in the
    kernel's forward and backward kernels; the backward kernel's launches
    equal the layers that hold it × 2 microbatches × 6 steps, and an
-   observer of ``flash_attention_plain``, ``ssd_scan_plain`` and
-   ``ssd_chunked`` (every module that binds them) counts 0 calls during the
+   observer of ``flash_attention_plain``, ``ssd_scan_plain``,
+   ``ssd_chunked`` and ``causal_conv_plain`` (every module that binds
+   them) counts 0 calls during the
    run and the resumed run: no plain version runs in a step; a float32
    copy at full width takes one step on a 2 × 2048 batch through the
    kernels and with ``plain=True``: loss within rtol 1e-5, ``grad_norm``
@@ -303,9 +319,10 @@ past-the-window check apart) and adds phase 6's, K4's row lists every
 phase-4 shape under ``shapes``, and K4's and K5's rows carry phase 7's
 forward + backward times and bound under ``train_fwd_bwd``.  The backward
 kernels have rows of their own (``flash_attention_backward``,
-``ssd_scan_backward``, counted in the wrappers' ``backward_launches``),
-with their launches on the training paths (phases 7, 8a, 8c and 9), each
-of which must launch them.
+``ssd_scan_backward``, ``causal_conv_backward``, counted in the wrappers'
+``backward_launches``), with their launches on the training paths (phases
+7, 8a, 8c and 9), each of which must launch them; the causal conv must
+launch in phases 5, 6a and 10's prefills and in every training phase.
 Profiler totals sum the CUDA kernels' rows only.  Each phase prints
 its wall time.  The last lines are a JSON line of the kernels' numbers
 and the JSON result line.
@@ -364,7 +381,8 @@ INLINE_ARCHS = ("stablelm-12b", "qwen3-moe-30b-a3b", "recurrentgemma-9b")
 F32_LAYERS = {"qwen3-moe-30b-a3b": 4, "stablelm-12b": 8, "recurrentgemma-9b": 9,
               "tinyllama-1.1b": 8, "mamba2-130m": 8}
 # the block kinds that launch each model kernel, once per layer and prefill
-KERNEL_KINDS = {"flash_attention": ("attn", "moe"), "ssd_scan": ("ssd",)}
+KERNEL_KINDS = {"flash_attention": ("attn", "moe"), "ssd_scan": ("ssd",),
+                "causal_conv": ("ssd", "rglru")}
 # a windowed model's extra f32 check: (prompt tokens, max_len, decode steps)
 WINDOW_PROMPT = (3000, 4096, 16)
 # served through Model.prefill / decode_step after phase 6, with their second
@@ -454,6 +472,11 @@ K4_BACKWARD_SHAPES = (
 # training microbatch (y alone reaches the loss), and a partial sub-chunk
 # with a carried state, through y and the final state
 K5_BACKWARD_SHAPES = ((4, 2048, False, "y"), (1, 1000, True, "both"))
+# the causal conv in phase 4: (use, B, S, C, row width, column offset, SiLU):
+# mamba2-130m's xBC at the benchmark's training batch (a column slice of
+# in_proj's 3352-wide rows) and recurrentgemma-9b's RG-LRU prefill input
+CONV_SHAPES = (("mamba2-130m train", 32, 2048, 1792, 3352, 1536, True),
+               ("recurrentgemma-9b prefill", 2, 2048, 4096, 4096, 0, False))
 
 
 def require(ok: bool, what: str) -> None:
@@ -480,10 +503,11 @@ class Count:
 
 def model_wrappers() -> dict:
     """K4 and K5 and their backward kernels, K4's bf16 forward past D 128
-    (``flash_fwd_bf16_wide``, counted within K4's launches too) and K4's
-    f32 forward and backward (``flash_fwd_f32_kernel`` and its gradient's
-    kernels, counted within K4's forward and backward launches too), by the
-    names of the JSON line."""
+    (``flash_fwd_bf16_wide``, counted within K4's launches too), K4's f32
+    forward and backward (``flash_fwd_f32_kernel`` and its gradient's
+    kernels, counted within K4's forward and backward launches too) and the
+    causal conv's forward and backward, by the names of the JSON line."""
+    from repro_torch.kernels.causal_conv.causal_conv import causal_conv
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
 
@@ -492,7 +516,9 @@ def model_wrappers() -> dict:
             "flash_attention_backward": Count(flash_attention, "backward_launches"),
             "flash_attention_f32": Count(flash_attention, "f32_launches"),
             "flash_attention_f32_backward": Count(flash_attention, "f32_backward_launches"),
-            "ssd_scan_backward": Count(ssd_scan, "backward_launches")}
+            "ssd_scan_backward": Count(ssd_scan, "backward_launches"),
+            "causal_conv": causal_conv,
+            "causal_conv_backward": Count(causal_conv, "backward_launches")}
 
 
 def wide_share(cfg, k4_launches: int) -> dict:
@@ -503,10 +529,12 @@ def wide_share(cfg, k4_launches: int) -> dict:
 
 
 # the plain versions that no training step on the card may call: the
-# kernels' plain forwards (K5's is ssd_scan_plain over ssd_chunked)
+# kernels' plain forwards (K5's is ssd_scan_plain over ssd_chunked; the
+# causal conv's the eager chain)
 PLAIN_VERSIONS = (("kernels.flash_attention.flash_attention", "flash_attention_plain"),
                   ("kernels.ssd_scan.ssd_scan", "ssd_scan_plain"),
-                  ("kernels.ssd_scan.ref", "ssd_chunked"))
+                  ("kernels.ssd_scan.ref", "ssd_chunked"),
+                  ("kernels.causal_conv.causal_conv", "causal_conv_plain"))
 
 
 @contextlib.contextmanager
@@ -1339,6 +1367,107 @@ def phase4_backward_kernels() -> dict:
     return kernels
 
 
+def conv_flops(n: int, silu: bool, backward: bool) -> int:
+    """f32 operations of the causal conv on n values at W 4: the taps'
+    products and sums and the bias (9), SiLU's 4 forward; the backward forms
+    the pre-activation again (9), SiLU's derivative (6), dx's and dw's taps
+    (16) and db's sum (1)."""
+    if backward:
+        return n * (9 + 6 * silu + 17)
+    return n * (9 + 4 * silu)
+
+
+def phase4_causal_conv() -> dict:
+    """The causal conv's kernels against the plain chain at ``CONV_SHAPES``:
+    the forward bit for bit; the backward against float64 autograd of the
+    plain chain (each gradient within 2^-7 of its tensor's largest value, dx
+    at least as close as the eager chain's own bf16 gradient), bitwise equal
+    on two calls; each timed beside the plain chain (its forward, and its
+    forward + backward by autograd) and against its bytes bound."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.causal_conv.causal_conv import (
+        CTA_ROWS, WIDTH, causal_conv, causal_conv_backward, causal_conv_plain,
+    )
+
+    rng = np.random.default_rng(3)
+
+    def normal(*shape, scale=1.0):
+        return torch.from_numpy(scale * rng.standard_normal(shape, dtype=np.float32)).cuda()
+
+    def grads(fn, leaves, g):
+        leaves = [t.detach().requires_grad_(True) for t in leaves]
+        return torch.autograd.grad(fn(*leaves), leaves, g)
+
+    fwd_rows, bwd_rows = [], []
+    for use, nb, s, c, width, offset, silu in CONV_SHAPES:
+        x = normal(nb, s, width).bfloat16()[..., offset:offset + c]
+        w, b = normal(WIDTH, c, scale=0.3).bfloat16(), normal(c, scale=0.3).bfloat16()
+        g = normal(nb, s, c).bfloat16()
+        shape = f"{use} B={nb} S={s} C={c} row={width} {'silu' if silu else 'no silu'}"
+        fwd = functools.partial(causal_conv, x, w, b, silu=silu)
+        plain = functools.partial(causal_conv_plain, x, w, b, silu=silu)
+        n = causal_conv.launches
+        out = fwd()
+        require(causal_conv.launches == n + 1, f"causal_conv {shape}: not one launch a call")
+        require(out.is_contiguous() and torch.equal(out, plain()),
+                f"causal_conv {shape}: the forward differs from the plain chain's bits")
+
+        def exact(xx, ww, bb):
+            y = sum(F.pad(xx, (0, 0, WIDTH - 1, 0))[:, i:i + s] * ww[i] for i in range(WIDTH))
+            return F.silu(y + bb) if silu else y + bb
+
+        want = grads(exact, [t.double() for t in (x, w, b)], g.double())
+        eager = grads(lambda *t: causal_conv_plain(*t, silu=silu), (x, w, b), g)
+        bwd = functools.partial(causal_conv_backward, x, w, b, g, silu=silu)
+        got = bwd()
+        require(all(torch.equal(a, k) for a, k in zip(got, bwd())),
+                f"causal_conv {shape}: two backward calls differ")
+        share, eager_share = {}, {}
+        for name, k, e, ref in zip(("dx", "dw", "db"), got, eager, want):
+            top = float(ref.abs().max())
+            share[name] = float((k.double() - ref).abs().max()) / top
+            eager_share[name] = float((e.double() - ref).abs().max()) / top
+            require(share[name] <= 2**-7, f"causal_conv {shape} {name}: float64 error "
+                    f"{share[name]:.3e} of the largest value, above 2^-7")
+        require(share["dx"] <= eager_share["dx"], f"causal_conv {shape}: dx's float64 error "
+                f"{share['dx']:.3e} above the eager chain's {eager_share['dx']:.3e}")
+        del want, eager, got
+
+        def eager_both():
+            grads(lambda *t: causal_conv_plain(*t, silu=silu), (x, w, b), g)
+
+        value = nb * s * c * x.element_size()
+        parts = nb * -(-s // CTA_ROWS) * (WIDTH + 1) * c * 4
+        fb, fby = bound_ms(2 * value, conv_flops(nb * s * c, silu, False))
+        bb, bby = bound_ms(3 * value + 2 * parts, conv_flops(nb * s * c, silu, True))
+        fwd_rows.append(dict(shape=shape, max_abs_err=0.0, ms=time_ms(fwd),
+                             device_ms=time_ms(fwd, hold=True), plain_ms=time_ms(plain, reps=5),
+                             bound_ms=fb, bound_by=fby, gb=2 * value / 1e9))
+        bwd_rows.append(dict(shape=shape, float64_err_share=share,
+                             eager_float64_err_share=eager_share,
+                             max_abs_err=max(share.values()), ms=time_ms(bwd),
+                             device_ms=time_ms(bwd, hold=True),
+                             plain_ms=time_ms(eager_both, reps=5), plain_is="forward + backward",
+                             bound_ms=bb, bound_by=bby, gb=(3 * value + 2 * parts) / 1e9,
+                             launch_device_ms=launch_device_ms(bwd), bitwise_repeatable=True))
+        for rows in (fwd_rows, bwd_rows):
+            rows[-1]["roofline_share"] = rows[-1]["bound_ms"] / rows[-1]["device_ms"]
+        del x, w, b, g
+    print("causal conv at full width " + json.dumps(fwd_rows))
+    print("causal conv backward " + json.dumps(bwd_rows))
+    kernels = {}
+    for name, rows in (("causal_conv", fwd_rows), ("causal_conv_backward", bwd_rows)):
+        main_row = rows[0]  # mamba2's training batch, the benchmark cell's
+        kernels[name] = dict(
+            name=name, route="cuda", source="src/repro_torch/csrc/causal_conv.cu",
+            replaces=None, library_ms=None, shapes=rows,
+            **{k: main_row[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                                        "bound_ms", "bound_by")})
+    return kernels
+
 def request_specs(cfg):
     """8 prompts from default_rng(0): 128–1024 tokens, 16–48 new tokens."""
     import numpy as np
@@ -1415,6 +1544,7 @@ def phase5_serving(arch: str, wrappers: dict):
     # the layers that launch the kernel, once each per prefill (the
     # hybrid's rglru layers launch none)
     kernel_layers = sum(kind in KERNEL_KINDS[kernel] for kind in layer_kinds(cfg))
+    conv_layers = sum(kind in KERNEL_KINDS["causal_conv"] for kind in layer_kinds(cfg))
     t0 = time.perf_counter()
     model = make_model(cfg, device="cuda")
     params = model.init(seed=0)
@@ -1442,10 +1572,12 @@ def phase5_serving(arch: str, wrappers: dict):
     require(launches[kernel] == want,
             f"{arch}: {kernel} launched {launches[kernel]} times, not {kernel_layers} layers x "
             f"{len(specs)} prefills = {want}")
-    counts = {kernel: want, **wide_share(cfg, want)}
+    counts = {kernel: want, **wide_share(cfg, want), "causal_conv": conv_layers * len(specs)}
     wide = counts["flash_attention_wide"]
     require(launches["flash_attention_wide"] == wide, f"{arch}: flash_attention_wide launched "
             f"{launches['flash_attention_wide']} times, not {wide}")
+    require(launches["causal_conv"] == counts["causal_conv"], f"{arch}: causal_conv launched "
+            f"{launches['causal_conv']} times, not {conv_layers} layers x {len(specs)} prefills")
     others = {k: v for k, v in launches.items() if k not in counts and v}
     require(not others, f"{arch}: unexpected launches {others}")
     counts = {k: n for k, n in counts.items() if n}
@@ -1583,6 +1715,8 @@ def past_the_window(arch, cfg, fast, plain, params, wrappers):
     import numpy as np
     import torch
 
+    from repro_torch.models.transformer import layer_kinds
+
     n_prompt, max_len, steps = WINDOW_PROMPT
     require(n_prompt > cfg.window, f"{arch}: a {n_prompt}-token prompt does not pass the window")
     prompt = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, n_prompt),
@@ -1599,6 +1733,10 @@ def past_the_window(arch, cfg, fast, plain, params, wrappers):
                          launches=launches.pop("flash_attention", 0))
         require(launches.pop("flash_attention_f32", 0) == out[name]["launches"],
                 f"{arch} {name}: a K4 launch past the window took another kernel than f32's")
+        conv = sum(k in KERNEL_KINDS["causal_conv"] for k in layer_kinds(cfg)) \
+            if name == "kernels" else 0
+        require(launches.pop("causal_conv", 0) == conv,
+                f"{arch} {name}: the causal conv did not launch {conv} times past the window")
         require(not launches, f"{arch} {name}: unexpected launches {launches}")
     require(out["kernels"]["tokens"] == out["plain"]["tokens"],
             f"{arch} f32: the {n_prompt}-token prompt's greedy tokens differ between kernels "
@@ -1812,6 +1950,7 @@ def phase6a_remote_serving(arch: str, inline_tokens: dict, workers, wrappers: di
     from repro_torch.configs import get_config
     from repro_torch.kernels.launches import LaunchCounts
     from repro_torch.models import make_model
+    from repro_torch.models.transformer import layer_kinds
     from repro_torch.serving import Request, ServingEngine
     from repro_torch.serving.engine import _RemotePrefill
 
@@ -1858,6 +1997,10 @@ def phase6a_remote_serving(arch: str, inline_tokens: dict, workers, wrappers: di
     want = cfg.num_layers * len(specs)
     require(launches == want,
             f"{arch} remote: the workers launched {kernel} {launches} times, not {want}")
+    conv = sum(c["causal_conv"] for c in per_worker)
+    conv_want = sum(k in KERNEL_KINDS["causal_conv"] for k in layer_kinds(cfg)) * len(specs)
+    require(conv == conv_want,
+            f"{arch} remote: the workers launched causal_conv {conv} times, not {conv_want}")
     require(not any(parent.values()), f"{arch} remote: the parent launched kernels {parent}")
 
     # the longest prompt alone, on an otherwise idle card and host: the
@@ -1898,7 +2041,7 @@ def phase6a_remote_serving(arch: str, inline_tokens: dict, workers, wrappers: di
         f"prompt_{len(longest)}_alone": alone,
     }))
     del engine, results, params
-    return kernel, launches
+    return {k: n for k, n in ((kernel, launches), ("causal_conv", conv)) if n}
 
 
 def phase6b_checkpointed_spmm(k3_host, phase2_run_s: float):
@@ -2364,6 +2507,7 @@ def phase7_training(arch: str, wrappers: dict, card: str, keep=None, *, layers: 
         if kernel == "ssd_scan" else ("flash_bwd",)
     backward = f"{kernel}_backward"
     kernel_layers = sum(kind in KERNEL_KINDS[kernel] for kind in layer_kinds(cfg))
+    conv_layers = sum(kind in KERNEL_KINDS["causal_conv"] for kind in layer_kinds(cfg))
     gb, seq, mb = (TRAIN_RUN[k] for k in ("global_batch", "seq_len", "microbatches"))
     shape = InputShape("train", seq, gb, "train")
     rules = MeshRules(MeshShape((1, 1), ("data", "model")), cfg.parallel)
@@ -2419,16 +2563,23 @@ def phase7_training(arch: str, wrappers: dict, card: str, keep=None, *, layers: 
         # each layer that holds the kernel launches it twice per microbatch
         # and step: in the forward, and again when remat recomputes its unit
         # (one layer) in the backward; its backward kernel once.  tinyllama:
-        # 2 x 22 x 2 x 6 = 528 and 264; mamba2: 2 x 24 x 2 x 6 = 576 and 288;
-        # stablelm-12b at 4 layers and 4 steps: 64 and 32
+        # 2 x 22 x 2 x 6 = 528 and 264; mamba2: 2 x 24 x 2 x 6 = 576 and 288,
+        # and the causal conv as K5; stablelm-12b at 4 layers and 4 steps: 64
+        # and 32
         want = 2 * kernel_layers * mb * steps
+        conv = 2 * conv_layers * mb * steps
         require(launches[kernel] == want,
                 f"{arch}: {kernel} launched {launches[kernel]} times in training, not 2 x "
                 f"{kernel_layers} layers x {mb} microbatches x {steps} steps = {want}")
         require(launches[backward] == want // 2,
                 f"{arch}: {backward} launched {launches[backward]} times in training, not "
                 f"{kernel_layers} layers x {mb} microbatches x {steps} steps = {want // 2}")
-        counts = {kernel: want, backward: want // 2, **wide_share(cfg, want)}
+        require((launches["causal_conv"], launches["causal_conv_backward"]) ==
+                (conv, conv // 2), f"{arch}: the causal conv launched "
+                f"{launches['causal_conv']} times and its backward "
+                f"{launches['causal_conv_backward']} in training, not {conv} and {conv // 2}")
+        counts = {kernel: want, backward: want // 2, **wide_share(cfg, want),
+                  "causal_conv": conv, "causal_conv_backward": conv // 2}
         wide = counts["flash_attention_wide"]
         require(launches["flash_attention_wide"] == wide, f"{arch}: flash_attention_wide "
                 f"launched {launches['flash_attention_wide']} times in training, not {wide}")
@@ -2618,9 +2769,10 @@ def _phase8a(rank: int, mesh, plan: dict) -> dict:
     if device == "cuda":
         require(launches == dict(ssd_scan=want, ssd_scan_backward=want // 2, flash_attention=0,
                                  flash_attention_wide=0, flash_attention_backward=0,
-                                 flash_attention_f32=0, flash_attention_f32_backward=0),
-                f"8a rank {rank}: launches {launches}, not ssd_scan {want} and its backward "
-                f"{want // 2}")
+                                 flash_attention_f32=0, flash_attention_f32_backward=0,
+                                 causal_conv=want, causal_conv_backward=want // 2),
+                f"8a rank {rank}: launches {launches}, not ssd_scan and causal_conv {want} and "
+                f"their backward {want // 2}")
 
     # one step outside the run: its time and the bytes its collectives move
     step_fn = make_train_step(model, opt, rules, shape, lr=lr, loss_chunk=0, microbatches=mb)
@@ -2917,7 +3069,8 @@ def _phase9_train(mesh, plan: dict, part: str, arch: str, layers: int) -> dict:
     if device == "cuda":
         require(launches == dict(flash_attention=want, flash_attention_backward=want // 2,
                                  flash_attention_wide=0, ssd_scan=0, ssd_scan_backward=0,
-                                 flash_attention_f32=0, flash_attention_f32_backward=0),
+                                 flash_attention_f32=0, flash_attention_f32_backward=0,
+                                 causal_conv=0, causal_conv_backward=0),
                 f"{part}: launches {launches}, not flash_attention {want} and its backward "
                 f"{want // 2}")
     result = dict(arch=arch, layers=cfg.num_layers, mesh=list(TP_MESH),
@@ -2988,10 +3141,13 @@ def _phase9c(rank: int, mesh, plan: dict) -> dict:
                                                 grad_norm=two.global_norm(grads)).items()}
         launches[name] = {k: w.launches for k, w in wrappers.items()}
         got = launches[name]
-        if device == "cuda":   # float32: K4 through its f32 kernels alone
+        if device == "cuda":   # float32: K4 through its f32 kernels alone; the conv as K5
             require(got["flash_attention"] == got["flash_attention_f32"] and
                     got["flash_attention_backward"] == got["flash_attention_f32_backward"] and
-                    (arch == "mamba2-130m" or got["flash_attention_f32"] > 0),
+                    (arch == "mamba2-130m" or got["flash_attention_f32"] > 0) and
+                    got["causal_conv"] == got["ssd_scan"] and
+                    got["causal_conv_backward"] == got["ssd_scan_backward"] and
+                    (arch != "mamba2-130m" or got["causal_conv_backward"] > 0),
                     f"9c {name}: launches {got}")
         grads = two.gather(grads)
         result = dict(layers=cfg.num_layers, sequence_parallel=sp, batch=f"{rows} x {seq}",
@@ -3184,6 +3340,7 @@ def _phase10_one_rank(part: str, arch: str, dtype: str, plan: dict, tmp: Path) -
     logits written to ``tmp`` for the ranks."""
     import torch
 
+    from repro_torch.kernels.causal_conv.causal_conv import causal_conv
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
     from repro_torch.models import make_model
@@ -3193,10 +3350,11 @@ def _phase10_one_rank(part: str, arch: str, dtype: str, plan: dict, tmp: Path) -
     model = make_model(cfg, device=device)
     params = model.init(0)
     tokens = _serve_tp_prompt(cfg, plan, device)
-    for w in (flash_attention, ssd_scan):
+    for w in (flash_attention, ssd_scan, causal_conv):
         w.launches = 0
     logits, caches = model.prefill(params, tokens, plan["max_len"])
-    launches = {"flash_attention": flash_attention.launches, "ssd_scan": ssd_scan.launches}
+    launches = {"flash_attention": flash_attention.launches, "ssd_scan": ssd_scan.launches,
+                "causal_conv": causal_conv.launches}
     out = dict(logits=[logits.float().cpu()], tokens=[])
     for i in range(plan["steps"]):
         tok = logits.argmax(dim=-1)
@@ -3218,6 +3376,7 @@ def _phase10_case(mesh, plan: dict, part: str, arch: str, dtype: str, check: boo
     import torch
 
     from repro_torch.configs.base import InputShape
+    from repro_torch.kernels.causal_conv.causal_conv import causal_conv
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
@@ -3245,7 +3404,8 @@ def _phase10_case(mesh, plan: dict, part: str, arch: str, dtype: str, check: boo
     local_rows = slice(d * rows // TP_MESH[0], (d + 1) * rows // TP_MESH[0])
     heads = []      # (query, kv) heads of every K4 call of the prefill; K5's heads
     wrappers = {"flash_attention": flash_attention, "ssd_scan": ssd_scan,
-                "flash_attention_f32": Count(flash_attention, "f32_launches")}
+                "flash_attention_f32": Count(flash_attention, "f32_launches"),
+                "causal_conv": causal_conv}
     load_at_start = os.getloadavg()[0]
 
     def call(fn, *args):
@@ -3302,10 +3462,11 @@ def _phase10_case(mesh, plan: dict, part: str, arch: str, dtype: str, check: boo
     if cuda:
         got = prefill_reading["launches"]
         f32 = attn if dtype == "float32" else 0
-        require(got == {"flash_attention": attn, "ssd_scan": ssd, "flash_attention_f32": f32},
-                f"{name}: a prefill launched {got}, not K4 {attn} ({f32} f32) and K5 {ssd} times")
+        require(got == {"flash_attention": attn, "ssd_scan": ssd, "flash_attention_f32": f32,
+                        "causal_conv": ssd}, f"{name}: a prefill launched {got}, not K4 "
+                f"{attn} ({f32} f32) and K5 and the causal conv {ssd} times")
         require(all(r["launches"] == {"flash_attention": 0, "ssd_scan": 0,
-                                      "flash_attention_f32": 0}
+                                      "flash_attention_f32": 0, "causal_conv": 0}
                     for r in decode_readings), f"{name}: a decode step launched a kernel")
     total = rows * plan["steps"]
     if check:
@@ -3606,11 +3767,13 @@ def main() -> int:
 
     kernels.update(phase4_model_kernels())
     kernels.update(phase4_backward_kernels())
+    kernels.update(phase4_causal_conv())
     print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
     wrappers.update(model_wrappers())
     inline_tokens = {}
     for name in ("flash_attention", "ssd_scan", "flash_attention_wide", "flash_attention_backward",
-                 "ssd_scan_backward", "flash_attention_f32", "flash_attention_f32_backward"):
+                 "ssd_scan_backward", "flash_attention_f32", "flash_attention_f32_backward",
+                 "causal_conv", "causal_conv_backward"):
         kernels[name]["launches"] = 0
         kernels[name]["launches_by_path"] = {}
 
@@ -3633,8 +3796,9 @@ def main() -> int:
     try:
         workers = [spawn_worker(startup_timeout=120.0) for _ in range(2)]
         for arch in SERVE_ARCHS:
-            name, launches = phase6a_remote_serving(arch, inline_tokens[arch], workers, wrappers)
-            kernels[name]["launches_by_path"]["phase 6a workers"] = launches
+            counts = phase6a_remote_serving(arch, inline_tokens[arch], workers, wrappers)
+            for name, launches in counts.items():
+                kernels[name]["launches_by_path"]["phase 6a workers"] = launches
             print(f"phase 6a {arch} done at {time.perf_counter() - t_start:.1f} s")
     finally:
         for w in workers:
@@ -3720,12 +3884,19 @@ def main() -> int:
         n = sum(c for path, c in kernels["flash_attention_wide"]["launches_by_path"].items()
                 if path.startswith(phase))
         require(n > 0, f"flash_attention_wide was not launched in {phase}")
-    # the backward kernels ran in every training phase's steps
-    for name in ("flash_attention_backward", "ssd_scan_backward"):
+    # the backward kernels, and the causal conv, ran in every training phase's steps
+    for name in ("flash_attention_backward", "ssd_scan_backward", "causal_conv",
+                 "causal_conv_backward"):
         for phase in ("phase 7", "phase 8", "phase 9"):
             n = sum(c for path, c in kernels[name]["launches_by_path"].items()
                     if path.startswith(phase))
             require(n > 0, f"{name} was not launched in {phase}'s training")
+    # the causal conv ran mamba2's and recurrentgemma's prefills, inline, in
+    # the workers and on the mesh
+    for phase in ("phase 5", "phase 6a", "phase 10"):
+        n = sum(c for path, c in kernels["causal_conv"]["launches_by_path"].items()
+                if path.startswith(phase))
+        require(n > 0, f"causal_conv was not launched in {phase}")
     # K4's f32 kernels ran every f32 check: phase 5's serving, phase 7's
     # parity steps, 8c's and 9c's steps and 10a's prefills (the backward in
     # the training steps)

@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import Dict
 
 from .. import _build
+from .causal_conv.causal_conv import causal_conv
 from .flash_attention.flash_attention import flash_attention
 from .hotspot.hotspot import hotspot_hp_step, hotspot_hpc
 from .spmm.spmm import spmm_block_ell
@@ -18,7 +19,7 @@ from .ssd_scan.ssd_scan import ssd_scan
 
 __all__ = ["LaunchCounts"]
 
-WRAPPERS = (hotspot_hpc, hotspot_hp_step, spmm_block_ell, flash_attention, ssd_scan)
+WRAPPERS = (hotspot_hpc, hotspot_hp_step, spmm_block_ell, flash_attention, ssd_scan, causal_conv)
 
 
 class LaunchCounts:

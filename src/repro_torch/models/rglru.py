@@ -16,9 +16,12 @@ place.  Gates use the paper's block-diagonal (8-block) projections.
 
 The reference's casts are kept: in prefill the conv output is rounded to
 ``x``'s dtype and then taken to float32; in decode the conv runs in
-float32 with no rounding.  A prefill with a carried state folds
-``a_0 · h`` into the first step and, as the reference does, convolves the
-prompt from zero padding, not from the carried conv inputs.
+float32 with no rounding.  Prefill's conv is
+:func:`repro_torch.kernels.causal_conv.causal_conv`: one CUDA kernel for
+CUDA tensors, with the eager chain's bits, and that chain on the CPU or
+with ``plain=True``.  A prefill with a carried state folds ``a_0 · h``
+into the first step and, as the reference does, convolves the prompt from
+zero padding, not from the carried conv inputs.
 
 One deliberate difference (ROADMAP.md queue 3): a prefill's new conv
 state is the last ``conv_width − 1`` rows of ``cat(state.conv, xb)``.
@@ -51,9 +54,9 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..kernels.causal_conv.causal_conv import causal_conv, causal_conv_plain
 from ..parallel.tensor_parallel import TensorParallel
 from .layers import ParamBuilder, model_split
-from .ssm import _causal_conv
 
 __all__ = ["RGLRUState", "init_rglru_state", "abstract_rglru_state", "rglru_state_specs",
            "state_features", "rglru_params", "rglru_block"]
@@ -158,12 +161,13 @@ def rglru_block(
     *,
     state: Optional[RGLRUState] = None,
     decode: bool = False,
+    plain: bool = False,
     tp: Optional[TensorParallel] = None,
 ) -> Tuple[torch.Tensor, Optional[RGLRUState]]:
     """One RG-LRU block.  Prefill with a ``state`` continues from
     ``state.h`` and writes the state decode continues from; decode takes
-    one token and updates the state in place.  ``tp``: see the module
-    docstring."""
+    one token and updates the state in place.  ``plain``: prefill's conv
+    through its plain version.  ``tp``: see the module docstring."""
     split = tp is not None and tp.size > 1
     if split:
         x = tp.enter(x)
@@ -187,7 +191,8 @@ def rglru_block(
         state.conv.copy_(window[:, 1:, :])
         state.h.copy_(h_new)
     else:
-        xc = _causal_conv(xb, p["conv_w"], p["conv_b"]).float()
+        conv = causal_conv_plain if plain else causal_conv
+        xc = conv(xb, p["conv_w"], p["conv_b"], silu=False).float()
         log_a, i_g = _gates(p, xc)
         a = torch.exp(log_a)
         beta = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))

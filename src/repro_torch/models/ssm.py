@@ -1,11 +1,13 @@
 """Mamba2 / SSD (state-space duality) block — arXiv:2405.21060.
 
-The port's copy of ``repro.models.ssm``.  Prefill runs the chunked SSD
+The port's copy of ``repro.models.ssm``.  Prefill runs the depthwise
+causal conv and its SiLU through one kernel
+(:func:`repro_torch.kernels.causal_conv.causal_conv`) and the chunked SSD
 scan through K5 (:func:`repro_torch.kernels.ssd_scan.ssd_scan`), carrying
-the state ``h0`` in: the CUDA kernel for CUDA tensors, its plain version
-(the reference's ``_ssd_chunked``) for CPU tensors or when the caller
-passes ``plain=True``.  Decode carries the recurrent state directly, O(1)
-per token, in torch ops.
+the state ``h0`` in: the CUDA kernels for CUDA tensors, their plain
+versions (the eager conv chain, the reference's ``_ssd_chunked``) for CPU
+tensors or when the caller passes ``plain=True``.  Decode carries the
+recurrent state directly, O(1) per token, in torch ops.
 
 On a model axis larger than 1 (``tp``: training, prefill, decode) ``in_proj``'s
 ``ssm_inner`` columns are the concatenation z | x | B | C | dt, which a
@@ -34,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..kernels.causal_conv.causal_conv import causal_conv, causal_conv_plain
 from ..kernels.ssd_scan.ssd_scan import ssd_scan, ssd_scan_plain
 from ..parallel.tensor_parallel import TensorParallel
 from .layers import ParamBuilder, model_split, rms_norm
@@ -81,16 +84,6 @@ def ssd_params(b: ParamBuilder, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
         "norm": b.param((di,), ("ssm_inner",), init="zeros"),
         "out_proj": b.param((di, d), ("ssm_inner", "embed")),
     }
-
-
-def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv: x (B,S,C), w (W,C) → (B,S,C)."""
-    W, s = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, W - 1, 0))
-    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    for i in range(W):  # W is tiny (4)
-        out = out + xp[:, i:i + s, :].float() * w[i].float()
-    return (out + b.float()).to(x.dtype)
 
 
 def ssd_block(
@@ -147,7 +140,8 @@ def ssd_block(
         state.h.copy_(h_new)
         new_state = state
     else:
-        xBC_c = F.silu(_causal_conv(xBC, p["conv_w"], p["conv_b"]).float()).to(x.dtype)
+        conv = causal_conv_plain if plain else causal_conv
+        xBC_c = conv(xBC, p["conv_w"], p["conv_b"], silu=True)
         xs = xBC_c[..., :di].reshape(b, s, nh, hd)
         Bm = xBC_c[..., di:di + n].float().contiguous()
         Cm = xBC_c[..., di + n:].float().contiguous()

@@ -202,7 +202,7 @@ def _apply_block(kind: str, p, x, cfg: ModelConfig, *, mode: str, positions, cac
         return x + h, {}
     if kind == "rglru":
         h, _ = rglru_block(p["rec"], rms_norm(x, p["ln_rec"], cfg.norm_eps), cfg, state=cache,
-                           decode=decode, tp=tp)
+                           decode=decode, plain=plain, tp=tp)
         x = x + h
         return x + ffn(p["mlp"], rms_norm(x, p["ln_mlp"], cfg.norm_eps), tp), {}
     # cross: self-attention, then gated cross-attention and a gated FFN
