@@ -23,7 +23,14 @@ input read once and each output written once.
   that multiply activations × the tokens (the input embedding lookup
   excluded, a tied head counted once), plus 3 × the forward's least
   work of attention (QKᵀ and P·V, causal half) and of the SSD scan.
-  Recomputation is not counted.
+  Recomputation is not counted.  The family (``families/<family>.py``)
+  gives its layers' weights a token is multiplied by (``matmul_weights``)
+  and their attention's or scan's least forward work (``mixer_flops``).
+* ``conv_*``: the depthwise causal conv (its bias, and SiLU where the
+  block applies it).  The forward's least bytes are x and the weights
+  read and y written, its least work the conv's multiply-adds; the
+  backward's least bytes x, dy and the weights read and dx, dw and db
+  written, its least work those of dx and dw.
 """
 
 from __future__ import annotations
@@ -31,10 +38,12 @@ from __future__ import annotations
 import functools
 from typing import Dict, Tuple
 
+from . import families
 from .reference.model import padded_vocab
 
 __all__ = ["H100", "least_seconds", "k4_forward", "k4_backward", "k5_forward",
-           "k5_backward", "matmul_weights", "model_flops", "k4_calls", "k5_calls"]
+           "k5_backward", "conv_forward", "conv_backward", "matmul_weights", "model_flops",
+           "k4_calls", "k5_calls"]
 
 # NVIDIA H100 SXM data sheet, dense rates at the 700 W limit
 H100 = {"bf16_flops": 989e12, "hbm_bytes": 3.35e12}
@@ -105,25 +114,25 @@ def k5_backward(b: int, s: int, heads: int, p: int, n: int) -> Tuple[float, floa
     return 2.0 * flops, float(2 * (2 * x + la + bc) - x)   # x, dy, la, B, C in; dx, dla, dB, dC out
 
 
+def conv_forward(b: int, s: int, c: int, w: int, *, bytes_per_el: int = 2) -> Tuple[float, float]:
+    """(flops, bytes) of one depthwise causal conv forward of width ``w``
+    over (b, s, c) activations."""
+    return 2.0 * b * s * c * w, float((2 * b * s * c + (w + 1) * c) * bytes_per_el)
+
+
+def conv_backward(b: int, s: int, c: int, w: int, *, bytes_per_el: int = 2) -> Tuple[float, float]:
+    """(flops, bytes) of one depthwise causal conv backward: dx, dw and db."""
+    return 4.0 * b * s * c * w, float((3 * b * s * c + 2 * (w + 1) * c) * bytes_per_el)
+
+
 def matmul_weights(m: Dict) -> int:
     """The weights of the model of ``m`` (a configuration's ``model``
-    group) that multiply activations: every projection and the head (a
-    tied table counted once, as the head), the SSD block's depthwise conv;
-    not the input embedding lookup, the norms, biases or per-head scalars."""
-    d, layers = m["d_model"], m["num_layers"]
-    vocab = padded_vocab(m)
-    head = vocab * d
-    if m["family"] == "dense":
-        hd = m["head_dim"]
-        q, kv = m["num_heads"] * hd, m["num_kv_heads"] * hd
-        per = d * q + 2 * d * kv + q * d + 3 * d * m["d_ff"]
-    elif m["family"] == "ssm":
-        di = m["ssm_expand"] * d
-        n, nh = m["ssm_state"], di // m["ssm_head_dim"]
-        per = d * (2 * di + 2 * n + nh) + m["conv_width"] * (di + 2 * n) + di * d
-    else:
-        raise ValueError(f"no FLOP count for the {m['family']!r} family")
-    return layers * per + head
+    group) that multiply a token's activations: its family's layers'
+    (every projection, the SSD block's depthwise conv; of routed experts
+    those a token is sent to) and the head (a tied table counted once, as
+    the head); not the input embedding lookup, the norms, biases or
+    per-head scalars."""
+    return families.load(m["family"]).matmul_weights(m) + padded_vocab(m) * m["d_model"]
 
 
 def k4_calls(m: Dict, rows: int, seq: int) -> Tuple[int, int, int, int, int, int]:
@@ -140,10 +149,5 @@ def k5_calls(m: Dict, rows: int, seq: int) -> Tuple[int, int, int, int, int]:
 
 def model_flops(m: Dict, rows: int, seq: int) -> float:
     """Model FLOPs of a training step over ``rows`` × ``seq`` tokens."""
-    tokens = rows * seq
-    flops = 6.0 * matmul_weights(m) * tokens
-    if m["family"] == "dense":
-        flops += 3.0 * m["num_layers"] * k4_forward(*k4_calls(m, rows, seq))[0]
-    elif m["family"] == "ssm":
-        flops += 3.0 * m["num_layers"] * k5_forward(*k5_calls(m, rows, seq))[0]
-    return flops
+    return (6.0 * matmul_weights(m) * rows * seq
+            + 3.0 * families.load(m["family"]).mixer_flops(m, rows, seq))

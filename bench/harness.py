@@ -5,7 +5,12 @@ window, and the comparison with the plain reference that decides
 Everything a cell needs is found by name: its entry in ``BENCHMARK.json``
 names its configuration (``configs/<config>.json``) and its traffic
 (``traffic/<traffic>.json``); its limits are ``limits/<cell>.json``; each
-per-layer metric it reports is read by ``metrics/<metric>.py``.
+per-layer metric it reports is read by ``metrics/<metric>.py``, which
+declares the program's launch counters it reads (``COUNTERS``); the
+configuration's model family brings its reference and FLOP count
+(``families/<family>.py``).  A configuration's ``model`` group may set
+those fields of the program's ``ParallelConfig`` under ``"parallel"`` that
+its family's reference follows (:data:`PARALLEL`).
 
 The system under test is the port's training step:
 ``repro_torch.launch.steps.make_train_step`` over the model of
@@ -15,13 +20,15 @@ its AdamW state, and drives it from the seed through its first
 ``CHECK_STEPS`` steps with the window's own call and feed; the window
 then goes on with the same objects.  Steps are dispatched ahead: the
 harness reads nothing back from the device inside the window, which ends
-with one ``synchronize()``.
+with one ``synchronize()``.  The traced window runs with the program's
+spans on (``repro_torch.tracing``); the measured window with them off.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import gc
+import importlib
 import importlib.util
 import json
 import os
@@ -29,27 +36,33 @@ import sys
 import tempfile
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Tuple
+from types import ModuleType
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from . import check, inputs
+from . import check, families, inputs
 from .reference.model import padded_vocab, param_spec
 from .reference.precision import PRODUCTS, strict_float32
 from .reference.train import DTYPES, reference_steps
-from .trace import breakdown, busy_intervals, read_trace
+from .spans import idle_gaps_by_span, read_spans
+from .trace import breakdown, busy_intervals
 
 __all__ = ["BENCH", "CHECK_STEPS", "FORBIDDEN", "Forbidden", "load_cell", "run",
-           "forbidden_modules", "program_readings", "reference_readings", "reference_rows"]
+           "forbidden_modules", "program_readings", "reference_readings", "reference_rows",
+           "declared_counters", "read_counter"]
 
 BENCH = Path(__file__).resolve().parent
 # the JAX package, its benchmarks and JAX itself: compared by whole top-level name
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro", "benchmarks")
-COUNTERS = (("flash_attention", "launches"), ("flash_attention", "backward_launches"),
-            ("ssd_scan", "launches"), ("ssd_scan", "backward_launches"))
 # the steps that both sides take before the window: every limit in limits/ was
 # read at this count, so changing it means reading them all again
 CHECK_STEPS = 2
+# the ParallelConfig fields that a configuration's "parallel" may set, where its
+# family's reference follows them (the family's PARALLEL): they change which
+# tokens an expert takes and how, never a precision, the microbatches, remat,
+# or a field that nothing reads
+PARALLEL = ("capacity_factor", "moe_dispatch", "moe_fallback")
 # the reference's rows a block: as many as keep a block's residual stream
 # (rows x seq_len x d_model values) within this, and at least one
 REFERENCE_BLOCK_VALUES = 1 << 24
@@ -88,12 +101,26 @@ def load_cell(name: str, manifest: Optional[Dict] = None) -> Dict:
             "limits": json.loads((BENCH / "limits" / f"{name}.json").read_text())}
 
 
-def _reader(name: str) -> Callable:
+def _metric(name: str) -> ModuleType:
     spec = importlib.util.spec_from_file_location(f"bench_metric_{name}",
                                                   BENCH / "metrics" / f"{name}.py")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def declared_counters(cell: Dict) -> List[str]:
+    """The program's counters that the cell's per-layer metrics declare
+    (each reader's ``COUNTERS``), sorted, each once."""
+    return sorted({c for m in cell["per_layer"]
+                   for c in getattr(_metric(m["name"]), "COUNTERS", ())})
+
+
+def read_counter(name: str) -> int:
+    """The counter ``"<k>.<attr>"``: the attribute ``attr`` of the kernel
+    wrapper ``repro_torch.kernels.<k>.<k>.<k>``."""
+    k, attr = name.split(".")
+    return getattr(getattr(importlib.import_module(f"repro_torch.kernels.{k}.{k}"), k), attr)
 
 
 def _sync(device) -> None:
@@ -115,9 +142,18 @@ class Program:
 
         m, t = cell["config"]["model"], cell["traffic"]
         base = get_config(m["arch"])
-        fields = {f.name for f in dataclasses.fields(base)}
+        # the family names the benchmark's reference; the program's is its arch's
+        fields = {f.name for f in dataclasses.fields(base)} - {"family", "parallel"}
+        parallel = m.get("parallel", {})
+        allowed = set(PARALLEL) & set(getattr(families.load(m["family"]), "PARALLEL", ()))
+        refused = sorted(set(parallel) - allowed)
+        if refused:
+            raise ValueError(f"{refused} under the model's \"parallel\": a configuration sets "
+                             f"only those of {list(PARALLEL)} that its family's reference "
+                             f"follows ({sorted(allowed)})")
         cfg = base.replace(**{k: v for k, v in m.items() if k in fields},
-                           parallel=dataclasses.replace(base.parallel, remat=m["remat"]))
+                           parallel=dataclasses.replace(base.parallel, remat=m["remat"],
+                                                        **parallel))
         if cfg.padded_vocab != padded_vocab(m):
             raise ValueError(f"the program pads the vocabulary to {cfg.padded_vocab}, the "
                              f"configuration to {padded_vocab(m)}")
@@ -213,38 +249,43 @@ def _window(prog: Program, seed: int, state, seconds: float, k0: int):
 
 
 def _traced_window(prog: Program, seed: int, state, k0: int):
+    """``trace_steps`` steps under the profiler with the program's spans on
+    -> (the trace's ``SpanView``, the losses, the state to go on from)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
-    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+    from repro_torch import tracing
 
-    wrappers = {"flash_attention": flash_attention, "ssd_scan": ssd_scan}
-    before = {f"{w}.{a}": getattr(wrappers[w], a) for w, a in COUNTERS}
+    names = declared_counters(prog.cell)
+    before = {n: read_counter(n) for n in names}
     params, opt_state = state
     steps, losses = prog.t["trace_steps"], []
     acts = [ProfilerActivity.CPU]
     if torch.device(prog.device).type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        with record_function("bench.window"):
-            for k in range(k0, k0 + steps):
-                with record_function("bench.batch"):
-                    batch = prog.batch(seed, k)
-                with record_function("bench.grads"):
-                    grads, metrics = prog.step.grads(params, batch)
-                with record_function("bench.update"):
-                    params, opt_state, metrics = prog.step.update(params, opt_state, grads,
-                                                                  metrics)
-                losses.append(metrics["loss"])
-                del grads
-            with record_function("bench.sync"):
-                _sync(prog.device)
-    counters = {f"{w}.{a}": getattr(wrappers[w], a) - before[f"{w}.{a}"] for w, a in COUNTERS}
+    tracing.enable(True)
+    try:
+        with profile(activities=acts) as prof:
+            with record_function("bench.window"):
+                for k in range(k0, k0 + steps):
+                    with record_function("bench.batch"):
+                        batch = prog.batch(seed, k)
+                    with record_function("bench.grads"):
+                        grads, metrics = prog.step.grads(params, batch)
+                    with record_function("bench.update"):
+                        params, opt_state, metrics = prog.step.update(params, opt_state, grads,
+                                                                      metrics)
+                    losses.append(metrics["loss"])
+                    del grads
+                with record_function("bench.sync"):
+                    _sync(prog.device)
+    finally:
+        tracing.enable(False)
+    counters = {n: read_counter(n) - before[n] for n in names}
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
     try:
         prof.export_chrome_trace(path)
-        view = read_trace(path, steps, {"model": prog.m, "traffic": prog.t}, counters)
+        view = read_spans(path, steps, {"model": prog.m, "traffic": prog.t}, counters)
     finally:
         os.remove(path)
     return view, losses, (params, opt_state)
@@ -263,8 +304,11 @@ def run(cell: Dict, seed: int, seconds: float, trace: bool, device, started: flo
     t = prog.t
     state, mine = program_readings(prog, seed)
     _sync(device)
+    from repro_torch import _build
+
     log(f"set-up: {t0 - started:.2f} s to the harness, {t1 - t0:.2f} s the program's objects, "
-        f"{time.perf_counter() - t1:.2f} s weights and the first {CHECK_STEPS} steps")
+        f"{time.perf_counter() - t1:.2f} s weights and the first {CHECK_STEPS} steps; kernel "
+        f"libraries {json.dumps(_build.setup_seconds())}")
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     setup_s = time.perf_counter() - started
@@ -273,8 +317,10 @@ def run(cell: Dict, seed: int, seconds: float, trace: bool, device, started: flo
     extra: Dict = {}
     if trace:
         view, losses, state = _traced_window(prog, seed, state, k0)
-        readings = {m["name"]: (_reader(m["name"])(view), m["unit"]) for m in cell["per_layer"]}
-        extra["breakdown"] = breakdown(view)
+        readings = {m["name"]: (_metric(m["name"]).read(view), m["unit"])
+                    for m in cell["per_layer"]}
+        # the idle gaps each by the program's span of the op that ends it
+        extra["breakdown"] = dict(breakdown(view), idle_gaps=idle_gaps_by_span(view))
         device_extra = {"busy_s": sum(b - a for a, b in busy_intervals(view.ops)) / 1e6,
                         "window_s": view.window_s}
     else:

@@ -9,6 +9,9 @@ every ``flash_fwd*`` / ``flash_bwd*`` kernel's."""
 from bench.flops import k4_backward, k4_calls, k4_forward, least_seconds
 
 
+COUNTERS = ("flash_attention.launches", "flash_attention.backward_launches")
+
+
 def read(view):
     ops = view.matching(r"\bflash_(fwd|bwd)")
     if not ops:

@@ -6,6 +6,9 @@ cell's microbatch; ``ssd_scan.launches`` and ``.backward_launches``; every
 from bench.flops import k5_backward, k5_calls, k5_forward, least_seconds
 
 
+COUNTERS = ("ssd_scan.launches", "ssd_scan.backward_launches")
+
+
 def read(view):
     ops = view.matching(r"\bssd_\w+_kernel")
     if not ops:

@@ -1,4 +1,4 @@
-"""The plain float32 reference of the two configurations' models.
+"""The plain float32 reference: what every model family shares.
 
 Plain PyTorch, written from the configurations' ``model`` groups alone; it
 imports nothing of the program.  ``mm`` is the product every projection
@@ -7,11 +7,15 @@ a lower-precision product for the control (``precision.py``).
 
 The parameter tree's layout (keys, shapes, init scales) is what the
 program's training step takes; :func:`param_spec` states it, and the
-harness checks it against the program's own tree before a run.
+harness checks it against the program's own tree before a run.  What
+differs by family (its layers' entries, their forward, a microbatch's
+loss, its FLOPs) is in ``families/<family>.py``, found by the ``model``
+group's ``family``; the embedding, the final norm, the head and the loss
+over the vocabulary are here.
 
 Where the configurations depart from the published models, these
-functions follow the configurations (each departure is listed in the
-configuration's ``assumed``):
+functions and the families' follow the configurations (each departure is
+listed in the configuration's ``assumed``):
 
 * every norm is an RMSNorm with the scale stored as ``w`` and applied as
   ``1 + w`` (published StableLM 2: LayerNorm);
@@ -22,11 +26,8 @@ configuration's ``assumed``):
   its own residual (published StableLM 2: in parallel);
 * the head and the softmax of the loss span the vocabulary padded to a
   multiple of ``vocab_pad``;
-* the SSD block is Mamba-2's (in_proj to z, x, B, C, dt; a depthwise
-  causal conv and SiLU on x, B, C; dt = softplus(dt + dt_bias); the
-  scan; D·x; y·SiLU(z) through a gated RMSNorm; out_proj), one group of B
-  and C, with the residual stream in the model's dtype (published:
-  float32).
+* the SSD block is Mamba-2's with the residual stream in the model's
+  dtype (``families/ssm.py``).
 """
 
 from __future__ import annotations
@@ -35,13 +36,17 @@ import math
 from typing import Callable, Dict, List, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-__all__ = ["param_spec", "padded_vocab", "row_loss"]
+from .. import families
+
+__all__ = ["param_spec", "padded_vocab", "rms_norm", "rope", "causal_attention", "row_loss",
+           "blocked_loss"]
 
 Spec = List[Tuple[tuple, Tuple[int, ...], str, object]]
 MM = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+# a family's layer: (its parameters, rows x (b, S, d), m, mm) -> rows (b, S, d)
+Layer = Callable[[Dict, torch.Tensor, Dict, MM], torch.Tensor]
 
 
 def padded_vocab(m: Dict) -> int:
@@ -52,7 +57,8 @@ def padded_vocab(m: Dict) -> int:
 def param_spec(m: Dict) -> Spec:
     """[(path, shape, init, scale)] in the tree's order.  ``init`` is
     ``normal`` (std ``scale``), ``zeros``, ``ones`` or ``uniform``
-    (``scale`` = (low, high))."""
+    (``scale`` = (low, high)); the layers' entries are the family's
+    (``families/<family>.py``)."""
     d, v = m["d_model"], padded_vocab(m)
 
     def normal(shape, std=None):
@@ -60,33 +66,10 @@ def param_spec(m: Dict) -> Spec:
         return "normal", std if std is not None else 1.0 / math.sqrt(fan_in)
 
     spec: Spec = [(("embed",), (v, d), *normal((v, d), 0.02))]
-    for i in range(m["num_layers"]):
-        if m["family"] == "dense":
-            hd = m["head_dim"]
-            q, kv, ff = m["num_heads"] * hd, m["num_kv_heads"] * hd, m["d_ff"]
-            layer = [("ln_attn",), (d,), "zeros", None], \
-                [("attn", "wq"), (d, q)], [("attn", "wk"), (d, kv)], \
-                [("attn", "wv"), (d, kv)], [("attn", "wo"), (q, d)], \
-                [("ln_mlp",), (d,), "zeros", None], \
-                [("mlp", "w1"), (d, ff)], [("mlp", "w3"), (d, ff)], [("mlp", "w2"), (ff, d)]
-        elif m["family"] == "ssm":
-            di = m["ssm_expand"] * d
-            n, nh, w = m["ssm_state"], di // m["ssm_head_dim"], m["conv_width"]
-            layer = [("ln",), (d,), "zeros", None], \
-                [("ssd", "in_proj"), (d, 2 * di + 2 * n + nh)], \
-                [("ssd", "conv_w"), (w, di + 2 * n), "normal", 0.1], \
-                [("ssd", "conv_b"), (di + 2 * n,), "zeros", None], \
-                [("ssd", "A_log"), (nh,), "uniform", (0.0, 1.5)], \
-                [("ssd", "D"), (nh,), "ones", None], \
-                [("ssd", "dt_bias"), (nh,), "uniform", (-4.6, -2.3)], \
-                [("ssd", "norm"), (di,), "zeros", None], \
-                [("ssd", "out_proj"), (di, d)]
-        else:
-            raise ValueError(f"no reference for the {m['family']!r} family")
-        for entry in layer:
-            path, shape = entry[0], entry[1]
-            init, scale = (entry[2], entry[3]) if len(entry) > 2 else normal(shape)
-            spec.append((("layers", i) + path, shape, init, scale))
+    for entry in families.load(m["family"]).param_spec(m):
+        path, shape = entry[0], entry[1]
+        init, scale = (entry[2], entry[3]) if len(entry) > 2 else normal(shape)
+        spec.append((path, shape, init, scale))
     spec.append((("final_norm",), (d,), "zeros", None))
     if not m["tie_embeddings"]:
         spec.append((("lm_head",), (d, v), *normal((d, v), 0.02)))
@@ -122,93 +105,16 @@ def causal_attention(q, k, v, mm: MM) -> torch.Tensor:
     return out.permute(2, 0, 1, 3).reshape(s, h * dim)
 
 
-def dense_layer(p: Dict, x: torch.Tensor, m: Dict, mm: MM) -> torch.Tensor:
-    """One decoder layer on one row x (S, d)."""
-    hd, eps = m["head_dim"], m["norm_eps"]
-    h = rms_norm(x, p["ln_attn"], eps)
-    q = rope(mm(h, p["attn"]["wq"]).unflatten(-1, (-1, hd)), m["rope_theta"])
-    k = rope(mm(h, p["attn"]["wk"]).unflatten(-1, (-1, hd)), m["rope_theta"])
-    v = mm(h, p["attn"]["wv"]).unflatten(-1, (-1, hd))
-    x = x + mm(causal_attention(q, k, v, mm), p["attn"]["wo"])
-    h = rms_norm(x, p["ln_mlp"], eps)
-    return x + mm(F.silu(mm(h, p["mlp"]["w1"])) * mm(h, p["mlp"]["w3"]), p["mlp"]["w2"])
-
-
-def segsum(a: torch.Tensor) -> torch.Tensor:
-    """(…, T) -> (…, T, T): out[i, j] = a[j+1] + … + a[i] for i ≥ j, −inf above."""
-    t = a.shape[-1]
-    cs = torch.cumsum(a, dim=-1)
-    seg = cs[..., :, None] - cs[..., None, :]
-    keep = torch.ones(t, t, dtype=torch.bool, device=a.device).tril()
-    return seg.masked_fill(~keep, float("-inf"))
-
-
-def ssd_scan(x, a, B, C, chunk: int, mm: MM) -> torch.Tensor:
-    """y of h_t = exp(a_t) h_{t-1} + x_t ⊗ B_t, y_t = h_t · C_t from h_0 = 0:
-    x (b, s, H, P), a (b, s, H), B and C (b, s, N); the chunked form."""
-    b, s, nh, p = x.shape
-    n = B.shape[-1]
-    c = s // chunk
-    x = x.reshape(b, c, chunk, nh, p)
-    a = a.reshape(b, c, chunk, nh).permute(0, 3, 1, 2)                    # (b, H, c, l)
-    B = B.reshape(b, c, chunk, n)
-    C = C.reshape(b, c, chunk, n)
-    a_cs = torch.cumsum(a, dim=-1)
-    L = torch.exp(segsum(a))                                              # (b, H, c, l, l)
-    CB = mm(C, B.transpose(-1, -2))                                       # (b, c, l, l)
-    W = CB[:, None] * L                                                   # (b, H, c, l, l)
-    y = mm(W, x.permute(0, 3, 1, 2, 4)).permute(0, 2, 3, 1, 4)            # (b, c, l, H, P)
-    decay = torch.exp(a_cs[..., -1:] - a_cs)                              # (b, H, c, l)
-    xw = x * decay.permute(0, 2, 3, 1)[..., None]                         # (b, c, l, H, P)
-    states = mm(xw.reshape(b, c, chunk, nh * p).transpose(-1, -2), B)      # (b, c, H·P, N)
-    states = states.reshape(b, c, nh, p, n)
-    states = torch.cat([torch.zeros_like(states[:, :1]), states], dim=1)
-    across = torch.exp(segsum(F.pad(a_cs[..., -1], (1, 0))))              # (b, H, c+1, c+1)
-    entering = torch.einsum("bhzc,bchpn->bzhpn", across, states)[:, :-1]  # (b, c, H, P, N)
-    y_in = mm(C, entering.reshape(b, c, nh * p, n).transpose(-1, -2))      # (b, c, l, H·P)
-    y_in = y_in.reshape(b, c, chunk, nh, p)
-    y = y + y_in * torch.exp(a_cs).permute(0, 2, 3, 1)[..., None]
-    return y.reshape(b, s, nh, p)
-
-
-def ssd_layer(p: Dict, x: torch.Tensor, m: Dict, mm: MM) -> torch.Tensor:
-    """One Mamba-2 layer on rows x (b, S, d)."""
-    q = p["ssd"]
-    d, eps = m["d_model"], m["norm_eps"]
-    di = m["ssm_expand"] * d
-    n, hd = m["ssm_state"], m["ssm_head_dim"]
-    nh = di // hd
-    b, s, _ = x.shape
-    zxbcdt = mm(rms_norm(x, p["ln"], eps), q["in_proj"])
-    z, xbc, dt = zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * n], zxbcdt[..., 2 * di + 2 * n:]
-    w = q["conv_w"].shape[0]
-    padded = F.pad(xbc, (0, 0, w - 1, 0))
-    conv = sum(padded[:, i:i + s] * q["conv_w"][i] for i in range(w)) + q["conv_b"]
-    xbc = F.silu(conv)
-    xs = xbc[..., :di].reshape(b, s, nh, hd)
-    Bm, Cm = xbc[..., di:di + n], xbc[..., di + n:]
-    dt = F.softplus(dt + q["dt_bias"])
-    A = -torch.exp(q["A_log"])
-    y = ssd_scan(xs * dt[..., None], dt * A, Bm, Cm, m["ssm_chunk"], mm)
-    y = (y + q["D"][:, None] * xs).reshape(b, s, di)
-    y = rms_norm(y * F.silu(z), q["norm"], eps)
-    return x + mm(y, q["out_proj"])
-
-
-def row_loss(params: Dict, tokens: torch.Tensor, labels: torch.Tensor, m: Dict,
+def row_loss(params: Dict, tokens: torch.Tensor, labels: torch.Tensor, m: Dict, layer: Layer,
              mm: MM = torch.matmul, remat: bool = True) -> torch.Tensor:
-    """The summed token NLL of rows ``tokens`` (b, S) against ``labels``;
-    each layer recomputed in the backward when ``remat`` (memory only: the
-    values are the same)."""
+    """The summed token NLL of rows ``tokens`` (b, S) against ``labels``
+    through the family's ``layer``; each layer recomputed in the backward
+    when ``remat`` (memory only: the values are the same)."""
     x = params["embed"][tokens.long()]
     for p in params["layers"]:
-        if m["family"] == "dense":
-            def layer(x, p=p):
-                return torch.stack([dense_layer(p, row, m, mm) for row in x])
-        else:
-            def layer(x, p=p):
-                return ssd_layer(p, x, m, mm)
-        x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
+        def one(x, p=p):
+            return layer(p, x, m, mm)
+        x = checkpoint(one, x, use_reentrant=False) if remat else one(x)
     h = rms_norm(x, params["final_norm"], m["norm_eps"])
     head = params["embed"].T if m["tie_embeddings"] else params["lm_head"]
     total = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -216,4 +122,19 @@ def row_loss(params: Dict, tokens: torch.Tensor, labels: torch.Tensor, m: Dict,
         logits = mm(row, head)
         picked = logits.gather(-1, lab.long()[:, None])[:, 0]
         total = total + (torch.logsumexp(logits, dim=-1) - picked).sum()
+    return total
+
+
+def blocked_loss(tree: Dict, tokens: torch.Tensor, labels: torch.Tensor, m: Dict,
+                 t: Dict, mm: MM, rows_per_block: int, count: int, *, layer: Layer) -> float:
+    """A microbatch's loss for a family whose loss is a sum over rows, through
+    its ``layer``: the rows in blocks of ``rows_per_block``, each block's
+    :func:`row_loss` over ``count`` taken backward on its own -> the float
+    sum."""
+    total = 0.0
+    for lo in range(0, tokens.shape[0], rows_per_block):
+        loss = row_loss(tree, tokens[lo:lo + rows_per_block], labels[lo:lo + rows_per_block],
+                        m, layer, mm) / count
+        loss.backward()
+        total += loss.item()
     return total

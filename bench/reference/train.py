@@ -1,11 +1,19 @@
 """The reference's training steps: float32 gradients, global-norm clipping
 and AdamW, from the same weights and batches as the program's first steps.
 
+Each step's rows are cut into the traffic's ``microbatches`` as the
+program's step cuts them (equal pieces, in order), and the family's
+``microbatch_loss`` (``families/<family>.py``) takes each piece whole:
+a family whose loss is not a sum over rows (experts' capacity, terms
+averaged over a microbatch) sees what the program's step sees.  A family
+whose loss is such a sum gives its ``layer`` instead, and each piece is
+taken in blocks of rows (``model.blocked_loss``).
+
 The configuration states the parameters' dtype (``param_dtype``): they are
 held in it, as the program holds them, so each update is rounded into
 it; every other number is float32.  The arithmetic is the configuration's
 and the traffic's, written out here: the loss is the mean token NLL over
-the step's rows; the gradient is clipped to a global norm of
+the step's rows, with any term the family's loss adds; the gradient is clipped to a global norm of
 ``grad_clip``; AdamW (``b1``, ``b2``, ``eps``, bias-corrected moments)
 adds ``weight_decay`` × the parameter to the update of every leaf but
 those the configuration names in ``no_decay``, and the parameter takes
@@ -14,13 +22,15 @@ those the configuration names in ``no_decay``, and the parameter takes
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from .. import families
 from ..inputs import tree_of
-from .model import row_loss
+from .model import blocked_loss
 
 __all__ = ["reference_steps"]
 
@@ -41,6 +51,10 @@ def reference_steps(leaves: List[Tuple[tuple, torch.Tensor]],
     weights' change after the last step}, each per-leaf list in the
     leaves' order."""
     store = DTYPES[m["param_dtype"]]
+    family = families.load(m["family"])
+    microbatch_loss = (getattr(family, "microbatch_loss", None)
+                       or functools.partial(blocked_loss, layer=family.layer))
+    pieces = t["microbatches"]
     opt = t["adamw"]
     b1, b2, eps, wd, lr = opt["b1"], opt["b2"], opt["eps"], opt["weight_decay"], t["lr"]
     no_decay = {tuple(p) for p in m["no_decay"]}
@@ -52,13 +66,11 @@ def reference_steps(leaves: List[Tuple[tuple, torch.Tensor]],
     nu = [torch.zeros_like(x) for x in params]
     out: Dict = {"losses": []}
     for step, (tokens, labels) in enumerate(batches, start=1):
-        count = tokens.numel()
+        count, size = tokens.numel(), tokens.shape[0] // pieces
         total = 0.0
-        for lo in range(0, tokens.shape[0], rows_per_block):
-            loss = row_loss(tree, tokens[lo:lo + rows_per_block], labels[lo:lo + rows_per_block],
-                            m, mm) / count
-            loss.backward()
-            total += loss.item()
+        for lo in range(0, pieces * size, size):
+            total += microbatch_loss(tree, tokens[lo:lo + size], labels[lo:lo + size], m, t, mm,
+                                     rows_per_block, count)
         out["losses"].append(total)
         with torch.no_grad():
             grads = [x.grad for x in params]

@@ -5,9 +5,9 @@
 In one process: the program's objects and its first steps from the seed
 (``harness.program_readings``), with the kernel libraries this process
 built and loaded (``repro_torch._build.setup_seconds``); the harness's
-traced window (``harness._traced_window``) with the program's spans on
-(``repro_torch.tracing.enable``), read by ``spans.read_spans``: the six
-per-layer metrics of ``BENCHMARK.json`` and the five that read spans,
+traced window (``harness._traced_window``, which turns the program's spans
+on, ``repro_torch.tracing.enable``, and reads them by
+``spans.read_spans``): the cell's per-layer metrics of ``BENCHMARK.json``,
 device ms a step by innermost span, the device ms of the blocks' first
 forwards, the host ms a step in each span and in the CUDA runtime's calls
 under it, and ``idle_gaps_by_span``; the host µs of one span, off, on,
@@ -30,8 +30,6 @@ from pathlib import Path  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
-SPAN_METRICS = ("loss_ms.train", "accumulate_ms.train", "recompute_ms.train",
-                "block_eager_ms.train", "update_host_ms.train")
 PROBES = 20000
 
 
@@ -103,7 +101,7 @@ def report(cell, seed: int, device, seconds: float, pairs: int, log=print) -> di
     from bench import harness
     from bench.harness import Program, program_readings
     from bench.spans import first_run, idle_gaps_by_span, read_spans
-    from bench.trace import breakdown, read_trace
+    from bench.trace import breakdown
     from repro_torch import _build, tracing
 
     t0 = time.perf_counter()
@@ -116,8 +114,8 @@ def report(cell, seed: int, device, seconds: float, pairs: int, log=print) -> di
                      "libraries": _build.setup_seconds()}}
     log(f"set-up done: {out['setup']}")
 
-    # the harness's traced window, with the program's spans on; the trace is
-    # read once more, for the spans, before the harness removes it
+    # the harness's traced window (the program's spans on); the trace is read
+    # once more, for the host's time in each span, before the harness removes it
     views, hosts = [], []
 
     def reading(path, steps, cell_, counters):
@@ -126,17 +124,14 @@ def report(cell, seed: int, device, seconds: float, pairs: int, log=print) -> di
         return views[-1]
 
     k = harness.CHECK_STEPS
-    harness.read_trace = reading
-    tracing.enable(True)
+    harness.read_spans = reading
     try:
         _, losses, state = harness._traced_window(prog, seed, state, k)
     finally:
-        tracing.enable(False)
-        harness.read_trace = read_trace
+        harness.read_spans = read_spans
     k += len(losses)
     view = views[0]
-    names = [m["name"] for m in cell["per_layer"]] + list(SPAN_METRICS)
-    out["metrics"] = {n: harness._reader(n)(view) for n in names}
+    out["metrics"] = {m["name"]: harness._metric(m["name"]).read(view) for m in cell["per_layer"]}
     rerun_free = {s for s in view.spans if first_run(view, s)}
     out["first_run_block_ms"] = 1e3 * view.seconds(
         [op for op in view.ops if op.span in rerun_free]) / view.steps

@@ -1,9 +1,9 @@
-"""The least-work arithmetic against counts by hand, at the two cells' shapes."""
+"""The least-work arithmetic against counts by hand, at the cells' shapes."""
 
 import pytest
 
 from tiny import ROOT  # noqa: F401  (puts the checkout on sys.path)
-from bench import flops
+from bench import families, flops
 from bench.harness import load_cell
 
 
@@ -54,3 +54,15 @@ def test_model_flops_of_the_two_cells():
     assert flops.matmul_weights(mamba) == 24 * per_layer + 50432 * 768 == 128999424
     ssd = 3 * 24 * flops.k5_forward(32, 2048, 24, 64, 128)[0]
     assert flops.model_flops(mamba, 32, 2048) == 6 * 128999424 * 65536 + ssd
+
+
+def test_conv_at_the_mamba2_microbatch():
+    # 32 rows x 2048 of xBC (1536 + 2 x 128 channels), width 4, bf16
+    mamba = load_cell("train.mamba2-130m.s2048")["config"]["model"]
+    assert families.load("ssm").conv_calls(mamba, 32, 2048) == (32, 2048, 1792, 4)
+    value = 32 * 2048 * 1792 * 2         # 234,881,024 bytes of x, of y, of dy, of dx
+    f, b = flops.conv_forward(32, 2048, 1792, 4)
+    assert f == 2 * 4 * 32 * 2048 * 1792 and b == 2 * value + 5 * 1792 * 2 == 469779968
+    fb, bb = flops.conv_backward(32, 2048, 1792, 4)
+    assert fb == 2 * f and bb == 3 * value + 2 * 5 * 1792 * 2 == 704678912
+    assert flops.least_seconds(f, b) == pytest.approx(b / 3.35e12)   # memory-bound

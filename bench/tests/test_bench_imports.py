@@ -1,6 +1,6 @@
 """The import guard: JAX and the JAX package are never loaded by a run,
 compared by whole top-level name (the port's name begins with the JAX
-package's), and the reference imports nothing of the program."""
+package's), and the reference and the families import nothing of the program."""
 
 import ast
 import os
@@ -34,8 +34,9 @@ def test_no_source_imports_jax_or_the_jax_package(path):
     assert not [n for n in imports(path) if n.split(".")[0] in FORBIDDEN]
 
 
-@pytest.mark.parametrize("path", sorted((BENCH / "reference").rglob("*.py")),
-                         ids=lambda p: p.name)
+@pytest.mark.parametrize("path", sorted((BENCH / "reference").rglob("*.py"))
+                         + sorted((BENCH / "families").rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(BENCH)))
 def test_the_reference_imports_nothing_of_the_program(path):
     assert not [n for n in imports(path) if n.split(".")[0] == "repro_torch"]
 

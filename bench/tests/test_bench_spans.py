@@ -184,8 +184,31 @@ def test_span_report_on_the_cpu(name):
     assert out["spans_a_step"] == mb * (3 * layers + 3 + (mb > 1)) + 4
     metrics = out["metrics"]
     assert metrics["update_host_ms.train"] > 0
-    assert (metrics["accumulate_ms.train"] is None) == (mb == 1)
+    assert (metrics.get("accumulate_ms.train") is None) == (mb == 1)
     assert out["host_by_span"]["repro.update"][0] > 0
     assert [r["spans"] for r in out["cost"]] == [False, True]
     assert all(r["train_tokens_per_s"] > 0 for r in out["cost"])
     assert out["span_us"]["off"] < out["span_us"]["on"]
+
+
+def test_conv_roofline_by_hand(tmp_path):
+    """``causal_conv_roofline.train`` over a trace of the mamba2 cell's conv
+    kernels: the counters' calls at their least time over the kernels'."""
+    from bench.flops import conv_backward, conv_forward, least_seconds
+
+    ops = [("void (anonymous namespace)::causal_conv_fwd_kernel<__nv_bfloat16, 8, true>(Args)",
+            0, 300), ("void (anonymous namespace)::causal_conv_bwd_kernel<__nv_bfloat16, 8, true>"
+                      "(Args)", 400, 500),
+           ("void (anonymous namespace)::causal_conv_bwd_sum_kernel<__nv_bfloat16>(Args)", 950, 10),
+           (NATIVE, 970, 20)]
+    events = [{"ph": "X", "cat": "user_annotation", "name": "bench.window", "ts": 0,
+               "dur": 1000, "pid": 1, "tid": MAIN}]
+    events += [{"ph": "X", "cat": "kernel", "name": n, "ts": a, "dur": d, "pid": 0, "tid": 7}
+               for n, a, d in ops]
+    counters = {"causal_conv.launches": 2, "causal_conv.backward_launches": 1}
+    view = read_spans(write(tmp_path / "conv.json", events), 1, info(CELLS[1]), counters)
+    least = 2 * least_seconds(*conv_forward(32, 2048, 1792, 4)) \
+        + least_seconds(*conv_backward(32, 2048, 1792, 4))
+    assert reader("causal_conv_roofline.train")(view) == pytest.approx(100 * least / 810e-6)
+    plain = read_spans(write(tmp_path / "spans.json", trace_events()), STEPS, info(), COUNTERS)
+    assert reader("causal_conv_roofline.train")(plain) is None      # no conv kernel
